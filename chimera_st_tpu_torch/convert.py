@@ -125,6 +125,14 @@ def _wav2vec2(src: _Consumer, out, path: Path, key: str):
     _norm(src, out, path + ("encoder_layer_norm",), f"{key}encoder.layer_norm")
 
 
+def _decoder(src: _Consumer, out):
+    _embed(src, out, ("decoder", "embed_tokens"), "decoder.embed_tokens")
+    for i in range(src.count(("decoder",), "layers_")):
+        _dec_layer(src, out, ("decoder", f"layers_{i}"), f"decoder.layers.{i}")
+    if src.has(("decoder", "layer_norm")):
+        _norm(src, out, ("decoder", "layer_norm"), "decoder.layer_norm")
+
+
 def wav2vec2_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ``Wav2Vec2Encoder`` params -> state dict of the port's
     ``Wav2Vec2Encoder``."""
@@ -150,9 +158,20 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             _enc_layer(src, out, (f"{stack}_{i}",), f"encoder.{stack}.{i}")
     if src.has(("encoder_layer_norm",)):
         _norm(src, out, ("encoder_layer_norm",), "encoder.layer_norm")
-    _embed(src, out, ("decoder", "embed_tokens"), "decoder.embed_tokens")
-    for i in range(src.count(("decoder",), "layers_")):
-        _dec_layer(src, out, ("decoder", f"layers_{i}"), f"decoder.layers.{i}")
-    if src.has(("decoder", "layer_norm")):
-        _norm(src, out, ("decoder", "layer_norm"), "decoder.layer_norm")
+    _decoder(src, out)
+    return src.finish(out)
+
+
+def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``S2TTransformerModel`` params -> state dict of the port's
+    ``S2TTransformerModel`` (tied decoder embeddings)."""
+    src = _Consumer(tree)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(src.count(("subsample",), "conv_layers_")):
+        _conv(src, out, ("subsample", f"conv_layers_{i}"), f"encoder.subsample.conv_layers.{i}")
+    for i in range(src.count((), "transformer_layers_")):
+        _enc_layer(src, out, (f"transformer_layers_{i}",), f"encoder.transformer_layers.{i}")
+    if src.has(("encoder_layer_norm",)):
+        _norm(src, out, ("encoder_layer_norm",), "encoder.layer_norm")
+    _decoder(src, out)
     return src.finish(out)

@@ -18,7 +18,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.interlingua import ChimeraInterlinguaModel
 from .beam_search import beam_search
 
 
@@ -41,7 +40,13 @@ class GeneratorSettings:
 
 
 class SequenceGenerator:
-    def __init__(self, model: ChimeraInterlinguaModel, settings: GeneratorSettings,
+    """Beam search over any speech model with ``encode_audio(source,
+    padding_mask) -> (encoder_out, encoder_padding_mask)`` and a
+    ``TransformerDecoder`` as ``.decoder``: the interlingua model (fixed
+    memory bank, mask None) and the fbank S2T transformer (padded encoder
+    states and their mask)."""
+
+    def __init__(self, model: torch.nn.Module, settings: GeneratorSettings,
                  pad: int = 1, eos: int = 2, unk: int = 3, bos: Optional[int] = None):
         self.model = model
         self.s = settings

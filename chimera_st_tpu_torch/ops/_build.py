@@ -26,7 +26,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("encoder_attention", "conv_tail", "decode_attention")
+SOURCES = ("encoder_attention", "conv_tail", "decode_attention", "logmel")
 HEADERS = ("common.cuh",)
 COMPILE_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -40,7 +40,7 @@ LINK_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-shared"]
 # element-type codes of the C interfaces (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signatures: every entry point returns the launch's cudaError_t
 _SIGNATURES = {
     "encoder_attention": (
@@ -54,6 +54,10 @@ _SIGNATURES = {
     "decode_attention": (
         "chimera_decode_attention",
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "logmel": (
+        "chimera_logmel",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P],
     ),
 }
 

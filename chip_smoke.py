@@ -3,38 +3,49 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+It drives both ported serving paths: the flagship interlingua model (raw
+wav -> wav2vec2 trunk -> ... -> beam 10) and the fbank speech-to-text
+transformer ``s2t_transformer_s`` with ``compute_fbank`` (raw wav -> log-mel
+-> subsampler -> encoder -> beam 5).
+
 Phases (any failure raises and the script exits non-zero):
 
 1. device  - a CUDA card must be present; prints nvidia-smi's name and
              power limit.
-2. build   - compiles the three hand-written kernels (csrc/*.cu, one nvcc
+2. build   - compiles the four hand-written kernels (csrc/*.cu, one nvcc
              per source, in parallel, linked into one library) and prints
              the build seconds.
-3. kernels - holds K1 (encoder attention), K2 (conv tail) and K3 (beam-step
-             decode attention) against their plain PyTorch versions at the
-             flagship shapes, batch 8: bf16 kernel vs the plain version in
-             fp32 on the same (bf16-valued) inputs, and fp32 kernel vs fp32
-             plain. Prints each max abs error with its tolerance, and the
+3. kernels - holds each kernel against its plain PyTorch version, batch 8:
+             K1 (encoder attention) at the flagship shapes and at the fbank
+             encoder's (4 heads), K2 (conv tail), K3 (beam-step decode
+             attention) at beam 10 / 8 heads and beam 5 / 4 heads, K4
+             (log-mel) on 6 s rows and a 33,000-sample row. bf16 kernels
+             vs the plain version in fp32 on the same (bf16-valued) inputs,
+             fp32 kernels vs fp32 plain (K4 also vs the plain version in
+             fp64). Prints each max abs error with its tolerance, and the
              median times of the kernel, the plain version and, where one
              PyTorch call computes the same function, that call.
-4. parity  - the whole serving slice at flagship width in fp32 (TF32 off),
-             batch 2: generate_audio on the card (through the kernels) and
-             on the CPU (through the plain versions) with the same weights;
-             the best hypotheses must be token-identical.
-5. serve   - the flagship operating point (vocab 10000, bf16, beam 10,
-             max_decode_len 64, len_penalty 1.5, min_len 30, seeded random
-             weights): 3 batches of 8 utterances of 2-6 s with padding.
-             Launch counts are zeroed just before and read just after; every
-             kernel must have launched.
-6. report  - one JSON line {"kernels": [...]}, then the contract line
-             {"ok": true, "device": {...}} as the last line of stdout.
+4. parity  - each serving path at full width in fp32 (TF32 off), batch 2:
+             generate_audio on the card (through the kernels) and on the CPU
+             (through the plain versions) with the same weights; the best
+             hypotheses must be token-identical.
+5. serve   - each path's operating point with seeded random weights, bf16,
+             3 batches of 8 utterances of 2-6 s with padding after one
+             warm-up batch. Flagship: vocab 10000, beam 10, max_decode_len 64,
+             len_penalty 1.5, min_len 30. Fbank: vocab 8000, beam 5,
+             max_decode_len 64. Launch counts are zeroed just before each
+             path's timed batches and read just after; every kernel of the
+             path must have launched, and no other.
+6. report  - one JSON line {"kernels": [...]} ("launches" sums both paths'
+             serve runs, "launches_per_path" splits them), then the contract
+             line {"ok": true, "device": {...}} as the last line of stdout.
 
-With --profile, phase 5 ends with one more served batch under
+With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
 of the wall time and the device time by kernel.
 
-Longer logs (the compiler's register/shared-memory report) go to
-chiprun_out/chip_smoke_build.log.
+Longer logs (the compiler's register/shared-memory report, the profiles) go
+to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -49,9 +60,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
+# tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# fp32 and fp64 on the CUDA cores (not the tensor cores)
+FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 
 
 def log(msg: str) -> None:
@@ -83,9 +98,9 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = BF16_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -100,51 +115,164 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err} exceeds {tol}")
 
 
-def phase_kernels(torch, ops):
-    """Phase 3. Returns the per-kernel records of the report line."""
+class Inputs:
+    """Seeded tensors on the card."""
+
+    def __init__(self, torch, seed: int):
+        self.torch, self.rng = torch, np.random.default_rng(seed)
+
+    def __call__(self, shape, scale=1.0, dtype=None):
+        torch = self.torch
+        t = torch.tensor(self.rng.normal(size=shape) * scale, dtype=torch.float32, device="cuda")
+        return t.to(dtype or torch.bfloat16)
+
+
+def k1_case(torch, enc_attn, tensor, label, B, T, H, D):
+    """K1 at one shape: accuracy (bf16 and fp32), times, bound."""
     import torch.nn.functional as F
 
-    enc_attn, conv_tail, dec_attn = ops
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
+    q, k, v = (tensor((B, T, H, D)) for _ in range(3))
+    mask = torch.zeros(B, T, dtype=torch.bool, device="cuda")
+    mask[1, T // 2:] = True  # partly padded row
+    mask[2, :] = True  # fully padded row: uniform weights over the T keys
+    ref = enc_attn.encoder_attention_plain(q.float(), k.float(), v.float(), mask)
+    bf_err = max_err(enc_attn.encoder_attention_cuda(q, k, v, mask), ref)
+    check(f"{label} bf16 kernel vs fp32 plain", bf_err, 2e-2)
+    err = max_err(enc_attn.encoder_attention_cuda(q.float(), k.float(), v.float(), mask), ref)
+    check(f"{label} fp32 kernel vs fp32 plain", err, 1e-4)
+    ms = cuda_ms(lambda: enc_attn.encoder_attention_cuda(q, k, v, mask))
+    plain_ms = cuda_ms(lambda: enc_attn.encoder_attention_plain(q, k, v, mask))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    keep = ~mask[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep))
+    n_bytes = 4 * B * T * H * D * 2 + B * T
+    flops = 4 * B * H * T * T * D
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"  {label} B{B} T{T} H{H} D{D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def k3_case(torch, dec_attn, tensor, rng, label, S, C, H, D=64, L=64):
+    """K3 at one shape, the last step of an L-step decode."""
+    N, idx = S * C, L - 1
+    q, k_new, v_new = (tensor((N, H, D)) for _ in range(3))
+    kc, vc = tensor((N, H, L, D)), tensor((N, H, L, D))
+    anc_np = rng.integers(0, C, size=(L + 1, N)).astype(np.int32)
+    anc = torch.tensor(anc_np, device="cuda")
+    kc32, vc32 = kc.float().clone(), vc.float().clone()
+    ref = dec_attn.decode_attention_plain(q.float(), k_new.float(), v_new.float(), kc32, vc32,
+                                          anc, idx, C)
+    kc_k, vc_k = kc.clone(), vc.clone()
+    out_bf = dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C)
+    bf_err = max_err(out_bf, ref)
+    check(f"{label} bf16 kernel vs fp32 plain", bf_err, 2e-2)
+    check(f"{label} bf16 kernel's in-place cache write",
+          max_err(kc_k, kc32) + max_err(vc_k, vc32), 0.0)
+    kc_f, vc_f = kc.float().clone(), vc.float().clone()
+    check(f"{label} fp32 kernel vs fp32 plain", max_err(dec_attn.decode_attention_cuda(
+        q.float(), k_new.float(), v_new.float(), kc_f, vc_f, anc, idx, C), ref), 1e-4)
+    ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc_k, vc_k, anc,
+                                                               idx, C), reps=50)
+    # rows the step must read: distinct ancestor columns per (sentence, time)
+    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx + 1))
+    n_bytes = (2 * rows * H * D * 2  # referenced K and V rows
+               + 3 * N * H * D * 2  # q, k_new, v_new
+               + 2 * N * H * D * 2  # the new rows written into the caches
+               + (idx + 1) * N * 4  # ancestry rows
+               + N * H * D * 2)  # output
+    flops = 4 * N * H * (idx + 1) * D
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"  {label} S{S} C{C} H{H} D{D} step {idx}: {n_bytes / 1e6:.2f} MB, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def k4_flops(frames: int, mel_w, fft_flops: float) -> float:
+    """Operations of the log-mel for `frames` frames with an FFT of
+    `fft_flops` a frame: framing (mean, DC removal, pre-emphasis, window: 5 a
+    sample), power (3 a bin), the mel sums over the non-zero weights (2 each)
+    and one log a mel bin."""
+    per_frame = (5 * 400 + fft_flops + 3 * 257 + 2 * int((mel_w != 0).sum())
+                 + mel_w.shape[0])
+    return float(frames * per_frame)
+
+
+def k4_case(torch, lm):
+    """K4 on batch 8 of 6 s (rows at amplitude 0.1 and 1.0, row 3 zero after
+    2 s) and on one row of 33,000 samples (204 frames, not a multiple of the
+    kernel's 16-frame tile). Held against the plain version in fp32 (5e-4,
+    the TPU kernel's tolerance) and in fp64 (1e-5: K4 computes in fp64, so
+    it must agree with the exact log-mel to fp32 rounding)."""
+    from chimera_st_tpu_torch.ops.fbank import mel_filterbank, num_frames
+
+    rng = np.random.default_rng(4)
+    B, T, M = 8, 96000, 80
+    amp = np.where(np.arange(B) % 2 == 0, 0.1, 1.0)[:, None]
+    wav_np = (rng.normal(size=(B, T)) * amp).astype(np.float32)
+    wav_np[3, 32000:] = 0.0
+    wav = torch.tensor(wav_np, device="cuda")
+    F = num_frames(T)
+    got, ref = lm.logmel_cuda(wav), lm.logmel_plain(wav)
+    err = max_err(got, ref)
+    check(f"B{B} T{T} -> F{F}, kernel vs fp32 plain (log values)", err, 5e-4)
+    exact_err = max_err(got, lm.logmel_plain(wav.double()))
+    check(f"B{B} T{T} -> F{F}, kernel vs fp64 plain", exact_err, 1e-5)
+    zero_from = -(-32000 // 160)  # first frame that starts past the real samples
+    if not torch.equal(got[3, zero_from:], ref[3, zero_from:]):
+        raise AssertionError("all-zero frames differ from the plain version")
+    log(f"  row 3, frames {zero_from}..{F - 1} (all zero): equal to the plain version exactly")
+    short = torch.tensor(rng.normal(size=(1, 33000)).astype(np.float32), device="cuda")
+    got_s = lm.logmel_cuda(short)
+    if got_s.shape != (1, 204, M):
+        raise AssertionError(f"33,000 samples gave {tuple(got_s.shape)}, not (1, 204, 80)")
+    check("B1 T33000 -> F204, kernel vs fp32 plain", max_err(got_s, lm.logmel_plain(short)),
+          5e-4)
+    check("B1 T33000 -> F204, kernel vs fp64 plain",
+          max_err(got_s, lm.logmel_plain(short.double())), 1e-5)
+    ms = cuda_ms(lambda: lm.logmel_cuda(wav))
+    plain_ms = cuda_ms(lambda: lm.logmel_plain(wav))
+    mel_w = mel_filterbank(M, 512, 16000)
+    n_bytes = 4 * (B * T + B * F * M + 400 + mel_w.size)
+    # the function's least work: a real-input 512-point FFT, 2.5 N log2 N
+    # (half a complex FFT), at the fp32 peak (fp32 in and out)
+    flops = k4_flops(B * F, mel_w, 2.5 * 512 * 9)
+    b_ms, b_by = bound_ms(n_bytes, flops, FP32_FLOPS)
+    # what the kernel's design does: a complex radix-2 FFT (9 stages of 256
+    # butterflies, 10 each) in fp64
+    design_flops = k4_flops(B * F, mel_w, 9 * 256 * 10)
+    log(f"  B{B} F{F}: {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.2f} MB: kernel {ms:.4f} ms, "
+        f"plain (unfold + torch.fft.rfft + matmul) {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}; operations {flops / FP32_FLOPS * 1e3:.5f} ms at the fp32 CUDA-core peak, "
+        f"bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms); the kernel's fp64 design does "
+        f"{design_flops / 1e9:.4f} GFLOP = {design_flops / FP64_FLOPS * 1e3:.5f} ms at the "
+        f"fp64 CUDA-core peak")
+    return dict(max_abs_err=err, max_abs_err_fp64_plain=exact_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase_kernels(torch, ops):
+    """Phase 3. Returns the per-kernel records of the report line."""
+    enc_attn, conv_tail, dec_attn, lm = ops
+    tensor = Inputs(torch, 0)
     bf16 = torch.bfloat16
-
-    def tensor(shape, scale=1.0, dtype=bf16):
-        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32,
-                            device=dev).to(dtype)
-
     records = []
 
-    # ---- K1: wav2vec2 trunk (T 299, D 96) and shared encoder (T 75, D 64)
+    # ---- K1: wav2vec2 trunk (T 299, D 96), shared encoder (T 75, D 64),
+    # fbank encoder of a 6 s utterance (598 frames -> T 150, H 4, D 64)
     log("K1 encoder_attention")
-    k1 = {}
-    for label, T, D in (("trunk", 299, 96), ("shared", 75, 64)):
-        B, H = 8, 8
-        q, k, v = (tensor((B, T, H, D)) for _ in range(3))
-        mask = torch.zeros(B, T, dtype=torch.bool, device=dev)
-        mask[1, T // 2:] = True  # partly padded row
-        mask[2, :] = True  # fully padded row: uniform weights over the T keys
-        ref = enc_attn.encoder_attention_plain(q.float(), k.float(), v.float(), mask)
-        bf_err = max_err(enc_attn.encoder_attention_cuda(q, k, v, mask), ref)
-        check(f"{label} bf16 kernel vs fp32 plain", bf_err, 2e-2)
-        err = max_err(enc_attn.encoder_attention_cuda(q.float(), k.float(), v.float(), mask), ref)
-        check(f"{label} fp32 kernel vs fp32 plain", err, 1e-4)
-        ms = cuda_ms(lambda: enc_attn.encoder_attention_cuda(q, k, v, mask))
-        plain_ms = cuda_ms(lambda: enc_attn.encoder_attention_plain(q, k, v, mask))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        keep = ~mask[:, None, None, :]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep))
-        n_bytes = 4 * B * T * H * D * 2 + B * T
-        flops = 4 * B * H * T * T * D
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        log(f"  {label} B{B} T{T} H{H} D{D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        k1[label] = dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms)
+    k1 = {label: k1_case(torch, enc_attn, tensor, label, 8, T, H, D)
+          for label, T, H, D in (("trunk", 299, 8, 96), ("shared", 75, 8, 64),
+                                 ("fbank", 150, 4, 64))}
     records.append(dict(name="encoder_attention", route="cuda",
                         source="chimera_st_tpu_torch/csrc/encoder_attention.cu",
                         replaces="chimera_st_tpu/ops/pallas_attention.py:31",
-                        launches_of=enc_attn.encoder_attention, **k1["trunk"]))
+                        launches_of=enc_attn.encoder_attention, **k1["trunk"],
+                        fbank_shape=k1["fbank"]))
 
     # ---- K2: conv tail of a 6 s utterance, T1 = 19199
     log("K2 conv_tail")
@@ -177,45 +305,24 @@ def phase_kernels(torch, ops):
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=plain_ms))
 
-    # ---- K3: beam 10, 8 sentences, last step of a 64-step decode
+    # ---- K3: 8 sentences, last step of a 64-step decode: flagship beam 10
+    # with 8 heads, fbank beam 5 with 4 heads
     log("K3 decode_attention")
-    S, C, H, D, L = 8, 10, 8, 64, 64
-    N, idx = S * C, L - 1
-    q, k_new, v_new = (tensor((N, H, D)) for _ in range(3))
-    kc, vc = tensor((N, H, L, D)), tensor((N, H, L, D))
-    anc_np = rng.integers(0, C, size=(L + 1, N)).astype(np.int32)
-    anc = torch.tensor(anc_np, device=dev)
-    kc32, vc32 = kc.float().clone(), vc.float().clone()
-    ref = dec_attn.decode_attention_plain(q.float(), k_new.float(), v_new.float(), kc32, vc32,
-                                          anc, idx, C)
-    kc_k, vc_k = kc.clone(), vc.clone()
-    out_bf = dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C)
-    check("bf16 kernel vs fp32 plain", max_err(out_bf, ref), 2e-2)
-    check("bf16 kernel's in-place cache write", max_err(kc_k, kc32) + max_err(vc_k, vc32), 0.0)
-    kc_f, vc_f = kc.float().clone(), vc.float().clone()
-    check("fp32 kernel vs fp32 plain", max_err(dec_attn.decode_attention_cuda(
-        q.float(), k_new.float(), v_new.float(), kc_f, vc_f, anc, idx, C), ref), 1e-4)
-    ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C),
-                 reps=50)
-    plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc_k, vc_k, anc,
-                                                               idx, C), reps=50)
-    # rows the step must read: distinct ancestor columns per (sentence, time)
-    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx + 1))
-    n_bytes = (2 * rows * H * D * 2  # referenced K and V rows
-               + 3 * N * H * D * 2  # q, k_new, v_new
-               + 2 * N * H * D * 2  # the new rows written into the caches
-               + (idx + 1) * N * 4  # ancestry rows
-               + N * H * D * 2)  # output
-    flops = 4 * N * H * (idx + 1) * D
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"  S{S} C{C} H{H} D{D} step {idx}: {n_bytes / 1e6:.2f} MB, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    rng = np.random.default_rng(1)
+    k3 = {label: k3_case(torch, dec_attn, tensor, rng, label, 8, C, H)
+          for label, C, H in (("flagship", 10, 8), ("fbank", 5, 4))}
     records.append(dict(name="decode_attention", route="cuda",
                         source="chimera_st_tpu_torch/csrc/decode_attention.cu",
                         replaces="chimera_st_tpu/ops/pallas_decode_attention.py:59",
-                        launches_of=dec_attn.decode_attention, max_abs_err=max_err(out_bf, ref),
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None))
+                        launches_of=dec_attn.decode_attention, **k3["flagship"],
+                        fbank_shape=k3["fbank"]))
+
+    # ---- K4: log-mel of 8 utterances of 6 s
+    log("K4 logmel")
+    records.append(dict(name="logmel", route="cuda",
+                        source="chimera_st_tpu_torch/csrc/logmel.cu",
+                        replaces="chimera_st_tpu/ops/pallas_logmel.py:108",
+                        launches_of=lm.logmel, **k4_case(torch, lm)))
     return records
 
 
@@ -230,12 +337,11 @@ def make_audio(rng, batch: int, seconds_lo: float, seconds_hi: float):
     return wav, mask
 
 
-def phase_parity(torch, cfg, build_model):
+def phase_parity(torch, label, build_model, settings):
     """Phase 4: fp32 slice on the card (kernels) vs on the CPU (plain)."""
-    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+    from chimera_st_tpu_torch.generation.generator import SequenceGenerator
 
-    log("parity: fp32 flagship width, batch 2, card (kernels) vs CPU (plain versions)")
-    settings = GeneratorSettings(beam_size=10, max_decode_len=40, len_penalty=1.5, min_len=10)
+    log(f"parity ({label}): fp32 full width, batch 2, card (kernels) vs CPU (plain versions)")
     gpu_model = build_model("cuda", torch.float32)
     cpu_model = build_model("cpu", torch.float32)
     wav, mask = make_audio(np.random.default_rng(1), 2, 2.0, 3.0)
@@ -245,12 +351,12 @@ def phase_parity(torch, cfg, build_model):
         src, pm = torch.tensor(wav, device=dev), torch.tensor(mask, device=dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            mem, _ = model.encode_audio(src, pm)
+            enc, _ = model.encode_audio(src, pm)
         toks, scores, lens = SequenceGenerator(model, settings).generate_audio(src, pm)
-        results[name] = [t.cpu() for t in (mem, toks, scores, lens)]
+        results[name] = [t.cpu() for t in (enc, toks, scores, lens)]
         log(f"  {name}: {time.perf_counter() - t0:.2f} s")
-    (mg, tg, sg, lg), (mc, tc, sc, lc) = results["cuda"], results["cpu"]
-    check("memory bank, card vs CPU", max_err(mg, mc), 1e-3)
+    (eg, tg, sg, lg), (ec, tc, sc, lc) = results["cuda"], results["cpu"]
+    check("encoder output, card vs CPU", max_err(eg, ec), 1e-3)
     for b in range(tg.shape[0]):
         if not torch.equal(tg[b, 0], tc[b, 0]) or int(lg[b, 0]) != int(lc[b, 0]):
             raise AssertionError(f"best hypothesis of sentence {b} differs: {tg[b, 0].tolist()} "
@@ -260,15 +366,15 @@ def phase_parity(torch, cfg, build_model):
     del gpu_model, cpu_model
 
 
-def phase_serve(torch, build_model, counted, profile: bool = False):
-    """Phase 5: flagship bf16 serving, counts zeroed just before."""
-    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+def phase_serve(torch, label, model, settings, kernels, on_path, seed, profile=False):
+    """Phase 5 for one path: bf16 serving, counts zeroed just before."""
+    from chimera_st_tpu_torch.generation.generator import SequenceGenerator
 
-    log("serve: bf16, beam 10, max_decode_len 64, len_penalty 1.5, min_len 30, batch 8")
-    model = build_model("cuda", torch.bfloat16)
-    gen = SequenceGenerator(model, GeneratorSettings(beam_size=10, max_decode_len=64,
-                                                     len_penalty=1.5, min_len=30))
-    rng = np.random.default_rng(2)
+    s = settings
+    log(f"serve ({label}): bf16, beam {s.beam_size}, max_decode_len {s.max_decode_len}, "
+        f"len_penalty {s.len_penalty}, min_len {s.min_len}, batch 8")
+    gen = SequenceGenerator(model, settings)
+    rng = np.random.default_rng(seed)
     batches = [make_audio(rng, 8, 2.0, 6.0) for _ in range(4)]
 
     def serve(wav, mask):
@@ -286,8 +392,9 @@ def phase_serve(torch, build_model, counted, profile: bool = False):
         return (toks, scores, lens), t1 - t0, t2 - t1
 
     serve(*batches[0])  # warm-up: cuBLAS/cuDNN handles and plans
-    for fn in counted:
+    for fn in kernels:
         fn.launches = 0
+    K, L = s.beam_size, s.max_decode_len
     for i, (wav, mask) in enumerate(batches[1:]):
         (toks, scores, lens), t_enc, t_dec = serve(wav, mask)
         B = wav.shape[0]
@@ -295,26 +402,29 @@ def phase_serve(torch, build_model, counted, profile: bool = False):
         log(f"  batch {i}: {B} utts, {wav.shape[1] / 16000:.2f} s padded, wall {wall:.3f} s, "
             f"{B / wall:.2f} utt/s, encode {t_enc * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms")
         toks, scores, lens = toks.cpu(), scores.cpu(), lens.cpu()
-        if toks.shape != (B, 10, 64) or not torch.isfinite(scores).all():
+        if toks.shape != (B, K, L) or not torch.isfinite(scores).all():
             raise AssertionError(f"bad output: tokens {tuple(toks.shape)}, scores {scores}")
         for b in range(B):
             n = int(lens[b, 0])
-            if not 31 <= n <= 64 or int(toks[b, 0, n - 1]) != gen.eos:
-                raise AssertionError(f"hypothesis {b} does not end in eos within [31, 64]")
-    counts = {fn.__name__: fn.launches for fn in counted}
-    log(f"  launches during serve: {counts}")
+            if not s.min_len + 1 <= n <= L or int(toks[b, 0, n - 1]) != gen.eos:
+                raise AssertionError(f"hypothesis {b} does not end in eos within "
+                                     f"[{s.min_len + 1}, {L}]")
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    log(f"  launches during serve ({label}): {counts}")
     for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the serving path")
+        if name in on_path and n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+        if name not in on_path and n != 0:
+            raise AssertionError(f"kernel {name} is not on the {label} path but launched {n}x")
     if profile:
-        phase_profile(torch, serve, batches[1])
+        phase_profile(torch, label, serve, batches[1])
     return counts
 
 
-def phase_profile(torch, serve, batch):
+def phase_profile(torch, label, serve, batch):
     """Optional (--profile): one more served batch under torch.profiler.
     Prints the device's busy share of the wall time, and the device time by
-    kernel, largest first (also written to chiprun_out/serve_profile.txt)."""
+    kernel, largest first (also written to chiprun_out/serve_profile_<path>.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -324,15 +434,34 @@ def phase_profile(torch, serve, batch):
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device events")
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile: one batch of 8, wall {wall_us / 1e3:.1f} ms (encode {t_enc * 1e3:.1f}, "
-        f"decode {t_dec * 1e3:.1f}), device busy {busy_us / 1e3:.1f} ms "
+    log(f"profile ({label}): one batch of 8, wall {wall_us / 1e3:.1f} ms (encode "
+        f"{t_enc * 1e3:.1f}, decode {t_dec * 1e3:.1f}), device busy {busy_us / 1e3:.1f} ms "
         f"= {100 * busy_us / wall_us:.1f} % of wall, {sum(e.count for e in kernels)} launches")
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)
     lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}"
              for e in rows]
     for line in lines[:15]:
         log("  " + line)
-    (ROOT / "chiprun_out" / "serve_profile.txt").write_text("\n".join(lines) + "\n")
+    (ROOT / "chiprun_out" / f"serve_profile_{label}.txt").write_text("\n".join(lines) + "\n")
+
+
+def seeded_builder(torch, make):
+    """build(device, dtype): the model from make(device) with the same
+    seeded random weights every time (drawn once on the CPU)."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.models.layers import cast_compute_dtype_
+
+    weights = {}
+
+    def build(device, dtype):
+        model = make(device)
+        if not weights:
+            weights.update(init_params_(make("cpu"), torch.Generator().manual_seed(0))
+                           .state_dict())
+        model.load_state_dict(weights)
+        return cast_compute_dtype_(model.eval(), dtype)
+
+    return build
 
 
 def main() -> int:
@@ -345,16 +474,20 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chimera_st_tpu_torch.models.interlingua import (
-        ChimeraInterlinguaModel,
-        InterlinguaConfig,
-        init_params_,
+    from chimera_st_tpu_torch.generation.generator import GeneratorSettings
+    from chimera_st_tpu_torch.models.interlingua import ChimeraInterlinguaModel, InterlinguaConfig
+    from chimera_st_tpu_torch.models.s2t_transformer import build_s2t_transformer
+    from chimera_st_tpu_torch.ops import (
+        _build,
+        conv_tail,
+        decode_attention,
+        encoder_attention,
+        logmel,
     )
-    from chimera_st_tpu_torch.models.layers import cast_compute_dtype_
-    from chimera_st_tpu_torch.ops import _build, conv_tail, decode_attention, encoder_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv[1:]
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,31 +507,44 @@ def main() -> int:
     (out_dir / "chip_smoke_build.log").write_text(build_log or "")
 
     # 3. kernels
-    records = phase_kernels(torch, (encoder_attention, conv_tail, decode_attention))
+    records = phase_kernels(torch, (encoder_attention, conv_tail, decode_attention, logmel))
+    kernels = [r.pop("launches_of") for r in records]
 
-    cfg = InterlinguaConfig(tgt_vocab_size=10000, src_vocab_size=10000)
-    cpu_weights = {}
-
-    def build_model(device, dtype):
-        """Flagship model with the same seeded random weights every time."""
-        model = ChimeraInterlinguaModel(cfg, device=device)
-        if not cpu_weights:
-            ref = init_params_(ChimeraInterlinguaModel(cfg, device="cpu"),
-                               torch.Generator().manual_seed(0))
-            cpu_weights.update(ref.state_dict())
-        model.load_state_dict(cpu_weights)
-        return cast_compute_dtype_(model.eval(), dtype)
+    # the two serving paths: seeded weights, decode settings, kernels on the path
+    flagship_cfg = InterlinguaConfig(tgt_vocab_size=10000, src_vocab_size=10000)
+    paths = {
+        "flagship": dict(
+            build=seeded_builder(torch, lambda d: ChimeraInterlinguaModel(flagship_cfg, device=d)),
+            parity=GeneratorSettings(beam_size=10, max_decode_len=40, len_penalty=1.5,
+                                     min_len=10),
+            serve=GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5,
+                                    min_len=30),
+            on_path={"encoder_attention", "conv_tail", "decode_attention"}, seed=2),
+        "fbank": dict(
+            build=seeded_builder(torch, lambda d: build_s2t_transformer(
+                "s2t_transformer_s", {"tgt_vocab_size": 8000, "compute_fbank": True},
+                device=d)),
+            parity=GeneratorSettings(beam_size=5, max_decode_len=40),
+            serve=GeneratorSettings(beam_size=5, max_decode_len=64),
+            on_path={"encoder_attention", "decode_attention", "logmel"}, seed=3),
+    }
 
     # 4. slice parity
-    phase_parity(torch, cfg, build_model)
+    for label, p in paths.items():
+        phase_parity(torch, label, p["build"], p["parity"])
 
-    # 5. serve
-    counted = [r.pop("launches_of") for r in records]
-    counts = phase_serve(torch, build_model, counted, profile="--profile" in sys.argv[1:])
+    # 5. serve, each path with its own zeroed counts
+    counts = {}
+    for label, p in paths.items():
+        model = p["build"]("cuda", torch.bfloat16)
+        counts[label] = phase_serve(torch, label, model, p["serve"], kernels, p["on_path"],
+                                    p["seed"], profile)
+        del model
 
     # 6. report
     for r in records:
-        r["launches"] = counts[r["name"]]
+        r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
+        r["launches"] = sum(r["launches_per_path"].values())
     log(smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

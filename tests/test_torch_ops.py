@@ -14,7 +14,7 @@ from chimera_st_tpu.ops.attention import dot_product_attention as jax_attention
 from chimera_st_tpu.ops.pallas_attention import fused_encoder_attention
 from chimera_st_tpu.ops.pallas_conv import TAIL_SPEC, conv_tail_reference
 from chimera_st_tpu_torch.models.layers import MultiheadAttention
-from chimera_st_tpu_torch.ops import conv_tail, decode_attention, encoder_attention
+from chimera_st_tpu_torch.ops import conv_tail, decode_attention, encoder_attention, logmel
 
 
 def _qkv(rng, B, T, H, D):
@@ -120,7 +120,8 @@ def test_decode_attention_matches_jax_crosscol(cache_index):
                                    atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("entry", ["encoder_attention", "conv_tail", "decode_attention"])
+@pytest.mark.parametrize(
+    "entry", ["encoder_attention", "conv_tail", "decode_attention", "logmel"])
 def test_cuda_entry_refuses_cpu_tensors(entry):
     """A kernel's CUDA entry raises on a CPU tensor instead of falling back
     to the plain version, and its launch count stays where it was."""
@@ -131,6 +132,7 @@ def test_cuda_entry_refuses_cpu_tensors(entry):
         "decode_attention": (decode_attention.decode_attention_cuda,
                              (x[0], x[0], x[0], x, x, torch.zeros(2, 1, dtype=torch.int32),
                               0, 1)),
+        "logmel": (logmel.logmel_cuda, (torch.zeros(2, 16000),)),
     }
     fn, args = calls[entry]
     wrapper = getattr(globals()[entry], entry)
