@@ -27,7 +27,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("encoder_attention", "conv_tail", "decode_attention", "logmel")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sm90.cuh")
 COMPILE_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

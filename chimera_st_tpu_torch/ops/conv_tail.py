@@ -5,6 +5,7 @@ Replaces the Pallas kernel ``chimera_st_tpu/ops/pallas_conv.py``
 ``fused_conv_tail``. Each layer is a stride-2 VALID conv, 512 -> 512
 channels, no bias, followed by exact GELU; the kernel runs one layer per
 launch (see the source for why the six layers are not fused on Hopper).
+bf16 runs on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores.
 Activations are channels-last [B, T, C]; weights are in torch's Conv1d
 layout [C_out, C_in, k].
 """
@@ -49,7 +50,9 @@ def conv_tail_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
         t_out = (t_in - k) // 2 + 1
         if t_out <= 0:
             raise ValueError(f"input of {t_in} frames is too short for the conv tail")
-        w_kernel = w.permute(2, 1, 0).contiguous()  # [k, C_in, C_out]
+        # bf16: [C_out, k, C_in] (K-major for wgmma); fp32: [k, C_in, C_out]
+        w_kernel = (w.permute(0, 2, 1) if code == _build.DTYPE_CODES[torch.bfloat16]
+                    else w.permute(2, 1, 0)).contiguous()
         out = torch.empty((B, t_out, CH), dtype=x.dtype, device=x.device)
         err = fn(code, x.data_ptr(), w_kernel.data_ptr(), out.data_ptr(), B, t_in, t_out, CH, k,
                  stream)

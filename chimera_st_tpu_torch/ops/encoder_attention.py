@@ -5,7 +5,9 @@ Replaces the Pallas kernel ``chimera_st_tpu/ops/pallas_attention.py``
 ``fused_encoder_attention``. It serves every bidirectional self-attention
 of the wav2vec2 trunk and the shared encoder. The semantics are those of
 ``ops/attention.py`` ``dot_product_attention``, including a fully padded
-query row, which averages V over the T real keys.
+query row, which averages V over the T real keys. bf16 runs on the tensor
+cores (a flash-attention forward with wgmma and TMA), fp32 on the CUDA
+cores (TF32 would not hold the fp32 path to 1e-4); any other type raises.
 """
 
 from __future__ import annotations

@@ -77,6 +77,175 @@ def test_conv_tail_matches_jax_reference():
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 
+def _edge_mask(B, T):
+    """Row 1 padded from key 50 on (crossing the kernel's 64-key tile edges
+    where T > 64) or from T // 2; no partly padded row is possible at T 1."""
+    mask = np.zeros((B, T), bool)
+    if T > 1:
+        mask[1, min(50, T // 2):] = True
+    return mask
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 130])
+def test_encoder_attention_tile_edges_match_jax(T):
+    """K1's plain version vs JAX dot_product_attention and the Pallas kernel
+    (interpret mode) at lengths around the bf16 kernel's 64-key / 64-query
+    tiles, with padding that crosses a tile edge; 1e-5."""
+    rng = np.random.default_rng(T)
+    B, H, D = 2, 2, 96
+    q, k, v = _qkv(rng, B, T, H, D)
+    mask = _edge_mask(B, T)
+    got = encoder_attention.encoder_attention(*map(torch.from_numpy, (q, k, v)),
+                                              torch.from_numpy(mask)).numpy()
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    np.testing.assert_allclose(got, np.asarray(jax_attention(jq, jk, jv, key_padding_mask=jm)),
+                               atol=1e-5, rtol=1e-5)
+    pallas = fused_encoder_attention(jq, jk, jv, jm, float(D**-0.5), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 130])
+def test_encoder_attention_fully_padded_row_at_tile_edges(T):
+    """A fully padded row beside a partly padded one, at the tile-edge
+    lengths: the plain version follows the XLA path (V averaged over the T
+    real keys); the Pallas kernel is the known divergence, not compared."""
+    rng = np.random.default_rng(100 + T)
+    B, H, D = 3, 2, 64
+    q, k, v = _qkv(rng, B, T, H, D)
+    mask = _edge_mask(B, T)
+    mask[2, :] = True
+    got = encoder_attention.encoder_attention(*map(torch.from_numpy, (q, k, v)),
+                                              torch.from_numpy(mask)).numpy()
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    np.testing.assert_allclose(got, np.asarray(jax_attention(jq, jk, jv, key_padding_mask=jm)),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[2], np.broadcast_to(v[2].mean(axis=0), (T, H, D)), atol=1e-5)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _k1_tiled_mirror(q, k, v, mask, round_p):
+    """numpy mirror of the bf16 K1 kernel's arithmetic (csrc/encoder_attention.cu):
+    64-key tiles, online softmax in the log2 domain, a padded real key at
+    -1e8 * log2(e), a key past T at -inf, P optionally rounded to bf16 before
+    P.V, the row sum taken over the unrounded P."""
+    B, T, H, D = q.shape
+    log2e = np.float32(1.4426950408889634)
+    scale = np.float32(D**-0.5) * log2e
+    out = np.zeros_like(q)
+    for b in range(B):
+        for h in range(H):
+            m = np.full(T, -np.inf, np.float32)
+            l = np.zeros(T, np.float32)
+            o = np.zeros((T, D), np.float32)
+            for k0 in range(0, T, 64):
+                keys = np.arange(k0, k0 + 64)
+                real = keys < T
+                kt = np.zeros((64, D), np.float32)
+                vt = np.zeros((64, D), np.float32)
+                kt[real], vt[real] = k[b, keys[real], h], v[b, keys[real], h]
+                s = (q[b, :, h] @ kt.T) * scale
+                padded = np.zeros(64, bool)
+                padded[real] = mask[b, keys[real]]
+                s[:, padded] = np.float32(-1e8) * log2e
+                s[:, ~real] = -np.inf
+                m_new = np.maximum(m, s.max(axis=1))
+                alpha = np.exp2(m - m_new)
+                p = np.exp2(s - m_new[:, None])
+                l = l * alpha + p.sum(axis=1)
+                o = o * alpha[:, None] + (_bf16(p) if round_p else p) @ vt
+                m = m_new
+            out[b, :, h] = o / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("round_p, tol", [(False, 1e-5), (True, 2e-2)])
+@pytest.mark.parametrize("T", [1, 65, 130])
+def test_encoder_attention_tiled_mirror_matches_plain(T, round_p, tol):
+    """The bf16 kernel's tile-by-tile online softmax, mirrored in numpy, vs
+    the plain version: with fp32 P it agrees to 1e-5, which checks the
+    -1e8 / -inf split across tiles (a fully padded row, padding across a tile
+    edge, the ragged last tile); with bf16 P it stays inside the card's 2e-2
+    tolerance."""
+    rng = np.random.default_rng(200 + T)
+    B, H, D = 3, 2, 64
+    q, k, v = (_bf16(x) for x in _qkv(rng, B, T, H, D))
+    mask = _edge_mask(B, T)
+    mask[2, :] = True
+    ref = encoder_attention.encoder_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(mask)).numpy()
+    got = _k1_tiled_mirror(q, k, v, mask, round_p)
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+def _conv_inputs(rng, B, T1):
+    x = (rng.normal(size=(B, T1, conv_tail.CH)) * 0.5).astype(np.float32)
+    ws = [(rng.normal(size=(k, conv_tail.CH, conv_tail.CH)) * (2.0 / (k * 512)) ** 0.5)
+          .astype(np.float32) for k, _ in TAIL_SPEC]
+    return x, ws
+
+
+@pytest.mark.parametrize("T1", [79, 300])
+def test_conv_tail_short_inputs_match_jax_reference(T1):
+    """K2's plain version vs conv_tail_reference at batch 2: T1 = 79 is the
+    shortest input the six layers take (one output frame), 300 leaves a
+    ragged last tile in every layer; 1e-4."""
+    rng = np.random.default_rng(T1)
+    x, ws = _conv_inputs(rng, 2, T1)
+    ref = np.asarray(conv_tail_reference(jnp.asarray(x), [jnp.asarray(w) for w in ws]))
+    got = conv_tail.conv_tail(torch.from_numpy(x),
+                              [torch.from_numpy(w.transpose(2, 1, 0).copy()) for w in ws])
+    assert got.shape == ref.shape == (2, 1 if T1 == 79 else 4, conv_tail.CH)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+    with pytest.raises(RuntimeError):
+        conv_tail.conv_tail(torch.from_numpy(x[:, :78]),
+                            [torch.from_numpy(w.transpose(2, 1, 0).copy()) for w in ws])
+
+
+def _k2_tiled_mirror(x, w_torch):
+    """numpy mirror of one layer of the bf16 K2 kernel's addressing
+    (csrc/conv_tail.cu): per batch row, 128-frame M tiles; depth tile kt
+    reads tap kt // (C / 64) through a map based at x + tap * C with row
+    stride 2C, rows past T_out read as zeros; weights as [C_out, k * C_in]."""
+    B, t_in, C = x.shape
+    k = w_torch.shape[2]
+    t_out = (t_in - k) // 2 + 1
+    wk = w_torch.transpose(0, 2, 1).reshape(C, k * C)  # [co, j * C + ci]
+    flat = x.reshape(-1)
+    out = np.zeros((B, t_out, C), np.float32)
+    for b in range(B):
+        for t0 in range(0, t_out, 128):
+            acc = np.zeros((128, C), np.float32)
+            for kt in range(k * C // 64):
+                tap, c0 = kt // (C // 64), (kt % (C // 64)) * 64
+                a = np.zeros((128, 64), np.float32)
+                for r in range(128):
+                    t = t0 + r
+                    if t < t_out:
+                        start = b * t_in * C + t * 2 * C + tap * C + c0
+                        a[r] = flat[start:start + 64]
+                acc += a @ wk[:, kt * 64:(kt + 1) * 64].T
+            rows = min(128, t_out - t0)
+            out[b, t0:t0 + rows] = acc[:rows]
+    return out
+
+
+@pytest.mark.parametrize("T1", [79, 300])
+def test_conv_tail_tiled_mirror_matches_plain(T1):
+    """The bf16 K2 kernel's tap-by-tap implicit-GEMM addressing, mirrored in
+    numpy on each layer, vs the plain version; 1e-4."""
+    rng = np.random.default_rng(300 + T1)
+    x, ws = _conv_inputs(rng, 2, T1)
+    ws_torch = [w.transpose(2, 1, 0).copy() for w in ws]  # [C_out, C_in, k]
+    ref = conv_tail.conv_tail(torch.from_numpy(x), list(map(torch.from_numpy, ws_torch))).numpy()
+    y = x
+    for w in ws_torch:
+        y = torch.nn.functional.gelu(torch.from_numpy(_k2_tiled_mirror(y, w))).numpy()
+    np.testing.assert_allclose(y, ref, atol=1e-4, rtol=1e-4)
+
+
 def _port_mha_from_flax(tree, E, H):
     mha = MultiheadAttention(E, H, device="cpu")
     sd = {}
