@@ -12,110 +12,271 @@
 // ancestor row is gathered directly, in the style of paged attention.
 //
 // Cache layout [B*C, H, L, D]: one (column, head) timeline is contiguous,
-// so the row a lane gathers is D contiguous elements. The kernel first
-// writes this step's K and V rows at time `step` in place (the caller
-// preallocates L = max_decode_len; positions past `step` are never read,
-// so results do not depend on L), then attends over l = 0..step.
+// so a gathered row is D contiguous elements. The call also writes this
+// step's K and V rows into the cache at time `step` (the caller preallocates
+// L = max_decode_len; positions past `step` are never loaded, so results do
+// not depend on L or on what lies there).
 //
-// What bounds it on the H100: memory. Each step reads, per layer, the
-// referenced K and V rows: at most 2 * B*C*H*(step+1)*D elements (10.5 MB
-// in bf16 at B=8, C=10, H=8, D=64, step 63: ~3 us at 3.35 TB/s), and does
-// 4 FLOP per element read. At these sizes the launch itself (a few us)
-// is of the same order as the bound.
+// What bounds it on the H100: not bytes (7 MB a step at the flagship shape,
+// 2 us at 3.35 TB/s) and not operations (4 FLOP per element read), but the
+// chain of dependent trips to device memory inside one launch, each
+// 0.6-0.8 us, and the launch itself. The design keeps the chain at two
+// trips and gives every SM work:
 //
-// Design: one block per (sentence, head), one warp per hypothesis. Lane j
-// scores time l0 + j (a full D-long dot product against the warp's query,
-// kept in shared memory), the warp keeps an online softmax in fp32, and
-// P.V accumulates D/32 output columns per lane with coalesced row reads.
+// - One block of 4 warps per (hypothesis column, head): 640 blocks at the
+//   flagship shape, 160 on the fbank path, one wave on 132 SMs.
+// - Indices first, then every row at once. Each thread loads the one
+//   ancestry entry of the row it copies (trip 1), then starts 16-byte
+//   cp.async copies of that row's K and V slices into shared memory
+//   (trip 2). A tile is 512 16-byte chunks of K and of V: 64 times in bf16,
+//   32 in fp32. Longer timelines loop over tiles through a two-stage ring,
+//   the next tile's copies in flight while this one is reduced.
+// - The time-`step` row is taken from k_new / v_new of the ancestor column
+//   (inputs, never written), and a block writes only its own column's row
+//   into the cache: no block reads what another block writes, so there is
+//   no race across blocks and the cache ends bit-equal to a plain copy.
+// - Wide reads from shared memory: eight lanes share a row, 16 bytes each,
+//   a 3-step shuffle finishes the dot product; the same lanes then read the
+//   same slice of the V row, so P.V needs no exchange of probabilities.
+//   Each warp takes every fourth group of 4 rows of a tile and keeps its
+//   own online softmax (max, sum, accumulator) in fp32; the four partial
+//   results are merged through shared memory at the end.
 #include "common.cuh"
+
+#include <initializer_list>
 
 namespace {
 
-constexpr int MAX_BEAM = 32;  // warps per block
+constexpr int MAX_BEAM = 32;
+constexpr int K3_WARPS = 4;
+constexpr int K3_THREADS = K3_WARPS * 32;
+constexpr int CHUNKS_PER_TILE = 512;  // 16-byte chunks of K (and of V) in one tile
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 16-byte chunk -> fp32 values (8 of bf16, 4 of fp32)
+__device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&out)[8], __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&out)[4], float) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
 
 template <typename T, int D>
-__global__ void decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                                        const T* __restrict__ v_new,
-                                        T* k_cache,  // written then read here: no
-                                        T* v_cache,  // __restrict__ / read-only path
-                                        const int* __restrict__ anc, T* __restrict__ out,
-                                        int n_cols, int beam, int heads, int max_len, int step,
-                                        float scale) {
-  constexpr int DL = D / 32;
-  __shared__ float qs[MAX_BEAM][D];
-  const int s = blockIdx.x, h = blockIdx.y;
+__global__ void __launch_bounds__(K3_THREADS)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, T* k_cache, T* v_cache,
+                        const int* __restrict__ anc,
+                        T* __restrict__ out, int n_cols, int beam, int heads, int max_len,
+                        int step, float scale_log2) {
+  constexpr int EPC = 16 / sizeof(T);           // elements per 16-byte chunk
+  constexpr int CH = D / EPC;                   // chunks per row: 8 (bf16), 16 (fp32)
+  constexpr int TILE = CHUNKS_PER_TILE / CH;    // times per tile: 64, 32
+  constexpr int TPR = K3_THREADS / TILE;        // copying threads per row: 2, 4
+  constexpr int CPT = CH / TPR;                 // chunks a thread copies per row: 4
+  constexpr int CPL = CH / 8;                   // chunks a lane reads per row: 1, 2
+  constexpr int PASSES = TILE / (4 * K3_WARPS);  // 4-row groups a warp takes per tile
+  constexpr int ROW_BYTES = D * sizeof(T);
+
+  __shared__ __align__(16) unsigned char k_tile[2][TILE * ROW_BYTES];
+  __shared__ __align__(16) unsigned char v_tile[2][TILE * ROW_BYTES];
+  __shared__ float part_m[K3_WARPS], part_l[K3_WARPS], part_acc[K3_WARPS][D];
+
+  const int col = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 3, sub = lane & 7;
+  const int first_col = col / beam * beam;
+  const size_t own = ((size_t)col * heads + h) * D;  // this block's row of q, k_new, v_new, out
 
-  // 1. this step's K/V rows of the sentence's C columns, into the cache at
-  //    time `step`, and the queries into shared memory
-  for (int e = tid; e < beam * D; e += blockDim.x) {
-    const int c = e / D, d = e % D;
-    const size_t col = (size_t)s * beam + c;
-    const size_t src = (col * heads + h) * D + d;
-    const size_t dst = ((col * heads + h) * max_len + step) * D + d;
-    k_cache[dst] = k_new[src];
-    v_cache[dst] = v_new[src];
-    qs[c][d] = to_f32(q[src]);
-  }
-  __syncthreads();  // makes the new rows visible to the whole block
-
-  const int col = s * beam + warp;  // this warp's hypothesis
-  float m = -INFINITY, l = 0.f, acc[DL];
-#pragma unroll
-  for (int e = 0; e < DL; ++e) acc[e] = 0.f;
-
-  for (int l0 = 0; l0 <= step; l0 += 32) {
-    const int t = l0 + lane;
-    const bool live = t <= step;
-    // global cache column holding this hypothesis's time-t entry
-    const size_t src_col = live ? (size_t)s * beam + anc[(size_t)t * n_cols + col] : 0;
-    const size_t row = ((src_col * heads + h) * max_len + t) * D;
-    float sc = -INFINITY;
-    if (live) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 8) {
-        float kv[8];
-        load8(k_cache + row + d, kv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dot = fmaf(qs[warp][d + i], kv[i], dot);
+  // copies of one tile: thread -> row tid / TPR, chunks (tid % TPR) * CPT ...
+  const int copy_row = tid / TPR, copy_chunk = (tid % TPR) * CPT;
+  auto fetch = [&](int tile, int stage) {
+    const int t = tile * TILE + copy_row;
+    if (t <= step) {
+      const size_t src_col = (size_t)first_col + anc[(size_t)t * n_cols + col];
+      const size_t head_row = src_col * heads + h;
+      const T* ks;
+      const T* vs;
+      if (t == step) {  // this step's row: from the inputs, not from the cache
+        ks = k_new + head_row * D;
+        vs = v_new + head_row * D;
+      } else {
+        ks = k_cache + (head_row * max_len + t) * D;
+        vs = v_cache + (head_row * max_len + t) * D;
       }
-      sc = dot * scale;
-    }
-    // t = l0 is always live, so the chunk max is finite
-    const float m_new = fmaxf(m, warp_max(sc));
-    const float p = expf(sc - m_new);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + warp_sum(p);
+      unsigned char* kd = k_tile[stage] + copy_row * ROW_BYTES;
+      unsigned char* vd = v_tile[stage] + copy_row * ROW_BYTES;
 #pragma unroll
-    for (int e = 0; e < DL; ++e) acc[e] *= alpha;
-    const int n_live = min(32, step + 1 - l0);
-    for (int j = 0; j < n_live; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
-      const size_t rj = __shfl_sync(0xffffffffu, (unsigned long long)row, j);
-#pragma unroll
-      for (int e = 0; e < DL; ++e)
-        acc[e] = fmaf(pj, to_f32(v_cache[rj + lane + 32 * e]), acc[e]);
+      for (int c = 0; c < CPT; ++c) {
+        cp_async16(kd + (copy_chunk + c) * 16, ks + (copy_chunk + c) * EPC);
+        cp_async16(vd + (copy_chunk + c) * 16, vs + (copy_chunk + c) * EPC);
+      }
     }
-    m = m_new;
+    cp_async_commit();
+  };
+  fetch(0, 0);
+
+  // while the copies fly: this column's new rows into the cache, the query
+  // slice of this lane into registers
+  if (tid < 2 * CH) {
+    const int c = tid % CH;
+    const T* src = (tid < CH ? k_new : v_new) + own + c * EPC;
+    T* dst = (tid < CH ? k_cache : v_cache) + (own * max_len + (size_t)step * D) + c * EPC;
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  }
+  float qv[CPL][EPC];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(q + own + (sub + 8 * j) * EPC);
+    chunk_to_f32(raw, qv[j], T());
   }
 
-  const float inv = 1.f / l;
+  // this warp's online softmax over its rows; lane (grp, sub) sees the rows
+  // of group grp and the columns of chunks sub, sub + 8
+  float m = -INFINITY, l = 0.f, acc[CPL][EPC];
 #pragma unroll
-  for (int e = 0; e < DL; ++e)
-    out[((size_t)col * heads + h) * D + lane + 32 * e] = from_f32<T>(acc[e] * inv);
+  for (int j = 0; j < CPL; ++j)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) acc[j][e] = 0.f;
+
+  const int n_tiles = step / TILE + 1;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) {
+      fetch(tile + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this tile have landed
+
+    float s[PASSES];
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int row = (i * K3_WARPS + warp) * 4 + grp;
+      const bool live = tile * TILE + row <= step;
+      float dot = 0.f;
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          float kv[EPC];
+          chunk_to_f32(*reinterpret_cast<const uint4*>(k_tile[stage] + row * ROW_BYTES +
+                                                        (sub + 8 * j) * 16), kv, T());
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) dot = fmaf(qv[j][e], kv[e], dot);
+        }
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      s[i] = live ? dot * scale_log2 : -INFINITY;  // log2 domain
+      tile_max = fmaxf(tile_max, s[i]);
+    }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 8));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 16));
+    if (tile_max > -INFINITY) {  // the warp has a live row in this tile (warp-uniform)
+      const float m_new = fmaxf(m, tile_max);
+      const float alpha = exp2f(m - m_new);  // 0 on the warp's first live tile
+      l *= alpha;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) acc[j][e] *= alpha;
+#pragma unroll
+      for (int i = 0; i < PASSES; ++i) {
+        const int row = (i * K3_WARPS + warp) * 4 + grp;
+        if (s[i] > -INFINITY) {  // a dead row's bytes are never loaded
+          const float p = exp2f(s[i] - m_new);
+          l += p;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            float vv[EPC];
+            chunk_to_f32(*reinterpret_cast<const uint4*>(v_tile[stage] + row * ROW_BYTES +
+                                                          (sub + 8 * j) * 16), vv, T());
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) acc[j][e] = fmaf(p, vv[e], acc[j][e]);
+          }
+        }
+      }
+      m = m_new;
+    }
+    if (tile + 1 < n_tiles) __syncthreads();  // the stage is refilled two tiles on
+  }
+
+  // the warp's four row groups -> one partial result (l is the same in the
+  // eight lanes of a group, so it is summed across groups only)
+  l += __shfl_xor_sync(0xffffffffu, l, 8);
+  l += __shfl_xor_sync(0xffffffffu, l, 16);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) {
+      float a = acc[j][e];
+      a += __shfl_xor_sync(0xffffffffu, a, 8);
+      a += __shfl_xor_sync(0xffffffffu, a, 16);
+      if (grp == 0) part_acc[warp][(sub + 8 * j) * EPC + e] = a;
+    }
+  if (lane == 0) {
+    part_m[warp] = m;
+    part_l[warp] = l;
+  }
+  __syncthreads();
+
+  // merge the four partial softmaxes; warp 0 always holds time 0, so the
+  // overall max is finite and a warp without a live row weighs 0
+  if (tid < D) {
+    float big = part_m[0];
+#pragma unroll
+    for (int w = 1; w < K3_WARPS; ++w) big = fmaxf(big, part_m[w]);
+    float sum = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < K3_WARPS; ++w) {
+      const float wgt = exp2f(part_m[w] - big);
+      sum = fmaf(part_l[w], wgt, sum);
+      o = fmaf(part_acc[w][tid], wgt, o);
+    }
+    out[own + tid] = from_f32<T>(o / sum);
+  }
 }
+
+// an empty kernel: what one launch costs on this card with nothing to do
+__global__ void launch_floor_kernel() {}
 
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const int* anc, void* out, int n_cols, int beam, int heads, int head_dim,
            int max_len, int step, float scale, cudaStream_t stream) {
-  if (head_dim != 64 || beam > MAX_BEAM || n_cols % beam != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(n_cols / beam, heads);
-  decode_attention_kernel<T, 64><<<grid, beam * 32, 0, stream>>>(
+  if (head_dim != 64 || beam < 1 || beam > MAX_BEAM || n_cols % beam != 0 || heads > 65535 ||
+      step < 0 || step >= max_len)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k_new, v_new, (const void*)k_cache, (const void*)v_cache,
+                        (const void*)out})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  dim3 grid(n_cols, heads);
+  decode_attention_kernel<T, 64><<<grid, K3_THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), anc, static_cast<T*>(out), n_cols,
-      beam, heads, max_len, step, scale);
+      beam, heads, max_len, step, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -123,8 +284,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
 
 // q, k_new, v_new, out: [n_cols, heads, head_dim]; k_cache, v_cache:
 // [n_cols, heads, max_len, head_dim]; anc: [>= step + 1, n_cols] int32
-// within-sentence source columns; n_cols = sentences * beam. All contiguous.
-// Returns the launch's cudaError_t.
+// within-sentence source columns; n_cols = sentences * beam. All contiguous
+// and 16-byte aligned. Returns the launch's cudaError_t.
 extern "C" int chimera_decode_attention(int dtype, const void* q, const void* k_new,
                                         const void* v_new, void* k_cache, void* v_cache,
                                         const void* anc, void* out, int n_cols, int beam,
@@ -139,4 +300,10 @@ extern "C" int chimera_decode_attention(int dtype, const void* q, const void* k_
     return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, a, out, n_cols, beam,
                                  heads, head_dim, max_len, step, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches the empty kernel on `stream`. Returns the launch's cudaError_t.
+extern "C" int chimera_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }

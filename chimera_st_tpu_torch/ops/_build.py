@@ -57,8 +57,10 @@ _SIGNATURES = {
     ),
     "logmel": (
         "chimera_logmel",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _P],
     ),
+    # the empty kernel of csrc/decode_attention.cu: what a launch alone costs
+    "launch_floor": ("chimera_launch_floor", [_P]),
 }
 
 _library: Optional[ctypes.CDLL] = None

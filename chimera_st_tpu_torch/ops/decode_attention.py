@@ -8,8 +8,19 @@ Replaces the Pallas kernel ``chimera_st_tpu/ops/pallas_decode_attention.py``
 ``N = sentences * beam`` columns; ``ancestry[l, n]`` is the column, within
 the same sentence's ``beam`` columns, that holds hypothesis n's time-l
 entry. Both versions write this step's K/V rows into the cache IN PLACE at
-``cache_index`` and then attend over ``l = 0..cache_index``; positions past
+``cache_index`` and attend over ``l = 0..cache_index``; positions past
 ``cache_index`` are never read, so the result does not depend on L.
+
+On the H100 the kernel is bound by its chain of dependent trips to device
+memory and by the launch, not by bytes (2 us' worth) or operations. It runs
+one block of four warps per (column, head), loads the ancestry entries
+first and then gathers every K and V row of a time tile at once into
+shared memory with 16-byte ``cp.async`` copies (two trips; a two-stage ring
+for timelines longer than a tile of 64 times in bf16, 32 in fp32). The
+warps split the tile's rows, eight lanes a row, and merge their partial
+(max, sum, accumulator) at the end. The time-``cache_index`` row is read
+from ``k_new`` / ``v_new`` of the ancestor column and a block writes only
+its own column's row, so no block reads what another writes.
 """
 
 from __future__ import annotations
@@ -41,8 +52,10 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, ancestry, cache_in
 def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index: int,
                           beam: int):
     """Launches K3 (same contract as the plain version). All tensors
-    contiguous on one CUDA device; q, k_new, v_new and the caches share one
-    dtype (float32 or bfloat16); head_dim 64; ancestry int32."""
+    contiguous and 16-byte aligned on one CUDA device (the C entry point
+    checks the alignment and the launch raises on its error); q, k_new,
+    v_new and the caches share one dtype (float32 or bfloat16); head_dim
+    64; ancestry int32."""
     if not q.is_cuda:
         raise RuntimeError("decode_attention_cuda takes CUDA tensors")
     N, H, L, D = k_cache.shape

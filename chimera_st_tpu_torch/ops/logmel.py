@@ -6,6 +6,16 @@ Replaces the Pallas kernel ``chimera_st_tpu/ops/pallas_logmel.py``
 ``compute_fbank=True``: raw 16 kHz wav [B, T] fp32 -> [B, F, M] fp32 log-mel,
 F = 1 + (T - 400) // 160 (none below 400 samples). The plain version is
 ``fbank.logmel_plain``.
+
+On the H100 neither the bytes (640 in, 320 out a frame) nor the fp64
+operations bound the kernel, but one warp's chain of dependent steps and
+its round trips through shared memory. The kernel packs two neighbouring
+frames into one complex 512-point transform (separated afterwards by
+symmetry), runs it as three radix-8 passes in registers with two exchanges
+through padded shared memory, reads its inputs from samples the block
+staged once, and sums the mel bins from the compact non-zero runs of the
+triangles (``mel_compact``), four lanes a bin. All arithmetic between the
+fp32 samples and the fp32 mel value is fp64.
 """
 
 from __future__ import annotations
@@ -28,7 +38,11 @@ from .fbank import (
     povey_window,
 )
 
-__all__ = ["logmel", "logmel_cuda", "logmel_plain", "mel_ranges"]
+__all__ = ["logmel", "logmel_cuda", "logmel_plain", "mel_compact", "mel_ranges"]
+
+# what csrc/logmel.cu holds in shared memory
+MAX_MEL_BINS = 128
+MAX_MEL_WEIGHTS = 520
 
 
 def mel_ranges(weights: np.ndarray) -> np.ndarray:
@@ -42,15 +56,32 @@ def mel_ranges(weights: np.ndarray) -> np.ndarray:
     return out
 
 
+def mel_compact(weights: np.ndarray):
+    """The [M, 257] mel weights as K4 reads them: ``values``, the run of
+    columns [first, last + 1) of each row, one run after the other (float32),
+    and ``meta`` [2, M + 1] int32, row 0 the first column of each run, row 1
+    its offset in ``values`` (entry M = len(values))."""
+    ranges = mel_ranges(weights)
+    lens = ranges[:, 1] - ranges[:, 0]
+    meta = np.zeros((2, weights.shape[0] + 1), np.int32)
+    meta[0, :-1] = ranges[:, 0]
+    meta[1, 1:] = np.cumsum(lens)
+    values = np.concatenate([row[a:b] for row, (a, b) in zip(weights, ranges)])
+    return values.astype(np.float32), meta
+
+
 @lru_cache(maxsize=8)
 def _kernel_constants(device: torch.device, num_mel_bins: int):
-    """Window, twiddles, mel weights and their ranges on ``device``, made
-    once per (device, M); the kernel only reads them."""
+    """Window, twiddles, compact mel weights and their meta on ``device``,
+    made once per (device, M); the kernel only reads them."""
     ang = 2.0 * math.pi * np.arange(FFT_SIZE // 2) / FFT_SIZE
     twiddle = np.concatenate([np.cos(ang), -np.sin(ang)])  # float64: K4's FFT is fp64
-    mel_w = mel_filterbank(num_mel_bins, FFT_SIZE, SAMPLE_RATE)
+    values, meta = mel_compact(mel_filterbank(num_mel_bins, FFT_SIZE, SAMPLE_RATE))
+    if num_mel_bins > MAX_MEL_BINS or not 0 < values.size <= MAX_MEL_WEIGHTS:
+        raise ValueError(f"log-mel kernel takes at most {MAX_MEL_BINS} mel bins with "
+                         f"{MAX_MEL_WEIGHTS} non-zero weights")
     return tuple(torch.from_numpy(a).to(device)
-                 for a in (povey_window(FRAME_LEN), twiddle, mel_w, mel_ranges(mel_w)))
+                 for a in (povey_window(FRAME_LEN), twiddle, values, meta))
 
 
 def logmel_cuda(wav: torch.Tensor, num_mel_bins: int = 80) -> torch.Tensor:
@@ -67,11 +98,11 @@ def logmel_cuda(wav: torch.Tensor, num_mel_bins: int = 80) -> torch.Tensor:
         return wav.new_zeros((B, F, num_mel_bins))
     if B > 65535:
         raise ValueError("log-mel kernel takes at most 65535 utterances a call")
-    window, twiddle, mel_w, ranges = _kernel_constants(wav.device, num_mel_bins)
+    window, twiddle, mel_w, meta = _kernel_constants(wav.device, num_mel_bins)
     out = torch.empty((B, F, num_mel_bins), dtype=torch.float32, device=wav.device)
     err = _build.kernel("logmel")(
         wav.data_ptr(), window.data_ptr(), twiddle.data_ptr(), mel_w.data_ptr(),
-        ranges.data_ptr(), out.data_ptr(), B, T, F, num_mel_bins, PREEMPHASIS,
+        meta.data_ptr(), out.data_ptr(), B, T, F, num_mel_bins, mel_w.numel(), PREEMPHASIS,
         _build.stream_handle(wav.device),
     )
     _build.check_launch("logmel", err)

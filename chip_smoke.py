@@ -14,22 +14,36 @@ Phases (any failure raises and the script exits non-zero):
              power limit.
 2. build   - compiles the four hand-written kernels (csrc/*.cu, one nvcc
              per source, in parallel, linked into one library) and prints
-             the build seconds; then reads the library's SASS (cuobjdump):
-             the bf16 K1 and K2 kernels must hold tensor-core instructions
-             (HGMMA, from wgmma).
+             the build seconds and, for K3 and K4, the compiler's registers,
+             spill bytes and shared memory; then reads the library's SASS
+             (cuobjdump, which must be there): the bf16 K1 and K2 kernels
+             must hold tensor-core instructions (HGMMA, from wgmma), K3 the
+             asynchronous copy (LDGSTS, from cp.async), K4 fp64 DFMA and no
+             local-memory access (LDL / STL).
 3. kernels - holds each kernel against its plain PyTorch version, batch 8
              unless stated: K1 (encoder attention) at the flagship shapes,
              at the fbank encoder's (4 heads), at a 30 s trunk (batch 2,
              T 1,499) and at T 65; K2 (conv tail) on 6 s and, at batch 3,
              1.5 s inputs; K3 (beam-step decode attention) at beam 10 /
-             8 heads and beam 5 / 4 heads; K4 (log-mel) on 6 s rows and a
-             33,000-sample row. bf16 kernels vs the plain version in fp32 on
-             the same (bf16-valued) inputs, fp32 kernels vs fp32 plain (K4
-             also vs the plain version in fp64). Prints each max abs error
-             with its tolerance, and the median times of the kernel, the
-             plain version and, where one PyTorch call computes the same
-             function, that call; for K1 and K2 also the achieved TFLOP/s
-             and the share of the bound.
+             8 heads and beam 5 / 4 heads, each at steps 0, 31 and 63 of a
+             64-long cache and, with 2 sentences, at step 150 of a 200-long
+             one, the ancestry row of the step drawn at random, cache rows
+             past the step NaN, the cache after the call bit-equal to the
+             plain version's; K4 (log-mel) on 6 s rows, a 33,000-sample row
+             (204 frames) and rows of 99 frames at unaligned addresses. bf16
+             kernels vs the plain version in fp32 on the same (bf16-valued)
+             inputs, fp32 kernels vs fp32 plain (K4 also vs the plain
+             version in fp64). Prints each max abs error with its tolerance,
+             and the median times of the kernel, the plain version and, where
+             one PyTorch call computes the same function, that call; the
+             share of the bound; for K1 and K2 the achieved TFLOP/s; for K3
+             and K4 the time of an empty kernel (launch_floor_ms), for K3 the
+             measured time of 64 launches, one at each step 0..63
+             (steps_0_63_ms), and the host time of one call (host_us). With
+             --parent DIR (a `git archive` of an earlier commit) the script
+             runs these K3 and K4 cases once more in a process whose package
+             is that tree's, and puts its times beside the new ones
+             (parent_ms, parent_steps_0_63_ms).
 4. parity  - each serving path at full width in fp32 (TF32 off), batch 2:
              generate_audio on the card (through the kernels) and on the CPU
              (through the plain versions) with the same weights; the best
@@ -40,12 +54,15 @@ Phases (any failure raises and the script exits non-zero):
              len_penalty 1.5, min_len 30. Fbank: vocab 8000, beam 5,
              max_decode_len 64. Launch counts are zeroed just before each
              path's timed batches and read just after; every kernel of the
-             path must have launched, and no other. The encoder kernels'
-             counts are exact: per batch K1 24 (flagship) or 12 (fbank), K2
-             6, K4 1.
+             path must have launched, and no other. The counts are exact:
+             per batch K1 24 (flagship) or 12 (fbank), K2 6, K4 1, K3 384
+             (6 decoder layers x 64 steps).
 6. report  - one JSON line {"kernels": [...]} ("launches" sums both paths'
              serve runs, "launches_per_path" splits them), then the contract
              line {"ok": true, "device": {...}} as the last line of stdout.
+
+With --kernels-of DIR the script only builds the package of the tree under
+DIR and runs phase 3's K3 and K4 cases on it (what --parent starts).
 
 With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
@@ -74,6 +91,8 @@ BF16_FLOPS = 989e12
 # fp32 and fp64 on the CUDA cores (not the tensor cores)
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
+# timed batches of each serve phase, after one warm-up batch
+SERVE_BATCHES = 3
 
 
 def log(msg: str) -> None:
@@ -218,25 +237,43 @@ def k2_case(torch, conv_tail, tensor, B, T1, per_layer=False):
     return rec
 
 
-def k3_case(torch, dec_attn, tensor, rng, label, S, C, H, D=64, L=64):
-    """K3 at one shape, the last step of an L-step decode."""
-    N, idx = S * C, L - 1
+def k3_inputs(torch, tensor, rng, S, C, H, L, D=64):
+    """Seeded bf16 K3 inputs; every row of the ancestry map is random, the
+    row of the step itself included."""
+    N = S * C
     q, k_new, v_new = (tensor((N, H, D)) for _ in range(3))
     kc, vc = tensor((N, H, L, D)), tensor((N, H, L, D))
     anc_np = rng.integers(0, C, size=(L + 1, N)).astype(np.int32)
-    anc = torch.tensor(anc_np, device="cuda")
-    kc32, vc32 = kc.float().clone(), vc.float().clone()
+    return q, k_new, v_new, kc, vc, torch.tensor(anc_np, device="cuda"), anc_np
+
+
+def k3_step(torch, dec_attn, inputs, label, C, idx):
+    """K3 at one step of one shape: accuracy (bf16 and fp32 against the fp32
+    plain version), the cache after the call bit-equal to the plain
+    version's, times and bound. Cache rows past the step are NaN."""
+    q, k_new, v_new, kc, vc, anc, anc_np = inputs
+    N, H, L, D = kc.shape
+    S = N // C
+    kc, vc = kc.clone(), vc.clone()
+    kc[:, :, idx + 1:], vc[:, :, idx + 1:] = float("nan"), float("nan")
+    kc32, vc32 = kc.float(), vc.float()
     ref = dec_attn.decode_attention_plain(q.float(), k_new.float(), v_new.float(), kc32, vc32,
                                           anc, idx, C)
     kc_k, vc_k = kc.clone(), vc.clone()
     out_bf = dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C)
     bf_err = max_err(out_bf, ref)
+    label = f"{label} step {idx} L {L}"
     check(f"{label} bf16 kernel vs fp32 plain", bf_err, 2e-2)
-    check(f"{label} bf16 kernel's in-place cache write",
-          max_err(kc_k, kc32) + max_err(vc_k, vc32), 0.0)
-    kc_f, vc_f = kc.float().clone(), vc.float().clone()
+    for got, want in ((kc_k, kc32), (vc_k, vc32)):
+        if not torch.equal(got.float().nan_to_num(nan=7.0), want.nan_to_num(nan=7.0)):
+            raise AssertionError(f"{label}: bf16 cache after the call differs from the plain one")
+    kc_f, vc_f = kc.float(), vc.float()
     check(f"{label} fp32 kernel vs fp32 plain", max_err(dec_attn.decode_attention_cuda(
         q.float(), k_new.float(), v_new.float(), kc_f, vc_f, anc, idx, C), ref), 1e-4)
+    if not (torch.equal(kc_f.nan_to_num(nan=7.0), kc32.nan_to_num(nan=7.0))
+            and torch.equal(vc_f.nan_to_num(nan=7.0), vc32.nan_to_num(nan=7.0))):
+        raise AssertionError(f"{label}: fp32 cache after the call differs from the plain one")
+    log(f"  {label} cache writes (bf16 and fp32): bit-equal to the plain version's")
     ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C),
                  reps=50)
     plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc_k, vc_k, anc,
@@ -250,10 +287,61 @@ def k3_case(torch, dec_attn, tensor, rng, label, S, C, H, D=64, L=64):
                + N * H * D * 2)  # output
     flops = 4 * N * H * (idx + 1) * D
     b_ms, b_by = bound_ms(n_bytes, flops)
-    log(f"  {label} S{S} C{C} H{H} D{D} step {idx}: {n_bytes / 1e6:.2f} MB, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    rec = dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, bound_share=b_ms / ms, parent_ms=None)
+    log(f"  {label} S{S} C{C} H{H} D{D}: {n_bytes / 1e6:.2f} MB, kernel {ms:.4f} ms "
+        f"({100 * b_ms / ms:.1f} % of bound), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    return rec
+
+
+def k3_case(torch, dec_attn, tensor, rng, label, C, H):
+    """K3 at one path's shape (8 sentences, a 64-step decode) at steps 63, 31
+    and 0, and at step 150 of a 200-long cache (2 sentences: three time
+    tiles in bf16, five in fp32). The record's main numbers are step 63's;
+    `steps` holds the others; `steps_0_63_ms` is the measured device time of
+    64 launches back to back, one at each step 0..63 in order: what one
+    decoder layer launches over a 64-step decode."""
+    inputs = k3_inputs(torch, tensor, rng, 8, C, H, 64)
+    recs = {idx: k3_step(torch, dec_attn, inputs, label, C, idx) for idx in (63, 31, 0)}
+    long = k3_step(torch, dec_attn, k3_inputs(torch, tensor, rng, 2, C, H, 200), label, C, 150)
+    q, k_new, v_new, kc, vc, anc, _ = inputs
+
+    def every_step():
+        for idx in range(64):
+            dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, idx, C)
+
+    rec = dict(recs[63], steps={"0": recs[0], "31": recs[31], "150_of_200": long},
+               steps_0_63_ms=cuda_ms(every_step, reps=6), parent_steps_0_63_ms=None)
+    log(f"  {label}: 64 launches, steps 0..63 in order, back to back: "
+        f"{rec['steps_0_63_ms']:.4f} ms")
+    return rec
+
+
+def k3_host_us(torch, dec_attn, tensor, rng, calls=1000):
+    """Host time of one decode_attention_cuda call at the flagship shape:
+    `calls` calls back to back on the host clock, one synchronize after."""
+    q, k_new, v_new, kc, vc, anc, _ = k3_inputs(torch, tensor, rng, 8, 10, 8, 64)
+    dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, 63, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, 63, 10)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def k3_misaligned_raises(torch, dec_attn, tensor, rng):
+    """A query that is not 16-byte aligned must raise, not launch."""
+    q, k_new, v_new, kc, vc, anc, _ = k3_inputs(torch, tensor, rng, 1, 5, 4, 8)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:].view_as(q).copy_(q)
+    try:
+        dec_attn.decode_attention_cuda(odd, k_new, v_new, kc, vc, anc, 3, 5)
+    except (RuntimeError, ValueError) as e:
+        log(f"  misaligned q raises: {e}")
+        return
+    raise AssertionError("decode_attention_cuda took a misaligned q")
 
 
 def k4_flops(frames: int, mel_w, fft_flops: float) -> float:
@@ -266,12 +354,27 @@ def k4_flops(frames: int, mel_w, fft_flops: float) -> float:
     return float(frames * per_frame)
 
 
+def k4_check(torch, lm, wav, label, frames):
+    """One K4 input against the plain version in fp32 (5e-4, the TPU
+    kernel's tolerance) and in fp64 (1e-5: K4 computes in fp64, so it must
+    agree with the exact log-mel to fp32 rounding). Returns the output and
+    both errors."""
+    got, ref = lm.logmel_cuda(wav), lm.logmel_plain(wav)
+    if got.shape != (wav.shape[0], frames, 80):
+        raise AssertionError(f"{label}: output {tuple(got.shape)}, expected {frames} frames")
+    err = max_err(got, ref)
+    check(f"{label} -> F{frames}, kernel vs fp32 plain (log values)", err, 5e-4)
+    exact_err = max_err(got, lm.logmel_plain(wav.double()))
+    check(f"{label} -> F{frames}, kernel vs fp64 plain", exact_err, 1e-5)
+    return got, ref, err, exact_err
+
+
 def k4_case(torch, lm):
-    """K4 on batch 8 of 6 s (rows at amplitude 0.1 and 1.0, row 3 zero after
-    2 s) and on one row of 33,000 samples (204 frames, not a multiple of the
-    kernel's 16-frame tile). Held against the plain version in fp32 (5e-4,
-    the TPU kernel's tolerance) and in fp64 (1e-5: K4 computes in fp64, so
-    it must agree with the exact log-mel to fp32 rounding)."""
+    """K4 on batch 8 of 6 s (598 frames a row; rows at amplitude 0.1 and 1.0,
+    row 3 zero after 2 s), on one row of 33,000 samples (204 frames, not a
+    multiple of the kernel's 8-frame tile) and on three rows of 16,085
+    samples (99 frames: the last frame has no partner in its transform, and
+    the rows start at addresses that are not 16-byte aligned)."""
     from chimera_st_tpu_torch.ops.fbank import mel_filterbank, num_frames
 
     rng = np.random.default_rng(4)
@@ -281,23 +384,19 @@ def k4_case(torch, lm):
     wav_np[3, 32000:] = 0.0
     wav = torch.tensor(wav_np, device="cuda")
     F = num_frames(T)
-    got, ref = lm.logmel_cuda(wav), lm.logmel_plain(wav)
-    err = max_err(got, ref)
-    check(f"B{B} T{T} -> F{F}, kernel vs fp32 plain (log values)", err, 5e-4)
-    exact_err = max_err(got, lm.logmel_plain(wav.double()))
-    check(f"B{B} T{T} -> F{F}, kernel vs fp64 plain", exact_err, 1e-5)
+    got, ref, err, exact_err = k4_check(torch, lm, wav, f"B{B} T{T}", F)
     zero_from = -(-32000 // 160)  # first frame that starts past the real samples
     if not torch.equal(got[3, zero_from:], ref[3, zero_from:]):
         raise AssertionError("all-zero frames differ from the plain version")
     log(f"  row 3, frames {zero_from}..{F - 1} (all zero): equal to the plain version exactly")
     short = torch.tensor(rng.normal(size=(1, 33000)).astype(np.float32), device="cuda")
-    got_s = lm.logmel_cuda(short)
-    if got_s.shape != (1, 204, M):
-        raise AssertionError(f"33,000 samples gave {tuple(got_s.shape)}, not (1, 204, 80)")
-    check("B1 T33000 -> F204, kernel vs fp32 plain", max_err(got_s, lm.logmel_plain(short)),
-          5e-4)
-    check("B1 T33000 -> F204, kernel vs fp64 plain",
-          max_err(got_s, lm.logmel_plain(short.double())), 1e-5)
+    k4_check(torch, lm, short, "B1 T33000", 204)
+    odd_np = (rng.normal(size=(3, 16085)) * 0.3).astype(np.float32)
+    odd_np[1, 8160:] = 0.0  # frame 51 on: frame 50 shares its transform with a zero frame
+    odd = torch.tensor(odd_np, device="cuda")
+    got_o, ref_o, _, _ = k4_check(torch, lm, odd, "B3 T16085", 99)
+    if not torch.equal(got_o[1, 51:], ref_o[1, 51:]):
+        raise AssertionError("all-zero frames of the odd-count input differ from the plain version")
     ms = cuda_ms(lambda: lm.logmel_cuda(wav))
     plain_ms = cuda_ms(lambda: lm.logmel_plain(wav))
     mel_w = mel_filterbank(M, 512, 16000)
@@ -306,24 +405,89 @@ def k4_case(torch, lm):
     # (half a complex FFT), at the fp32 peak (fp32 in and out)
     flops = k4_flops(B * F, mel_w, 2.5 * 512 * 9)
     b_ms, b_by = bound_ms(n_bytes, flops, FP32_FLOPS)
-    # what the kernel's design does: a complex radix-2 FFT (9 stages of 256
-    # butterflies, 10 each) in fp64
-    design_flops = k4_flops(B * F, mel_w, 9 * 256 * 10)
-    log(f"  B{B} F{F}: {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.2f} MB: kernel {ms:.4f} ms, "
-        f"plain (unfold + torch.fft.rfft + matmul) {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+    # what the kernel's design does, per frame: half of a complex 512-point
+    # transform of 3 passes x 64 radix-8 butterflies (56 each), 2 passes with
+    # 7 twiddle products and 7 twiddle powers a butterfly (6 each), in fp64
+    design_flops = k4_flops(B * F, mel_w, (3 * 64 * 56 + 2 * 64 * 14 * 6) / 2)
+    rec = dict(max_abs_err=err, max_abs_err_fp64_plain=exact_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, bound_share=b_ms / ms,
+               parent_ms=None)
+    log(f"  B{B} F{F}: {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.2f} MB: kernel {ms:.4f} ms "
+        f"({100 * b_ms / ms:.1f} % of bound), plain (unfold + torch.fft.rfft + matmul) "
+        f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by}; operations {flops / FP32_FLOPS * 1e3:.5f} ms at the fp32 CUDA-core peak, "
         f"bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms); the kernel's fp64 design does "
         f"{design_flops / 1e9:.4f} GFLOP = {design_flops / FP64_FLOPS * 1e3:.5f} ms at the "
         f"fp64 CUDA-core peak")
-    return dict(max_abs_err=err, max_abs_err_fp64_plain=exact_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rec
+
+
+def phase_k3_k4(torch, dec_attn, lm):
+    """Phase 3 for K3 and K4, from seeds of their own, so that the same
+    cases run on another tree's kernels (--kernels-of) see the same inputs."""
+    # ---- K3: 8 sentences, a 64-step decode: flagship beam 10 with 8 heads,
+    # fbank beam 5 with 4 heads
+    log("K3 decode_attention")
+    tensor, rng = Inputs(torch, 5), np.random.default_rng(1)
+    k3 = {label: k3_case(torch, dec_attn, tensor, rng, label, C, H)
+          for label, C, H in (("flagship", 10, 8), ("fbank", 5, 4))}
+    host_us = k3_host_us(torch, dec_attn, tensor, rng)
+    log(f"  host time of one decode_attention_cuda call (flagship shape): {host_us:.2f} us")
+    # ---- K4: log-mel of 8 utterances of 6 s
+    log("K4 logmel")
+    return [dict(name="decode_attention", route="cuda",
+                 source="chimera_st_tpu_torch/csrc/decode_attention.cu",
+                 replaces="chimera_st_tpu/ops/pallas_decode_attention.py:59",
+                 **k3["flagship"], fbank_shape=k3["fbank"], host_us=host_us),
+            dict(name="logmel", route="cuda", source="chimera_st_tpu_torch/csrc/logmel.cu",
+                 replaces="chimera_st_tpu/ops/pallas_logmel.py:108", **k4_case(torch, lm))]
+
+
+def merge_parent(records, parent_dir: Path) -> None:
+    """Times an earlier tree's K3 and K4 on this card in this run: this
+    script runs once more, in a process of its own, with the package of the
+    tree under `parent_dir` (a `git archive` of a commit) in place of this
+    one's, through the same cases and the same wrappers
+    (`decode_attention_cuda`, `logmel_cuda`, `*_plain`). Its times go beside
+    the new ones as `parent_ms` / `parent_steps_0_63_ms`."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernels-of",
+                          str(parent_dir)], capture_output=True, text=True, timeout=600)
+    for line in run.stdout.splitlines()[:-1]:
+        log(f"  [{parent_dir.name}] {line}")
+    if run.returncode:
+        raise RuntimeError(f"K3 / K4 of {parent_dir} failed:\n{run.stderr[-4000:]}")
+    old = {r["name"]: r for r in json.loads(run.stdout.splitlines()[-1])["kernels"]}
+
+    def merge(rec, was, label):
+        rec["parent_ms"] = was["ms"]
+        note = f"  {label}: {rec['ms']:.4f} ms, earlier kernel {was['ms']:.4f} ms"
+        if "steps_0_63_ms" in rec:
+            rec["parent_steps_0_63_ms"] = was["steps_0_63_ms"]
+            note += (f"; steps 0..63 {rec['steps_0_63_ms']:.4f} ms, earlier "
+                     f"{was['steps_0_63_ms']:.4f} ms")
+        log(note)
+        for key, sub in rec.get("steps", {}).items():
+            merge(sub, was["steps"][key], f"{label} step {key}")
+
+    for rec in records:
+        if rec["name"] in old:
+            merge(rec, old[rec["name"]], rec["name"])
+            if "fbank_shape" in rec:
+                merge(rec["fbank_shape"], old[rec["name"]]["fbank_shape"],
+                      f"{rec['name']} fbank")
 
 
 def phase_kernels(torch, ops):
     """Phase 3. Returns the per-kernel records of the report line."""
+    from chimera_st_tpu_torch.ops import _build
+
     enc_attn, conv_tail, dec_attn, lm = ops
     tensor = Inputs(torch, 0)
     records = []
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = _build.kernel("launch_floor")
+    floor_ms = cuda_ms(lambda: _build.check_launch("launch_floor", empty(stream)), reps=50)
+    log(f"launch floor: an empty kernel takes {floor_ms:.5f} ms a launch, back to back")
 
     # ---- K1: wav2vec2 trunk (T 299, D 96), shared encoder (T 75, D 64),
     # fbank encoder of a 6 s utterance (598 frames -> T 150, H 4, D 64), a
@@ -349,46 +513,37 @@ def phase_kernels(torch, ops):
                         replaces="chimera_st_tpu/ops/pallas_conv.py:146",
                         launches_of=conv_tail.conv_tail, **k2.pop("6s"), shapes=k2))
 
-    # ---- K3: 8 sentences, last step of a 64-step decode: flagship beam 10
-    # with 8 heads, fbank beam 5 with 4 heads
-    log("K3 decode_attention")
-    rng = np.random.default_rng(1)
-    k3 = {label: k3_case(torch, dec_attn, tensor, rng, label, 8, C, H)
-          for label, C, H in (("flagship", 10, 8), ("fbank", 5, 4))}
-    records.append(dict(name="decode_attention", route="cuda",
-                        source="chimera_st_tpu_torch/csrc/decode_attention.cu",
-                        replaces="chimera_st_tpu/ops/pallas_decode_attention.py:59",
-                        launches_of=dec_attn.decode_attention, **k3["flagship"],
-                        fbank_shape=k3["fbank"]))
-
-    # ---- K4: log-mel of 8 utterances of 6 s
-    log("K4 logmel")
-    records.append(dict(name="logmel", route="cuda",
-                        source="chimera_st_tpu_torch/csrc/logmel.cu",
-                        replaces="chimera_st_tpu/ops/pallas_logmel.py:108",
-                        launches_of=lm.logmel, **k4_case(torch, lm)))
+    for rec, fn in zip(phase_k3_k4(torch, dec_attn, lm), (dec_attn.decode_attention, lm.logmel)):
+        records.append(dict(rec, launches_of=fn, launch_floor_ms=floor_ms))
+    k3_misaligned_raises(torch, dec_attn, tensor, np.random.default_rng(2))
     return records
 
 
+SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "DFMA", "LDL", "STL")
+
+
 def sass_check(lib: Path, out_dir: Path) -> dict:
-    """Tensor-core instructions per kernel in the built library's SASS. The
-    bf16 K1 and K2 kernels must hold HGMMA (wgmma); returns the counts."""
+    """Counts, per kernel of the built library's SASS (cuobjdump), the
+    instructions the designs promise: the bf16 K1 and K2 kernels must hold
+    tensor-core HGMMA (wgmma); K3 the asynchronous global -> shared copy
+    (LDGSTS, from cp.async); K4 fp64 fused multiply-adds (DFMA) and no
+    local-memory load or store (LDL / STL: its register arrays stayed in
+    registers). Raises where cuobjdump is missing. Returns the counts."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        log("sass: cuobjdump not found, not checked")
-        return {}
+        raise RuntimeError("cuobjdump not found: the library's SASS cannot be checked")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
-                if f" {op}." in line:
+            for op in SASS_OPS:
+                if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] += 1
     short = {}
     for fn, c in counts.items():
@@ -396,17 +551,44 @@ def sass_check(lib: Path, out_dir: Path) -> dict:
                                  "conv_tail_tc_kernel", "conv_tail_f32_kernel",
                                  "decode_attention_kernel", "logmel_kernel") if k in fn), fn)
         tag = "<64>" if "ILi64E" in fn else "<96>" if "ILi96E" in fn else ""
-        total = short.setdefault(name + tag, {"HGMMA": 0, "HMMA": 0})
+        total = short.setdefault(name + tag, dict.fromkeys(SASS_OPS, 0))
         for op in total:
             total[op] += c[op]
     (out_dir / "chip_smoke_sass.json").write_text(json.dumps(short, indent=1))
     for name, c in short.items():
-        log(f"  sass {name}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+        log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+
+    def need(name, op, present=True):
+        n = short.get(name, {}).get(op, 0 if present else 1)
+        if (n > 0) != present:
+            raise AssertionError(f"{name}: {op} x{n} in the built library's SASS, expected "
+                                 f"{'some' if present else 'none'}")
+
     for name in ("encoder_attention_tc_kernel<64>", "encoder_attention_tc_kernel<96>",
                  "conv_tail_tc_kernel"):
-        if short.get(name, {}).get("HGMMA", 0) == 0:
-            raise AssertionError(f"{name}: no HGMMA in the built library's SASS")
+        need(name, "HGMMA")
+    need("decode_attention_kernel", "LDGSTS")
+    need("logmel_kernel", "DFMA")
+    need("logmel_kernel", "LDL", present=False)
+    need("logmel_kernel", "STL", present=False)
     return short
+
+
+def ptxas_report(build_log: str, names=("decode_attention_kernel", "logmel_kernel")) -> None:
+    """Prints registers, spill bytes and shared memory of the named kernels
+    from the compiler's -Xptxas=-v output."""
+    import re
+
+    fn, spill = None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line:
+            log(f"  ptxas {fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn = None
 
 
 def make_audio(rng, batch: int, seconds_lo: float, seconds_hi: float):
@@ -458,7 +640,7 @@ def phase_serve(torch, label, model, settings, kernels, on_path, seed, profile=F
         f"len_penalty {s.len_penalty}, min_len {s.min_len}, batch 8")
     gen = SequenceGenerator(model, settings)
     rng = np.random.default_rng(seed)
-    batches = [make_audio(rng, 8, 2.0, 6.0) for _ in range(4)]
+    batches = [make_audio(rng, 8, 2.0, 6.0) for _ in range(SERVE_BATCHES + 1)]
 
     def serve(wav, mask):
         src = torch.tensor(wav, device="cuda")
@@ -494,16 +676,10 @@ def phase_serve(torch, label, model, settings, kernels, on_path, seed, profile=F
                                      f"[{s.min_len + 1}, {L}]")
     counts = {fn.__name__: fn.launches for fn in kernels}
     log(f"  launches during serve ({label}): {counts}")
-    n_batches = len(batches) - 1
     for name, n in counts.items():
-        if name in on_path and n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the {label} path")
-        if name not in on_path and n != 0:
-            raise AssertionError(f"kernel {name} is not on the {label} path but launched {n}x")
-        per_batch = on_path.get(name)
-        if per_batch is not None and n != per_batch * n_batches:
+        if n != on_path.get(name, 0) * SERVE_BATCHES:
             raise AssertionError(f"kernel {name} launched {n}x on the {label} path, not "
-                                 f"{per_batch} a batch")
+                                 f"{on_path.get(name, 0)} a batch")
     if profile:
         phase_profile(torch, label, serve, batches[1])
     return counts
@@ -553,15 +729,27 @@ def seeded_builder(torch, make):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="one more served batch per path under torch.profiler")
+    ap.add_argument("--parent", type=Path, metavar="DIR",
+                    help="a git archive of an earlier commit: its K3 and K4 are timed too")
+    ap.add_argument("--kernels-of", type=Path, metavar="DIR",
+                    help="only build the package of the tree under DIR, run phase 3's K3 and "
+                         "K4 cases on it and print their records")
+    args = ap.parse_args()
+    tree = (args.kernels_of or ROOT).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "chimera_st_tpu_torch" / "csrc").is_dir():
+    if not (tree / "chimera_st_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree))
     from chimera_st_tpu_torch.generation.generator import GeneratorSettings
     from chimera_st_tpu_torch.models.interlingua import ChimeraInterlinguaModel, InterlinguaConfig
     from chimera_st_tpu_torch.models.s2t_transformer import build_s2t_transformer
@@ -575,7 +763,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    profile = "--profile" in sys.argv[1:]
+    if args.kernels_of:
+        _build.build()
+        print(json.dumps({"kernels": phase_k3_k4(torch, decode_attention, logmel)}), flush=True)
+        return 0
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -593,15 +784,18 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_build.log").write_text(build_log or "")
+    if build_log:
+        ptxas_report(build_log)
     sass = sass_check(_build.library_path(), out_dir)
 
     # 3. kernels
     records = phase_kernels(torch, (encoder_attention, conv_tail, decode_attention, logmel))
+    if args.parent:
+        merge_parent(records, args.parent.resolve())
     kernels = [r.pop("launches_of") for r in records]
     for r in records:
-        ops = {op: sum(c[op] for name, c in sass.items() if name.startswith(r["name"]))
-               for op in ("HGMMA", "HMMA")}
-        r["tensor_core_sass"] = ops if sass else "not checked"
+        r["sass"] = {op: sum(c[op] for name, c in sass.items() if name.startswith(r["name"]))
+                     for op in SASS_OPS}
 
     # the two serving paths: seeded weights, decode settings, kernels on the path
     flagship_cfg = InterlinguaConfig(tgt_vocab_size=10000, src_vocab_size=10000)
@@ -612,8 +806,9 @@ def main() -> int:
                                      min_len=10),
             serve=GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5,
                                     min_len=30),
-            # launches a batch where fixed by the model (decode: by its steps)
-            on_path={"encoder_attention": 24, "conv_tail": 6, "decode_attention": None},
+            # launches a batch; K3: 6 decoder layers x 64 steps (with seeded random
+            # weights no batch finishes before max_decode_len)
+            on_path={"encoder_attention": 24, "conv_tail": 6, "decode_attention": 384},
             seed=2),
         "fbank": dict(
             build=seeded_builder(torch, lambda d: build_s2t_transformer(
@@ -621,7 +816,7 @@ def main() -> int:
                 device=d)),
             parity=GeneratorSettings(beam_size=5, max_decode_len=40),
             serve=GeneratorSettings(beam_size=5, max_decode_len=64),
-            on_path={"encoder_attention": 12, "decode_attention": None, "logmel": 1}, seed=3),
+            on_path={"encoder_attention": 12, "decode_attention": 384, "logmel": 1}, seed=3),
     }
 
     # 4. slice parity
@@ -633,13 +828,19 @@ def main() -> int:
     for label, p in paths.items():
         model = p["build"]("cuda", torch.bfloat16)
         counts[label] = phase_serve(torch, label, model, p["serve"], kernels, p["on_path"],
-                                    p["seed"], profile)
+                                    p["seed"], args.profile)
         del model
 
     # 6. report
     for r in records:
         r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())
+        if "steps_0_63_ms" in r:  # K3: the 64-step sweep times the counted launches
+            for label, shape in (("flagship", r), ("fbank", r["fbank_shape"])):
+                n = r["launches_per_path"][label] / SERVE_BATCHES
+                per_batch = n / 64 * shape["steps_0_63_ms"]
+                log(f"K3 {label}: {n:.0f} launches a batch x the "
+                    f"measured 64-step sweep = {per_batch:.3f} ms a batch, back to back")
     log(smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

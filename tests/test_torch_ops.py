@@ -289,6 +289,119 @@ def test_decode_attention_matches_jax_crosscol(cache_index):
                                    atol=1e-5, rtol=1e-5)
 
 
+def _k3_split_mirror(q, k_new, v_new, k_cache, v_cache, anc, step, beam, tile=64):
+    """numpy mirror of the K3 kernel's arithmetic (csrc/decode_attention.cu),
+    one (column, head) at a time: the column's new rows go into the cache;
+    time tiles of `tile` rows, the time-`step` row taken from k_new / v_new
+    of anc[step]'s column and never from the cache; rows past `step` never
+    touched; warp w of 4 takes rows (4 i + w) * 4 + g of a tile and keeps its
+    own online softmax in the log2 domain; the four partial (max, sum,
+    accumulator) are merged at the end. Updates the caches in place."""
+    N, H, D = q.shape
+    log2e = np.float32(1.4426950408889634)
+    scale = np.float32(D**-0.5) * log2e
+    k_before, v_before = k_cache.copy(), v_cache.copy()  # no block reads another's write
+    k_cache[:, :, step], v_cache[:, :, step] = k_new, v_new
+    out = np.zeros_like(q)
+    for col in range(N):
+        first_col = col // beam * beam
+        for h in range(H):
+            m = np.full(4, -np.inf, np.float32)
+            l = np.zeros(4, np.float32)
+            acc = np.zeros((4, D), np.float32)
+            for t0 in range(0, step + 1, tile):
+                for w in range(4):
+                    rows = [(4 * i + w) * 4 + g for i in range(tile // 16) for g in range(4)]
+                    ts = [t0 + r for r in rows if t0 + r <= step]
+                    if not ts:
+                        continue
+                    src = [first_col + anc[t, col] for t in ts]
+                    ks = np.stack([k_new[c, h] if t == step else k_before[c, h, t]
+                                   for c, t in zip(src, ts)])
+                    vs = np.stack([v_new[c, h] if t == step else v_before[c, h, t]
+                                   for c, t in zip(src, ts)])
+                    s = (ks @ q[col, h]) * scale
+                    m_new = max(m[w], s.max())
+                    alpha = np.exp2(m[w] - m_new)
+                    p = np.exp2(s - m_new)
+                    l[w] = l[w] * alpha + p.sum()
+                    acc[w] = acc[w] * alpha + p @ vs
+                    m[w] = m_new
+            wgt = np.exp2(m - m.max())
+            out[col, h] = (wgt @ acc) / (wgt @ l)
+    return out
+
+
+def _k3_inputs(rng, S, beam, H, L, D=64):
+    N = S * beam
+    q, k_new, v_new = (rng.normal(size=(N, H, D)).astype(np.float32) for _ in range(3))
+    kc, vc = (rng.normal(size=(N, H, L, D)).astype(np.float32) for _ in range(2))
+    anc = rng.integers(0, beam, size=(L + 1, N)).astype(np.int32)  # anc[step] not the identity
+    return q, k_new, v_new, kc, vc, anc
+
+
+@pytest.mark.parametrize("step, L, tile", [(0, 64, 64), (31, 64, 64), (32, 64, 64), (63, 64, 64),
+                                           (150, 200, 64), (40, 64, 32)])
+def test_decode_attention_split_mirror_matches_plain(step, L, tile):
+    """The K3 kernel's warp-split, tile-by-tile online softmax, mirrored in
+    numpy, vs the plain version: output within 1e-5 and the caches equal
+    exactly, with a random anc[step]. Cache rows past `step` are NaN: they
+    must never enter a product. Steps 0, 31, 32, 63 (warp-split edges of one
+    64-row tile), step 150 in a 200-long cache (three tiles) and the fp32
+    kernel's 32-row tile."""
+    rng = np.random.default_rng(400 + step)
+    q, k_new, v_new, kc, vc, anc = _k3_inputs(rng, 2, 3, 2, L)
+    kc[:, :, step + 1:], vc[:, :, step + 1:] = np.nan, np.nan
+    kc_t, vc_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    ref = decode_attention.decode_attention_plain(
+        *map(torch.from_numpy, (q, k_new, v_new)), kc_t, vc_t, torch.from_numpy(anc), step, 3)
+    got = _k3_split_mirror(q, k_new, v_new, kc, vc, anc, step, 3, tile)
+    np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(kc, kc_t.numpy())
+    np.testing.assert_array_equal(vc, vc_t.numpy())
+
+
+@pytest.mark.parametrize("cache_index, tile", [(0, 64), (31, 64), (32, 64), (63, 64), (40, 32)])
+def test_decode_attention_split_mirror_matches_jax_crosscol(cache_index, tile, monkeypatch):
+    """The mirrored K3 arithmetic, put in the place of the kernel inside the
+    port's MultiheadAttention.cached_step, vs the JAX crosscol lazy-reorder
+    branch on a random ancestry map; output and caches within 1e-5."""
+    import jax
+
+    from chimera_st_tpu_torch.models import layers
+
+    def mirrored(q, k_new, v_new, k_cache, v_cache, ancestry, index, beam):
+        kc, vc = k_cache.numpy(), v_cache.numpy()  # views: updated in place
+        return torch.from_numpy(_k3_split_mirror(q.numpy(), k_new.numpy(), v_new.numpy(), kc, vc,
+                                                 ancestry.numpy(), index, beam, tile))
+
+    monkeypatch.setattr(layers, "decode_attention", mirrored)
+    rng = np.random.default_rng(500 + cache_index)
+    B, K, H, D, L = 2, 3, 2, 64, 64
+    E, N = H * D, B * K
+    jmha = JaxMHA(E, H)
+    query = rng.normal(size=(N, 1, E)).astype(np.float32)
+    kc = rng.normal(size=(L, H, D, N)).astype(np.float32)  # JAX layout [L, H, D, N]
+    vc = rng.normal(size=(L, H, D, N)).astype(np.float32)
+    anc = rng.integers(0, K, size=(L + 1, N)).astype(np.int32)
+    params = jmha.init(jax.random.PRNGKey(0), jnp.asarray(query))
+    out_j, cache_j = jmha.apply(
+        params, jnp.asarray(query), cache={"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        cache_index=jnp.asarray(cache_index), cache_ancestry=jnp.asarray(anc[:L]),
+        ancestry_groups=K,
+    )
+    mha = _port_mha_from_flax(params["params"], E, H)
+    k_cache = torch.from_numpy(kc.transpose(3, 1, 0, 2).copy())  # port layout [N, H, L, D]
+    v_cache = torch.from_numpy(vc.transpose(3, 1, 0, 2).copy())
+    with torch.no_grad():
+        out = mha.cached_step(torch.from_numpy(query), k_cache, v_cache,
+                              torch.from_numpy(anc), cache_index, K)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-5)
+    for got, ref in ((k_cache, cache_j["k"]), (v_cache, cache_j["v"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref).transpose(3, 1, 0, 2),
+                                   atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize(
     "entry", ["encoder_attention", "conv_tail", "decode_attention", "logmel"])
 def test_cuda_entry_refuses_cpu_tensors(entry):
