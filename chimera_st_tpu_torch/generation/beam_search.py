@@ -9,6 +9,10 @@ finished hypotheses on the device. Kept from the reference:
 - eos banned while a hypothesis is at or below ``min_len``; eos forced once
   ``max_lens`` real tokens were emitted (per sentence); pad never chosen;
   the unk penalty;
+- a forced prefix keeps the model's own log-prob of the forced token (pad
+  in the prefix forces nothing); an n-gram ban bans every token that would
+  complete an n-gram the hypothesis already holds, the bos seed included,
+  and none while fewer than n-1 tokens stand;
 - ``NEG_INF = -1e7``; a candidate whose score carries a NEG_INF ban is not
   finalised (the ``0.5 * NEG_INF`` guard);
 - score = sum of token log-probs (incl. eos) / length ** len_penalty;
@@ -41,6 +45,24 @@ def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
+def _ngram_bans(alive_seq: torch.Tensor, i: int, n: int, vocab: int) -> torch.Tensor:
+    """[B, K, V] True where a token would complete an n-gram already in
+    ``alive_seq[..., :i + 1]``: the trailing n-1 tokens are compared with
+    every window j .. j+n-2 that ends before position i, and the token after
+    a matching window is banned. Needs ``i >= n - 1``."""
+    B, K = alive_seq.shape[:2]
+    followers = alive_seq[:, :, n - 1:i + 1]  # token after window j, j = 0 .. i-n+1
+    if n == 1:
+        match = torch.ones_like(followers, dtype=torch.bool)
+    else:
+        tail = alive_seq[:, :, i - (n - 2):i + 1]  # [B, K, n-1]
+        windows = alive_seq[:, :, :i].unfold(2, n - 1, 1)  # [B, K, i-n+2, n-1]
+        match = (windows == tail[:, :, None, :]).all(dim=-1)
+    bans = torch.zeros((B, K, vocab), dtype=torch.int32, device=alive_seq.device)
+    bans.scatter_add_(2, followers, match.to(torch.int32))
+    return bans > 0
+
+
 def beam_search(
     step_fn: Callable,  # (tokens [B*K, 1], index, caches) -> (logprobs [B*K, V] fp32, caches)
     init_caches: Any,
@@ -58,6 +80,8 @@ def beam_search(
     unk_penalty: float = 0.0,
     max_lens: Optional[torch.Tensor] = None,  # [B] per-sentence max real tokens
     min_lens: Optional[torch.Tensor] = None,  # [B] per-sentence min length
+    prefix_tokens: Optional[torch.Tensor] = None,  # [B, P] forced prefix (pad = none)
+    no_repeat_ngram_size: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (tokens [B, K, max_len], scores [B, K], lengths [B, K]),
     best first along K. Tokens exclude the bos seed, include eos, and are
@@ -114,6 +138,14 @@ def beam_search(
         eos_only = torch.full_like(logprobs, NEG_INF)
         eos_only[:, :, eos] = logprobs[:, :, eos]
         logprobs = torch.where(at_max, eos_only, logprobs)
+        if prefix_tokens is not None and i < prefix_tokens.shape[1]:
+            forced = prefix_tokens[:, i].long()  # [B]
+            is_forced_tok = torch.arange(V, device=device)[None, :] == forced[:, None]
+            forced_rows = torch.where(is_forced_tok[:, None, :], logprobs, NEG_INF)
+            logprobs = torch.where((forced != pad)[:, None, None], forced_rows, logprobs)
+        if no_repeat_ngram_size > 0 and i >= no_repeat_ngram_size - 1:
+            logprobs = torch.where(_ngram_bans(alive_seq, i, no_repeat_ngram_size, V),
+                                   NEG_INF, logprobs)
 
         # flat top-2K over [B, K*V]
         cand = (alive_scores[:, :, None] + logprobs).reshape(B, K * V)

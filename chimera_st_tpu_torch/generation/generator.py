@@ -24,8 +24,8 @@ from .beam_search import beam_search
 @dataclass
 class GeneratorSettings:
     """The JAX package's GeneratorSettings fields that the default beam path
-    reads (sampling, n-gram bans, diverse beams and the TPU cache options
-    are left out)."""
+    reads (sampling, diverse beams and the TPU cache options are left
+    out)."""
 
     beam_size: int = 5
     max_len_a: float = 0.0
@@ -37,6 +37,8 @@ class GeneratorSettings:
     len_penalty: float = 1.0
     unk_penalty: float = 0.0
     max_decode_len: int = 256
+    temperature: float = 1.0
+    no_repeat_ngram_size: int = 0
 
 
 class SequenceGenerator:
@@ -44,7 +46,12 @@ class SequenceGenerator:
     padding_mask) -> (encoder_out, encoder_padding_mask)`` and a
     ``TransformerDecoder`` as ``.decoder``: the interlingua model (fixed
     memory bank, mask None) and the fbank S2T transformer (padded encoder
-    states and their mask)."""
+    states and their mask). ``generate_text`` needs the model's
+    ``encode_text`` (the interlingua model's text branch)."""
+
+    # the generate CLI forces reference prefixes (--prefix-size) only through
+    # generators that say they implement it
+    supports_prefix = True
 
     def __init__(self, model: torch.nn.Module, settings: GeneratorSettings,
                  pad: int = 1, eos: int = 2, unk: int = 3, bos: Optional[int] = None):
@@ -69,7 +76,8 @@ class SequenceGenerator:
     def generate_from_encoder(self, encoder_out: torch.Tensor,
                               encoder_padding_mask: Optional[torch.Tensor],
                               max_lens: Optional[torch.Tensor] = None,
-                              min_lens: Optional[torch.Tensor] = None):
+                              min_lens: Optional[torch.Tensor] = None,
+                              prefix_tokens: Optional[torch.Tensor] = None):
         decoder = self.model.decoder
         B, K, L = encoder_out.shape[0], self.s.beam_size, self.s.max_decode_len
         device = encoder_out.device
@@ -82,6 +90,8 @@ class SequenceGenerator:
 
         def step_fn(tokens, index, anc):
             logits = decoder.step(tokens, index, kv_caches, enc_kv, encoder_padding_mask, anc, K)
+            if self.s.temperature != 1.0:
+                logits = logits / self.s.temperature
             return torch.log_softmax(logits, dim=-1), anc
 
         def reorder_fn(anc, picked_beam, index):
@@ -93,20 +103,34 @@ class SequenceGenerator:
             step_fn, ancestry, batch_size=B, beam_size=K, max_len=L, eos=self.eos, pad=self.pad,
             reorder_fn=reorder_fn, device=device, bos=self.bos, min_len=self.s.min_len,
             len_penalty=self.s.len_penalty, unk=self.unk, unk_penalty=self.s.unk_penalty,
-            max_lens=max_lens, min_lens=min_lens,
+            max_lens=max_lens, min_lens=min_lens, prefix_tokens=prefix_tokens,
+            no_repeat_ngram_size=self.s.no_repeat_ngram_size,
         )
 
-    @torch.inference_mode()
-    def generate_audio(self, source: torch.Tensor, padding_mask: torch.Tensor,
-                       src_lengths: Optional[torch.Tensor] = None):
-        """source [B, T] waveform, padding_mask [B, T] True = pad ->
-        (tokens [B, K, max_decode_len], scores [B, K], lengths [B, K])."""
-        enc, enc_mask = self.model.encode_audio(source, padding_mask)
+    def _generate(self, enc, enc_mask, src_lengths, prefix_tokens):
         max_lens = min_lens = None
         if src_lengths is not None:
             max_lens = self.max_lens_for_src(src_lengths)
             min_lens = self.min_lens_for_src(src_lengths)
-        return self.generate_from_encoder(enc, enc_mask, max_lens, min_lens)
+        return self.generate_from_encoder(enc, enc_mask, max_lens, min_lens, prefix_tokens)
+
+    @torch.inference_mode()
+    def generate_audio(self, source: torch.Tensor, padding_mask: torch.Tensor,
+                       src_lengths: Optional[torch.Tensor] = None,
+                       prefix_tokens: Optional[torch.Tensor] = None):
+        """source [B, T] waveform, padding_mask [B, T] True = pad ->
+        (tokens [B, K, max_decode_len], scores [B, K], lengths [B, K])."""
+        enc, enc_mask = self.model.encode_audio(source, padding_mask)
+        return self._generate(enc, enc_mask, src_lengths, prefix_tokens)
+
+    @torch.inference_mode()
+    def generate_text(self, src_tokens: torch.Tensor,
+                      src_lengths: Optional[torch.Tensor] = None,
+                      prefix_tokens: Optional[torch.Tensor] = None):
+        """src_tokens [B, T] int, pad = the model's padding index -> as
+        ``generate_audio``."""
+        enc, enc_mask = self.model.encode_text(src_tokens)
+        return self._generate(enc, enc_mask, src_lengths, prefix_tokens)
 
     @staticmethod
     def to_hypotheses(tokens, scores, lens, nbest: int = 1) -> List[List[Dict[str, Any]]]:

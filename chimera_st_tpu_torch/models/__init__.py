@@ -1,1 +1,72 @@
-"""Model modules of the serving path (inference only)."""
+"""Model modules of the serving path (inference only), and the registry of
+the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``
+and the seven fbank ``s2t_transformer*`` presets (counterpart of the
+registrations in chimera_st_tpu/models/).
+
+A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
+function that fills a config dict with its preset's defaults. A field the
+port cannot honour raises instead of being dropped."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
+from . import s2t_transformer as _s2t
+from .interlingua import ChimeraInterlinguaModel, InterlinguaConfig
+
+
+def _known(config_cls, cfg_dict: Dict) -> Dict:
+    """The fields of ``config_cls`` in ``cfg_dict``; sequences as tuples."""
+    names = {f.name for f in dataclasses.fields(config_cls)}
+    out = {k: v for k, v in cfg_dict.items() if k in names}
+    for k in ("conv_kernel_sizes", "w2v2_conv_spec"):
+        if isinstance(out.get(k), (list, tuple)):
+            out[k] = tuple(tuple(x) if isinstance(x, (list, tuple)) else x for x in out[k])
+    return out
+
+
+@register_model("s2t_transformer_w2v2_interlingua")
+def build_interlingua_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlinguaModel:
+    if not cfg_dict.get("share_decoder_input_output_embed", True):
+        raise NotImplementedError("the port's decoder ties its output projection to "
+                                  "embed_tokens (share_decoder_input_output_embed=True)")
+    if cfg_dict.get("w2v2_extractor_mode", "default") != "default":
+        raise NotImplementedError("the wav2vec2 extractor's layer_norm mode is not ported yet "
+                                  "(ROADMAP A3)")
+    return ChimeraInterlinguaModel(InterlinguaConfig(**_known(InterlinguaConfig, cfg_dict)),
+                                   device=device)
+
+
+@register_model_architecture("s2t_transformer_w2v2_interlingua",
+                             "s2t_transformer_w2v2_interlingua_base")
+def interlingua_base(cfg: Dict) -> Dict:
+    d = dict(cfg)
+    d.setdefault("encoder_embed_dim", 512)
+    d.setdefault("encoder_ffn_dim", 2048)
+    d.setdefault("encoder_layers", 12)
+    d.setdefault("encoder_heads", 8)
+    d.setdefault("decoder_embed_dim", d["encoder_embed_dim"])
+    d.setdefault("decoder_ffn_dim", d["encoder_ffn_dim"])
+    d.setdefault("decoder_layers", 6)
+    d.setdefault("decoder_heads", 8)
+    d.setdefault("activation", "relu")
+    d.setdefault("conv_kernel_sizes", (5, 5))
+    d.setdefault("conv_channels", 1024)
+    d.setdefault("interlingua_length", 16)
+    d.setdefault("interlingua_layers", 3)
+    return d
+
+
+@register_model("s2t_transformer")
+def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
+    return _s2t.S2TTransformerModel(
+        _s2t.S2TTransformerConfig(**_known(_s2t.S2TTransformerConfig, cfg_dict)), device=device)
+
+
+for _arch, _preset in _s2t.ARCHITECTURES.items():
+    register_model_architecture("s2t_transformer", _arch)(_preset)
+
+__all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",
+           "build_interlingua_model", "build_s2t_model"]

@@ -1,0 +1,11 @@
+from ..config.registry import TASKS
+from .base import ChimeraTask
+from . import speech_to_text, triplet  # noqa: F401 — registration
+
+
+def setup_task(cfg: dict, **kwargs) -> ChimeraTask:
+    name = cfg.get("_name")
+    return TASKS.get(name).setup_task(cfg, **kwargs)
+
+
+__all__ = ["ChimeraTask", "setup_task", "TASKS"]

@@ -23,7 +23,8 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels - holds each kernel against its plain PyTorch version, batch 8
              unless stated: K1 (encoder attention) at the flagship shapes,
              at the fbank encoder's (4 heads), at a 30 s trunk (batch 2,
-             T 1,499) and at T 65; K2 (conv tail) on 6 s and, at batch 3,
+             T 1,499), at T 65 and at the trunk shape of a released
+             checkpoint (12 heads of 64, T 299); K2 (conv tail) on 6 s and, at batch 3,
              1.5 s inputs; K3 (beam-step decode attention) at beam 10 /
              8 heads and beam 5 / 4 heads, each at steps 0, 31 and 63 of a
              64-long cache and, with 2 sentences, at step 150 of a 200-long
@@ -57,16 +58,37 @@ Phases (any failure raises and the script exits non-zero):
              path must have launched, and no other. The counts are exact:
              per batch K1 24 (flagship) or 12 (fbank), K2 6, K4 1, K3 384
              (6 decoder layers x 64 steps).
-6. report  - one JSON line {"kernels": [...]} ("launches" sums both paths'
-             serve runs, "launches_per_path" splits them), then the contract
-             line {"ok": true, "device": {...}} as the last line of stdout.
+6. cli     - the entry points a user starts, on a fixture made from a seed
+             under a temporary directory with the port's own code: 24 wavs of
+             2-6 s, a manifest, 10,000-entry dictionaries, config_wave.yaml
+             (as JSON) and a fairseq-layout .pt of the flagship model
+             (weight-normed pos_conv, pretraining heads, args with the nested
+             w2v_args of a released checkpoint: 12 trunk heads).
+             checkpoint: the .pt read back through the CLI's loader equals
+             the seeded model. cli_parity: cli.generate on the card and with
+             --device cpu in fp32: every sample has its S-/H-/D-/P- lines,
+             best hypotheses identical as strings, scores within 1e-4 (plus
+             the two roundings to the four printed decimals), the same corpus
+             BLEU line. cli_serve: the same command in bf16, launch counts
+             zeroed before and read after: K1 24 and K2 6 a batch, K3 6 a
+             decode step that ran; prints {"cli": {...}} (sentences, wall_s,
+             sentences_per_s, load_s, data_s = reading and collating the
+             batches alone, launches). interactive: 4 wav paths
+             from a file, 2 a buffer, against cli.generate on the same wavs
+             in batches of 2. text: generate_text on the card against the
+             CPU, fp32, token-identical (K1 at text shapes, K3).
+7. report  - one JSON line {"kernels": [...]} ("launches" sums the four
+             driven paths: both serve runs, cli_serve and text;
+             "launches_per_path" splits them), then the contract line
+             {"ok": true, "device": {...}} as the last line of stdout.
 
 With --kernels-of DIR the script only builds the package of the tree under
 DIR and runs phase 3's K3 and K4 cases on it (what --parent starts).
 
 With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
-of the wall time and the device time by kernel.
+of the wall time and the device time by kernel; cli_serve runs its command
+once more under the profiler and prints the device's busy seconds.
 
 Longer logs (the compiler's register/shared-memory report, the profiles) go
 to chiprun_out/.
@@ -491,12 +513,13 @@ def phase_kernels(torch, ops):
 
     # ---- K1: wav2vec2 trunk (T 299, D 96), shared encoder (T 75, D 64),
     # fbank encoder of a 6 s utterance (598 frames -> T 150, H 4, D 64), a
-    # 30 s trunk (T 1,499: no cap on T), T 65 (one ragged key and query tile)
+    # 30 s trunk (T 1,499: no cap on T), T 65 (one ragged key and query tile),
+    # and the trunk as a released checkpoint builds it (12 heads of 64)
     log("K1 encoder_attention")
     k1 = {label: k1_case(torch, enc_attn, tensor, label, B, T, H, D)
           for label, B, T, H, D in (("trunk", 8, 299, 8, 96), ("shared", 8, 75, 8, 64),
                                     ("fbank", 8, 150, 4, 64), ("trunk_30s", 2, 1499, 8, 96),
-                                    ("ragged", 8, 65, 8, 64))}
+                                    ("ragged", 8, 65, 8, 64), ("trunk_h12", 8, 299, 12, 64))}
     records.append(dict(name="encoder_attention", route="cuda",
                         source="chimera_st_tpu_torch/csrc/encoder_attention.cu",
                         replaces="chimera_st_tpu/ops/pallas_attention.py:31",
@@ -728,6 +751,342 @@ def seeded_builder(torch, make):
     return build
 
 
+# ---- the CLI phases: a data directory and a fairseq-layout checkpoint made
+# from a seed, then the port's generate / interactive entry points on them
+
+CLI_WAVS = 24
+CLI_BATCH = 8
+W2V_CONV_FEATURE_LAYERS = "[(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512,2,2)] * 2"
+
+
+def fairseq_state_dict(torch, model):
+    """The state dict of the port's interlingua model in the layout of a
+    fairseq fine-tune checkpoint (the inverse of
+    checkpoint/torch_import.import_interlingua_state_dict): ``pos_conv``
+    weight-normed (``weight_g`` the norm over dims 0 and 1, ``weight_v`` a
+    rescaled copy), the tied ``output_projection`` alias, the trunk's
+    pretraining-only heads and the sinusoidal dummies."""
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    key = "encoder.wav2vec_model.encoder.pos_conv.0."
+    w = sd.pop(key + "weight")
+    sd[key + "weight_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    sd[key + "weight_v"] = 0.5 * w
+    sd["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"]
+    dim = model.cfg.w2v2_embed_dim
+    sd["encoder.wav2vec_model.mask_emb"] = torch.rand(dim)
+    sd["encoder.wav2vec_model.final_proj.weight"] = torch.zeros(256, dim)
+    sd["encoder.wav2vec_model.final_proj.bias"] = torch.zeros(256)
+    sd["encoder.embed_positions._float_tensor"] = torch.zeros(1)
+    sd["decoder.embed_positions._float_tensor"] = torch.zeros(1)
+    return sd
+
+
+def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int = 7) -> dict:
+    """Writes, with the port's own code: 24 wavs of 2-6 s (lengths multiples
+    of 1,280 samples, the interactive CLI's padding step), the manifests
+    ``tst_wave.tsv`` (all 24) and ``pairs.tsv`` (4 of them, longest first),
+    10,000-entry target and source dictionaries, ``config_wave.yaml`` (as
+    JSON, which is YAML) and a fairseq-layout ``.pt`` of the interlingua
+    model ``cfg`` with seeded random weights, its ``args`` a Namespace with
+    the trunk's dimensions nested under ``w2v_args`` as a released checkpoint
+    has them (``conv_feature_layers`` is the expression string that stands
+    for ``cfg.w2v2_conv_spec``). Returns the paths and the seeded model."""
+    from argparse import Namespace
+
+    from chimera_st_tpu_torch.data.audio import write_wav
+    from chimera_st_tpu_torch.models.interlingua import ChimeraInterlinguaModel, init_params_
+
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True)
+    words = [f"w{i}" for i in range(10000 - 4)]  # + bos, pad, eos, unk = 10,000
+    for name in ("dict.txt", "src_dict.txt"):
+        (root / name).write_text("".join(f"{w} 1\n" for w in words))
+    rows = []
+    for i in range(CLI_WAVS):
+        n = 1280 * int(rng.integers(25, 76))  # 2.0 .. 6.0 s
+        write_wav(str(root / "wavs" / f"u{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+        src = " ".join(rng.choice(words, size=int(rng.integers(5, 25))))
+        tgt = " ".join(rng.choice(words, size=int(rng.integers(5, 25))))
+        rows.append((f"u{i}", f"wavs/u{i}.wav:0:{n}", n, src, tgt))
+    header = "id\taudio\tn_frames\tsrc_text\ttgt_text\n"
+    (root / "tst_wave.tsv").write_text(
+        header + "".join("\t".join(map(str, r)) + "\n" for r in rows))
+    pairs = sorted(rows[:8], key=lambda r: -r[2])[:4]
+    if len({r[2] for r in pairs}) != 4:
+        raise AssertionError("the four interactive wavs need distinct lengths")
+    (root / "pairs.tsv").write_text(
+        header + "".join("\t".join(map(str, r)) + "\n" for r in pairs))
+    (root / "pairs.txt").write_text("".join(f"{root}/wavs/{r[0]}.wav\n" for r in pairs))
+    (root / "config_wave.yaml").write_text(json.dumps({
+        "audio_root": str(root), "use_audio_input": True, "vocab_filename": "dict.txt",
+        "src_vocab_filename": "src_dict.txt"}))
+
+    model = init_params_(ChimeraInterlinguaModel(cfg, device="cpu"),
+                         torch.Generator().manual_seed(seed)).eval()
+    w2v_args = Namespace(
+        encoder_embed_dim=cfg.w2v2_embed_dim, encoder_ffn_embed_dim=cfg.w2v2_ffn_dim,
+        encoder_layers=cfg.w2v2_layers, encoder_attention_heads=cfg.w2v2_heads,
+        conv_pos=cfg.w2v2_conv_pos, conv_pos_groups=cfg.w2v2_conv_pos_groups,
+        conv_feature_layers=conv_feature_layers, extractor_mode="default", conv_bias=False)
+    ckpt_args = Namespace(
+        arch="s2t_transformer_w2v2_interlingua_base", encoder_embed_dim=cfg.encoder_embed_dim,
+        encoder_ffn_embed_dim=cfg.encoder_ffn_dim, encoder_layers=cfg.encoder_layers,
+        encoder_attention_heads=cfg.encoder_heads, decoder_embed_dim=cfg.decoder_embed_dim,
+        decoder_ffn_embed_dim=cfg.decoder_ffn_dim, decoder_layers=cfg.decoder_layers,
+        decoder_attention_heads=cfg.decoder_heads, interlingua_length=cfg.interlingua_length,
+        interlingua_layers=cfg.interlingua_layers,
+        conv_kernel_sizes=",".join(map(str, cfg.conv_kernel_sizes)),
+        conv_channels=cfg.conv_channels, activation_fn=cfg.activation,
+        share_decoder_input_output_embed=True, max_target_positions=cfg.max_target_positions,
+        w2v_args=w2v_args)
+    ckpt = root / "chimera_seeded.pt"
+    torch.save({"args": ckpt_args, "model": fairseq_state_dict(torch, model)}, str(ckpt))
+    log(f"fixture: {CLI_WAVS} wavs, {sum(r[2] for r in rows) / 16000:.1f} s of audio, "
+        f"dictionaries of 10000, {ckpt.name} {ckpt.stat().st_size / 1e6:.0f} MB "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    return dict(root=root, ckpt=ckpt, model=model, ids=[r[0] for r in rows])
+
+
+def parse_protocol(text: str):
+    """-> ({sample id: [(score, hypothesis), ...]} from the H- lines, the ids
+    that have all of S-/H-/D-/P-, the last line)."""
+    hyps, kinds = {}, {}
+    for line in text.splitlines():
+        head, _, rest = line.partition("\t")
+        if len(head) > 2 and head[1] == "-" and head[0] in "STHDPW" and head[2:].isdigit():
+            sid = int(head[2:])
+            kinds.setdefault(sid, set()).add(head[0])
+            if head[0] == "H":
+                score, _, hyp = rest.partition("\t")
+                hyps.setdefault(sid, []).append((float(score), hyp))
+    full = {sid for sid, k in kinds.items() if {"S", "H", "D", "P"} <= k}
+    return hyps, full, (text.strip().splitlines() or [""])[-1]
+
+
+def cli_generate(fx, out_dir: Path, subset: str, extra):
+    """The port's generate CLI on the fixture -> (its output file's text,
+    its returned counts and times, the wall seconds of the whole call)."""
+    from chimera_st_tpu_torch.cli import generate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    stats = generate.main([
+        str(fx["root"]), "--task", "triplet", "--path", str(fx["ckpt"]), "--gen-subset", subset,
+        "--beam", "10", "--lenpen", "1.5", "--max-decode-len", "64", "--scoring", "bleu",
+        "--results-path", str(out_dir), *extra])
+    return ((out_dir / f"generate-{subset}.txt").read_text(), stats,
+            time.perf_counter() - t0)
+
+
+def same_hypotheses(label, got, want, n_ids):
+    """Best hypotheses identical as strings, scores within 1e-4."""
+    if sorted(got) != sorted(want) or len(got) != n_ids:
+        raise AssertionError(f"{label}: sample ids {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for sid, ((score, hyp), *_) in got.items():
+        want_score, want_hyp = want[sid][0]
+        if hyp != want_hyp:
+            raise AssertionError(f"{label}: sample {sid} differs:\n  {hyp}\n  {want_hyp}")
+        worst = max(worst, abs(score - want_score))
+    # both scores are printed with four decimals: allow the rounding of each
+    check(f"{label}: {n_ids} best hypotheses identical as strings; scores", worst, 1e-4 + 1e-4)
+
+
+def phase_checkpoint(torch, fx):
+    """The fairseq-layout checkpoint read back through the CLI's loader is
+    the seeded model: every tensor equal (the folded weight norm to 1e-6)."""
+    from chimera_st_tpu_torch.cli.generate import load_model_and_params
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "triplet", "data": str(fx["root"]),
+                       "config_yaml": "config_wave.yaml"})
+    t0 = time.perf_counter()
+    model = load_model_and_params(str(fx["ckpt"]), task, torch.float32, "cuda")
+    load_s = time.perf_counter() - t0
+    if model.cfg != fx["model"].cfg:
+        raise AssertionError(f"config inferred from the checkpoint: {model.cfg}")
+    want = fx["model"].state_dict()
+    got = {k: v.cpu() for k, v in model.state_dict().items()}
+    if sorted(got) != sorted(want):
+        raise AssertionError("the loaded model's tensors are not the seeded model's")
+    worst = max(max_err(got[k], want[k]) for k in want)
+    check(f"checkpoint: .pt -> importer -> model on the card in {load_s:.1f} s, "
+          f"{len(want)} tensors vs the seeded model", worst, 1e-6)
+    return task, model
+
+
+def phase_cli_parity(torch, fx, work: Path):
+    """fp32: the generate CLI on the card (kernels) and with --device cpu
+    (plain versions), the same arguments otherwise."""
+    log(f"cli_parity: generate CLI, fp32, {CLI_WAVS} wavs in batches of {CLI_BATCH}, beam 10, "
+        "card vs --device cpu")
+    common = ["--batch-size", str(CLI_BATCH), "--dtype", "float32"]
+    gpu_text, _, gpu_s = cli_generate(fx, work / "parity_cuda", "tst_wave", common)
+    cpu_text, _, cpu_s = cli_generate(fx, work / "parity_cpu", "tst_wave",
+                                      common + ["--device", "cpu"])
+    log(f"  card {gpu_s:.1f} s, CPU {cpu_s:.1f} s")
+    (gh, gfull, glast), (ch, cfull, clast) = parse_protocol(gpu_text), parse_protocol(cpu_text)
+    if len(gfull) != CLI_WAVS or len(cfull) != CLI_WAVS:
+        raise AssertionError(f"samples with S-/H-/D-/P- lines: card {len(gfull)}, CPU "
+                             f"{len(cfull)}, expected {CLI_WAVS}")
+    same_hypotheses("cli_parity", gh, ch, CLI_WAVS)
+    if glast != clast or not glast.startswith("Generate tst_wave with beam=10: BLEU4 = "):
+        raise AssertionError(f"corpus score lines differ:\n  {glast}\n  {clast}")
+    log(f"  {glast}")
+
+
+def phase_cli_serve(torch, fx, work: Path, kernels, profile=False):
+    """bf16: the README's operating point through the generate CLI, full
+    width, depth not cut; launch counts zeroed just before and read just
+    after. Returns the counts."""
+    from chimera_st_tpu_torch.models.transformer_decoder import TransformerDecoder
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    log(f"cli_serve: generate CLI, bf16, {CLI_WAVS} wavs in batches of {CLI_BATCH}, beam 10, "
+        "lenpen 1.5")
+    serve_args = ["--batch-size", str(CLI_BATCH), "--dtype", "bfloat16"]
+    steps = [0]
+    decoder_step = TransformerDecoder.step
+
+    def counted_step(self, *args, **kwargs):
+        steps[0] += 1
+        return decoder_step(self, *args, **kwargs)
+
+    for fn in kernels:
+        fn.launches = 0
+    TransformerDecoder.step = counted_step
+    try:
+        text, stats, wall = cli_generate(fx, work / "serve", "tst_wave", serve_args)
+        torch.cuda.synchronize()
+    finally:
+        TransformerDecoder.step = decoder_step
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    hyps, full, last = parse_protocol(text)
+    if len(full) != CLI_WAVS or stats["sentences"] != CLI_WAVS:
+        raise AssertionError(f"cli_serve translated {stats['sentences']} sentences, "
+                             f"{len(full)} with all lines")
+    for sid, ((score, hyp), *_) in hyps.items():
+        if not np.isfinite(score) or not hyp:
+            raise AssertionError(f"cli_serve: sample {sid}: score {score}, hypothesis {hyp!r}")
+    batches = -(-CLI_WAVS // CLI_BATCH)
+    # per batch: 12 trunk + 12 shared encoder layers, 6 conv-tail layers; per
+    # decode step that ran: 6 decoder layers
+    implied = {"encoder_attention": 24 * batches, "conv_tail": 6 * batches,
+               "decode_attention": 6 * steps[0], "logmel": 0}
+    log(f"  {batches} batches, {steps[0]} decode steps; launches {counts}")
+    if counts != implied or steps[0] == 0:
+        raise AssertionError(f"cli_serve launches {counts}, the batches imply {implied}")
+    # the host's share that is the data layer: the same batches read and
+    # collated with no model behind them (the CLI overlaps it on a thread)
+    task = setup_task({"_name": "triplet", "data": str(fx["root"]),
+                       "config_yaml": "config_wave.yaml"})
+    t0 = time.perf_counter()
+    n_read = sum(b["nsentences"] for b in task.make_batch_iterator(
+        task.dataset("tst_wave"), max_sentences=CLI_BATCH).next_epoch_itr(shuffle=False))
+    data_s = time.perf_counter() - t0
+    if n_read != CLI_WAVS:
+        raise AssertionError(f"the batch iterator yielded {n_read} sentences")
+    rec = {"sentences": stats["sentences"], "wall_s": wall,
+           "sentences_per_s": stats["sentences"] / stats["decode_s"],
+           "load_s": stats["load_s"], "decode_s": stats["decode_s"], "data_s": data_s,
+           "decode_steps": steps[0], "launches": counts}
+    log(f"  {last}")
+    log(f"  wall {wall:.2f} s = load {stats['load_s']:.2f} + batches {stats['decode_s']:.2f} + "
+        f"set-up {wall - stats['load_s'] - stats['decode_s']:.2f}; reading and collating the "
+        f"{batches} batches alone takes {data_s:.3f} s")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, pstats, _ = cli_generate(fx, work / "serve_profiled", "tst_wave", serve_args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            raise RuntimeError("torch.profiler recorded no device events")
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        rec["profiled"] = {"decode_s": pstats["decode_s"], "load_s": pstats["load_s"],
+                           "device_busy_s": busy_s,
+                           "device_launches": sum(e.count for e in events)}
+        log(f"  under torch.profiler: batches {pstats['decode_s']:.2f} s, device busy "
+            f"{busy_s:.3f} s over load and batches = "
+            f"{100 * busy_s / (pstats['decode_s'] + pstats['load_s']):.1f} % of them, "
+            f"{rec['profiled']['device_launches']} launches")
+    print(json.dumps({"cli": rec}), flush=True)
+    return counts
+
+
+def phase_interactive(torch, fx, work: Path):
+    """The interactive CLI on a file of 4 wav paths, 2 a buffer, against the
+    generate CLI on a manifest of the same wavs in batches of 2 (both pad a
+    pair to its longer wav), fp32 on the card."""
+    import contextlib
+    import io
+
+    from chimera_st_tpu_torch.cli import interactive
+
+    log("interactive: 4 wav paths from a file, --buffer-size 2, fp32, vs the generate CLI")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        interactive.main([
+            str(fx["root"]), "--task", "triplet", "--path", str(fx["ckpt"]), "--beam", "10",
+            "--lenpen", "1.5", "--max-decode-len", "64", "--dtype", "float32",
+            "--input", str(fx["root"] / "pairs.txt"), "--buffer-size", "2"])
+    got, full, _ = parse_protocol(buf.getvalue())
+    if len(full) != 4 or buf.getvalue().count("\nW-") + buf.getvalue().startswith("W-") != 4:
+        raise AssertionError(f"interactive output:\n{buf.getvalue()[:2000]}")
+    text, _, _ = cli_generate(fx, work / "pairs", "pairs",
+                              ["--batch-size", "2", "--dtype", "float32"])
+    want, _, _ = parse_protocol(text)
+    # the manifest's rows are longest first, as the input file: ids 0..3 agree
+    same_hypotheses("interactive vs generate", got, want, 4)
+
+
+def phase_text(torch, fx, task, kernels):
+    """generate_text on the card (K1 at text shapes, K3) vs the CPU, fp32:
+    8 source sentences of the manifest, padded to a multiple of 16."""
+    from chimera_st_tpu_torch.data.batching import collate_tokens, round16
+    from chimera_st_tpu_torch.data.manifests import load_tsv
+    from chimera_st_tpu_torch.cli.generate import load_model_and_params
+    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+
+    d = task.source_dictionary
+    rows = load_tsv(str(fx["root"] / "tst_wave.tsv"))[:8]
+    encoded = [d.encode_line(r["src_text"]) for r in rows]
+    src = collate_tokens(encoded, d.pad(), target_len=round16(max(len(e) for e in encoded)))
+    lengths = np.asarray([len(e) for e in encoded], np.int64)
+    log(f"text: generate_text, fp32, 8 sentences of {lengths.min()}..{lengths.max()} tokens "
+        f"padded to {src.shape[1]}, beam 10, card vs CPU")
+    settings = GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5, min_len=10)
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        model = load_model_and_params(str(fx["ckpt"]), task, torch.float32, device)
+        gen = SequenceGenerator(model, settings, pad=d.pad(), eos=d.eos(), unk=d.unk())
+        for fn in kernels:
+            fn.launches = 0
+        toks, scores, lens = gen.generate_text(
+            torch.from_numpy(src).long().to(device), torch.from_numpy(lengths).to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in kernels}
+        elif any(fn.launches for fn in kernels):
+            raise AssertionError("a kernel was launched for CPU tensors")
+        out[device] = [t.cpu() for t in (toks, scores, lens)]
+        del model, gen
+    (tg, sg, lg), (tc, sc, lc) = out["cuda"], out["cpu"]
+    if not torch.equal(tg[:, 0], tc[:, 0]) or not torch.equal(lg[:, 0], lc[:, 0]):
+        raise AssertionError("text: best hypotheses differ between the card and the CPU")
+    log(f"  best hypotheses token-identical; lengths {lg[:, 0].tolist()}")
+    check("text: best scores, card vs CPU", max_err(sg[:, 0], sc[:, 0]), 1e-4)
+    log(f"  launches {counts}")
+    # 12 shared encoder layers once; 6 decoder layers a step; no audio kernels
+    if (counts["encoder_attention"] != 12 or counts["decode_attention"] == 0
+            or counts["decode_attention"] % 6 or counts["conv_tail"] or counts["logmel"]):
+        raise AssertionError(f"text path launches {counts}")
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -831,7 +1190,24 @@ def main() -> int:
                                     p["seed"], args.profile)
         del model
 
-    # 6. report
+    # 6. the CLI phases, on a fixture under a temporary directory
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+        # the flagship as a released checkpoint builds it: 12 trunk heads
+        fx = make_cli_fixture(
+            torch, work / "data",
+            InterlinguaConfig(tgt_vocab_size=10000, src_vocab_size=10000, w2v2_heads=12),
+            W2V_CONV_FEATURE_LAYERS)
+        task, loaded = phase_checkpoint(torch, fx)
+        del loaded
+        phase_cli_parity(torch, fx, work)
+        counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
+        phase_interactive(torch, fx, work)
+        counts["text"] = phase_text(torch, fx, task, kernels)
+
+    # 7. report
     for r in records:
         r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())
