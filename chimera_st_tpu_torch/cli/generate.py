@@ -139,7 +139,6 @@ def main(argv=None) -> dict:
         dataset,
         max_tokens=int(args.max_tokens) if args.max_tokens else None,
         max_sentences=args.batch_size,
-        seed=args.seed,
         num_length_buckets=args.num_length_buckets,
     ).next_epoch_itr(shuffle=False)
 

@@ -94,12 +94,12 @@ def main(argv=None) -> None:
                 )
             else:
                 # text task: lines are source sentences
-                from ..data.batching import collate_tokens
+                from ..data.batching import collate_tokens, round16
 
                 src_dict = task.source_dictionary
                 encoded = [src_dict.encode_line(line) for line in lines]
-                T = ((max(len(e) for e in encoded) + 15) // 16) * 16
-                src = collate_tokens(encoded, src_dict.pad(), target_len=T)
+                src = collate_tokens(encoded, src_dict.pad(),
+                                     target_len=round16(max(len(e) for e in encoded)))
                 lengths = np.asarray([len(e) for e in encoded], np.int32)
                 tokens, scores, lens = generator.generate_text(
                     on_device(src).long(), src_lengths=on_device(lengths))

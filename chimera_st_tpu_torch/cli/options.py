@@ -14,6 +14,8 @@ import argparse
 import ast
 from typing import Any, Dict, Tuple
 
+from ..generation import generator
+
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=desc)
@@ -143,30 +145,9 @@ def add_generation_args(p: argparse.ArgumentParser):
     return p
 
 
-# options whose feature is not ported yet:
-# (attribute, test on its value, flag, ROADMAP item)
-UNPORTED = (
-    ("sampling", bool, "--sampling", "A13"),
-    ("sampling_topk", lambda v: v > 0, "--sampling-topk", "A13"),
-    ("sampling_topp", lambda v: v > 0, "--sampling-topp", "A13"),
-    ("diverse_beam_groups", lambda v: v > 1, "--diverse-beam-groups", "A13"),
-    ("diversity_rate", lambda v: v > 0, "--diversity-rate", "A13"),
-    ("path", lambda v: v is not None and ":" in v, "--path with several checkpoints", "A13"),
-    ("lm_path", bool, "--lm-path", "A13"),
-    ("ctc_lm_path", bool, "--ctc-lm-path", "A13"),
-    ("score_reference", bool, "--score-reference", "A13"),
-    ("print_alignment", bool, "--print-alignment", "A13"),
-    ("replace_unk", lambda v: v is not None, "--replace-unk", "A13"),
-    ("kv_cache_int8", bool, "--kv-cache-int8", "A13"),
-    ("retain_dropout", bool, "--retain-dropout", "A13"),
-    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A13"),
-    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A13"),
-    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty", "A13"),
-    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam", "A13"),
-    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker", "A13"),
-    ("retain_iter_history", bool, "--retain-iter-history", "A13"),
-    ("print_step", bool, "--print-step", "A13"),
-    ("constraints", bool, "--constraints", "A13"),
+# what the entry points cannot do yet: the generator's own list, and
+# several processes or cards (attribute, test on its value, flag, ROADMAP item)
+UNPORTED = generator.UNPORTED + (
     ("distributed_world_size", lambda v: v > 1, "--distributed-world-size above 1", "A12"),
     ("distributed_init_method", bool, "--distributed-init-method", "A12"),
     ("model_parallel_size", lambda v: v > 1, "--model-parallel-size above 1", "A12"),
@@ -175,9 +156,7 @@ UNPORTED = (
 
 def require_ported(args) -> None:
     """Raises for the first option of ``UNPORTED`` that ``args`` sets."""
-    for attr, is_set, flag, item in UNPORTED:
-        if hasattr(args, attr) and is_set(getattr(args, attr)):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+    generator.require_ported(args, UNPORTED)
 
 
 def resolve_device(args) -> str:

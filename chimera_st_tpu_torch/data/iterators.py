@@ -2,9 +2,9 @@
 part the inference CLIs read).
 
 ``EpochBatchIterator`` keeps the contract of the JAX package's: a frozen batch
-list, a shuffle seeded by (seed, epoch), and a background thread that
-collates the next batches while the device works. Epoch counting, shard
-slicing, mid-epoch resume, grouped iteration, per-epoch batch lists and the
+list, read in order, and a background thread that collates the next batches
+while the device works. The seeded shuffle, epoch counting, shard slicing,
+mid-epoch resume, grouped iteration, per-epoch batch lists and the
 multi-worker collation pool serve training and wait for it (ROADMAP A10).
 """
 
@@ -37,9 +37,6 @@ class CountingIterator:
         x = next(self._itr)
         self.n += 1
         return x
-
-    def has_next(self) -> bool:
-        return self.n < self.total
 
 
 class BackgroundPrefetcher:
@@ -84,21 +81,18 @@ class EpochBatchIterator:
     ``batches``: the frozen list of index arrays (from ``batch_by_size``)."""
 
     def __init__(self, dataset_collate: Callable[[np.ndarray], Any], batches: List[np.ndarray],
-                 seed: int = 1, buffer_size: int = 4):
+                 buffer_size: int = 4):
         self.collate = dataset_collate
         self.frozen_batches = list(batches)
-        self.seed = seed
         self.buffer_size = buffer_size
-        self.epoch = 1
 
     def __len__(self):
         return len(self.frozen_batches)
 
-    def next_epoch_itr(self, shuffle: bool = True) -> CountingIterator:
-        batches = self.frozen_batches
+    def next_epoch_itr(self, shuffle: bool = False) -> CountingIterator:
         if shuffle:
-            order = np.random.default_rng([self.seed, self.epoch]).permutation(len(batches))
-            batches = [batches[i] for i in order]
+            raise NotImplementedError("shuffled epochs are not ported yet (ROADMAP A10)")
+        batches = self.frozen_batches
         source = (self.collate(b) for b in batches)
         if self.buffer_size > 0:
             source = BackgroundPrefetcher(source, self.buffer_size)

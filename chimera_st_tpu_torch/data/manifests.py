@@ -361,8 +361,6 @@ def make_dataset_from_tsv(
     is_train: bool,
     src_dict: Optional[Dictionary] = None,
     triplet: bool = False,
-    seed: int = 1,
-    epoch: int = 1,
 ):
     """Build the dataset of one ``split`` (``{root}/{split}.tsv``)."""
     if "," in split:

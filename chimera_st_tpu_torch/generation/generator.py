@@ -41,6 +41,42 @@ class GeneratorSettings:
     no_repeat_ngram_size: int = 0
 
 
+# generator settings whose feature is not ported yet, under the names the
+# task's ``build_generator`` reads them by (the CLI's argument names):
+# (attribute, test on its value, flag, ROADMAP item)
+UNPORTED = (
+    ("sampling", bool, "--sampling", "A13"),
+    ("sampling_topk", lambda v: v > 0, "--sampling-topk", "A13"),
+    ("sampling_topp", lambda v: v > 0, "--sampling-topp", "A13"),
+    ("diverse_beam_groups", lambda v: v > 1, "--diverse-beam-groups", "A13"),
+    ("diversity_rate", lambda v: v > 0, "--diversity-rate", "A13"),
+    ("path", lambda v: v is not None and ":" in v, "--path with several checkpoints", "A13"),
+    ("lm_path", bool, "--lm-path", "A13"),
+    ("ctc_lm_path", bool, "--ctc-lm-path", "A13"),
+    ("score_reference", bool, "--score-reference", "A13"),
+    ("print_alignment", bool, "--print-alignment", "A13"),
+    ("replace_unk", lambda v: v is not None, "--replace-unk", "A13"),
+    ("kv_cache_int8", bool, "--kv-cache-int8", "A13"),
+    ("retain_dropout", bool, "--retain-dropout", "A13"),
+    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A13"),
+    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A13"),
+    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty", "A13"),
+    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam", "A13"),
+    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker", "A13"),
+    ("retain_iter_history", bool, "--retain-iter-history", "A13"),
+    ("print_step", bool, "--print-step", "A13"),
+    ("constraints", bool, "--constraints", "A13"),
+)
+
+
+def require_ported(cfg, table=UNPORTED) -> None:
+    """Raises for the first row of ``table`` that ``cfg`` sets. A field that
+    ``cfg`` lacks is at its default, as ``build_generator`` reads it."""
+    for attr, is_set, flag, item in table:
+        if hasattr(cfg, attr) and is_set(getattr(cfg, attr)):
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+
+
 class SequenceGenerator:
     """Beam search over any speech model with ``encode_audio(source,
     padding_mask) -> (encoder_out, encoder_padding_mask)`` and a

@@ -42,20 +42,12 @@ def build_interlingua_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlingua
 @register_model_architecture("s2t_transformer_w2v2_interlingua",
                              "s2t_transformer_w2v2_interlingua_base")
 def interlingua_base(cfg: Dict) -> Dict:
+    """``InterlinguaConfig``'s own defaults are this preset; what the preset
+    adds is that the decoder follows the encoder's widths."""
     d = dict(cfg)
-    d.setdefault("encoder_embed_dim", 512)
-    d.setdefault("encoder_ffn_dim", 2048)
-    d.setdefault("encoder_layers", 12)
-    d.setdefault("encoder_heads", 8)
-    d.setdefault("decoder_embed_dim", d["encoder_embed_dim"])
-    d.setdefault("decoder_ffn_dim", d["encoder_ffn_dim"])
-    d.setdefault("decoder_layers", 6)
-    d.setdefault("decoder_heads", 8)
-    d.setdefault("activation", "relu")
-    d.setdefault("conv_kernel_sizes", (5, 5))
-    d.setdefault("conv_channels", 1024)
-    d.setdefault("interlingua_length", 16)
-    d.setdefault("interlingua_layers", 3)
+    base = InterlinguaConfig()
+    d.setdefault("decoder_embed_dim", d.get("encoder_embed_dim", base.encoder_embed_dim))
+    d.setdefault("decoder_ffn_dim", d.get("encoder_ffn_dim", base.encoder_ffn_dim))
     return d
 
 

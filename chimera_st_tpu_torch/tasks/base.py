@@ -26,6 +26,7 @@ from ..data.iterators import EpochBatchIterator
 
 logger = logging.getLogger(__name__)
 
+
 class ChimeraTask:
     def __init__(self, cfg: Dict):
         self.cfg = cfg
@@ -80,9 +81,11 @@ class ChimeraTask:
         return cfg
 
     def build_generator(self, model, gen_cfg):
-        from ..generation.generator import GeneratorSettings, SequenceGenerator
-
-        from ..cli.options import require_ported
+        from ..generation.generator import (
+            GeneratorSettings,
+            SequenceGenerator,
+            require_ported,
+        )
 
         g = gen_cfg
         require_ported(g)  # a setting whose feature is not ported raises
@@ -110,7 +113,6 @@ class ChimeraTask:
         max_tokens: Optional[int] = None,
         max_sentences: Optional[int] = None,
         required_batch_size_multiple: int = 1,
-        seed: int = 1,
         num_length_buckets: int = 10,
         max_positions: Optional[int] = None,
         buffer_size: int = 4,
@@ -139,7 +141,7 @@ class ChimeraTask:
             batch_max = max(dataset.num_tokens(int(i)) for i in idx)
             return self.collate_indices(dataset, idx, pad_to_bucket(batch_max, edges))
 
-        return EpochBatchIterator(collate, batches, seed=seed, buffer_size=buffer_size)
+        return EpochBatchIterator(collate, batches, buffer_size=buffer_size)
 
     def collate_indices(self, dataset, idx: np.ndarray, audio_target_len: int):
         samples = [dataset[int(i)] for i in idx]

@@ -36,7 +36,6 @@ class SpeechToTextTask(ChimeraTask):
             self.data_cfg,
             self.tgt_dict,
             split.startswith("train"),
-            seed=int(self.cfg.get("seed", 1)),
         )
 
     @property

@@ -49,7 +49,6 @@ class TripletTask(ChimeraTask):
             split.startswith("train"),
             src_dict=self.src_dict,
             triplet=True,
-            seed=int(self.cfg.get("seed", 1)),
         )
 
     @property

@@ -76,7 +76,13 @@ Phases (any failure raises and the script exits non-zero):
              batches alone, launches). interactive: 4 wav paths
              from a file, 2 a buffer, against cli.generate on the same wavs
              in batches of 2. text: generate_text on the card against the
-             CPU, fp32, token-identical (K1 at text shapes, K3).
+             CPU, fp32, token-identical (K1 at text shapes, K3; K3 exactly 6
+             a decode step that ran). cli_shapes: every shape and dtype at
+             which these phases launched K1 and K2 is noted as they run (each
+             padded batch's trunk, shared-encoder and conv-tail shapes, the
+             text batch's T 32), and K1 and K2 are then held against their
+             plain versions at each of them, in bf16 and in fp32, with the
+             tolerances of phase 3.
 7. report  - one JSON line {"kernels": [...]} ("launches" sums the four
              driven paths: both serve runs, cli_serve and text;
              "launches_per_path" splits them), then the contract line
@@ -96,6 +102,7 @@ to chiprun_out/.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -847,6 +854,79 @@ def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int
     return dict(root=root, ckpt=ckpt, model=model, ids=[r[0] for r in rows])
 
 
+@contextlib.contextmanager
+def recorded_shapes(enc_attn, conv_tail):
+    """While open, notes the input shape and dtype of every K1 and K2 launch
+    (the wrappers reach ``encoder_attention_cuda`` / ``conv_tail_cuda`` through
+    their modules, where these stand in). Yields {kernel: [(shape, dtype)]},
+    each distinct pair once, in the order of its first launch."""
+    seen = {"encoder_attention": [], "conv_tail": []}
+    k1, k2 = enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda
+
+    def note(name, x):
+        key = (tuple(x.shape), x.dtype)
+        if key not in seen[name]:
+            seen[name].append(key)
+
+    def noted_k1(q, k, v, key_padding_mask=None):
+        note("encoder_attention", q)
+        return k1(q, k, v, key_padding_mask)
+
+    def noted_k2(x, weights):
+        note("conv_tail", x)
+        return k2(x, weights)
+
+    enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda = noted_k1, noted_k2
+    try:
+        yield seen
+    finally:
+        enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda = k1, k2
+
+
+@contextlib.contextmanager
+def counted_decoder_steps():
+    """While open, counts the decoder steps that run: yields [count]."""
+    from chimera_st_tpu_torch.models.transformer_decoder import TransformerDecoder
+
+    steps = [0]
+    decoder_step = TransformerDecoder.step
+
+    def counted_step(self, *args, **kwargs):
+        steps[0] += 1
+        return decoder_step(self, *args, **kwargs)
+
+    TransformerDecoder.step = counted_step
+    try:
+        yield steps
+    finally:
+        TransformerDecoder.step = decoder_step
+
+
+def phase_cli_shapes(torch, enc_attn, conv_tail, seen, records):
+    """Every shape at which the CLI phases launched K1 and K2 (padded batches
+    of the fixture's wavs: the trunk at 12 heads of 64, the shared encoder
+    behind the subsampler, the text branch below one 64-key tile), held
+    against the plain version in bf16 and fp32 like the shapes of phase 3."""
+    dtypes = {name: sorted({str(d).replace("torch.", "") for _, d in pairs})
+              for name, pairs in seen.items()}
+    k1_shapes = list(dict.fromkeys(shape for shape, _ in seen["encoder_attention"]))
+    k2_shapes = list(dict.fromkeys(shape for shape, _ in seen["conv_tail"]))
+    log(f"cli_shapes: the CLI phases launched K1 at {len(k1_shapes)} shapes "
+        f"{dtypes['encoder_attention']} and K2 at {len(k2_shapes)} {dtypes['conv_tail']}")
+    if (not any(H == 12 and D == 64 for _, _, H, D in k1_shapes)
+            or not any(T < 64 for _, T, _, _ in k1_shapes) or not k2_shapes):
+        raise AssertionError(f"expected the 12-head trunk, a text batch and the conv tail among "
+                             f"{k1_shapes} and {k2_shapes}")
+    tensor = Inputs(torch, 4)
+    k1_rec, k2_rec = (next(r for r in records if r["name"] == n)
+                      for n in ("encoder_attention", "conv_tail"))
+    for B, T, H, D in k1_shapes:
+        label = f"cli_B{B}_T{T}_H{H}_D{D}"
+        k1_rec["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T, H, D)
+    for B, T1, _ in k2_shapes:
+        k2_rec["shapes"][f"cli_B{B}_T1_{T1}"] = k2_case(torch, conv_tail, tensor, B, T1)
+
+
 def parse_protocol(text: str):
     """-> ({sample id: [(score, hypothesis), ...]} from the H- lines, the ids
     that have all of S-/H-/D-/P-, the last line)."""
@@ -939,27 +1019,16 @@ def phase_cli_serve(torch, fx, work: Path, kernels, profile=False):
     """bf16: the README's operating point through the generate CLI, full
     width, depth not cut; launch counts zeroed just before and read just
     after. Returns the counts."""
-    from chimera_st_tpu_torch.models.transformer_decoder import TransformerDecoder
     from chimera_st_tpu_torch.tasks import setup_task
 
     log(f"cli_serve: generate CLI, bf16, {CLI_WAVS} wavs in batches of {CLI_BATCH}, beam 10, "
         "lenpen 1.5")
     serve_args = ["--batch-size", str(CLI_BATCH), "--dtype", "bfloat16"]
-    steps = [0]
-    decoder_step = TransformerDecoder.step
-
-    def counted_step(self, *args, **kwargs):
-        steps[0] += 1
-        return decoder_step(self, *args, **kwargs)
-
     for fn in kernels:
         fn.launches = 0
-    TransformerDecoder.step = counted_step
-    try:
+    with counted_decoder_steps() as steps:
         text, stats, wall = cli_generate(fx, work / "serve", "tst_wave", serve_args)
         torch.cuda.synchronize()
-    finally:
-        TransformerDecoder.step = decoder_step
     counts = {fn.__name__: fn.launches for fn in kernels}
     hyps, full, last = parse_protocol(text)
     if len(full) != CLI_WAVS or stats["sentences"] != CLI_WAVS:
@@ -1065,9 +1134,11 @@ def phase_text(torch, fx, task, kernels):
         gen = SequenceGenerator(model, settings, pad=d.pad(), eos=d.eos(), unk=d.unk())
         for fn in kernels:
             fn.launches = 0
-        toks, scores, lens = gen.generate_text(
-            torch.from_numpy(src).long().to(device), torch.from_numpy(lengths).to(device))
+        with counted_decoder_steps() as steps:
+            toks, scores, lens = gen.generate_text(
+                torch.from_numpy(src).long().to(device), torch.from_numpy(lengths).to(device))
         if device == "cuda":
+            card_steps = steps[0]
             torch.cuda.synchronize()
             counts = {fn.__name__: fn.launches for fn in kernels}
         elif any(fn.launches for fn in kernels):
@@ -1079,11 +1150,13 @@ def phase_text(torch, fx, task, kernels):
         raise AssertionError("text: best hypotheses differ between the card and the CPU")
     log(f"  best hypotheses token-identical; lengths {lg[:, 0].tolist()}")
     check("text: best scores, card vs CPU", max_err(sg[:, 0], sc[:, 0]), 1e-4)
-    log(f"  launches {counts}")
-    # 12 shared encoder layers once; 6 decoder layers a step; no audio kernels
-    if (counts["encoder_attention"] != 12 or counts["decode_attention"] == 0
-            or counts["decode_attention"] % 6 or counts["conv_tail"] or counts["logmel"]):
-        raise AssertionError(f"text path launches {counts}")
+    log(f"  {card_steps} decode steps; launches {counts}")
+    # 12 shared encoder layers once; 6 decoder layers a step that ran; no
+    # audio kernels
+    implied = {"encoder_attention": 12, "conv_tail": 0, "decode_attention": 6 * card_steps,
+               "logmel": 0}
+    if counts != implied or card_steps == 0:
+        raise AssertionError(f"text path launches {counts}, the batch implies {implied}")
     return counts
 
 
@@ -1202,10 +1275,12 @@ def main() -> int:
             W2V_CONV_FEATURE_LAYERS)
         task, loaded = phase_checkpoint(torch, fx)
         del loaded
-        phase_cli_parity(torch, fx, work)
-        counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
-        phase_interactive(torch, fx, work)
-        counts["text"] = phase_text(torch, fx, task, kernels)
+        with recorded_shapes(encoder_attention, conv_tail) as seen:
+            phase_cli_parity(torch, fx, work)
+            counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
+            phase_interactive(torch, fx, work)
+            counts["text"] = phase_text(torch, fx, task, kernels)
+    phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
 
     # 7. report
     for r in records:
