@@ -107,13 +107,13 @@ def _import_wav2vec2(sd, out, p: str, keep_mask_emb: bool):
     if keep_mask_emb and f"{p}mask_emb" in sd:
         raise NotImplementedError(
             "the port's wav2vec2 trunk has no span masking, so it cannot hold mask_emb "
-            "(ROADMAP A3)")
+            "(ROADMAP A14)")
     n_conv = _count_layers(sd, re.escape(p) + r"feature_extractor\.conv_layers\.(\d+)\.0\.weight")
     for i in range(n_conv):
         _copy(sd, out, f"{p}feature_extractor.conv_layers.{i}.0")
         if f"{p}feature_extractor.conv_layers.{i}.2.1.weight" in sd:
             raise NotImplementedError(
-                "the wav2vec2 extractor's layer_norm mode is not ported yet (ROADMAP A3)")
+                "the wav2vec2 extractor's layer_norm mode is not ported yet (ROADMAP A14)")
     _copy(sd, out, f"{p}feature_extractor.conv_layers.0.2")
     _copy(sd, out, f"{p}layer_norm")
     if f"{p}post_extract_proj.weight" in sd:

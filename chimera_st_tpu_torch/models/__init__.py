@@ -1,5 +1,5 @@
-"""Model modules of the serving path (inference only), and the registry of
-the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``
+"""Model modules of the serving path and of the triplet fine-tune, and the
+registry of the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``
 and the seven fbank ``s2t_transformer*`` presets (counterpart of the
 registrations in chimera_st_tpu/models/).
 
@@ -34,7 +34,7 @@ def build_interlingua_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlingua
                                   "embed_tokens (share_decoder_input_output_embed=True)")
     if cfg_dict.get("w2v2_extractor_mode", "default") != "default":
         raise NotImplementedError("the wav2vec2 extractor's layer_norm mode is not ported yet "
-                                  "(ROADMAP A3)")
+                                  "(ROADMAP A14)")
     return ChimeraInterlinguaModel(InterlinguaConfig(**_known(InterlinguaConfig, cfg_dict)),
                                    device=device)
 

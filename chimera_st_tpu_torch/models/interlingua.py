@@ -1,5 +1,9 @@
-"""Chimera interlingua speech/text encoder-decoder, inference only
-(counterpart of chimera_st_tpu/models/interlingua.py).
+"""Chimera interlingua speech/text encoder-decoder (counterpart of
+chimera_st_tpu/models/interlingua.py), for inference and the triplet
+fine-tune: ``forward_audio_with_internal`` / ``forward_text_with_internal``
+return the logits and the memory bank the criterion reads; in training
+mode every dropout of the JAX model acts, its masks drawn from the
+``generator`` the forward is given.
 
 Audio: wav2vec2 trunk -> Conv1d subsampler -> shared encoder -> M memory
 slots refined by the interlingua layers (each a ``cross_only`` pass of the
@@ -27,7 +31,7 @@ import torch
 import torch.nn as nn
 
 from .embedding import Embed
-from .layers import LayerNorm, TransformerEncoderLayer, positional_embedding_from_mask
+from .layers import LayerNorm, TransformerEncoderLayer, dropout, positional_embedding_from_mask
 from .subsampler import Conv1dSubsampler, subsampled_length
 from .transformer_decoder import TransformerDecoder
 from .wav2vec2 import DEFAULT_CONV_SPEC, Wav2Vec2Encoder
@@ -35,9 +39,11 @@ from .wav2vec2 import DEFAULT_CONV_SPEC, Wav2Vec2Encoder
 
 @dataclass(frozen=True)
 class InterlinguaConfig:
-    """The architecture fields of the JAX package's InterlinguaConfig that
-    inference reads (the dropout and training fields are left out); the
-    defaults are the ``s2t_transformer_w2v2_interlingua_base`` preset."""
+    """The fields of the JAX package's InterlinguaConfig that the port reads
+    (not ``w2v2_extractor_mode`` or ``share_decoder_input_output_embed``,
+    which ``build_interlingua_model`` checks); the defaults are the
+    ``s2t_transformer_w2v2_interlingua_base`` preset's and, for dropout,
+    ``feature_grad_mult`` and ``w2v2_remat``, the JAX package's."""
 
     # vocab
     tgt_vocab_size: int = 8
@@ -76,6 +82,16 @@ class InterlinguaConfig:
     w2v2_layer_norm_first: bool = False
     w2v2_conv_pos: int = 128
     w2v2_conv_pos_groups: int = 16
+    w2v2_remat: bool = False  # training raises: ROADMAP A10
+    # the trunk's own regularization (from the wav2vec2 checkpoint's args)
+    w2v2_dropout: float = 0.1
+    w2v2_attention_dropout: float = 0.1
+    w2v2_activation_dropout: float = 0.0
+    # gradient scale on the conv extractor's output (0: no extractor backward)
+    feature_grad_mult: float = 1.0
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
     activation: str = "relu"
     no_scale_embedding: bool = False
 
@@ -88,7 +104,10 @@ class _Encoder(nn.Module):
         self.wav2vec_model = Wav2Vec2Encoder(
             c.w2v2_embed_dim, c.w2v2_ffn_dim, c.w2v2_layers, c.w2v2_heads, c.w2v2_conv_spec,
             c.w2v2_conv_bias, c.w2v2_conv_pos, c.w2v2_conv_pos_groups,
-            layer_norm_first=c.w2v2_layer_norm_first, device=device,
+            layer_norm_first=c.w2v2_layer_norm_first, dropout=c.w2v2_dropout,
+            attention_dropout=c.w2v2_attention_dropout,
+            activation_dropout=c.w2v2_activation_dropout,
+            feature_grad_mult=c.feature_grad_mult, remat=c.w2v2_remat, device=device,
         )
         self.subsample = Conv1dSubsampler(c.w2v2_embed_dim, c.conv_channels, c.encoder_embed_dim,
                                           c.conv_kernel_sizes, device=device)
@@ -99,7 +118,8 @@ class _Encoder(nn.Module):
         def mk_layers(n):
             return nn.ModuleList([
                 TransformerEncoderLayer(c.encoder_embed_dim, c.encoder_ffn_dim, c.encoder_heads,
-                                        c.activation, c.encoder_normalize_before, device=device)
+                                        c.activation, c.encoder_normalize_before, c.dropout,
+                                        c.attention_dropout, c.activation_dropout, device=device)
                 for _ in range(n)
             ])
 
@@ -125,12 +145,13 @@ class ChimeraInterlinguaModel(nn.Module):
         self.decoder = TransformerDecoder(
             c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
             c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
-            c.no_scale_embedding, c.max_target_positions, device=device,
+            c.no_scale_embedding, c.max_target_positions, c.dropout, c.attention_dropout,
+            c.activation_dropout, device=device,
         )
         self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
 
     def _shared_encode(self, feature: torch.Tensor, padding_mask: torch.Tensor, is_text: bool,
-                       modal_id: int):
+                       modal_id: int, generator: Optional[torch.Generator] = None):
         """Shared transformer stack + interlingua memory refinement ->
         (memory [B, M, C], None), or (states [B, T, C], padding_mask) with
         ``no_interlingua``."""
@@ -139,13 +160,14 @@ class ChimeraInterlinguaModel(nn.Module):
         if is_text:  # positions only on the text branch, as the reference
             x = x + positional_embedding_from_mask(padding_mask, c.encoder_embed_dim,
                                                    c.padding_idx).to(x.dtype)
+        x = dropout(x, c.dropout if self.training else 0.0, generator)
         if is_text or c.non_shared_encoder_layers == 0:
             layers = list(enc.transformer_layers)
         else:
             layers = (list(enc.audio_exclusive_layers)
                       + list(enc.transformer_layers)[c.non_shared_encoder_layers:])
         for layer in layers:
-            x = layer(x, padding_mask)
+            x = layer(x, padding_mask, generator)
         if c.encoder_normalize_before:
             x = enc.layer_norm(x)
         if c.no_interlingua:
@@ -157,12 +179,13 @@ class ChimeraInterlinguaModel(nn.Module):
             mem = mem + enc.modal_embedding.table()[modal_id]
         kp_mask = padding_mask if c.interlingua_mask_padding else None
         for layer in enc.interlingua_layers:
-            mem = layer.cross_only(mem, x, kp_mask)
+            mem = layer.cross_only(mem, x, kp_mask, generator)
         return mem, None  # fixed-length memory bank: nothing is padding
 
-    def encode_audio(self, source: torch.Tensor, padding_mask: torch.Tensor):
+    def encode_audio(self, source: torch.Tensor, padding_mask: torch.Tensor,
+                     generator: Optional[torch.Generator] = None):
         """source [B, T] float waveform, padding_mask [B, T] True = pad."""
-        feat, w2v_mask = self.encoder.wav2vec_model(source, padding_mask)
+        feat, w2v_mask = self.encoder.wav2vec_model(source, padding_mask, generator)
         feat = self.encoder.subsample(feat)
         pos = torch.arange(feat.shape[1], device=feat.device)[None, :]
         if w2v_mask is None:
@@ -171,22 +194,40 @@ class ChimeraInterlinguaModel(nn.Module):
             lengths = subsampled_length((~w2v_mask).sum(dim=-1),
                                         len(self.cfg.conv_kernel_sizes))
             sub_mask = pos >= lengths[:, None]
-        return self._shared_encode(feat, sub_mask, is_text=False, modal_id=0)
+        return self._shared_encode(feat, sub_mask, is_text=False, modal_id=0,
+                                   generator=generator)
 
-    def encode_text(self, src_tokens: torch.Tensor):
+    def encode_text(self, src_tokens: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
         """src_tokens [B, T] int."""
         padding_mask = src_tokens == self.cfg.padding_idx
         feat = self.encoder.text_embed_tokens(src_tokens)
-        return self._shared_encode(feat, padding_mask, is_text=True, modal_id=1)
+        return self._shared_encode(feat, padding_mask, is_text=True, modal_id=1,
+                                   generator=generator)
 
     def decode(self, prev_output_tokens: torch.Tensor, encoder_out: torch.Tensor,
-               encoder_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.decoder(prev_output_tokens, encoder_out, encoder_padding_mask)
+               encoder_padding_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.decoder(prev_output_tokens, encoder_out, encoder_padding_mask, generator)
 
-    def forward(self, source, padding_mask, prev_output_tokens) -> torch.Tensor:
+    def forward(self, source, padding_mask, prev_output_tokens,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Speech translation, teacher-forced: raw audio -> logits [B, T, V]."""
-        enc, enc_mask = self.encode_audio(source, padding_mask)
-        return self.decode(prev_output_tokens, enc, enc_mask)
+        return self.forward_audio_with_internal(source, padding_mask, prev_output_tokens,
+                                                generator)[0]
+
+    def forward_audio_with_internal(self, source, padding_mask, prev_output_tokens,
+                                    generator: Optional[torch.Generator] = None):
+        """-> (logits [B, T, V], memory bank [B, M, C]): the audio pass of
+        the triplet criterion."""
+        enc, enc_mask = self.encode_audio(source, padding_mask, generator)
+        return self.decode(prev_output_tokens, enc, enc_mask, generator), enc
+
+    def forward_text_with_internal(self, src_tokens, prev_output_tokens,
+                                   generator: Optional[torch.Generator] = None):
+        """-> (logits [B, T, V], memory bank [B, M, C]): the text pass."""
+        enc, enc_mask = self.encode_text(src_tokens, generator)
+        return self.decode(prev_output_tokens, enc, enc_mask, generator), enc
 
 
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -7,7 +7,14 @@ conv layers are built without drawing random numbers (zero weights): their
 values come from a checkpoint, ``convert.params_from_flax`` or
 ``init_params_`` with an explicit ``torch.Generator``. Norms keep fp32
 parameters and statistics whatever the compute dtype
-(``cast_compute_dtype_``).
+(``cast_compute_dtype_``, inference only; training keeps fp32 parameters
+and computes in bf16 under ``torch.autocast``).
+
+Dropout sits where the JAX layers put it (``layers.py:569-599``,
+``:610-641``, ``:695-765``): after each attention block, on the attention
+probabilities, after the activation and after ``fc2``. It acts only in
+training mode, and its masks come from the ``generator`` each forward
+takes (``dropout``).
 """
 
 from __future__ import annotations
@@ -19,9 +26,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import NEG_INF, dot_product_attention
+from ..ops.attention import NEG_INF, dot_product_attention, dropout
 from ..ops.decode_attention import decode_attention
-from ..ops.encoder_attention import encoder_attention
+from ..ops.encoder_attention import encoder_attention, encoder_attention_applicable
 from .embedding import Embed
 
 
@@ -104,8 +111,10 @@ def positional_embedding_from_mask(padding_mask: torch.Tensor, dim: int,
 
 
 def position_at_step(table: torch.Tensor, step: int, padding_idx: int = 1) -> torch.Tensor:
-    """Row of a ``sinusoidal_positions`` table for decode step ``step``."""
-    return table[padding_idx + 1 + step]
+    """Row of a ``sinusoidal_positions`` table for decode step ``step``; a
+    step past the table takes its last row, as the JAX gather clamps an
+    out-of-range index."""
+    return table[min(padding_idx + 1 + step, table.shape[0] - 1)]
 
 
 def cast_compute_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -119,13 +128,15 @@ def cast_compute_dtype_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 class MultiheadAttention(nn.Module):
-    """Multi-head attention in the forms the serving path needs: full
-    sequence (self or ``kv=`` cross), grouped beam cross-attention over
-    un-repeated encoder K/V, and the cached lazy-reorder beam step."""
+    """Multi-head attention: full sequence (self or ``kv=`` cross), with
+    attention dropout in training; grouped beam cross-attention over
+    un-repeated encoder K/V and the cached lazy-reorder beam step (both
+    inference only)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, device="cuda"):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device="cuda"):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
         self.head_dim = embed_dim // num_heads
         self.q_proj = linear(embed_dim, embed_dim, device=device)
         self.k_proj = linear(embed_dim, embed_dim, device=device)
@@ -141,17 +152,19 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query [B, Tq, C], kv [B, Tk, C] (None: self-attention)."""
         q = self._split(self.q_proj(query))
         src = query if kv is None else kv
         k, v = self.compute_kv(src)
-        if kv is None and not causal:
-            # bidirectional self-attention: the encoder stacks (K1)
+        rate = self.dropout if self.training else 0.0
+        if kv is None and encoder_attention_applicable(q, k, causal=causal, dropout_rate=rate):
+            # bidirectional self-attention without dropout: the encoder stacks (K1)
             out = encoder_attention(q, k, v, key_padding_mask)
         else:
             out = dot_product_attention(q, k, v, key_padding_mask=key_padding_mask,
-                                        causal=causal)
+                                        causal=causal, dropout_rate=rate, generator=generator)
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
     def grouped_cross(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,45 +197,60 @@ class MultiheadAttention(nn.Module):
 
 class _Sublayers(nn.Module):
     """Residual sublayers shared by the encoder and decoder layers (which own
-    fc1/fc2 and the norms under the fairseq names)."""
+    fc1/fc2 and the norms under the fairseq names, and set the rates
+    ``dropout`` and ``activation_dropout``)."""
 
     normalize_before: bool
+    dropout: float
+    activation_dropout: float
 
-    def _sublayer(self, x: torch.Tensor, norm: LayerNorm, fn: Callable) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, p: float, generator) -> torch.Tensor:
+        return dropout(x, p if self.training else 0.0, generator)
+
+    def _sublayer(self, x: torch.Tensor, norm: LayerNorm, fn: Callable,
+                  generator=None) -> torch.Tensor:
         residual = x
         if self.normalize_before:
             x = norm(x)
-        x = residual + fn(x)
+        x = residual + self._drop(fn(x), self.dropout, generator)
         if not self.normalize_before:
             x = norm(x)
         return x
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def _ffn_sublayer(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        def ffn(h):
+            return self.fc2(self._drop(self.act(self.fc1(h)), self.activation_dropout, generator))
+
+        return self._sublayer(x, self.final_layer_norm, ffn, generator)
 
 
 class TransformerEncoderLayer(_Sublayers):
     """Pre/post-LN encoder layer, with the interlingua ``cross_only`` form."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, activation: str = "relu",
-                 normalize_before: bool = True, device="cuda"):
+                 normalize_before: bool = True, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 device="cuda"):
         super().__init__()
         self.normalize_before = normalize_before
-        self.self_attn = MultiheadAttention(embed_dim, num_heads, device=device)
+        self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
+                                            device=device)
         self.self_attn_layer_norm = LayerNorm(embed_dim, device=device)
         self.fc1 = linear(embed_dim, ffn_dim, device=device)
         self.fc2 = linear(ffn_dim, embed_dim, device=device)
         self.final_layer_norm = LayerNorm(embed_dim, device=device)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor,
-                encoder_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, encoder_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn(
-            h, key_padding_mask=encoder_padding_mask))
-        return self._sublayer(x, self.final_layer_norm, self._ffn)
+            h, key_padding_mask=encoder_padding_mask, generator=generator), generator)
+        return self._ffn_sublayer(x, generator)
 
     def cross_only(self, queries: torch.Tensor, keys: torch.Tensor,
-                   key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   key_padding_mask: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Interlingua layer: the memory slots [B, M, C] attend to the encoder
         states [B, T, C] with this layer's self-attention parameters (the
         reference's masked self-attention over [h; mem], restricted to the M
@@ -230,8 +258,8 @@ class TransformerEncoderLayer(_Sublayers):
         if self.normalize_before:
             keys = self.self_attn_layer_norm(keys)
         x = self._sublayer(queries, self.self_attn_layer_norm, lambda h: self.self_attn(
-            h, kv=keys, key_padding_mask=key_padding_mask))
-        return self._sublayer(x, self.final_layer_norm, self._ffn)
+            h, kv=keys, key_padding_mask=key_padding_mask, generator=generator), generator)
+        return self._ffn_sublayer(x, generator)
 
 
 class TransformerDecoderLayer(_Sublayers):
@@ -239,11 +267,16 @@ class TransformerDecoderLayer(_Sublayers):
     lazy-reorder beam ``step``."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, activation: str = "relu",
-                 normalize_before: bool = True, device="cuda"):
+                 normalize_before: bool = True, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 device="cuda"):
         super().__init__()
         self.normalize_before = normalize_before
-        self.self_attn = MultiheadAttention(embed_dim, num_heads, device=device)
-        self.encoder_attn = MultiheadAttention(embed_dim, num_heads, device=device)
+        self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
+                                            device=device)
+        self.encoder_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
+                                               device=device)
         self.self_attn_layer_norm = LayerNorm(embed_dim, device=device)
         self.encoder_attn_layer_norm = LayerNorm(embed_dim, device=device)
         self.fc1 = linear(embed_dim, ffn_dim, device=device)
@@ -253,12 +286,15 @@ class TransformerDecoderLayer(_Sublayers):
 
     def forward(self, x: torch.Tensor, encoder_out: torch.Tensor,
                 encoder_padding_mask: Optional[torch.Tensor] = None,
-                self_attn_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                self_attn_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn(
-            h, key_padding_mask=self_attn_padding_mask, causal=True))
+            h, key_padding_mask=self_attn_padding_mask, causal=True, generator=generator),
+            generator)
         x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn(
-            h, kv=encoder_out, key_padding_mask=encoder_padding_mask))
-        return self._sublayer(x, self.final_layer_norm, self._ffn)
+            h, kv=encoder_out, key_padding_mask=encoder_padding_mask, generator=generator),
+            generator)
+        return self._ffn_sublayer(x, generator)
 
     def step(self, x: torch.Tensor, encoder_kv: Tuple[torch.Tensor, torch.Tensor],
              encoder_padding_mask: Optional[torch.Tensor], k_cache: torch.Tensor,
@@ -269,4 +305,4 @@ class TransformerDecoderLayer(_Sublayers):
             h, k_cache, v_cache, ancestry, cache_index, groups))
         x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn.
                            grouped_cross(h, *encoder_kv, encoder_padding_mask, groups))
-        return self._sublayer(x, self.final_layer_norm, self._ffn)
+        return self._ffn_sublayer(x)

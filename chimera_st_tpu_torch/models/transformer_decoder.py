@@ -2,7 +2,8 @@
 chimera_st_tpu/models/transformer_decoder.py): the teacher-forced forward
 and the incremental ``step`` of the lazy-reorder beam search, whose
 self-attention caches are ``[N, H, L, D]`` per layer (N = sentences * beam)
-and are updated in place."""
+and are updated in place. In training the forward drops the embeddings
+(JAX ``transformer_decoder.py:176``) and each layer's sublayers."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from .embedding import Embed
 from .layers import (
     LayerNorm,
     TransformerDecoderLayer,
+    dropout,
     position_at_step,
     positional_embedding_from_mask,
     sinusoidal_positions,
@@ -27,13 +29,16 @@ class TransformerDecoder(nn.Module):
                  num_layers: int = 6, num_heads: int = 8, activation: str = "relu",
                  normalize_before: bool = True, padding_idx: int = 1,
                  no_scale_embedding: bool = False, max_target_positions: int = 1024,
-                 device="cuda"):
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0, device="cuda"):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.padding_idx = padding_idx
+        self.dropout = dropout
         self.embed_tokens = Embed(vocab_size, embed_dim, padding_idx=padding_idx, device=device)
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
+                                    dropout, attention_dropout, activation_dropout,
                                     device=device)
             for _ in range(num_layers)
         ])
@@ -51,14 +56,16 @@ class TransformerDecoder(nn.Module):
         return self.embed_tokens.attend(x)
 
     def forward(self, prev_output_tokens: torch.Tensor, encoder_out: torch.Tensor,
-                encoder_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced forward: [B, T] tokens -> fp32 logits [B, T, V]."""
         pad_mask = prev_output_tokens == self.padding_idx
         x = self.embed_scale * self.embed_tokens(prev_output_tokens)
         x = x + positional_embedding_from_mask(pad_mask, self.embed_dim,
                                                self.padding_idx).to(x.dtype)
+        x = dropout(x, self.dropout if self.training else 0.0, generator)
         for layer in self.layers:
-            x = layer(x, encoder_out, encoder_padding_mask, pad_mask)
+            x = layer(x, encoder_out, encoder_padding_mask, pad_mask, generator)
         return self._output(x)
 
     def precompute_encoder_kv(self, encoder_out: torch.Tensor):

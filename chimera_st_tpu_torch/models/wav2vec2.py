@@ -1,5 +1,5 @@
-"""wav2vec 2.0 feature-extraction trunk, inference only (counterpart of
-chimera_st_tpu/models/wav2vec2.py).
+"""wav2vec 2.0 feature-extraction trunk (counterpart of
+chimera_st_tpu/models/wav2vec2.py), for inference and fine-tuning.
 
 - ``ConvFeatureExtractor`` in ``default`` mode: layer 0 (``F.conv1d``) ->
   ``Fp32GroupNorm`` -> GELU; layers 1-6 go through the conv-tail kernel K2
@@ -7,7 +7,12 @@ chimera_st_tpu/models/wav2vec2.py).
   through a plain conv loop.
 - ``ConvPositionalEmbedding``: grouped conv with the SamePad trim.
 - ``W2V2EncoderLayer``: BERT-style, post-LN unless ``layer_norm_first``.
-- ``Wav2Vec2Encoder.forward``: the ``extract_features`` path.
+- ``Wav2Vec2Encoder.forward``: the ``extract_features`` path, with the
+  training parts a fine-tune runs: the layers' dropouts, the two input
+  dropouts and ``grad_multiply`` by ``feature_grad_mult`` on the extractor's
+  output. Span masking (``mask_emb``), layerdrop and the ``layer_norm``
+  extractor mode belong to pre-training and ASR (ROADMAP A14); ``remat``
+  raises in training (ROADMAP A10).
 
 Module names follow the fairseq state dict (``feature_extractor.
 conv_layers.{i}.0`` conv, ``conv_layers.0.2`` group norm, ``encoder.
@@ -30,6 +35,7 @@ from .layers import (
     _Sublayers,
     _zeroed,
     conv1d,
+    dropout,
     get_activation,
     linear,
 )
@@ -44,6 +50,16 @@ DEFAULT_CONV_SPEC: Tuple[Tuple[int, int, int], ...] = (
     (512, 2, 2),
     (512, 2, 2),
 )
+
+
+def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward, gradient scaled by ``scale`` on the way back; 0
+    detaches (the extractor then needs no backward)."""
+    if scale == 1.0:
+        return x
+    if scale == 0.0:
+        return x.detach()
+    return scale * x + (1.0 - scale) * x.detach()
 
 
 class Fp32GroupNorm(nn.Module):
@@ -118,20 +134,25 @@ class ConvPositionalEmbedding(nn.Conv1d):
 
 class W2V2EncoderLayer(_Sublayers):
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, activation: str = "gelu",
-                 layer_norm_first: bool = False, device="cuda"):
+                 layer_norm_first: bool = False, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 device="cuda"):
         super().__init__()
         self.normalize_before = layer_norm_first
-        self.self_attn = MultiheadAttention(embed_dim, num_heads, device=device)
+        self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.self_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
+                                            device=device)
         self.self_attn_layer_norm = LayerNorm(embed_dim, device=device)
         self.fc1 = linear(embed_dim, ffn_dim, device=device)
         self.fc2 = linear(ffn_dim, embed_dim, device=device)
         self.final_layer_norm = LayerNorm(embed_dim, device=device)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn(
-            h, key_padding_mask=padding_mask))
-        return self._sublayer(x, self.final_layer_norm, self._ffn)
+            h, key_padding_mask=padding_mask, generator=generator), generator)
+        return self._ffn_sublayer(x, generator)
 
 
 def downsample_padding_mask(padding_mask: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -148,12 +169,13 @@ class _ContextNetwork(nn.Module):
     """The fairseq ``encoder`` submodule: pos_conv, layers, layer_norm."""
 
     def __init__(self, embed_dim, ffn_dim, layers, heads, conv_pos, conv_pos_groups, activation,
-                 layer_norm_first, device):
+                 layer_norm_first, dropouts, device):
         super().__init__()
         self.pos_conv = nn.ModuleList(
             [ConvPositionalEmbedding(embed_dim, conv_pos, conv_pos_groups, device=device)])
         self.layers = nn.ModuleList([
-            W2V2EncoderLayer(embed_dim, ffn_dim, heads, activation, layer_norm_first, device)
+            W2V2EncoderLayer(embed_dim, ffn_dim, heads, activation, layer_norm_first, *dropouts,
+                             device=device)
             for _ in range(layers)
         ])
         self.layer_norm = LayerNorm(embed_dim, device=device)
@@ -167,9 +189,13 @@ class Wav2Vec2Encoder(nn.Module):
                  encoder_layers: int = 12, encoder_heads: int = 8,
                  conv_spec: Sequence[Tuple[int, int, int]] = DEFAULT_CONV_SPEC,
                  conv_bias: bool = False, conv_pos: int = 128, conv_pos_groups: int = 16,
-                 activation: str = "gelu", layer_norm_first: bool = False, device="cuda"):
+                 activation: str = "gelu", layer_norm_first: bool = False,
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0, feature_grad_mult: float = 1.0,
+                 remat: bool = False, device="cuda"):
         super().__init__()
         self.layer_norm_first = layer_norm_first
+        self.dropout, self.feature_grad_mult, self.remat = dropout, feature_grad_mult, remat
         self.feature_extractor = ConvFeatureExtractor(conv_spec, conv_bias, device=device)
         feat_dim = conv_spec[-1][0]
         self.layer_norm = LayerNorm(feat_dim, device=device)
@@ -179,24 +205,32 @@ class Wav2Vec2Encoder(nn.Module):
         )
         self.encoder = _ContextNetwork(encoder_embed_dim, encoder_ffn_dim, encoder_layers,
                                        encoder_heads, conv_pos, conv_pos_groups, activation,
-                                       layer_norm_first, device)
+                                       layer_norm_first,
+                                       (dropout, attention_dropout, activation_dropout), device)
 
-    def forward(self, source: torch.Tensor, padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, source: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """source [B, T] raw waveform, padding_mask [B, T] True = pad ->
         (features [B, T', C], padding_mask' [B, T'] or None)."""
-        features = self.layer_norm(self.feature_extractor(source))
+        if self.remat and self.training and torch.is_grad_enabled():
+            raise NotImplementedError("w2v2_remat (recomputing the trunk's layers in the "
+                                      "backward) is not ported yet (ROADMAP A10)")
+        p = self.dropout if self.training else 0.0
+        features = grad_multiply(self.feature_extractor(source), self.feature_grad_mult)
+        features = self.layer_norm(features)
         if padding_mask is not None:
             padding_mask = downsample_padding_mask(padding_mask, features.shape[1])
         if self.post_extract_proj is not None:
             features = self.post_extract_proj(features)
-        x = features
+        x = dropout(features, p, generator)
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[:, :, None], 0.0)
         x = x + self.encoder.pos_conv[0](x)
         if not self.layer_norm_first:
             x = self.encoder.layer_norm(x)
+        x = dropout(x, p, generator)
         for layer in self.encoder.layers:
-            x = layer(x, padding_mask)
+            x = layer(x, padding_mask, generator)
         if self.layer_norm_first:
             x = self.encoder.layer_norm(x)
         return x, padding_mask

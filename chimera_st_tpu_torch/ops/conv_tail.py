@@ -8,6 +8,11 @@ launch (see the source for why the six layers are not fused on Hopper).
 bf16 runs on the tensor cores (wgmma fed by TMA), fp32 on the CUDA cores.
 Activations are channels-last [B, T, C]; weights are in torch's Conv1d
 layout [C_out, C_in, k].
+
+Training: ``ConvTailFn`` launches K2 forward and, as the Pallas wrapper's
+``custom_vjp`` (``pallas_conv.py:183-205``), differentiates the plain
+version in the backward: it saves only the tail's input and weights and
+recomputes the six layers there, so no layer's activations are kept.
 """
 
 from __future__ import annotations
@@ -62,11 +67,41 @@ def conv_tail_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     return x
 
 
+def conv_tail_backward(x: torch.Tensor, weights: Sequence[torch.Tensor], g: torch.Tensor):
+    """(dx, dw_1, ..., dw_6) of ``conv_tail_plain`` for the output gradient
+    ``g``: the plain tail recomputed from its input, then differentiated.
+    Weights are used in x's dtype; their gradients come back in theirs."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+        y = conv_tail_plain(x, [w.to(x.dtype) for w in ws])
+        return torch.autograd.grad(y, [x, *ws], g)
+
+
+class ConvTailFn(torch.autograd.Function):
+    """K2 forward, ``conv_tail_backward`` backward. Under ``torch.autocast``
+    x and the weights are cast to bf16; otherwise the (fp32) weights are
+    cast to x's dtype here, as the kernel takes one dtype."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        return conv_tail_cuda(x, [w.to(x.dtype) for w in weights])
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        return conv_tail_backward(x, weights, g)
+
+
 def conv_tail(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     """Conv layers 1-6 of the wav2vec2 extractor. A CPU tensor takes the
-    plain version; a CUDA tensor launches K2 (or raises)."""
+    plain version; a CUDA tensor launches K2 (or raises), through
+    ``ConvTailFn`` so that gradients flow."""
     if x.is_cuda:
-        return conv_tail_cuda(x, weights)
+        return ConvTailFn.apply(x, *weights)
     return conv_tail_plain(x, weights)
 
 

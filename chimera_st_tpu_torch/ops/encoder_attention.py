@@ -8,6 +8,17 @@ of the wav2vec2 trunk and the shared encoder. The semantics are those of
 query row, which averages V over the T real keys. bf16 runs on the tensor
 cores (a flash-attention forward with wgmma and TMA), fp32 on the CUDA
 cores (TF32 would not hold the fp32 path to 1e-4); any other type raises.
+
+Training: ``EncoderAttentionFn`` launches K1 forward and takes the backward
+of the Pallas wrapper's ``custom_vjp`` (``pallas_attention.py:106-122``),
+a plain fp32 recompute (``encoder_attention_backward``), with one change:
+the logit gradient of a padded key is zeroed, as autodiff of the XLA path
+gives it. That is the exact gradient of ``encoder_attention_plain``: for a
+fully padded row (whose output does not depend on q or k) dq and dk are 0,
+where the Pallas wrapper's backward, which leaves them unmasked, is not;
+everywhere else the two agree. ``encoder_attention_applicable`` is the
+Pallas wrapper's gate: with attention dropout on, the plain path with
+dropout runs instead.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import dot_product_attention
+from .attention import NEG_INF, dot_product_attention
 
 HEAD_DIMS = (64, 96)
 
@@ -62,11 +73,57 @@ def encoder_attention_cuda(
     return out
 
 
+def encoder_attention_applicable(q, k, causal=False, dropout_rate=0.0) -> bool:
+    """Whether K1 covers an attention call (``flash_attention_applicable``,
+    pallas_attention.py:128-140, whose additive bias the port's attention
+    never takes): self-attention shape, not causal, and an effective
+    dropout rate of 0."""
+    return not causal and dropout_rate == 0.0 and q.shape[1] == k.shape[1]
+
+
+def encoder_attention_backward(q, k, v, key_padding_mask, g):
+    """(dq, dk, dv) of ``encoder_attention_plain`` for the output gradient
+    ``g``, recomputed in fp32 and cast back to the inputs' dtype."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if key_padding_mask is not None:  # a padded key's logit is the constant -1e8
+        ds = ds.masked_fill(key_padding_mask[:, None, None, :], 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class EncoderAttentionFn(torch.autograd.Function):
+    """K1 forward, ``encoder_attention_backward`` backward. Under
+    ``torch.autocast`` the inputs are cast to bf16 (a ctypes launch is no op
+    autocast knows) and the backward runs in the forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, q, k, v, key_padding_mask):
+        ctx.save_for_backward(q, k, v, key_padding_mask)
+        return encoder_attention_cuda(q, k, v, key_padding_mask)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        q, k, v, key_padding_mask = ctx.saved_tensors
+        return (*encoder_attention_backward(q, k, v, key_padding_mask, g), None)
+
+
 def encoder_attention(q, k, v, key_padding_mask=None):
     """Bidirectional self-attention with a key-padding mask. A CPU tensor
-    takes the plain version; a CUDA tensor launches K1 (or raises)."""
+    takes the plain version; a CUDA tensor launches K1 (or raises), through
+    ``EncoderAttentionFn`` so that gradients flow."""
     if q.is_cuda:
-        return encoder_attention_cuda(q, k, v, key_padding_mask)
+        return EncoderAttentionFn.apply(q, k, v, key_padding_mask)
     return encoder_attention_plain(q, k, v, key_padding_mask)
 
 

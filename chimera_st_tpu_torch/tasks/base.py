@@ -1,5 +1,5 @@
-"""Task base class (counterpart of chimera_st_tpu/tasks/base.py, the part
-inference reads).
+"""Task base class (counterpart of chimera_st_tpu/tasks/base.py, the parts
+inference and the training step read).
 
 A task owns dictionaries, datasets, and the glue that builds models,
 generators and batch iterators. ``make_batch_iterator`` keeps the JAX
@@ -7,8 +7,8 @@ package's batch order and padded lengths (descending stable sort by size,
 ``batch_by_size``, DP-optimal bucket edges, ``pad_to_bucket``): the padded
 length of a batch changes the model's output, because the extractor's group
 norm spans the whole padded time axis, so hypotheses identical to the JAX
-CLI's need batches identical to it. Criterions and group-pure batching wait
-for the training slice (ROADMAP A9-A10).
+CLI's need batches identical to it. Group-pure batching waits for the
+trainer (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..config.registry import ARCHITECTURES, MODELS
+from ..config.registry import ARCHITECTURES, CRITERIONS, MODELS
 from ..data.batching import batch_by_size, optimal_buckets, pad_to_bucket
 from ..data.dictionary import Dictionary
 from ..data.iterators import EpochBatchIterator
@@ -54,11 +54,18 @@ class ChimeraTask:
 
     # -------------------------------------------------------------- models
 
-    def build_model(self, model_cfg: Dict, dtype=torch.float32, device="cuda"):
-        """The model of ``model_cfg["arch"]`` on ``device``, in eval mode,
-        its linear / conv / embedding parameters in ``dtype``."""
+    def build_model(self, model_cfg: Dict, dtype=torch.float32, device="cuda",
+                    train: bool = False):
+        """The model of ``model_cfg["arch"]`` on ``device``. For inference
+        it is in eval mode, its linear / conv / embedding parameters in
+        ``dtype``; with ``train`` it is in train mode with fp32 parameters
+        (Adam keeps fp32 masters; bf16 compute comes from ``torch.autocast``)."""
         from .. import models  # noqa: F401 — registration side effects
         from ..models.layers import cast_compute_dtype_
+
+        if train and dtype != torch.float32:
+            raise ValueError("a model built for training keeps fp32 parameters; "
+                             "run bf16 compute under torch.autocast")
 
         arch = model_cfg.get("arch") or model_cfg.get("_name")
         full_cfg = self.model_config_overrides(dict(model_cfg))
@@ -68,7 +75,21 @@ class ChimeraTask:
             build_fn = MODELS.get(model_name)
         else:
             build_fn = MODELS.get(arch)
-        return cast_compute_dtype_(build_fn(full_cfg, device=device).eval(), dtype)
+        model = build_fn(full_cfg, device=device)
+        if train:
+            return model.train()
+        return cast_compute_dtype_(model.eval(), dtype)
+
+    def build_criterion(self, crit_cfg: Dict):
+        """The registered criterion ``crit_cfg["_name"]`` (JAX
+        ``tasks/base.py:98``); the target dictionary's pad index is its
+        ignore index unless the config names one."""
+        from .. import criterions  # noqa: F401 — registration side effects
+
+        cfg = dict(crit_cfg)
+        if self.target_dictionary is not None:
+            cfg.setdefault("padding_idx", self.target_dictionary.pad())
+        return CRITERIONS.get(cfg["_name"])(cfg)
 
     def model_config_overrides(self, cfg: Dict) -> Dict:
         """Inject task-derived fields (vocab sizes) into the model config."""

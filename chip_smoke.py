@@ -83,8 +83,31 @@ Phases (any failure raises and the script exits non-zero):
              text batch's T 32), and K1 and K2 are then held against their
              plain versions at each of them, in bf16 and in fp32, with the
              tolerances of phase 3.
-7. report  - one JSON line {"kernels": [...]} ("launches" sums the four
-             driven paths: both serve runs, cli_serve and text;
+7. train   - the triplet fine-tune step, on the same fixture (its 24 wavs
+             as train_wave.tsv). train_kernels: K1 (trunk at 12 heads of 64
+             and 8 of 96, shared encoder) and K2 (B 8, 6 s) through their
+             autograd Functions (kernel forward, plain recomputed backward),
+             bf16 and fp32, every gradient against autograd through the
+             plain version in fp32 (tolerances over each gradient's max),
+             and the backward's time. train_parity: the recipe's model at
+             full width, fp32, TF32 off, every dropout 0, a batch of 2: loss,
+             gnorm and every parameter's gradient on the card (kernels) vs
+             the CPU (plain versions), then the parameters after one Adam
+             update. train: the recipe's operating point (interlingua length
+             64, 12 trunk heads, dropouts at their defaults, label smoothing
+             0.1, loss ratio 1 1 1, Adam (0.9, 0.98), inverse-sqrt lr 1e-4,
+             warm-up cut to 4 updates), bf16 autocast over fp32 parameters,
+             3 micro-batches of 8 an update: one warm-up update and 3 timed,
+             launch counts exact (K2 6 a micro-batch; K1 0, as attention
+             dropout takes the plain path), step 4, a NaN batch changes no
+             parameter, Adam state or step, and one more update with both
+             attention dropouts 0 launches K1 36 times a micro-batch (12
+             trunk, 12 shared encoder on audio, 12 on text). Prints
+             {"train": {...}} (updates/s, audio s/s, target tokens/s, peak
+             memory, forward / backward ms of a micro-batch, launches; with
+             --profile the device's busy share of one update).
+8. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
+             paths: both serve runs, cli_serve, text and both train runs;
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
 
@@ -94,7 +117,8 @@ DIR and runs phase 3's K3 and K4 cases on it (what --parent starts).
 With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
 of the wall time and the device time by kernel; cli_serve runs its command
-once more under the profiler and prints the device's busy seconds.
+once more under the profiler and prints the device's busy seconds; train
+profiles one more update.
 
 Longer logs (the compiler's register/shared-memory report, the profiles) go
 to chiprun_out/.
@@ -902,6 +926,344 @@ def counted_decoder_steps():
         TransformerDecoder.step = decoder_step
 
 
+# ---- the training phases: K1 / K2 backward, card-vs-CPU parity of one
+# flagship step, and the recipe's operating point
+
+def grad_err(got, ref) -> float:
+    """Max abs error over a tensor's largest reference value."""
+    return max_err(got, ref) / max(float(ref.abs().max()), 1e-30)
+
+
+def k1_backward_case(torch, enc_attn, tensor, label, B, T, H, D):
+    """K1 through ``EncoderAttentionFn`` (kernel forward, recomputed
+    backward) in bf16 and fp32 against autograd through the plain version in
+    fp32 on the same inputs; errors over each gradient's max. The
+    backward's time beside its bound (10 B H T^2 D operations: the logits
+    recomputed, dV, dP, dQ, dK)."""
+    q, k, v, g = (tensor((B, T, H, D)) for _ in range(4))
+    mask = torch.zeros(B, T, dtype=torch.bool, device="cuda")
+    mask[1, T // 2:] = True
+    if B > 2:
+        mask[2, :] = True
+    ref_leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    enc_attn.encoder_attention_plain(*ref_leaves, mask).backward(g.float())
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        leaves = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+        out = enc_attn.EncoderAttentionFn.apply(*leaves, mask)
+        if out.grad_fn is None:
+            raise AssertionError("K1's output has no grad_fn")
+        out.backward(g.to(dtype))
+        name = str(dtype).replace("torch.", "")
+        errs[name] = max(grad_err(a.grad, r.grad) for a, r in zip(leaves, ref_leaves))
+        check(f"{label} {name} dq/dk/dv through K1 vs fp32 plain autograd (over max)",
+              errs[name], tol)
+    ms = cuda_ms(lambda: enc_attn.encoder_attention_backward(q, k, v, mask, g), reps=5)
+    b_ms, b_by = bound_ms(7 * B * T * H * D * 2 + B * T, 10 * B * H * T * T * D)
+    log(f"  {label} backward (fp32 recompute, plain PyTorch): {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(backward_ms=ms, backward_bound_ms=b_ms, backward_bound_by=b_by,
+                grad_err=errs)
+
+
+def k2_backward_case(torch, conv_tail, tensor, B, T1):
+    """K2 through ``ConvTailFn`` with fp32 weights (cast to x's dtype
+    inside), bf16 and fp32 x, against autograd through the plain tail in
+    fp32; errors over each gradient's max. The backward's time beside its
+    bound (the recomputed forward and the dX and dW products: 3x the
+    forward's operations)."""
+    CH = conv_tail.CH
+    x = torch.nn.functional.gelu(tensor((B, T1, CH), dtype=torch.float32)).to(torch.bfloat16)
+    ws = [tensor((CH, CH, k), scale=(2.0 / (k * CH)) ** 0.5, dtype=torch.float32)
+          for k, _ in conv_tail.TAIL_SPEC]
+    ref_leaves = [x.float().requires_grad_()] + [w.clone().requires_grad_() for w in ws]
+    y = conv_tail.conv_tail_plain(ref_leaves[0], ref_leaves[1:])
+    g = tensor(tuple(y.shape))
+    y.backward(g.float())
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+        leaves = [x.detach().to(dtype).requires_grad_()] + [w.clone().requires_grad_() for w in ws]
+        out = conv_tail.ConvTailFn.apply(*leaves)
+        if out.grad_fn is None:
+            raise AssertionError("K2's output has no grad_fn")
+        out.backward(g.to(dtype))
+        name = str(dtype).replace("torch.", "")
+        errs[name] = max(grad_err(a.grad, r.grad) for a, r in zip(leaves, ref_leaves))
+        check(f"B{B} T1 {T1} {name} dx/dW through K2 vs fp32 plain autograd (over max)",
+              errs[name], tol)
+        del leaves, out
+    wb = [w.to(torch.bfloat16) for w in ws]
+    ms = cuda_ms(lambda: conv_tail.conv_tail_backward(x, wb, g), reps=3)
+    lens, flops = [T1], 0
+    for k, s in conv_tail.TAIL_SPEC:
+        lens.append((lens[-1] - k) // s + 1)
+        flops += 2 * B * lens[-1] * k * CH * CH
+    n_bytes = (2 * B * T1 * CH + 2 * sum(w.numel() for w in ws) + B * lens[-1] * CH) * 2
+    b_ms, b_by = bound_ms(n_bytes, 3 * flops)
+    log(f"  B{B} T1 {T1} backward (recompute + cuDNN dX/dW, bf16): {ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return dict(backward_ms=ms, backward_bound_ms=b_ms, backward_bound_by=b_by,
+                grad_err=errs)
+
+
+def phase_train_kernels(torch, enc_attn, conv_tail, records):
+    """K1's and K2's training forms at the train phase's shapes: trunk (12
+    heads of 64, and the default 8 of 96), shared encoder, 6 s conv tail."""
+    log("train_kernels: K1 / K2 backward through their autograd Functions")
+    tensor = Inputs(torch, 5)
+    k1_rec, k2_rec = (next(r for r in records if r["name"] == n)
+                      for n in ("encoder_attention", "conv_tail"))
+    k1_rec["backward"] = {
+        label: k1_backward_case(torch, enc_attn, tensor, label, B, T, H, D)
+        for label, B, T, H, D in (("trunk_h12", 8, 299, 12, 64), ("trunk", 8, 299, 8, 96),
+                                  ("shared", 8, 75, 8, 64))}
+    k2_rec["backward"] = {"6s": k2_backward_case(torch, conv_tail, tensor, 8, 19199)}
+    torch.cuda.empty_cache()
+
+
+TRAIN_ARCH = {"arch": "s2t_transformer_w2v2_interlingua_base", "interlingua_length": 64,
+              "w2v2_heads": 12}
+TRAIN_CRITERION = {"_name": "triplet_st_mt_contrastive", "label_smoothing": 0.1,
+                   "loss_ratio": (1.0, 1.0, 1.0)}
+TRAIN_ADAM = {"_name": "adam", "adam_betas": "(0.9, 0.98)"}
+NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, w2v2_dropout=0.0,
+                  w2v2_attention_dropout=0.0, w2v2_activation_dropout=0.0)
+
+
+def train_task(fx):
+    """The triplet task on the fixture, with ``train_wave.tsv``: the 24 wavs
+    of the CLI manifest as a training split."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    root = fx["root"]
+    (root / "train_wave.tsv").write_text((root / "tst_wave.tsv").read_text())
+    return setup_task({"_name": "triplet", "data": str(root), "config_yaml": "config_wave.yaml"})
+
+
+def train_model(torch, task, device, **overrides):
+    """The recipe's model built for training (fp32 parameters, train mode)
+    with seeded random weights, drawn on the CPU."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+
+    model = task.build_model(dict(TRAIN_ARCH, **overrides), device="cpu", train=True)
+    return init_params_(model, torch.Generator().manual_seed(11)).to(device)
+
+
+def phase_train_parity(torch, fx, task):
+    """One flagship step at full width in fp32 (TF32 off), every dropout 0,
+    a batch of 2 from the fixture: on the card (K1, K2 through their
+    Functions) and on the CPU (plain versions). Loss terms (1e-5), gnorm
+    (1e-3) and every parameter's gradient (1e-2 per tensor, L2), then the
+    parameters after one Adam update at lr
+    1e-4 (a fixed schedule): where the two gradients differ by d, Adam's
+    first update may differ by up to lr * min(2, d / eps), which is the
+    bound each parameter is held to (plus 4 fp32 roundings of the parameter
+    and 1e-6 lr for the two optimizers' own rounding)."""
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.train import TrainStep
+
+    batch = next(iter(task.make_batch_iterator(task.dataset("train_wave"), max_sentences=2)
+                      .next_epoch_itr(shuffle=False)))
+    log(f"train_parity: fp32, every dropout 0, batch 2 ({batch['audio'].shape[1] / 16000:.2f} s "
+        "padded), card (kernels) vs CPU (plain versions), one Adam update at lr 1e-4")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = train_model(torch, task, device, **NO_DROPOUT)
+        step = TrainStep(model, task.build_criterion(TRAIN_CRITERION),
+                         build_optimizer(TRAIN_ADAM, model.parameters()),
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         compute_dtype=torch.float32)
+        before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        metrics = step([batch])
+        log(f"  {device}: {time.perf_counter() - t0:.2f} s, loss {metrics['loss']:.4f}, "
+            f"gnorm {metrics['gnorm']:.4f}")
+        out[device] = (metrics, before, {k: p.grad.cpu() for k, p in model.named_parameters()},
+                       {k: p.detach().cpu() for k, p in model.named_parameters()})
+        del model, step
+    (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
+    for key in ("loss", "st_loss", "mt_loss", "contrastive_loss"):
+        check(f"{key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]), 1e-5)
+    check("gnorm card vs CPU (relative)", abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], 1e-3)
+    # per tensor |card - CPU| / |CPU| (L2): fp32 round-off grows through the
+    # ReLU kinks and cuDNN's conv backward; a wrong backward would be O(1).
+    # A key projection's bias has an exact gradient of 0 (a softmax row
+    # shifted by a constant): held against its weight's gradient.
+    rel = sorted(((float((gg[k] - gc[k]).norm() / gc[k[:-4] + "weight" if k.endswith(
+        "k_proj.bias") else k].norm().clamp_min(1e-30)), k) for k in gc), reverse=True)
+    log("  largest gradient differences (L2, relative): "
+        + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
+    check(f"every parameter's gradient ({len(gc)} tensors) card vs CPU, |d| / |g| per tensor",
+          rel[0][0], 1e-2)
+    lr, eps = 1e-4, 1e-8
+    excess, moved = 0.0, 0
+    for k in pc:
+        allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
+            + 4 * torch.finfo(torch.float32).eps * pc[k].abs() + 1e-6 * lr
+        excess = max(excess, float(((pg[k] - pc[k]).abs() - allowed).max()))
+        moved += int(not torch.equal(pc[k], before[k]))
+    log(f"  Adam update: {moved} of {len(pc)} tensors moved; max |card - CPU| / lr "
+        f"{max(max_err(pg[k], pc[k]) for k in pc) / lr:.3e}")
+    if excess > 0 or moved != len(pc):
+        raise AssertionError(f"parameters after the update: {excess} beyond the bound, "
+                             f"{moved} of {len(pc)} tensors moved")
+    torch.cuda.empty_cache()
+
+
+def train_profile(torch, step, micro):
+    """One update under torch.profiler: the device's busy share of the wall
+    time and the device operations by time (also written to
+    chiprun_out/train_profile.txt)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(micro)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device events")
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"  profile: one update, wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"= {100 * busy_us / wall_us:.1f} % of wall, {sum(e.count for e in events)} launches")
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)
+    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}"
+             for e in rows]
+    for line in lines[:15]:
+        log("  " + line)
+    (ROOT / "chiprun_out" / "train_profile.txt").write_text("\n".join(lines) + "\n")
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3)
+
+
+TRAIN_UPDATES = 3  # timed, after one warm-up update
+
+
+def phase_train(torch, task, kernels, profile=False):
+    """The recipe's operating point: bf16 autocast over fp32 parameters, the
+    triplet criterion (label smoothing 0.1, loss ratio 1 1 1), Adam (0.9,
+    0.98) at inverse-sqrt lr 1e-4 with the warm-up cut to 4 updates, the
+    24 fixture wavs through the task's iterator in micro-batches of 8: 3
+    micro-batches an update. One warm-up update, then 3 timed, launch
+    counts zeroed just before them; then the forward / backward split of
+    one micro-batch, a NaN batch, and one update with both attention
+    dropouts at 0 (K1 on the path). Returns the launch counts of both runs."""
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.train import TrainStep, prepare_batch
+
+    micro = list(task.make_batch_iterator(task.dataset("train_wave"), max_sentences=8)
+                 .next_epoch_itr(shuffle=False))
+    audio_s = sum(float(b["audio_lengths"].sum()) for b in micro) / 16000
+    tokens = sum(b["ntokens"] for b in micro)
+    log(f"train: bf16 autocast, {len(micro)} micro-batches of 8 an update ({audio_s:.1f} s of "
+        f"audio, {tokens:.0f} target tokens; padded to "
+        f"{[round(b['audio'].shape[1] / 16000, 2) for b in micro]} s), Adam (0.9, 0.98), "
+        "inverse_sqrt lr 1e-4, warm-up 4")
+
+    def make_step(**overrides):
+        model = train_model(torch, task, "cuda", **overrides)
+        return TrainStep(model, task.build_criterion(TRAIN_CRITERION),
+                         build_optimizer(TRAIN_ADAM, model.parameters()),
+                         build_lr_schedule({"_name": "inverse_sqrt", "lr": 1e-4,
+                                            "warmup_updates": 4}),
+                         compute_dtype=torch.bfloat16, seed=0)
+
+    step = make_step()
+    model = step.model
+    n_params = sum(p.numel() for p in model.parameters())
+    step(micro)  # warm-up: cuBLAS / cuDNN plans; lr 0
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    history = [step(micro) for _ in range(TRAIN_UPDATES)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(history):
+        log(f"  update {i + 1}: lr {m['lr']:.2e}, loss / token {m['loss'] / m['sample_size']:.4f} "
+            f"(st {m['st_loss'] / m['sample_size']:.4f}, mt {m['mt_loss'] / m['sample_size']:.4f},"
+            f" contrastive {m['contrastive_loss']:.3f}), gnorm {m['gnorm']:.4f}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["gnorm"])) or m["nonfinite_grad"]:
+            raise AssertionError(f"update {i + 1} is not finite: {m}")
+    moved = sum(not torch.equal(p, start[k]) for k, p in model.named_parameters())
+    rec = {"updates_per_s": TRAIN_UPDATES / wall, "audio_s_per_s": TRAIN_UPDATES * audio_s / wall,
+           "target_tokens_per_s": TRAIN_UPDATES * tokens / wall, "update_s": wall / TRAIN_UPDATES,
+           "peak_memory_gb": peak / 1e9, "parameters": n_params, "launches": counts,
+           "step": step.num_updates}
+    log(f"  {TRAIN_UPDATES} updates in {wall:.2f} s: {rec['updates_per_s']:.3f} updates/s, "
+        f"{rec['audio_s_per_s']:.1f} audio s/s, {rec['target_tokens_per_s']:.0f} target tokens/s; "
+        f"peak memory {peak / 1e9:.2f} GB ({n_params / 1e6:.1f} M parameters); {moved} of "
+        f"{len(start)} parameter tensors moved; step {step.num_updates}; launches {counts}")
+    # K2 once a micro-batch (6 layers); attention dropout 0.1 keeps K1 off
+    implied = {"encoder_attention": 0, "conv_tail": 6 * len(micro) * TRAIN_UPDATES,
+               "decode_attention": 0, "logmel": 0}
+    if counts != implied or step.num_updates != 1 + TRAIN_UPDATES or moved != len(start):
+        raise AssertionError(f"train: launches {counts} (want {implied}), step "
+                             f"{step.num_updates}, {moved} of {len(start)} tensors moved")
+
+    # forward vs backward of one micro-batch (no update)
+    b = prepare_batch(micro[0], "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with step.autocast():
+        loss, _, _ = step.criterion(model, b, step.generator, step.num_updates)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    rec["forward_ms"], rec["backward_ms"] = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    step.optimizer.optimizer.zero_grad(set_to_none=True)
+    log(f"  one micro-batch of 8: forward (audio + text pass) {rec['forward_ms']:.1f} ms, "
+        f"backward {rec['backward_ms']:.1f} ms")
+    if profile:
+        rec["profile"] = train_profile(torch, step, micro)
+
+    # a NaN in the audio: nothing changes, the update is not counted
+    n_updates = step.num_updates
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt_state = [{k: v.clone() for k, v in s.items()}
+                 for s in step.optimizer.optimizer.state.values()]
+    bad = dict(micro[0], audio=micro[0]["audio"].copy())
+    bad["audio"][0, 100] = np.nan
+    m = step([bad])
+    same = all(torch.equal(p, params[k]) for k, p in model.named_parameters()) and all(
+        torch.equal(v, old[k]) for s, old in zip(step.optimizer.optimizer.state.values(),
+                                                 opt_state) for k, v in s.items())
+    log(f"  NaN batch: gnorm {m['gnorm']}, nonfinite_grad {m['nonfinite_grad']}, step "
+        f"{step.num_updates}, parameters and Adam state unchanged: {same}")
+    if m["nonfinite_grad"] != 1.0 or step.num_updates != n_updates or not same:
+        raise AssertionError("the NaN batch changed the state")
+    del step, model, params, opt_state
+    torch.cuda.empty_cache()
+
+    # both attention dropouts 0: K1 runs in the trunk and the shared encoder
+    step = make_step(attention_dropout=0.0, w2v2_attention_dropout=0.0)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(micro)
+    torch.cuda.synchronize()
+    counts0 = {fn.__name__: fn.launches for fn in kernels}
+    # a micro-batch: 12 trunk + 12 shared (audio) + 12 shared (text) K1
+    implied0 = {"encoder_attention": 36 * len(micro), "conv_tail": 6 * len(micro),
+                "decode_attention": 0, "logmel": 0}
+    log(f"  attention dropout 0: one update (the first) {time.perf_counter() - t0:.2f} s, loss "
+        f"{m['loss']:.2f}, gnorm {m['gnorm']:.4f}; launches {counts0}")
+    if counts0 != implied0 or not np.isfinite(m["gnorm"]):
+        raise AssertionError(f"train (attention dropout 0): launches {counts0}, want {implied0}")
+    rec["launches_attention_dropout_0"] = counts0
+    del step
+    torch.cuda.empty_cache()
+    print(json.dumps({"train": rec}), flush=True)
+    return counts, counts0
+
+
 def phase_cli_shapes(torch, enc_attn, conv_tail, seen, records):
     """Every shape at which the CLI phases launched K1 and K2 (padded batches
     of the fixture's wavs: the trunk at 12 heads of 64, the shared encoder
@@ -1280,9 +1642,15 @@ def main() -> int:
             counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
             phase_interactive(torch, fx, work)
             counts["text"] = phase_text(torch, fx, task, kernels)
+        # 7. training
+        phase_train_kernels(torch, encoder_attention, conv_tail, records)
+        tasks = train_task(fx)
+        phase_train_parity(torch, fx, tasks)
+        counts["train"], counts["train_attention_dropout_0"] = phase_train(
+            torch, tasks, kernels, args.profile)
     phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
 
-    # 7. report
+    # 8. report
     for r in records:
         r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())

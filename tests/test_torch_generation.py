@@ -8,6 +8,8 @@ case so that some hypotheses end before the eos-forcing step. Every beam,
 not only the best, must agree: tokens and lengths exactly, scores to 1e-4
 (fp32 through two encoder stacks and up to 16 decode steps)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,6 +82,29 @@ def test_generate_audio_matches_jax(decoder_scaled, case):
     assert len(hyps) == 3 and len(hyps[0]) == 2
     assert hyps[0][0]["tokens"][-1] == gen.eos
     assert hyps[0][0]["score"] == pytest.approx(float(scores[0, 0]))
+
+
+def test_decode_past_max_target_positions_clamps_like_jax(decoder_scaled):
+    """max_target_positions 8 and 12 decode steps: steps 8-11 lie past the
+    position table, whose last row the JAX step's gather clamps to; the
+    port's decoder does the same, so every token equals the JAX
+    generator's (scores 1e-4)."""
+    cfg = dataclasses.replace(TINY, max_target_positions=8)
+    params = numpy_tree(decoder_scaled)
+    rng = np.random.default_rng(4)
+    wav = rng.normal(size=(2, 4000)).astype(np.float32)
+    mask = np.zeros((2, 4000), bool)
+    mask[1, 3000:] = True
+    common = dict(beam_size=3, max_decode_len=12, min_len=11, len_penalty=1.0)
+    ref = JaxGenerator(JaxModel(cfg), JaxSettings(**common)).generate_audio(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(wav), jnp.asarray(mask))
+    ref_tokens, ref_scores, ref_lens = map(np.asarray, ref)
+    tokens, scores, lens = SequenceGenerator(port_model(cfg, params), GeneratorSettings(
+        **common)).generate_audio(torch.from_numpy(wav), torch.from_numpy(mask))
+    assert (ref_lens == 12).all()
+    np.testing.assert_array_equal(lens.numpy(), ref_lens)
+    np.testing.assert_array_equal(tokens.numpy(), ref_tokens)
+    np.testing.assert_allclose(scores.numpy(), ref_scores, atol=1e-4, rtol=1e-4)
 
 
 def test_top_k_breaks_ties_toward_the_lower_index():
