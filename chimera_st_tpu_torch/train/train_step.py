@@ -72,12 +72,12 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer, lr: float,
-                    sample_size: float, skip_nonfinite: bool = True,
+                    sample_size: float,
                     logged: Sequence[torch.Tensor] = ()) -> Tuple[float, bool, List[float]]:
     """Normalise the summed gradients by the total sample size, take their
-    global norm and, if it is finite (or ``skip_nonfinite`` is off), one
-    optimizer update at ``lr``. The norm and the ``logged`` scalars come to
-    the host together -> (norm, whether it was finite, logged values)."""
+    global norm and, if it is finite, one optimizer update at ``lr``. The
+    norm and the ``logged`` scalars come to the host together -> (norm,
+    whether it was finite, logged values)."""
     grads = [p.grad for p in params]
     denom = max(float(sample_size), 1.0)
     for g in grads:
@@ -85,7 +85,7 @@ def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer, 
     g_norm = global_norm(grads)
     host = torch.stack([g_norm, *(t.float() for t in logged)]).tolist()
     finite = bool(np.isfinite(host[0]))
-    if finite or not skip_nonfinite:
+    if finite:
         optimizer.step(lr, g_norm)
     return host[0], finite, host[1:]
 
@@ -94,13 +94,13 @@ class TrainStep:
     """``step(micro_batches) -> metrics``: one accumulated update of
     ``model`` (built with ``train=True``) on the device its parameters are
     on. ``compute_dtype`` bf16 runs the forward and backward under
-    ``torch.autocast``; fp32 (or None) runs them in fp32."""
+    ``torch.autocast``; fp32 runs them in fp32."""
 
     def __init__(self, model, criterion: Callable, optimizer: Optimizer,
                  lr_schedule: Callable[[int], float], compute_dtype=torch.bfloat16,
-                 seed: int = 0, skip_nonfinite: bool = True):
+                 seed: int = 0):
         self.model, self.criterion, self.optimizer = model, criterion, optimizer
-        self.lr_schedule, self.skip_nonfinite = lr_schedule, skip_nonfinite
+        self.lr_schedule = lr_schedule
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.device = self.params[0].device
         self.compute_dtype = compute_dtype
@@ -108,7 +108,7 @@ class TrainStep:
         self.num_updates = 0  # updates applied; a skipped one does not count
 
     def autocast(self):
-        if self.compute_dtype in (None, torch.float32):
+        if self.compute_dtype == torch.float32:
             return contextlib.nullcontext()
         return torch.autocast(device_type=self.device.type, dtype=self.compute_dtype)
 
@@ -129,10 +129,9 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
         lr = self.lr_schedule(self.num_updates)
         on_device = [k for k, v in totals.items() if torch.is_tensor(v)]
-        gnorm, finite, values = apply_gradients(
-            self.params, self.optimizer, lr, sample_size, self.skip_nonfinite,
-            [totals[k] for k in on_device])
-        if finite or not self.skip_nonfinite:
+        gnorm, finite, values = apply_gradients(self.params, self.optimizer, lr, sample_size,
+                                                [totals[k] for k in on_device])
+        if finite:
             self.num_updates += 1
         metrics = {k: float(v) for k, v in totals.items() if not torch.is_tensor(v)}
         metrics.update(zip(on_device, values))
