@@ -1049,7 +1049,7 @@ def train_model(torch, task, device, **overrides):
     return init_params_(model, torch.Generator().manual_seed(11)).to(device)
 
 
-def phase_train_parity(torch, fx, task):
+def phase_train_parity(torch, task):
     """One flagship step at full width in fp32 (TF32 off), every dropout 0,
     a batch of 2 from the fixture: on the card (K1, K2 through their
     Functions) and on the CPU (plain versions). Loss terms (1e-5), gnorm
@@ -1644,10 +1644,10 @@ def main() -> int:
             counts["text"] = phase_text(torch, fx, task, kernels)
         # 7. training
         phase_train_kernels(torch, encoder_attention, conv_tail, records)
-        tasks = train_task(fx)
-        phase_train_parity(torch, fx, tasks)
+        training = train_task(fx)
+        phase_train_parity(torch, training)
         counts["train"], counts["train_attention_dropout_0"] = phase_train(
-            torch, tasks, kernels, args.profile)
+            torch, training, kernels, args.profile)
     phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
 
     # 8. report
