@@ -1,4 +1,12 @@
-from .store import load_native_checkpoint
+from .store import (
+    CheckpointManager,
+    TrainState,
+    load_native_checkpoint,
+    load_params_only,
+    load_state,
+    read_state,
+    save_state,
+)
 from .torch_import import (
     import_interlingua_state_dict,
     import_wav2vec2_state_dict,
@@ -6,7 +14,13 @@ from .torch_import import (
 )
 
 __all__ = [
+    "CheckpointManager",
+    "TrainState",
     "load_native_checkpoint",
+    "load_params_only",
+    "load_state",
+    "read_state",
+    "save_state",
     "load_torch_checkpoint",
     "import_interlingua_state_dict",
     "import_wav2vec2_state_dict",

@@ -1,28 +1,225 @@
-"""Native checkpoint store, read side (counterpart of
-chimera_st_tpu/checkpoint/store.py and of the ``.ckpt`` branch of its
-``cli/generate.py`` ``load_model_and_params``).
+"""Native checkpoint store (counterpart of chimera_st_tpu/checkpoint/store.py
+and of the ``.ckpt`` branch of its ``cli/generate.py``
+``load_model_and_params``).
 
-A ``.ckpt`` the JAX trainer wrote is one pickle: ``params`` and ``opt_state``
-as trees of numpy arrays, ``step``, and ``extra`` with the run's ``model_cfg``
-(arch name plus overrides), so the exact model rebuilds without repeating the
-arch flags. Reading it needs numpy only. The parameter tree is carried across
-with ``convert.params_from_flax`` / ``s2t_params_from_flax``; ``opt_state`` is
-not read. Saving waits for the trainer (ROADMAP A10).
+A ``.ckpt`` is one pickle, the JAX trainer's layout: ``step``, ``params`` as
+a flax variables dict (``{"params": …}``) of numpy arrays, ``opt_state`` as
+optax's tree of numpy arrays (or None under ``--no-save-optimizer-state``),
+``extra`` (the run's ``model_cfg`` / ``task_cfg`` / ``criterion_cfg``, the
+iterator position, the best metric, the meters, the training time) and
+``format_version`` 1. Either package reads the other's files; reading needs
+numpy only, and the pickle names no class of either package. The trees are
+carried across with ``convert``; a file is written to ``.tmp`` and then
+moved into place. Naming and retention follow the JAX ``CheckpointManager``:
+``checkpoint_last`` / ``checkpoint_best`` / ``checkpoint{epoch}`` /
+``checkpoint_{epoch}_{updates}`` / ``checkpoint.best_{score}_{updates}``,
+written once and copied, then pruned.
 """
 
 from __future__ import annotations
 
+import logging
 import pickle
-from typing import Any, Dict, Tuple
+import re
+import shutil
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 SUFFIX = ".ckpt"
 
 
-def load_native_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """-> (flax parameter tree with numpy leaves, model_cfg dict)."""
+class TrainState(NamedTuple):
+    """A trainer's state as host trees, in the JAX package's layout."""
+
+    step: int
+    params: Dict[str, Any]
+    opt_state: Optional[Dict[str, Any]]
+
+
+def save_state(path: str, state: TrainState, extra: Dict[str, Any]) -> None:
+    payload = {
+        "step": int(state.step),
+        "params": state.params,
+        "opt_state": state.opt_state,
+        "extra": extra,
+        "format_version": 1,
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    Path(tmp).replace(path)
+
+
+def read_state(path: str) -> Dict[str, Any]:
+    """The payload of a native checkpoint."""
     with open(path, "rb") as f:
         payload = pickle.load(f)
     if "params" not in payload:
         raise ValueError(f"{path}: not a native checkpoint (no 'params' entry)")
+    return payload
+
+
+def load_native_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """-> (flax parameter tree with numpy leaves, model_cfg dict)."""
+    payload = read_state(path)
     model_cfg = dict((payload.get("extra") or {}).get("model_cfg") or {})
     return payload["params"], model_cfg
+
+
+def load_params_only(path: str, trainer) -> None:
+    """The parameters of the checkpoint at ``path`` into the trainer's
+    model; its optimizer state and update count stay as they are."""
+    trainer.load_params(read_state(path)["params"])
+
+
+def load_state(payload: Dict[str, Any], trainer) -> Dict[str, Any]:
+    """Restores parameters, optimizer state and update count into the
+    trainer and returns ``extra``. When the checkpoint holds no optimizer
+    state, or one of another layout (saved with ``--fix-*`` and restored
+    without, or another optimizer chain), the trainer keeps a fresh
+    optimizer state, with a warning, as the JAX ``load_state`` does."""
+    trainer.load_params(payload["params"])
+    try:
+        if payload.get("opt_state") is None:
+            raise KeyError("checkpoint saved with --no-save-optimizer-state")
+        trainer.load_opt_state(payload["opt_state"])
+    except (ValueError, KeyError) as e:
+        logger.warning(f"optimizer state does not match the current optimizer ({e}); "
+                       "keeping freshly initialized optimizer state")
+    trainer.set_num_updates(int(payload["step"]))
+    return payload.get("extra", {})
+
+
+class CheckpointManager:
+    """Naming, retention and best tracking, as the JAX package's.
+    ``save`` takes ``state``, a function ``save_optimizer -> TrainState``,
+    so that the host copies are made only when a file is written, once."""
+
+    def __init__(
+        self,
+        save_dir: str,
+        maximize_best: bool = False,
+        keep_last_epochs: int = -1,
+        keep_interval_updates: int = -1,
+        keep_best_checkpoints: int = -1,
+        no_last: bool = False,
+        save_optimizer_state: bool = True,
+        no_epoch: bool = False,
+        no_save: bool = False,
+    ):
+        self.save_dir = Path(save_dir)
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        self.maximize_best = maximize_best
+        self.keep_last_epochs = keep_last_epochs
+        self.keep_interval_updates = keep_interval_updates
+        self.keep_best_checkpoints = keep_best_checkpoints
+        self.no_last = no_last
+        self.no_epoch = no_epoch
+        self.no_save = no_save
+        self.save_optimizer_state = save_optimizer_state
+        self.best: Optional[float] = None
+        self.verify_writable()
+
+    def verify_writable(self):
+        probe = self.save_dir / "dummy"
+        try:
+            with open(probe, "w") as f:
+                f.write("ok")
+        finally:
+            probe.unlink(missing_ok=True)
+
+    def is_better(self, val: float) -> bool:
+        if self.best is None:
+            return True
+        return val > self.best if self.maximize_best else val < self.best
+
+    def save(
+        self,
+        state: Callable[[bool], TrainState],
+        extra: Dict[str, Any],
+        epoch: int,
+        updates: int,
+        val_metric: Optional[float] = None,
+        end_of_epoch: bool = True,
+        save_interval_updates: int = 0,
+    ):
+        # best is tracked before any early return: patience reads
+        # is_better() / best, which must advance under --no-save too
+        is_best = val_metric is not None and self.is_better(val_metric)
+        if is_best:
+            self.best = val_metric
+        if self.no_save:
+            return
+        extra = dict(extra)
+        extra["best"] = self.best
+        wrote = []
+        t0 = time.time()
+        host: Optional[TrainState] = None
+
+        def _save(name):
+            nonlocal host
+            if host is None:
+                host = state(self.save_optimizer_state)
+            save_state(str(self.save_dir / name), host, extra)
+            wrote.append(name)
+
+        # write once, then copy
+        primary = None
+        if end_of_epoch and not self.no_epoch:
+            primary = f"checkpoint{epoch}{SUFFIX}"
+            _save(primary)
+        elif not end_of_epoch and save_interval_updates > 0:
+            primary = f"checkpoint_{epoch}_{updates}{SUFFIX}"
+            _save(primary)
+
+        def _replicate(name):
+            if primary is not None:
+                shutil.copyfile(str(self.save_dir / primary), str(self.save_dir / name))
+            else:
+                _save(name)
+            if name not in wrote:
+                wrote.append(name)
+
+        if is_best:
+            _replicate(f"checkpoint_best{SUFFIX}")
+        if self.keep_best_checkpoints > 0 and val_metric is not None:
+            _replicate(f"checkpoint.best_{val_metric:.4f}_{updates}{SUFFIX}")
+        if not self.no_last:
+            _replicate(f"checkpoint_last{SUFFIX}")
+
+        self._prune()
+        logger.info(
+            f"saved checkpoint(s) {wrote} (epoch {epoch}, {updates} updates, "
+            f"{time.time() - t0:.1f}s)"
+        )
+
+    def _prune(self):
+        if self.keep_last_epochs > 0:
+            ckpts = sorted(
+                self.save_dir.glob(f"checkpoint[0-9]*{SUFFIX}"),
+                key=lambda p: int(re.match(r"checkpoint(\d+)", p.stem).group(1)),
+            )
+            for p in ckpts[: -self.keep_last_epochs]:
+                p.unlink(missing_ok=True)
+        if self.keep_best_checkpoints > 0:
+            def score_of(p):  # checkpoint.best_<score>_<updates>.ckpt
+                return float(p.stem.split("_")[-2])
+
+            ckpts = sorted(
+                self.save_dir.glob(f"checkpoint.best_*{SUFFIX}"),
+                key=score_of,
+                reverse=not self.maximize_best,  # worst first
+            )
+            if len(ckpts) > self.keep_best_checkpoints:
+                for p in ckpts[: -self.keep_best_checkpoints]:
+                    p.unlink(missing_ok=True)
+        if self.keep_interval_updates > 0:
+            ckpts = sorted(
+                self.save_dir.glob(f"checkpoint_*_*{SUFFIX}"),
+                key=lambda p: int(p.stem.split("_")[-1]),
+            )
+            for p in ckpts[: -self.keep_interval_updates]:
+                p.unlink(missing_ok=True)

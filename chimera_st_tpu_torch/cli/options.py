@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 from typing import Any, Dict, Tuple
 
 from ..generation import generator
@@ -51,6 +52,116 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--max-source-positions", type=int, default=6000000)
     p.add_argument("--max-target-positions", type=int, default=1024)
     p.add_argument("--skip-invalid-size-inputs-valid-test", action="store_true")
+    p.add_argument("--zero-sharding", default="none", choices=["none", "os"],
+                   help="'os': shard optimizer state over the data axis (ZeRO-1)")
+    p.add_argument("--pipeline-stages", type=int, default=0)
+    p.add_argument("--pipeline-chunks", type=int, default=0)
+    p.add_argument("--pipeline-checkpoint", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run into DIR")
+    p.add_argument("--user-dir", default=None, metavar="DIR",
+                   help="a module whose import registers custom tasks/models/criterions")
+    return p
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    """The JAX train parser's flags and defaults, so that the recipes parse;
+    ``TRAIN_UNPORTED`` refuses those whose feature is not ported, and
+    ``--async-dispatch`` defaults to 0 (the port's step reads the host once
+    an update)."""
+    p.add_argument("--arch", "-a", default="s2t_transformer_w2v2_interlingua_base")
+    p.add_argument("--criterion", default="label_smoothed_cross_entropy")
+    p.add_argument("--label-smoothing", type=float, default=0.0)
+    p.add_argument("--loss-ratio", type=float, nargs="+", default=[1.0, 1.0, 1.0])
+    p.add_argument("--contrastive-temp", type=float, default=0.1)
+    p.add_argument("--contrastive-increase-until", type=int, default=None)
+    p.add_argument("--sentence-avg", action="store_true")
+    p.add_argument("--optimizer", default="adam")
+    p.add_argument("--adam-betas", default="(0.9, 0.999)")
+    p.add_argument("--adam-eps", type=float, default=1e-8)
+    # knobs of the optimizers and schedules that are not ported: parsed, and
+    # read by nothing unless their optimizer / schedule is chosen (which raises)
+    p.add_argument("--momentum", type=float, default=0.0)
+    p.add_argument("--adagrad-eps", type=float, default=1e-10)
+    p.add_argument("--adadelta-rho", type=float, default=0.9)
+    p.add_argument("--adadelta-eps", type=float, default=1e-6)
+    p.add_argument("--adamax-betas", default=None)
+    p.add_argument("--adamax-eps", type=float, default=1e-8)
+    p.add_argument("--lamb-betas", default=None)
+    p.add_argument("--lamb-eps", type=float, default=1e-8)
+    p.add_argument("--weight-decay", "--wd", type=float, default=0.0)
+    p.add_argument("--clip-norm", type=float, default=0.0)
+    p.add_argument("--lr", type=str, default="0.25")
+    p.add_argument("--lr-scheduler", default="fixed")
+    p.add_argument("--warmup-updates", type=int, default=0)
+    p.add_argument("--warmup-init-lr", type=float, default=-1)
+    p.add_argument("--total-num-update", type=int, default=0)
+    p.add_argument("--end-learning-rate", type=float, default=0.0)
+    p.add_argument("--power", type=float, default=1.0)
+    p.add_argument("--min-lr", type=float, default=None)
+    p.add_argument("--max-lr", type=float, default=None)
+    p.add_argument("--lr-period-updates", type=float, default=None)
+    p.add_argument("--t-mult", type=float, default=1.0)
+    p.add_argument("--lr-shrink", type=float, default=0.1)
+    p.add_argument("--init-lr-scale", type=float, default=0.01)
+    p.add_argument("--final-lr-scale", type=float, default=0.01)
+    p.add_argument("--phase-ratio", type=str, default=None)
+    # parsed and unused in the JAX trainer too
+    p.add_argument("--stop-min-lr", type=float, default=-1.0)
+    p.add_argument("--update-freq", type=str, default="1")
+    p.add_argument("--async-dispatch", type=int, default=0,
+                   help="updates kept in flight with deferred metrics (not ported: 0)")
+    p.add_argument("--max-update", type=int, default=0)
+    p.add_argument("--max-epoch", type=int, default=0)
+    p.add_argument("--stop-time-hours", type=float, default=0)
+    p.add_argument("--train-subset", default="train")
+    p.add_argument("--valid-subset", default="valid")
+    p.add_argument("--validate-interval", type=int, default=1)
+    p.add_argument("--validate-interval-updates", type=int, default=0,
+                   help="parsed and unused, as in the JAX trainer")
+    p.add_argument("--disable-validation", action="store_true")
+    p.add_argument("--save-dir", default="checkpoints")
+    p.add_argument("--restore-file", default="checkpoint_last.ckpt")
+    p.add_argument("--reset-optimizer", action="store_true")
+    p.add_argument("--reset-dataloader", action="store_true")
+    p.add_argument("--reset-lr-scheduler", action="store_true")
+    p.add_argument("--reset-meters", action="store_true")
+    p.add_argument("--save-interval", type=int, default=1)
+    p.add_argument("--save-interval-updates", type=int, default=0)
+    p.add_argument("--keep-last-epochs", type=int, default=-1)
+    p.add_argument("--keep-interval-updates", type=int, default=-1)
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--no-epoch-checkpoints", action="store_true")
+    p.add_argument("--best-checkpoint-metric", default="loss")
+    p.add_argument("--maximize-best-checkpoint-metric", action="store_true")
+    p.add_argument("--patience", type=int, default=-1)
+    p.add_argument("--num-workers", type=int, default=2)
+    p.add_argument("--max-tokens-valid", type=float, default=None)
+    p.add_argument("--batch-size-valid", type=int, default=None)
+    p.add_argument("--validate-after-updates", type=int, default=0)
+    p.add_argument("--fixed-validation-seed", type=int, default=None)
+    p.add_argument("--curriculum", type=int, default=0)
+    p.add_argument("--keep-best-checkpoints", type=int, default=-1)
+    p.add_argument("--no-last-checkpoints", action="store_true")
+    p.add_argument("--no-save-optimizer-state", action="store_true")
+    p.add_argument("--finetune-from-model", default=None, metavar="CKPT")
+    p.add_argument("--optimizer-overrides", default="{}",
+                   help="accepted for recipe compat: optimizer hyperparameters "
+                        "always come from the current arguments")
+    p.add_argument("--data-buffer-size", type=int, default=4)
+    p.add_argument("--no-host-wire", action="store_true",
+                   help="accepted: the port always sends float32 audio and the "
+                        "padding mask (what this flag asks of the JAX trainer)")
+    p.add_argument("--ddp-backend", default=None, help="accepted for recipe compat")
+    p.add_argument("--task-configs", nargs="+", default=None)
+    p.add_argument("--main-task", default=None)
+    p.add_argument("--fix-wav2vec", action="store_true")
+    p.add_argument("--fix-interlingua", action="store_true")
+    p.add_argument("--fix-decoder", action="store_true")
+    p.add_argument("--fix-decoder-transformers", action="store_true")
+    p.add_argument("--fix-encoder-transformers", action="store_true")
+    p.add_argument("--reset-encoder", action="store_true")
+    p.add_argument("--feature-grad-mult", type=float, default=1.0)
     return p
 
 
@@ -145,18 +256,70 @@ def add_generation_args(p: argparse.ArgumentParser):
     return p
 
 
-# what the entry points cannot do yet: the generator's own list, and
-# several processes or cards (attribute, test on its value, flag, ROADMAP item)
-UNPORTED = generator.UNPORTED + (
+# what every entry point cannot do yet: several processes or cards, a plugin
+# module (attribute, test on its value, flag, ROADMAP item)
+_COMMON_UNPORTED = (
     ("distributed_world_size", lambda v: v > 1, "--distributed-world-size above 1", "A12"),
     ("distributed_init_method", bool, "--distributed-init-method", "A12"),
     ("model_parallel_size", lambda v: v > 1, "--model-parallel-size above 1", "A12"),
+    ("zero_sharding", lambda v: v != "none", "--zero-sharding os", "A12"),
+    ("pipeline_stages", lambda v: v > 1, "--pipeline-stages above 1", "A12"),
+    ("user_dir", bool, "--user-dir", "A14"),
+)
+# the generation and validation CLIs add the generator's own list; a trace
+# is the train CLI's alone (as in the JAX package, whose others ignore it)
+UNPORTED = generator.UNPORTED + _COMMON_UNPORTED + (
+    ("profile", bool, "--profile outside the train CLI", "A13"),
+)
+
+PORTED_OPTIMIZERS = ("adam",)
+PORTED_SCHEDULES = ("inverse_sqrt", "fixed")
+# the train CLI's
+TRAIN_UNPORTED = _COMMON_UNPORTED + (
+    ("task", lambda v: v != "triplet", "--task other than triplet", "A10b"),
+    ("task_configs", bool, "--task-configs (joint training)", "A14"),
+    ("optimizer", lambda v: v not in PORTED_OPTIMIZERS,
+     "--optimizer other than adam (adamw: adam with --weight-decay)", "A14"),
+    ("lr_scheduler", lambda v: v not in PORTED_SCHEDULES,
+     "--lr-scheduler other than inverse_sqrt / fixed", "A14"),
+    ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
+    ("async_dispatch", lambda v: v > 0, "--async-dispatch above 0", "A10b"),
 )
 
 
-def require_ported(args) -> None:
-    """Raises for the first option of ``UNPORTED`` that ``args`` sets."""
-    generator.require_ported(args, UNPORTED)
+def require_ported(args, table=UNPORTED) -> None:
+    """Raises for the first option of ``table`` that ``args`` sets."""
+    generator.require_ported(args, table)
+
+
+@contextlib.contextmanager
+def profiled(args):
+    """``--profile DIR``: a torch.profiler trace of the block in DIR (a
+    Chrome trace, ``trace.json``), host and, on the card, device."""
+    if not getattr(args, "profile", None):
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+
+
+def parse_lr(lr_str: str) -> float:
+    """'--lr 5e-4' or '--lr 0.25,0.1' -> the first value."""
+    return float(str(lr_str).split(",")[0])
+
+
+def parse_update_freq(s: str) -> int:
+    return int(str(s).split(",")[0])
 
 
 def resolve_device(args) -> str:

@@ -1,0 +1,387 @@
+"""Training entry point (counterpart of chimera_st_tpu/cli/train.py, for
+``--task triplet``): the same flags, loop, checkpoints and log lines.
+
+    python -m chimera_st_tpu_torch.cli.train DATA_DIR --task triplet \\
+        --arch s2t_transformer_w2v2_interlingua_base \\
+        --w2v2-model-path wav2vec_small.pt \\
+        --criterion triplet_st_mt_contrastive --label-smoothing 0.1 \\
+        --optimizer adam --adam-betas '(0.9, 0.98)' --lr 1e-4 \\
+        --lr-scheduler inverse_sqrt --warmup-updates 25000 \\
+        --max-tokens 2000000 --update-freq 8 --save-dir checkpoints/st
+
+In order: the task, the model (fp32 parameters in train mode), the
+schedule, the optimizer, the criterion, then the parameters (the seeded
+``init_params_``, then ``--w2v2-model-path`` through
+``import_wav2vec2_state_dict``), the ``--fix-*`` freezing, the restore
+(``--restore-file`` / ``--finetune-from-model`` and the ``--reset-*`` rules of
+the JAX CLI), and the loop: ``--update-freq`` micro-batches an update, update
+``n`` keyed by ``--seed`` + ``n`` as in JAX, ``--max-update`` /
+``--max-epoch`` / ``--stop-time-hours`` / ``--patience``, saves every
+``--save-interval`` epochs and ``--save-interval-updates`` updates,
+validation (losses over the sample size in bits, BLEU with
+``--best-checkpoint-metric bleu``). ``--device cuda`` (the default) runs on
+the card through the kernels; ``--device cpu`` / ``--cpu`` runs their plain
+versions. The compute dtype is ``--dtype`` (bf16 autocast over fp32
+parameters, or fp32). ``main`` returns the trainer, the checkpoint manager
+and the run's host-clock times. Options that are not ported raise
+``NotImplementedError`` naming the ROADMAP item (``options.TRAIN_UNPORTED``).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import sys
+import time
+from typing import Dict, Optional
+
+logger = logging.getLogger("chimera_st_tpu_torch.train")
+
+
+def main(argv=None) -> dict:
+    from . import options
+    from .options import parse_lr, parse_update_freq
+
+    p = options.base_parser("chimera-train (PyTorch port)")
+    options.add_train_args(p)
+    args, model_overrides = options.parse_with_model_overrides(p, argv)
+    options.require_ported(args, options.TRAIN_UNPORTED)
+    device = options.resolve_device(args)
+
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
+        stream=sys.stdout,
+    )
+
+    import numpy as np
+    import torch
+
+    from ..checkpoint.store import CheckpointManager, load_params_only, load_state, read_state
+    from ..data.iterators import GroupedIterator
+    from ..logging import metrics as metrics_mod
+    from ..logging.progress_bar import progress_bar
+    from ..optim import build_lr_schedule, build_optimizer
+    from ..tasks import setup_task
+    from ..train.trainer import Trainer
+
+    np.random.seed(args.seed)
+
+    # ----------------------------------------------------------- components
+    task_cfg = {"_name": args.task, "data": args.data, "config_yaml": args.config_yaml,
+                "source_lang": args.source_lang, "target_lang": args.target_lang,
+                **model_overrides}  # unknown flags reach both task and model cfgs
+    task = setup_task(task_cfg)
+    task.load_dataset(args.valid_subset) if not args.disable_validation else None
+    task.load_dataset(args.train_subset)
+
+    compute_dtype = torch.bfloat16 if args.dtype == "bfloat16" or args.fp16 else torch.float32
+    model_cfg = {"arch": args.arch, **model_overrides}
+    if args.feature_grad_mult != 1.0:
+        model_cfg["feature_grad_mult"] = args.feature_grad_mult
+    model = task.build_model(model_cfg, device="cpu", train=True)
+    logger.info(f"model arch {args.arch} ({type(model).__name__})")
+
+    lr_schedule = build_lr_schedule({
+        "_name": args.lr_scheduler, "lr": parse_lr(args.lr),
+        "warmup_updates": args.warmup_updates, "warmup_init_lr": args.warmup_init_lr})
+    opt_cfg = {"_name": args.optimizer, "adam_betas": args.adam_betas,
+               "adam_eps": args.adam_eps, "weight_decay": args.weight_decay}
+    crit_cfg = {
+        "_name": args.criterion,
+        "label_smoothing": args.label_smoothing,
+        "loss_ratio": tuple(args.loss_ratio),
+        "contrastive_temp": args.contrastive_temp,
+        "contrastive_increase_until": args.contrastive_increase_until,
+        "sentence_avg": args.sentence_avg,
+    }
+    criterion = task.build_criterion(crit_cfg)
+
+    # ----------------------------------------------------------- init params
+    init_params(model, args, model_overrides)
+    model.to(device)
+    fixes = [f for f in ("fix_wav2vec", "fix_interlingua", "fix_decoder",
+                         "fix_decoder_transformers", "fix_encoder_transformers")
+             if getattr(args, f, False)]
+    from ..optim.freeze import frozen_fraction, wrap_freeze
+
+    trained, frozen = wrap_freeze(model, fixes)
+    if fixes:
+        logger.info(f"freezing {', '.join(fixes)} "
+                    f"({frozen_fraction(model, fixes):.1%} of parameters)")
+    optimizer = build_optimizer(opt_cfg, trained, clip_norm=args.clip_norm, frozen=frozen)
+    logger.info(f"device: {device}; params: "
+                f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+
+    trainer = Trainer(model, criterion, optimizer, lr_schedule, compute_dtype,
+                      async_depth=max(args.async_dispatch, 0))
+    # persisted so generate/validate can rebuild the model from the checkpoint
+    run_cfg = {"model_cfg": model_cfg, "task_cfg": task_cfg, "criterion_cfg": crit_cfg}
+
+    ckpt_mgr = CheckpointManager(
+        args.save_dir,
+        maximize_best=args.maximize_best_checkpoint_metric,
+        keep_last_epochs=args.keep_last_epochs,
+        keep_interval_updates=args.keep_interval_updates,
+        keep_best_checkpoints=args.keep_best_checkpoints,
+        no_last=args.no_last_checkpoints,
+        no_epoch=args.no_epoch_checkpoints,
+        no_save=args.no_save,
+        save_optimizer_state=not args.no_save_optimizer_state,
+    )
+
+    # ----------------------------------------------------------- batch iters
+    update_freq = parse_update_freq(args.update_freq)
+    train_itr = task.make_batch_iterator(
+        task.dataset(args.train_subset),
+        max_tokens=int(args.max_tokens) if args.max_tokens else None,
+        max_sentences=args.batch_size,
+        required_batch_size_multiple=args.required_batch_size_multiple,
+        seed=args.seed,
+        num_shards=args.num_shards,
+        shard_id=args.shard_id,
+        num_length_buckets=args.num_length_buckets,
+        buffer_size=args.data_buffer_size,
+        num_workers=args.num_workers,
+    )
+
+    # ----------------------------------------------------------- restore
+    epoch = 1
+    times = {"load_s": 0.0, "save_s": [], "valid_s": [], "valid": []}
+    resume_file = ckpt_mgr.save_dir / "checkpoint_last.ckpt"
+    if args.finetune_from_model and args.restore_file != "checkpoint_last.ckpt":
+        raise SystemExit("--finetune-from-model and --restore-file are mutually exclusive")
+    if args.finetune_from_model and resume_file.is_file():
+        # a preempted finetune run resumes from its own checkpoint_last
+        logger.info(f"{resume_file} exists; resuming it instead of re-applying "
+                    f"--finetune-from-model {args.finetune_from_model}")
+        args.finetune_from_model = None
+    if args.finetune_from_model:
+        if (args.reset_optimizer or args.reset_dataloader or args.reset_meters
+                or args.reset_lr_scheduler):
+            raise SystemExit("--finetune-from-model already resets optimizer/dataloader/"
+                             "meters; do not combine it with --reset-* flags")
+        load_params_only(args.finetune_from_model, trainer)
+        logger.info(f"loaded pretrained params from {args.finetune_from_model} "
+                    f"(optimizer/meters/dataloader reset)")
+    restore = ckpt_mgr.save_dir / args.restore_file
+    if restore.is_file() and not args.finetune_from_model:  # normal resume
+        t0 = time.perf_counter()
+        fresh = ({k: v.clone() for k, v in model.state_dict().items()}
+                 if args.reset_encoder else None)
+        payload = read_state(str(restore))
+        if args.reset_optimizer:
+            # the fresh optimizer state and update count 0 stay
+            trainer.load_params(payload["params"])
+            extra = payload.get("extra", {})
+        else:
+            extra = load_state(payload, trainer)
+        del payload
+        if args.reset_encoder:
+            from ..optim.freeze import reset_encoder_subtrees
+
+            logger.info("--reset-encoder: re-initializing the shared encoder "
+                        "transformer stack")
+            model.load_state_dict(reset_encoder_subtrees(model.state_dict(), fresh))
+        trainer.load_extra_state(extra, None if args.reset_dataloader else train_itr,
+                                 load_meters=not args.reset_meters)
+        # the best metric is restored only without --reset-optimizer and
+        # --reset-meters: an MT -> ST warm start must not import MT's best
+        if not args.reset_optimizer and not args.reset_meters:
+            ckpt_mgr.best = extra.get("best")
+        epoch = extra.get("train_iterator", {}).get("epoch", 1)
+        times["load_s"] = time.perf_counter() - t0
+        logger.info(f"restored {restore} (epoch {epoch}, {trainer.num_updates} updates)")
+
+    def save(val, end_of_epoch):
+        t0 = time.perf_counter()
+        ckpt_mgr.save(
+            trainer.host_state,
+            {**trainer.extra_state(train_itr, val, ckpt_mgr.best), **run_cfg},
+            epoch, trainer.num_updates, val_metric=val, end_of_epoch=end_of_epoch,
+            save_interval_updates=0 if end_of_epoch else args.save_interval_updates,
+        )
+        times["save_s"].append(time.perf_counter() - t0)
+
+    def validate():
+        t0 = time.perf_counter()
+        val = validate_and_metric(args, task, trainer)
+        times["valid_s"].append(time.perf_counter() - t0)
+        times["valid"].append(val)
+        return val
+
+    times["restored"] = {"step": trainer.num_updates, "epoch": epoch,
+                         "train_iterator": train_itr.state_dict()}
+
+    # ----------------------------------------------------------- train loop
+    start = time.time()
+    # host-clock seconds of each update: fetching its micro-batches and the
+    # step, up to the end of its device work; validation and saves excluded
+    times["update_s"] = []
+    mark = time.perf_counter()
+    patience_left = args.patience
+    # a non-finite skip keeps num_updates: the interval block must not
+    # re-fire on every skipped step at a boundary
+    last_interval_validated = -1
+    stop = False
+    with options.profiled(args):
+        while not stop:
+            if args.max_epoch and epoch > args.max_epoch:
+                break
+            train_itr.epoch = epoch
+            # --curriculum N: length-ordered (unshuffled) batches for N epochs
+            itr = train_itr.next_epoch_itr(shuffle=epoch > args.curriculum)
+            grouped = GroupedIterator(itr, update_freq)
+            pbar = progress_bar(grouped, log_format=args.log_format,
+                                log_interval=args.log_interval, epoch=epoch,
+                                tensorboard_logdir=args.tensorboard_logdir)
+            with metrics_mod.aggregate("train_inner") as agg:
+                for microbatches in pbar:
+                    trainer.train_step(microbatches, seed=args.seed + trainer.num_updates)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    times["update_s"].append(time.perf_counter() - mark)
+                    num_updates = trainer.num_updates
+                    if num_updates % args.log_interval == 0:
+                        pbar.log(agg.get_smoothed_values(), step=num_updates)
+                        metrics_mod.reset_meters("train_inner")
+                    if (args.save_interval_updates > 0
+                            and num_updates % args.save_interval_updates == 0
+                            and num_updates != last_interval_validated):
+                        last_interval_validated = num_updates
+                        val = None
+                        if num_updates >= args.validate_after_updates:
+                            val = validate()
+                        save(val, end_of_epoch=False)
+                    mark = time.perf_counter()
+                    if args.max_update and num_updates >= args.max_update:
+                        stop = True
+                        break
+                    if args.stop_time_hours and \
+                            (time.time() - start) / 3600 > args.stop_time_hours:
+                        stop = True
+                        break
+            train_itr.next_epoch()
+
+            val = None
+            if (not args.disable_validation
+                    and trainer.num_updates >= args.validate_after_updates
+                    and (epoch % args.validate_interval == 0 or stop)):
+                val = validate()
+                if val is not None and args.patience > 0:
+                    if ckpt_mgr.is_better(val):
+                        patience_left = args.patience
+                    else:
+                        patience_left -= 1
+                        if patience_left <= 0:
+                            logger.info(f"early stop: patience {args.patience} exhausted")
+                            stop = True
+            if epoch % args.save_interval == 0 or stop:
+                save(val, end_of_epoch=True)
+            with metrics_mod.aggregate("train"):
+                pass
+            epoch += 1
+            mark = time.perf_counter()
+    if args.profile:
+        logger.info(f"profiler trace written to {args.profile}")
+    logger.info(f"done training in {time.time() - start:.1f}s "
+                f"({trainer.num_updates} updates)")
+    return {"trainer": trainer, "checkpoints": ckpt_mgr, "times": times}
+
+
+def init_params(model, args, model_overrides: Dict) -> None:
+    """Fresh parameters: the seeded ``init_params_`` (``--seed``), then the
+    wav2vec2 trunk of ``--w2v2-model-path`` (a fairseq ``.pt``) through the
+    ported importer. The JAX CLI reads that path from ``args``, where the
+    undeclared flag never lands, so it keeps its fresh trunk; the port loads
+    it."""
+    import torch
+
+    from ..models.interlingua import init_params_
+
+    init_params_(model, torch.Generator().manual_seed(int(args.seed)))
+    w2v_path = model_overrides.get("w2v2_model_path")
+    if w2v_path:
+        from ..checkpoint.torch_import import import_wav2vec2_state_dict, load_torch_checkpoint
+
+        sd = import_wav2vec2_state_dict(load_torch_checkpoint(str(w2v_path))["model"])
+        model.encoder.wav2vec_model.load_state_dict(sd, strict=True)
+        logger.info(f"loaded pretrained wav2vec2 from {w2v_path}")
+
+
+def validation_batches(args, task, max_tokens=None, max_sentences=None):
+    return task.make_batch_iterator(
+        task.dataset(args.valid_subset),
+        max_tokens=int(max_tokens) if max_tokens else None,
+        max_sentences=max_sentences,
+        seed=args.seed if getattr(args, "fixed_validation_seed", None) is None
+        else args.fixed_validation_seed,
+        num_length_buckets=args.num_length_buckets,
+    ).next_epoch_itr(shuffle=False)
+
+
+def validate_and_metric(args, task, trainer) -> Optional[float]:
+    """Losses over the valid split (sum / sample size / ln 2), plus BLEU
+    with ``--best-checkpoint-metric bleu``; returns the metric named by
+    ``--best-checkpoint-metric`` (else ``loss``)."""
+    if args.disable_validation:
+        return None
+    totals: Dict[str, float] = {}
+    for batch in validation_batches(args, task, args.max_tokens_valid or args.max_tokens,
+                                    args.batch_size_valid or args.batch_size):
+        for k, v in trainer.valid_step(batch).items():
+            totals[k] = totals.get(k, 0.0) + float(v)
+    ss = max(totals.get("sample_size", 1.0), 1.0)
+    stats = {k: v / ss / math.log(2) for k, v in totals.items() if k.endswith("loss")}
+    if args.best_checkpoint_metric == "bleu":
+        stats["bleu"] = validate_bleu(args, task, trainer)
+    logger.info(
+        "validation | " + " | ".join(f"{k} {v:.3f}" for k, v in sorted(stats.items())))
+    metric = args.best_checkpoint_metric
+    if metric in stats:
+        return stats[metric]
+    return stats.get("loss")
+
+
+def validate_bleu(args, task, trainer, beam: int = 4, max_decode_len: int = 64) -> float:
+    """Corpus BLEU (sacrebleu, 13a) of beam ``beam`` hypotheses over the
+    valid split, as the JAX CLI's."""
+    import numpy as np
+    import torch
+
+    from ..scoring import build_scorer
+
+    class GenCfg:
+        pass
+
+    GenCfg.beam = beam
+    GenCfg.max_decode_len = max_decode_len
+    GenCfg.lenpen = 1.0
+    model = trainer.model
+    was_training = model.training
+    model.eval()
+    try:
+        generator = task.build_generator(model, GenCfg)
+        tgt_dict = task.target_dictionary
+        scorer = build_scorer({"_name": "sacrebleu"}, tgt_dict)
+        device = trainer.step.device
+        for batch in validation_batches(args, task, args.max_tokens, args.batch_size):
+            tokens, _, lens = generator.generate_audio(
+                torch.from_numpy(batch["audio"]).to(device),
+                torch.from_numpy(batch["audio_padding_mask"]).to(device))
+            tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+            for b in range(tokens.shape[0]):
+                scorer.add_string(
+                    tgt_dict.string(np.asarray(batch["target"][b]), bpe_symbol="sentencepiece"),
+                    tgt_dict.string(tokens[b, 0, : lens[b, 0]], bpe_symbol="sentencepiece"))
+    finally:
+        model.train(was_training)
+    return scorer.score()
+
+
+def cli_main():
+    main()
+
+
+if __name__ == "__main__":
+    cli_main()

@@ -14,7 +14,7 @@ chimera_st_tpu/data/manifests.py, the part inference reads):
 ``config_wave.yaml`` is read with ``yaml`` where that is installed and as JSON
 (which is YAML) where it is not. Not ported yet, and raising if asked for:
 the fbank feature transforms (SpecAugment, CMVN; ROADMAP A11) and
-comma-separated splits with temperature resampling (ROADMAP A10).
+comma-separated splits with temperature resampling (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -366,7 +366,7 @@ def make_dataset_from_tsv(
     if "," in split:
         raise NotImplementedError(
             "comma-separated splits (concatenation with temperature resampling) are not "
-            "ported yet (ROADMAP A10)")
+            "ported yet (ROADMAP A10b)")
     rows = load_tsv(str(Path(root) / f"{split}.tsv"))
     audio_paths = [r["audio"] for r in rows]
     n_frames = [int(r["n_frames"]) for r in rows]

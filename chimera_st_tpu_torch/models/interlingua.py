@@ -82,7 +82,7 @@ class InterlinguaConfig:
     w2v2_layer_norm_first: bool = False
     w2v2_conv_pos: int = 128
     w2v2_conv_pos_groups: int = 16
-    w2v2_remat: bool = False  # training raises: ROADMAP A10
+    w2v2_remat: bool = False  # recompute the trunk's layers in the backward
     # the trunk's own regularization (from the wav2vec2 checkpoint's args)
     w2v2_dropout: float = 0.1
     w2v2_attention_dropout: float = 0.1

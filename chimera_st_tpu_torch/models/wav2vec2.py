@@ -11,8 +11,9 @@ chimera_st_tpu/models/wav2vec2.py), for inference and fine-tuning.
   training parts a fine-tune runs: the layers' dropouts, the two input
   dropouts and ``grad_multiply`` by ``feature_grad_mult`` on the extractor's
   output. Span masking (``mask_emb``), layerdrop and the ``layer_norm``
-  extractor mode belong to pre-training and ASR (ROADMAP A14); ``remat``
-  raises in training (ROADMAP A10).
+  extractor mode belong to pre-training and ASR (ROADMAP A14). With
+  ``remat`` each context-network layer is recomputed in the backward
+  (``remat_layer``), as the JAX ``nn.remat`` of the layer.
 
 Module names follow the fairseq state dict (``feature_extractor.
 conv_layers.{i}.0`` conv, ``conv_layers.0.2`` group norm, ``encoder.
@@ -181,6 +182,35 @@ class _ContextNetwork(nn.Module):
         self.layer_norm = LayerNorm(embed_dim, device=device)
 
 
+def remat_layer(layer: nn.Module, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(x, padding_mask, generator)`` whose activations are not kept:
+    the backward recomputes them (``torch.utils.checkpoint``). The
+    checkpoint restores the global random streams only, not an explicit
+    ``generator``, so its state at the forward is saved here and put back
+    for the recompute (and the state the recompute found is restored after
+    it): the recomputed dropout masks are the forward's."""
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        return checkpoint(layer, x, padding_mask, None, use_reentrant=False)
+    at_forward = generator.get_state()
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward
+            return layer(h, padding_mask, generator)
+        now = generator.get_state()
+        generator.set_state(at_forward)
+        try:
+            return layer(h, padding_mask, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class Wav2Vec2Encoder(nn.Module):
     """Conv extractor + transformer context network (the ``extract_features``
     path with no span masking)."""
@@ -212,9 +242,6 @@ class Wav2Vec2Encoder(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """source [B, T] raw waveform, padding_mask [B, T] True = pad ->
         (features [B, T', C], padding_mask' [B, T'] or None)."""
-        if self.remat and self.training and torch.is_grad_enabled():
-            raise NotImplementedError("w2v2_remat (recomputing the trunk's layers in the "
-                                      "backward) is not ported yet (ROADMAP A10)")
         p = self.dropout if self.training else 0.0
         features = grad_multiply(self.feature_extractor(source), self.feature_grad_mult)
         features = self.layer_norm(features)
@@ -229,8 +256,10 @@ class Wav2Vec2Encoder(nn.Module):
         if not self.layer_norm_first:
             x = self.encoder.layer_norm(x)
         x = dropout(x, p, generator)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.encoder.layers:
-            x = layer(x, padding_mask, generator)
+            x = (remat_layer(layer, x, padding_mask, generator) if remat
+                 else layer(x, padding_mask, generator))
         if self.layer_norm_first:
             x = self.encoder.layer_norm(x)
         return x, padding_mask

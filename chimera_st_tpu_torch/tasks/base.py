@@ -7,8 +7,8 @@ package's batch order and padded lengths (descending stable sort by size,
 ``batch_by_size``, DP-optimal bucket edges, ``pad_to_bucket``): the padded
 length of a batch changes the model's output, because the extractor's group
 norm spans the whole padded time axis, so hypotheses identical to the JAX
-CLI's need batches identical to it. Group-pure batching waits for the
-trainer (ROADMAP A10).
+CLI's need batches identical to it. Group-pure batching (the multilingual
+tasks) waits with those tasks (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -134,15 +134,25 @@ class ChimeraTask:
         max_tokens: Optional[int] = None,
         max_sentences: Optional[int] = None,
         required_batch_size_multiple: int = 1,
+        seed: int = 1,
+        num_shards: int = 1,
+        shard_id: int = 0,
         num_length_buckets: int = 10,
         max_positions: Optional[int] = None,
         buffer_size: int = 4,
+        num_workers: int = 1,
     ) -> EpochBatchIterator:
+        """The JAX package's iterator over ``dataset``: batches by size over
+        the descending stable sort, every batch padded to the smallest
+        covering bucket edge, shuffled per epoch from ``seed`` and sharded
+        by the iterator. Datasets that re-sample per epoch wait with
+        comma-joined splits (ROADMAP A10b)."""
         if len(dataset) == 0:
             raise ValueError(
                 "dataset is empty after size filtering — check "
                 "min/max sample-size limits against the manifest"
             )
+
         sizes = np.asarray([dataset.num_tokens(int(i)) for i in range(len(dataset))])
         order = np.argsort(-sizes, kind="stable")
         if max_positions is not None:
@@ -154,7 +164,6 @@ class ChimeraTask:
             max_sentences=max_sentences,
             required_batch_size_multiple=required_batch_size_multiple,
         )
-        # every batch pads up to the smallest covering bucket edge
         edges = optimal_buckets(sizes[sizes > 0] if (sizes > 0).any() else sizes,
                                 num_length_buckets)
 
@@ -162,7 +171,15 @@ class ChimeraTask:
             batch_max = max(dataset.num_tokens(int(i)) for i in idx)
             return self.collate_indices(dataset, idx, pad_to_bucket(batch_max, edges))
 
-        return EpochBatchIterator(collate, batches, buffer_size=buffer_size)
+        return EpochBatchIterator(
+            collate,
+            batches,
+            seed=seed,
+            num_shards=num_shards,
+            shard_id=shard_id,
+            buffer_size=buffer_size,
+            num_workers=num_workers,
+        )
 
     def collate_indices(self, dataset, idx: np.ndarray, audio_target_len: int):
         samples = [dataset[int(i)] for i in idx]

@@ -1,5 +1,5 @@
 """Speech-to-text task (counterpart of chimera_st_tpu/tasks/speech_to_text.py;
-the BLEU-validating variant waits for the trainer, ROADMAP A10)."""
+the BLEU-validating variant waits for fbank training, ROADMAP A10b)."""
 
 from __future__ import annotations
 

@@ -1,15 +1,15 @@
-"""The training step (counterpart of chimera_st_tpu/train/train_step.py).
-The Trainer, the checkpoint write side and the train CLI wait for ROADMAP
-A10."""
+"""The training step and the trainer (counterpart of chimera_st_tpu/train/)."""
 
 from .train_step import (
     TrainStep,
     apply_gradients,
     global_norm,
     microbatch_grad,
+    microbatch_seed,
     prepare_batch,
     valid_step,
 )
+from .trainer import Trainer, nonfinite_grad_names
 
-__all__ = ["TrainStep", "apply_gradients", "global_norm", "microbatch_grad", "prepare_batch",
-           "valid_step"]
+__all__ = ["TrainStep", "Trainer", "apply_gradients", "global_norm", "microbatch_grad",
+           "microbatch_seed", "nonfinite_grad_names", "prepare_batch", "valid_step"]

@@ -10,8 +10,10 @@ train_step.py): the same semantics, run eagerly.
   lr; a non-finite norm leaves parameters, optimizer state and the update
   count unchanged. Deciding that is the update's one host sync.
 - ``TrainStep``: the accumulated update, bf16 compute under
-  ``torch.autocast`` over fp32 parameters, dropout masks from one seeded
-  ``torch.Generator`` on the model's device.
+  ``torch.autocast`` over fp32 parameters, dropout masks from a
+  ``torch.Generator`` on the model's device, seeded afresh for each
+  micro-batch from the update's seed (``microbatch_seed``), so a resumed
+  run draws the masks an uninterrupted one draws.
 - ``valid_step``: the criterion in eval mode without gradients.
 
 The learning rate of an update is the schedule at the number of updates
@@ -65,6 +67,14 @@ def microbatch_grad(model, criterion: Callable, batch: Dict[str, Any],
     return sample_size, {k: v.detach() if torch.is_tensor(v) else v for k, v in logging.items()}
 
 
+def microbatch_seed(seed: int, i: int) -> int:
+    """The generator's seed for micro-batch ``i`` of the update whose seed
+    is ``seed``: the first 64-bit word of ``numpy.random.SeedSequence((seed,
+    i))``. The JAX trainer keys micro-batch i with ``fold_in(PRNGKey(seed),
+    i)``; the masks differ from JAX's, the keying is the same."""
+    return int(np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0])
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
     return torch.linalg.vector_norm(
@@ -91,10 +101,13 @@ def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer, 
 
 
 class TrainStep:
-    """``step(micro_batches) -> metrics``: one accumulated update of
+    """``step(micro_batches, seed) -> metrics``: one accumulated update of
     ``model`` (built with ``train=True``) on the device its parameters are
     on. ``compute_dtype`` bf16 runs the forward and backward under
-    ``torch.autocast``; fp32 runs them in fp32."""
+    ``torch.autocast``; fp32 runs them in fp32. ``seed`` keys the update's
+    dropout masks, as the JAX ``Trainer.train_step``'s (its CLI passes
+    ``--seed`` + the updates applied); without it, the constructor's
+    ``seed`` + the updates applied."""
 
     def __init__(self, model, criterion: Callable, optimizer: Optimizer,
                  lr_schedule: Callable[[int], float], compute_dtype=torch.bfloat16,
@@ -104,7 +117,8 @@ class TrainStep:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.device = self.params[0].device
         self.compute_dtype = compute_dtype
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device)
         self.num_updates = 0  # updates applied; a skipped one does not count
 
     def autocast(self):
@@ -112,11 +126,17 @@ class TrainStep:
             return contextlib.nullcontext()
         return torch.autocast(device_type=self.device.type, dtype=self.compute_dtype)
 
-    def __call__(self, micro_batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:
+    def __call__(self, micro_batches: Iterable[Dict[str, Any]],
+                 seed: Optional[int] = None) -> Dict[str, float]:
+        if seed is None:
+            seed = self.seed + self.num_updates
         self.model.train()
         self.optimizer.optimizer.zero_grad(set_to_none=True)
+        for p in self.optimizer.frozen:
+            p.grad = None
         sample_size, totals = 0.0, {}
-        for batch in micro_batches:
+        for i, batch in enumerate(micro_batches):
+            self.generator.manual_seed(microbatch_seed(seed, i))
             batch = prepare_batch(batch, self.device)
             with self.autocast():
                 ss, logging = microbatch_grad(self.model, self.criterion, batch,

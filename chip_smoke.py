@@ -105,9 +105,28 @@ Phases (any failure raises and the script exits non-zero):
              trunk, 12 shared encoder on audio, 12 on text). Prints
              {"train": {...}} (updates/s, audio s/s, target tokens/s, peak
              memory, forward / backward ms of a micro-batch, launches; with
-             --profile the device's busy share of one update).
+             --profile the device's busy share of one update). train_kernels
+             also times SDPA forward + backward beside K1's backward.
+             train_cli: the train CLI in-process with the recipe's flags
+             (recipes/train-en2any-ST.sh) and a seeded fairseq-layout
+             wav2vec2 .pt of the base trunk, warm-up 4, micro-batches of 8,
+             3 an update, bf16: run A from a fresh start to 2 updates, run
+             B resumed from A's checkpoint_last to 4, then cli.generate of
+             B's checkpoint_best (beam 10, bf16). Exact launches (a
+             training micro-batch K2 6, K1 0; a validation batch, eval
+             mode, K1 36, K2 6; the decode K1 24 and K2 6 a batch, K3 6 a
+             step); A's checkpoint_last read back equals the trainer's
+             parameters and Adam state bit for bit, and so does the same
+             file restored into it by load_state; B starts at step 2 at
+             the stored iterator position and ends at step 4 with the
+             iterator and best metric of the JAX rules; the decode prints
+             one hypothesis per utterance. Prints {"train_cli": {...}}
+             (updates/s after the first update beside train's, seconds a
+             save, the file's size, the resume's load seconds, validation
+             seconds, peak memory, launches) and deletes its files.
 8. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
-             paths: both serve runs, cli_serve, text and both train runs;
+             paths: both serve runs, cli_serve, text, both train runs and
+             train_cli's training and decode;
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
 
@@ -960,10 +979,21 @@ def k1_backward_case(torch, enc_attn, tensor, label, B, T, H, D):
               errs[name], tol)
     ms = cuda_ms(lambda: enc_attn.encoder_attention_backward(q, k, v, mask, g), reps=5)
     b_ms, b_by = bound_ms(7 * B * T * H * D * 2 + B * T, 10 * B * H * T * T * D)
+    # the library call: SDPA forward and backward, the padding a float mask
+    # of -1e8 (the plain version's logit); [B, T, H, D] -> [B, H, T, D]
+    bias = torch.zeros(B, 1, 1, T, dtype=q.dtype, device="cuda").masked_fill(
+        mask[:, None, None, :], -1e8)
+    gt = g.transpose(1, 2)
+
+    def sdpa_forward_backward():
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=bias).backward(gt)
+
+    lib_ms = cuda_ms(sdpa_forward_backward, reps=5)
     log(f"  {label} backward (fp32 recompute, plain PyTorch): {ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"({b_by}); SDPA forward + backward (bf16): {lib_ms:.4f} ms")
     return dict(backward_ms=ms, backward_bound_ms=b_ms, backward_bound_by=b_by,
-                grad_err=errs)
+                backward_library_ms=lib_ms, grad_err=errs)
 
 
 def k2_backward_case(torch, conv_tail, tensor, B, T1):
@@ -1261,7 +1291,190 @@ def phase_train(torch, task, kernels, profile=False):
     del step
     torch.cuda.empty_cache()
     print(json.dumps({"train": rec}), flush=True)
-    return counts, counts0
+    return counts, counts0, rec
+
+
+def w2v2_checkpoint(torch, fx, path: Path) -> Path:
+    """A fairseq-layout wav2vec2 ``.pt`` of the fixture model's trunk (the
+    base trunk, 12 x 768, 12 heads; weight-normed ``pos_conv``, the
+    pretraining heads), as ``--w2v2-model-path`` reads ``wav2vec_small.pt``."""
+    from argparse import Namespace
+
+    prefix = "encoder.wav2vec_model."
+    sd = {k[len(prefix):]: v for k, v in fairseq_state_dict(torch, fx["model"]).items()
+          if k.startswith(prefix)}
+    cfg = fx["model"].cfg
+    torch.save({"args": Namespace(encoder_embed_dim=cfg.w2v2_embed_dim,
+                                  encoder_attention_heads=cfg.w2v2_heads,
+                                  conv_feature_layers=W2V_CONV_FEATURE_LAYERS),
+                "model": sd}, str(path))
+    return path
+
+
+def train_cli_argv(fx, w2v2: Path, save_dir: Path, max_update: int):
+    """The recipe's flags (recipes/train-en2any-ST.sh), then the cuts:
+    warm-up 4, micro-batches of 8, 3 an update (one epoch of the 24 wavs),
+    bf16, ``max_update`` updates, no epoch files, the 24-wav split as the
+    valid subset."""
+    return [str(fx["root"]), "--task", "triplet", "--config-yaml", "config_wave.yaml",
+            "--arch", "s2t_transformer_w2v2_interlingua_base", "--interlingua-length", "64",
+            "--w2v2-model-path", str(w2v2), "--w2v2-heads", "12",
+            "--criterion", "triplet_st_mt_contrastive", "--label-smoothing", "0.1",
+            "--loss-ratio", "1.0", "1.0", "1.0", "--optimizer", "adam",
+            "--adam-betas", "(0.9, 0.98)", "--lr", "1e-4", "--lr-scheduler", "inverse_sqrt",
+            "--warmup-updates", "4", "--max-tokens", "2000000", "--batch-size", "8",
+            "--update-freq", "3", "--max-update", str(max_update), "--save-dir", str(save_dir),
+            "--keep-last-epochs", "10", "--best-checkpoint-metric", "st_loss",
+            "--dtype", "bfloat16", "--no-epoch-checkpoints", "--train-subset", "train_wave",
+            "--valid-subset", "tst_wave"]
+
+
+def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
+    """The train CLI in-process at the recipe's model and settings: run A
+    from a fresh start (seeded init, the trunk from a seeded fairseq-layout
+    wav2vec2 .pt) to 2 updates, run B resumed from A's checkpoint_last to
+    4, then the generate CLI on B's checkpoint_best.
+
+    Launch counts (zeroed before each run, read after): a training
+    micro-batch runs K2 6 times and K1 never (attention dropout 0.1 takes
+    the plain path); a validation batch runs in eval mode, so K1 on the
+    audio pass (12 trunk + 12 shared-encoder layers) and the text pass (12
+    shared-encoder layers) = 36, and K2 6; no decoding. The decode of the
+    checkpoint: K1 24 and K2 6 a batch, K3 6 a decode step that ran.
+
+    Checks: the counts; run A's checkpoint_last read back
+    (``convert.checkpoint_tensors``) equals the trainer's parameters and Adam
+    state bit for bit; the same file restored by the CLI's ``load_state`` into A's
+    trainer on the card equals it bit for bit; run B starts at step 2 with
+    the stored iterator state, ends at step 4 with the iterator and best
+    metric the JAX rules give; the decode prints one hypothesis per
+    utterance. Prints {"train_cli": {...}}; deletes its files."""
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import load_state, read_state
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.convert import checkpoint_tensors
+
+    base = work / "train_cli"
+    base.mkdir()
+    save_dir = base / "checkpoints"
+    t0 = time.perf_counter()
+    w2v2 = w2v2_checkpoint(torch, fx, base / "wav2vec2_seeded.pt")
+    log(f"train_cli: the train CLI at the recipe's operating point, bf16; a seeded "
+        f"wav2vec2 .pt of {w2v2.stat().st_size / 1e6:.0f} MB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, counts = {}, {}
+    for label, max_update in (("A", 2), ("B", 4)):
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train.main(train_cli_argv(fx, w2v2, save_dir, max_update))
+        torch.cuda.synchronize()
+        counts[label] = {fn.__name__: fn.launches for fn in kernels}
+        runs[label] = out
+        t = out["times"]
+        micro = 3 * (out["trainer"].num_updates - t["restored"]["step"])
+        valid = 3 * len(t["valid_s"])
+        implied = {"encoder_attention": 36 * valid, "conv_tail": 6 * micro + 6 * valid,
+                   "decode_attention": 0, "logmel": 0}
+        log(f"  run {label}: {time.perf_counter() - t0:.1f} s, step {t['restored']['step']} -> "
+            f"{out['trainer'].num_updates}, {micro} micro-batches, {valid} validation batches; "
+            f"updates {[round(s, 3) for s in t['update_s']]} s, saves "
+            f"{[round(s, 2) for s in t['save_s']]} s, validations "
+            f"{[round(s, 2) for s in t['valid_s']]} s, load {t['load_s']:.2f} s; launches "
+            f"{counts[label]}")
+        if counts[label] != implied:
+            raise AssertionError(f"train_cli run {label}: launches {counts[label]}, the "
+                                 f"micro-batches and validation batches imply {implied}")
+        if label == "A":
+            trainer = out["trainer"]
+            last = save_dir / "checkpoint_last.ckpt"
+            size = last.stat().st_size
+            held = trainer.model.state_dict()
+            payload = read_state(str(last))
+            named = dict(trainer.model.named_parameters())
+            params, state, count = checkpoint_tensors(
+                payload, {n: tuple(p.shape) for n, p in named.items()})
+            adam = trainer.optimizer.optimizer.state
+            same = (sorted(params) == sorted(held)
+                    and all(torch.equal(params[k], held[k].cpu()) for k in held)
+                    and count == payload["step"] == trainer.num_updates == 2
+                    and all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
+                            for k in ("exp_avg", "exp_avg_sq"))
+                    and all(int(adam[p]["step"]) == 2 for p in named.values()))
+            # the CLI's restore into the same trainer: a fresh Adam state first
+            adam.clear()
+            load_state(payload, trainer)
+            restored = all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
+                           for k in ("exp_avg", "exp_avg_sq")) and trainer.num_updates == 2
+            log(f"  checkpoint_last: {size / 1e9:.3f} GB; read back = the trainer's parameters "
+                f"and Adam state bit for bit: {same}; restored through load_state on the card "
+                f"bit for bit: {restored}")
+            if not (same and restored):
+                raise AssertionError("train_cli: the written checkpoint is not the trainer's state")
+            stored_iterator = payload["extra"]["train_iterator"]
+            best_a = payload["extra"]["best"]
+            del trainer, held, params, payload, state, adam, named, out
+            runs["A"].pop("trainer")
+            torch.cuda.empty_cache()
+    b = runs["B"]
+    payload = read_state(str(save_dir / "checkpoint_last.ckpt"))
+    vals = b["times"]["valid"]
+    want_best = min([best_a] + vals)
+    log(f"  run B: restored at step {b['times']['restored']['step']} with iterator "
+        f"{b['times']['restored']['train_iterator']} (stored {stored_iterator}); ended at step "
+        f"{payload['step']}, iterator {payload['extra']['train_iterator']}, best "
+        f"{payload['extra']['best']:.4f} (run A's {best_a:.4f}, B's validations "
+        f"{[round(v, 4) for v in vals]})")
+    if (b["times"]["restored"]["step"] != 2 or b["times"]["restored"]["train_iterator"] !=
+            stored_iterator or payload["step"] != 4 or b["trainer"].num_updates != 4
+            or payload["extra"]["train_iterator"] != {"epoch": 5, "iterations_in_epoch": 0,
+                                                     "shuffle": True}
+            or payload["extra"]["best"] != want_best):
+        raise AssertionError("train_cli: run B did not resume and end as the JAX rules give")
+    peak = torch.cuda.max_memory_allocated()
+    del b["trainer"], payload
+    torch.cuda.empty_cache()
+
+    # the written checkpoint decodes: model_cfg from the file, on the card
+    for fn in kernels:
+        fn.launches = 0
+    with counted_decoder_steps() as steps:
+        text, stats, wall = cli_generate(
+            fx, base / "decode", "tst_wave", ["--batch-size", str(CLI_BATCH), "--dtype",
+                                              "bfloat16"], path=save_dir / "checkpoint_best.ckpt")
+        torch.cuda.synchronize()
+    counts["decode"] = {fn.__name__: fn.launches for fn in kernels}
+    hyps, full, last_line = parse_protocol(text)
+    batches = -(-CLI_WAVS // CLI_BATCH)
+    implied = {"encoder_attention": 24 * batches, "conv_tail": 6 * batches,
+               "decode_attention": 6 * steps[0], "logmel": 0}
+    log(f"  decode of checkpoint_best.ckpt: {stats['sentences']} sentences in {wall:.1f} s, "
+        f"{steps[0]} decode steps; launches {counts['decode']}; {last_line}")
+    if (len(full) != CLI_WAVS or any(len(h) != 1 or not np.isfinite(h[0][0])
+                                     for h in hyps.values())
+            or counts["decode"] != implied or steps[0] == 0):
+        raise AssertionError(f"train_cli decode: {len(full)} samples with all lines, launches "
+                             f"{counts['decode']} (want {implied})")
+    update_s = runs["A"]["times"]["update_s"][1:] + runs["B"]["times"]["update_s"]
+    rec = {"updates_per_s_after_first": len(update_s) / sum(update_s),
+           "train_phase_updates_per_s": train_rec["updates_per_s"],
+           "update_s": {k: r["times"]["update_s"] for k, r in runs.items()},
+           "save_s": {k: r["times"]["save_s"] for k, r in runs.items()},
+           "checkpoint_bytes": size, "resume_load_s": runs["B"]["times"]["load_s"],
+           "valid_s": {k: r["times"]["valid_s"] for k, r in runs.items()},
+           "peak_memory_gb": peak / 1e9, "decode_s": stats["decode_s"],
+           "decode_load_s": stats["load_s"], "launches": counts}
+    log(f"  updates/s through the CLI after its first update {rec['updates_per_s_after_first']:.3f}"
+        f" (the train phase, from Python: {train_rec['updates_per_s']:.3f}); a checkpoint "
+        f"{size / 1e9:.2f} GB written in {rec['save_s']}; resume load "
+        f"{rec['resume_load_s']:.2f} s; peak memory {peak / 1e9:.2f} GB")
+    shutil.rmtree(base)
+    print(json.dumps({"train_cli": rec}), flush=True)
+    train_counts = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
+    return train_counts, counts["decode"]
 
 
 def phase_cli_shapes(torch, enc_attn, conv_tail, seen, records):
@@ -1305,15 +1518,17 @@ def parse_protocol(text: str):
     return hyps, full, (text.strip().splitlines() or [""])[-1]
 
 
-def cli_generate(fx, out_dir: Path, subset: str, extra):
-    """The port's generate CLI on the fixture -> (its output file's text,
-    its returned counts and times, the wall seconds of the whole call)."""
+def cli_generate(fx, out_dir: Path, subset: str, extra, path=None):
+    """The port's generate CLI on the fixture (the seeded ``.pt`` unless
+    ``path``) -> (its output file's text, its returned counts and times, the
+    wall seconds of the whole call)."""
     from chimera_st_tpu_torch.cli import generate
 
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     stats = generate.main([
-        str(fx["root"]), "--task", "triplet", "--path", str(fx["ckpt"]), "--gen-subset", subset,
+        str(fx["root"]), "--task", "triplet", "--path", str(path or fx["ckpt"]),
+        "--gen-subset", subset,
         "--beam", "10", "--lenpen", "1.5", "--max-decode-len", "64", "--scoring", "bleu",
         "--results-path", str(out_dir), *extra])
     return ((out_dir / f"generate-{subset}.txt").read_text(), stats,
@@ -1646,8 +1861,10 @@ def main() -> int:
         phase_train_kernels(torch, encoder_attention, conv_tail, records)
         training = train_task(fx)
         phase_train_parity(torch, training)
-        counts["train"], counts["train_attention_dropout_0"] = phase_train(
+        counts["train"], counts["train_attention_dropout_0"], train_rec = phase_train(
             torch, training, kernels, args.profile)
+        counts["train_cli"], counts["train_cli_decode"] = phase_train_cli(
+            torch, fx, work, kernels, train_rec)
     phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
 
     # 8. report

@@ -363,6 +363,10 @@ UNPORTED_FLAGS = {
     "print_step": ["--print-step"],
     "distributed_world_size": ["--distributed-world-size", "2"],
     "model_parallel_size": ["--model-parallel-size", "2"],
+    "zero_sharding": ["--zero-sharding", "os"],
+    "pipeline_stages": ["--pipeline-stages", "2"],
+    "user_dir": ["--user-dir", "plugins"],
+    "profile": ["--profile", "trace"],
 }
 
 

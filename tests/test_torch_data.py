@@ -281,9 +281,14 @@ def test_collated_batches_match_jax(triplet_dir, task_name, config_yaml, kw):
     assert len(got) == len(ref) >= 2
     for g, r in zip(got, ref):
         assert_batches_equal(g, r)
-    # the seeded shuffle serves training and is not ported yet: it raises
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        itr.next_epoch_itr(shuffle=True)
+    # the seeded shuffle of a training epoch: the JAX package's order
+    itr.next_epoch()
+    ref_itr.next_epoch()
+    shuffled = list(itr.next_epoch_itr(shuffle=True))
+    ref_shuffled = list(ref_itr.next_epoch_itr(shuffle=True))
+    assert [list(g["id"]) for g in shuffled] == [list(r["id"]) for r in ref_shuffled]
+    for g, r in zip(shuffled, ref_shuffled):
+        assert_batches_equal(g, r)
     # padded lengths come from the bucket edges, not from the batch's longest
     assert {g["audio"].shape[1] for g in got} <= set(
         batching.optimal_buckets([ds.num_tokens(i) for i in range(11)],

@@ -279,7 +279,8 @@ def test_nonfinite_batch_changes_nothing(data, weights):
 def test_valid_step_and_train_mode_build(data, weights):
     """``build_model(train=True)``: train mode, fp32 parameters; bf16 raises.
     ``valid_step``: the criterion in eval mode, the model's mode restored.
-    ``w2v2_remat`` raises in training (not ported)."""
+    ``w2v2_remat`` recomputes each trunk layer in the backward with the
+    forward's dropout masks: the same loss and gradients as without it."""
     task, cfg, batch = data
     arch = {"arch": "s2t_transformer_w2v2_interlingua_base", **{
         f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
@@ -296,6 +297,24 @@ def test_valid_step_and_train_mode_build(data, weights):
     with torch.no_grad():
         _, _, want = crit(model.eval(), b)
     assert logged == {k: float(v) for k, v in want.items()}
-    remat = port(cfg, weights, w2v2_remat=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        crit(remat, b)
+    dropouts = dict(w2v2_dropout=0.1, w2v2_attention_dropout=0.1, w2v2_activation_dropout=0.1)
+    grads, losses, calls = [], [], []
+    for remat in (False, True):
+        m = port(cfg, weights, w2v2_remat=remat, **dropouts)
+        layer0, n = m.encoder.wav2vec_model.encoder.layers[0], [0]
+        forward = layer0.forward
+
+        def counted(*args, _forward=forward, _n=n, **kwargs):
+            _n[0] += 1  # a module hook would not see the recompute
+            return _forward(*args, **kwargs)
+
+        layer0.forward = counted
+        loss, _, _ = crit(m, b, torch.Generator().manual_seed(5))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        calls.append(n[0])
+        grads.append({k: p.grad.clone() for k, p in m.named_parameters()})
+    assert calls == [1, 2]  # the recompute ran
+    assert losses[0] == losses[1]
+    for k, g in grads[0].items():
+        assert torch.equal(grads[1][k], g), k
