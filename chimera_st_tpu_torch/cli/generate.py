@@ -4,6 +4,12 @@ lines and the final corpus score line, for the single-model beam path).
 
     python -m chimera_st_tpu_torch.cli.generate DATA_DIR --task triplet \\
         --path model.pt --gen-subset tst-COMMON_wave --beam 10 --lenpen 1.5
+    python -m chimera_st_tpu_torch.cli.generate DATA_BIN --task translation \\
+        --path checkpoint_best.ckpt --gen-subset test --beam 5
+
+A batch with audio decodes through ``generate_audio``; a text batch
+(``src_tokens``, the translation task) through ``generate_text``, its S-
+line the source sentence.
 
 The model runs on ``--device`` (default ``cuda``: the hand-written kernels;
 ``cpu``: their plain PyTorch versions). ``--path`` takes a fairseq ``.pt`` of

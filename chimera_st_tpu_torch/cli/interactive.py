@@ -1,10 +1,13 @@
 """Line-driven inference (counterpart of chimera_st_tpu/cli/interactive.py):
 for the triplet task, input lines are .wav file paths, from stdin or
-``--input``; for a text task they are source sentences. Output is
-S-/W-/H-/D-/P- lines.
+``--input``; for a text task (``--task translation``) they are source
+sentences, encoded with the source dictionary and padded to a multiple of
+16. Output is S-/W-/H-/D-/P- lines.
 
     python -m chimera_st_tpu_torch.cli.interactive DATA_DIR --task triplet \\
         --path model.pt --beam 10 --lenpen 1.5 --input wavs.txt --buffer-size 8
+    python -m chimera_st_tpu_torch.cli.interactive DATA_BIN --task translation \\
+        -s en -t de --path checkpoint_best.ckpt --beam 5 < sentences.txt
 
 Lexically constrained decoding (``--constraints``) is not ported yet and
 raises."""
@@ -55,7 +58,8 @@ def main(argv=None) -> None:
 
     from ..tasks import setup_task
 
-    task_cfg = {"_name": args.task, "data": args.data, "config_yaml": args.config_yaml}
+    task_cfg = {"_name": args.task, "data": args.data, "config_yaml": args.config_yaml,
+                "source_lang": args.source_lang, "target_lang": args.target_lang}
     task = setup_task(task_cfg)
     tgt_dict = task.target_dictionary
 
@@ -74,12 +78,13 @@ def main(argv=None) -> None:
         min_len=args.min_len, lenpen=args.lenpen, unkpen=args.unkpen,
         temperature=args.temperature, max_decode_len=args.max_decode_len)
     generator = task.build_generator(model, gen_cfg)
-    logger.info("Type a .wav file path per line and press Enter:")
+    is_audio_task = hasattr(task, "get_interactive_examples")
+    logger.info("Type a .wav file path per line and press Enter:" if is_audio_task
+                else "Type a source sentence per line and press Enter:")
 
     on_device = functools.partial(to_device, device=device)
 
     input_fh = sys.stdin if args.input == "-" else open(args.input)
-    is_audio_task = hasattr(task, "get_interactive_examples")
     start_id = 0
     try:
         for lines in buffered_read(input_fh, args.buffer_size):

@@ -66,9 +66,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 def add_train_args(p: argparse.ArgumentParser):
     """The JAX train parser's flags and defaults, so that the recipes parse;
-    ``TRAIN_UNPORTED`` refuses those whose feature is not ported, and
-    ``--async-dispatch`` defaults to 0 (the port's step reads the host once
-    an update)."""
+    ``TRAIN_UNPORTED`` refuses those whose feature is not ported."""
     p.add_argument("--arch", "-a", default="s2t_transformer_w2v2_interlingua_base")
     p.add_argument("--criterion", default="label_smoothed_cross_entropy")
     p.add_argument("--label-smoothing", type=float, default=0.0)
@@ -109,8 +107,10 @@ def add_train_args(p: argparse.ArgumentParser):
     # parsed and unused in the JAX trainer too
     p.add_argument("--stop-min-lr", type=float, default=-1.0)
     p.add_argument("--update-freq", type=str, default="1")
-    p.add_argument("--async-dispatch", type=int, default=0,
-                   help="updates kept in flight with deferred metrics (not ported: 0)")
+    p.add_argument("--async-dispatch", type=int, default=3,
+                   help="updates kept in flight with deferred metrics, read and "
+                        "logged at the next log / save / stop boundary (0: read after "
+                        "every update)")
     p.add_argument("--max-update", type=int, default=0)
     p.add_argument("--max-epoch", type=int, default=0)
     p.add_argument("--stop-time-hours", type=float, default=0)
@@ -272,18 +272,21 @@ UNPORTED = generator.UNPORTED + _COMMON_UNPORTED + (
     ("profile", bool, "--profile outside the train CLI", "A13"),
 )
 
+PORTED_TRAIN_TASKS = ("triplet", "translation")
 PORTED_OPTIMIZERS = ("adam",)
 PORTED_SCHEDULES = ("inverse_sqrt", "fixed")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
-    ("task", lambda v: v != "triplet", "--task other than triplet", "A10b"),
+    ("task", lambda v: v == "speech_to_text", "--task speech_to_text (fbank training)",
+     "A10c"),
+    ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
+     "--task other than triplet / translation", "A14"),
     ("task_configs", bool, "--task-configs (joint training)", "A14"),
     ("optimizer", lambda v: v not in PORTED_OPTIMIZERS,
      "--optimizer other than adam (adamw: adam with --weight-decay)", "A14"),
     ("lr_scheduler", lambda v: v not in PORTED_SCHEDULES,
      "--lr-scheduler other than inverse_sqrt / fixed", "A14"),
     ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
-    ("async_dispatch", lambda v: v > 0, "--async-dispatch above 0", "A10b"),
 )
 
 

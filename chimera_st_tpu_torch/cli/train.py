@@ -1,5 +1,6 @@
 """Training entry point (counterpart of chimera_st_tpu/cli/train.py, for
-``--task triplet``): the same flags, loop, checkpoints and log lines.
+``--task triplet``, the ST fine-tune, and ``--task translation``, the MT
+pre-training stage): the same flags, loop, checkpoints and log lines.
 
     python -m chimera_st_tpu_torch.cli.train DATA_DIR --task triplet \\
         --arch s2t_transformer_w2v2_interlingua_base \\
@@ -9,14 +10,24 @@
         --lr-scheduler inverse_sqrt --warmup-updates 25000 \\
         --max-tokens 2000000 --update-freq 8 --save-dir checkpoints/st
 
+    python -m chimera_st_tpu_torch.cli.train DATA_BIN --task translation \\
+        -s en -t de --arch s2t_transformer_w2v2_interlingua_base \\
+        --criterion label_smoothed_cross_entropy --label-smoothing 0.1 \\
+        --optimizer adam --adam-betas '(0.9, 0.98)' --lr 5e-4 \\
+        --lr-scheduler inverse_sqrt --warmup-updates 4000 \\
+        --max-tokens 4096 --update-freq 8 --save-dir checkpoints/mt
+
 In order: the task, the model (fp32 parameters in train mode), the
 schedule, the optimizer, the criterion, then the parameters (the seeded
 ``init_params_``, then ``--w2v2-model-path`` through
-``import_wav2vec2_state_dict``), the ``--fix-*`` freezing, the restore
+``import_wav2vec2_state_dict``), the ``--fix-*`` freezing (a text-only task
+adds the audio-trunk mask unless ``--fix-wav2vec`` is given), the restore
 (``--restore-file`` / ``--finetune-from-model`` and the ``--reset-*`` rules of
 the JAX CLI), and the loop: ``--update-freq`` micro-batches an update, update
 ``n`` keyed by ``--seed`` + ``n`` as in JAX, ``--max-update`` /
-``--max-epoch`` / ``--stop-time-hours`` / ``--patience``, saves every
+``--max-epoch`` / ``--stop-time-hours`` / ``--patience``,
+``--async-dispatch N`` (up to N updates in flight, their metrics read and
+logged at the next log, save, stop or epoch boundary), saves every
 ``--save-interval`` epochs and ``--save-interval-updates`` updates,
 validation (losses over the sample size in bits, BLEU with
 ``--best-checkpoint-metric bleu``). ``--device cuda`` (the default) runs on
@@ -103,7 +114,12 @@ def main(argv=None) -> dict:
     fixes = [f for f in ("fix_wav2vec", "fix_interlingua", "fix_decoder",
                          "fix_decoder_transformers", "fix_encoder_transformers")
              if getattr(args, f, False)]
-    from ..optim.freeze import frozen_fraction, wrap_freeze
+    from ..optim.freeze import auto_text_only_fixes, frozen_fraction, wrap_freeze
+
+    if "fix_wav2vec" not in fixes:
+        # a text-only task never reaches the audio trunk: masked out of Adam,
+        # as the JAX CLI masks it (and, like it, not under --fix-wav2vec)
+        fixes.extend(auto_text_only_fixes(task, model))
 
     trained, frozen = wrap_freeze(model, fixes)
     if fixes:
@@ -113,8 +129,9 @@ def main(argv=None) -> dict:
     logger.info(f"device: {device}; params: "
                 f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
 
+    async_depth = max(args.async_dispatch, 0)
     trainer = Trainer(model, criterion, optimizer, lr_schedule, compute_dtype,
-                      async_depth=max(args.async_dispatch, 0))
+                      async_depth=async_depth)
     # persisted so generate/validate can rebuild the model from the checkpoint
     run_cfg = {"model_cfg": model_cfg, "task_cfg": task_cfg, "criterion_cfg": crit_cfg}
 
@@ -216,8 +233,12 @@ def main(argv=None) -> dict:
     # ----------------------------------------------------------- train loop
     start = time.time()
     # host-clock seconds of each update: fetching its micro-batches and the
-    # step, up to the end of its device work; validation and saves excluded
+    # step, up to the end of its device work (with --async-dispatch, up to
+    # its queueing); validation and saves excluded
     times["update_s"] = []
+    # host-clock seconds of each epoch's training, up to the end of its
+    # device work (validation and saves excluded), and its updates
+    times["epoch_s"], times["epoch_updates"] = [], []
     mark = time.perf_counter()
     patience_left = args.patience
     # a non-finite skip keeps num_updates: the interval block must not
@@ -229,6 +250,7 @@ def main(argv=None) -> dict:
             if args.max_epoch and epoch > args.max_epoch:
                 break
             train_itr.epoch = epoch
+            t_epoch, updates_before = time.perf_counter(), trainer.num_updates
             # --curriculum N: length-ordered (unshuffled) batches for N epochs
             itr = train_itr.next_epoch_itr(shuffle=epoch > args.curriculum)
             grouped = GroupedIterator(itr, update_freq)
@@ -238,16 +260,22 @@ def main(argv=None) -> dict:
             with metrics_mod.aggregate("train_inner") as agg:
                 for microbatches in pbar:
                     trainer.train_step(microbatches, seed=args.seed + trainer.num_updates)
-                    if device == "cuda":
+                    if device == "cuda" and not async_depth:
                         torch.cuda.synchronize()
                     times["update_s"].append(time.perf_counter() - mark)
+                    # with --async-dispatch the count is the optimistic
+                    # mirror: each block that acts on it drains first
                     num_updates = trainer.num_updates
                     if num_updates % args.log_interval == 0:
+                        trainer.drain_metrics()
+                        num_updates = trainer.num_updates
                         pbar.log(agg.get_smoothed_values(), step=num_updates)
                         metrics_mod.reset_meters("train_inner")
                     if (args.save_interval_updates > 0
                             and num_updates % args.save_interval_updates == 0
                             and num_updates != last_interval_validated):
+                        trainer.drain_metrics()
+                        num_updates = trainer.num_updates
                         last_interval_validated = num_updates
                         val = None
                         if num_updates >= args.validate_after_updates:
@@ -255,12 +283,20 @@ def main(argv=None) -> dict:
                         save(val, end_of_epoch=False)
                     mark = time.perf_counter()
                     if args.max_update and num_updates >= args.max_update:
-                        stop = True
-                        break
+                        trainer.drain_metrics()
+                        if trainer.num_updates >= args.max_update:
+                            stop = True
+                            break
                     if args.stop_time_hours and \
                             (time.time() - start) / 3600 > args.stop_time_hours:
                         stop = True
                         break
+                # the epoch's deferred metrics land in its aggregation
+                trainer.drain_metrics()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times["epoch_s"].append(time.perf_counter() - t_epoch)
+            times["epoch_updates"].append(trainer.num_updates - updates_before)
             train_itr.next_epoch()
 
             val = None
@@ -345,7 +381,9 @@ def validate_and_metric(args, task, trainer) -> Optional[float]:
 
 def validate_bleu(args, task, trainer, beam: int = 4, max_decode_len: int = 64) -> float:
     """Corpus BLEU (sacrebleu, 13a) of beam ``beam`` hypotheses over the
-    valid split, as the JAX CLI's."""
+    valid split, as the JAX CLI's: audio batches through
+    ``generate_audio``, text batches (``src_tokens``) through
+    ``generate_text``."""
     import numpy as np
     import torch
 
@@ -366,9 +404,13 @@ def validate_bleu(args, task, trainer, beam: int = 4, max_decode_len: int = 64) 
         scorer = build_scorer({"_name": "sacrebleu"}, tgt_dict)
         device = trainer.step.device
         for batch in validation_batches(args, task, args.max_tokens, args.batch_size):
-            tokens, _, lens = generator.generate_audio(
-                torch.from_numpy(batch["audio"]).to(device),
-                torch.from_numpy(batch["audio_padding_mask"]).to(device))
+            if "audio" in batch:
+                tokens, _, lens = generator.generate_audio(
+                    torch.from_numpy(batch["audio"]).to(device),
+                    torch.from_numpy(batch["audio_padding_mask"]).to(device))
+            else:
+                tokens, _, lens = generator.generate_text(
+                    torch.from_numpy(batch["src_tokens"]).long().to(device))
             tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
             for b in range(tokens.shape[0]):
                 scorer.add_string(

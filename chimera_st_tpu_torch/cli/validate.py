@@ -6,10 +6,12 @@ chimera_st_tpu/cli/validate.py: the same flags and the same output line).
         --criterion triplet_st_mt_contrastive --label-smoothing 0.1
 
 ``--path`` takes a native ``.ckpt`` (either package's trainer) or a fairseq
-``.pt`` of the interlingua model. Prints one line of the losses over the
+``.pt`` of the interlingua model; ``--task translation`` validates an MT
+checkpoint on binarized text. Prints one line of the losses over the
 sample size in bits, ``loss 1.2345 | st_loss 1.2345 | …``, and returns them.
-``--dump-feature-to-file`` (the memory banks of each batch) is not ported
-(ROADMAP A10b).
+``--dump-feature-to-file FILE`` pickles, for a task with ``dump_memories``
+(triplet), a list with one dict a batch: the audio and text memory banks
+(numpy, fp32 whatever ``--dtype``) and the batch's sample ids.
 """
 
 from __future__ import annotations
@@ -30,12 +32,11 @@ def main(argv=None) -> dict:
     p.add_argument("--dump-feature-to-file", default=None, metavar="FILE")
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
-    if args.dump_feature_to_file:
-        raise NotImplementedError("--dump-feature-to-file is not ported yet (ROADMAP A10b)")
     device = options.resolve_device(args)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s | %(message)s")
 
+    import numpy as np
     import torch
 
     from ..tasks import setup_task
@@ -62,11 +63,25 @@ def main(argv=None) -> dict:
         num_length_buckets=args.num_length_buckets,
     ).next_epoch_itr(shuffle=False)
     totals = {}
+    dumped = []
+    dump = args.dump_feature_to_file and hasattr(task, "dump_memories")
     with torch.inference_mode():
         for batch in itr:
-            batch = {k: v for k, v in batch.items() if k != "id"}
-            for k, v in valid_step(model, criterion, prepare_batch(batch, device)).items():
+            ids = batch.get("id")
+            batch = prepare_batch({k: v for k, v in batch.items() if k != "id"}, device)
+            for k, v in valid_step(model, criterion, batch).items():
                 totals[k] = totals.get(k, 0.0) + float(v)
+            if dump:
+                mem = task.dump_memories(model, batch)
+                mem["id"] = None if ids is None else np.asarray(ids)
+                dumped.append(mem)
+    if dumped:
+        import pickle
+
+        with open(args.dump_feature_to_file, "wb") as f:
+            pickle.dump(dumped, f)
+        logger.info(f"dumped {len(dumped)} batches of memory features to "
+                    f"{args.dump_feature_to_file}")
     ss = max(totals.get("sample_size", 1.0), 1.0)
     stats = {k: v / ss / math.log(2) for k, v in totals.items() if k.endswith("loss")}
     print(" | ".join(f"{k} {v:.4f}" for k, v in sorted(stats.items())))

@@ -364,15 +364,17 @@ def opt_state_from_optax(tree: Mapping[str, Any], frozen: Collection[str],
 
 
 def checkpoint_tensors(payload: Mapping[str, Any], shapes: Mapping[str, Tuple[int, ...]],
-                       model: str = "interlingua"):
-    """A native checkpoint's payload (no ``--fix-*`` mask; any clip or
-    decoupled decay) -> (the parameters as a state dict, the Adam state by
-    parameter name, the schedule's count): ``params_from_flax`` and
-    ``opt_state_from_optax`` in one call."""
+                       model: str = "interlingua", frozen: Collection[str] = ()):
+    """A native checkpoint's payload (any clip or decoupled decay; the
+    ``frozen`` parameters masked out of Adam, as ``--fix-*`` or the
+    text-only trunk mask leave them) -> (the parameters as a state dict, the
+    Adam state by parameter name, the schedule's count): ``params_from_flax``
+    and ``opt_state_from_optax`` in one call."""
     params = _from_flax(model, payload["params"])
     tree = payload["opt_state"]
-    clip = set(tree) == {"0", "1"} and tree["0"] == {}
-    chain = tree["1"] if clip else tree
-    state, count = opt_state_from_optax(tree, (), shapes, model=model, clip=clip,
+    chain = tree["inner_states"]["train"]["inner_state"] if frozen else tree
+    clip = set(chain) == {"0", "1"} and chain["0"] == {}
+    chain = chain["1"] if clip else chain
+    state, count = opt_state_from_optax(tree, frozen, shapes, model=model, clip=clip,
                                         decoupled="2" in chain)
     return params, state, count

@@ -4,7 +4,8 @@ chimera_st_tpu/criterions/label_smoothed_ce.py): loss = (1 - eps) * nll +
 
 A criterion is ``criterion(model, batch, generator=None, num_updates=None)
 -> (loss, sample_size, logging)``; it trains or evaluates as the model's
-mode says, and draws its dropout masks from ``generator``.
+mode says, and draws its dropout masks from ``generator``. ``num_updates``
+is an int, or the train step's count as an integer tensor on the device.
 """
 
 from __future__ import annotations

@@ -82,7 +82,8 @@ def _make_triplet(cfg: Dict, contrastive_fn):
 
         r2 = ratios[2]
         if ramp_until and num_updates is not None:
-            r2 = r2 * min(1.0, num_updates / ramp_until)
+            frac = num_updates / ramp_until  # a tensor for the train step's device count
+            r2 = r2 * (frac.clamp(max=1.0) if torch.is_tensor(frac) else min(1.0, frac))
         loss = ratios[0] * st_loss + ratios[1] * mt_loss + r2 * contrastive
         nll = ratios[0] * st_nll + ratios[1] * mt_nll
 

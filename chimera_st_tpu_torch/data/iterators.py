@@ -16,7 +16,7 @@ import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
 
@@ -247,13 +247,15 @@ class ParallelPrefetcher:
 class EpochBatchIterator:
     """Args:
         dataset_collate: fn(list_of_indices) -> batch (host-side collation)
-        batches: frozen list of index arrays (from batch_by_size)
+        batches: frozen list of index arrays (from batch_by_size), or a
+            function epoch -> that epoch's list, for a dataset that re-samples
+            each epoch (it calls the dataset's ``set_epoch``)
     """
 
     def __init__(
         self,
         dataset_collate: Callable[[np.ndarray], Any],
-        batches: List[np.ndarray],
+        batches: Union[List[np.ndarray], Callable[[int], List[np.ndarray]]],
         seed: int = 1,
         num_shards: int = 1,
         shard_id: int = 0,
@@ -263,7 +265,10 @@ class EpochBatchIterator:
         """``num_workers > 1`` collates batches on a thread pool
         (ParallelPrefetcher)."""
         self.collate = dataset_collate
-        self.frozen_batches = list(batches)
+        if callable(batches):
+            self._batches_fn, self._batches_cache = batches, (None, None)
+        else:
+            self._batches_fn, self._batches_cache = None, (None, list(batches))
         self.seed = seed
         self.num_shards = num_shards
         self.shard_id = shard_id
@@ -273,6 +278,16 @@ class EpochBatchIterator:
         self._cur: Optional[CountingIterator] = None
         self._next_epoch_itr: Optional[CountingIterator] = None
         self.shuffle = True
+
+    @property
+    def frozen_batches(self) -> List[np.ndarray]:
+        """This epoch's batches."""
+        cached_epoch, cached = self._batches_cache
+        if self._batches_fn is None:
+            return cached
+        if cached_epoch != self.epoch:
+            self._batches_cache = (self.epoch, self._batches_fn(self.epoch))
+        return self._batches_cache[1]
 
     def __len__(self):
         return -(-len(self.frozen_batches) // self.num_shards)

@@ -9,12 +9,13 @@ chimera_st_tpu/data/manifests.py, the part inference reads):
   for `--task wave` manifests the audio column is ``path:offset:length`` and
   n_frames is the raw sample count,
 - collaters pad to the bucket lengths the task hands them, as the JAX
-  package's do.
+  package's do,
+- comma-joined splits, concatenated, with temperature resampling
+  (``sampling_alpha``) of training splits each epoch.
 
 ``config_wave.yaml`` is read with ``yaml`` where that is installed and as JSON
 (which is YAML) where it is not. Not ported yet, and raising if asked for:
-the fbank feature transforms (SpecAugment, CMVN; ROADMAP A11) and
-comma-separated splits with temperature resampling (ROADMAP A10b).
+the fbank feature transforms (SpecAugment, CMVN; ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -353,6 +354,16 @@ class TripletDataset(SpeechToTextDataset):
         return batch
 
 
+def resample_sizes(sizes, alpha: float) -> np.ndarray:
+    """Temperature resampling ratios over splits: each split's share of the
+    samples raised to ``alpha``, renormalised, over its share."""
+    sizes = np.asarray(sizes, np.float64)
+    probs = sizes / sizes.sum()
+    smoothed = probs ** alpha
+    smoothed /= smoothed.sum()
+    return smoothed / probs
+
+
 def make_dataset_from_tsv(
     root: str,
     split: str,
@@ -361,12 +372,27 @@ def make_dataset_from_tsv(
     is_train: bool,
     src_dict: Optional[Dictionary] = None,
     triplet: bool = False,
+    seed: int = 1,
+    epoch: int = 1,
 ):
-    """Build the dataset of one ``split`` (``{root}/{split}.tsv``)."""
-    if "," in split:
-        raise NotImplementedError(
-            "comma-separated splits (concatenation with temperature resampling) are not "
-            "ported yet (ROADMAP A10b)")
+    """Build the dataset of ``split`` (``{root}/{split}.tsv``). Comma-joined
+    splits are concatenated; for training, with ``sampling_alpha`` other
+    than 1, each is resampled every epoch to its temperature ratio
+    (``resample_sizes``), drawn from ``(seed, epoch)``."""
+    splits = split.split(",")
+    if len(splits) > 1:
+        from .wrappers import ConcatDataset, ResamplingDataset
+
+        datasets = [make_dataset_from_tsv(root, s, data_cfg, tgt_dict, is_train,
+                                          src_dict=src_dict, triplet=triplet, seed=seed,
+                                          epoch=epoch) for s in splits]
+        if is_train and data_cfg.sampling_alpha != 1.0:
+            ratios = resample_sizes([len(d) for d in datasets], data_cfg.sampling_alpha)
+            logger.info("balanced sampling size ratios: "
+                        + str({s: f"{r:.3f}" for s, r in zip(splits, ratios)}))
+            datasets = [ResamplingDataset(d, size_ratio=r, seed=seed, epoch=epoch,
+                                          replace=(r >= 1.0)) for d, r in zip(datasets, ratios)]
+        return ConcatDataset(datasets)
     rows = load_tsv(str(Path(root) / f"{split}.tsv"))
     audio_paths = [r["audio"] for r in rows]
     n_frames = [int(r["n_frames"]) for r in rows]

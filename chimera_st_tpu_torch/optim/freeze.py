@@ -12,8 +12,9 @@ then clips by the norm of the trained gradients alone, as the clip inside
 ``multi_transform``'s ``train`` branch sees only those.
 
 Labels are decided on the parameter's flax path (``convert``'s table), by
-the JAX package's predicates. ``auto_text_only_fixes`` waits for the
-text-only task (ROADMAP A10b).
+the JAX package's predicates. ``fix_audio_trunk`` is no CLI flag: the train
+CLI adds it for a text-only task (``auto_text_only_fixes``), unless
+``--fix-wav2vec`` is given, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 
 from ..convert import torch_to_flax_path
 
+_AUDIO_TRUNK_KEYS = ("wav2vec_model", "subsample")
+
 # flag name -> predicate over the parameter's flax path (below "params")
 _FIX_PREDICATES = {
     "fix_wav2vec": lambda p: p and p[0] == "wav2vec_model",
@@ -33,6 +36,9 @@ _FIX_PREDICATES = {
     and p[1].startswith("layers_"),
     "fix_interlingua": lambda p: p and (p[0].startswith("interlingua_layers_")
                                         or p[0] == "interlingua_embedding"),
+    # the audio-only subtrees, which a text-only task never reaches
+    "fix_audio_trunk": lambda p: p and (p[0] in _AUDIO_TRUNK_KEYS
+                                        or p[0].startswith("audio_exclusive_layers_")),
 }
 
 FIX_FLAG_NAMES: Tuple[str, ...] = tuple(_FIX_PREDICATES)
@@ -56,6 +62,23 @@ def wrap_freeze(model: torch.nn.Module, fixes: Iterable[str]
     named = list(model.named_parameters())
     return ([p for n, p in named if labels[n] == "train"],
             [p for n, p in named if labels[n] == "freeze"])
+
+
+def auto_text_only_fixes(task, model: torch.nn.Module) -> Tuple[str, ...]:
+    """``("fix_audio_trunk",)`` when ``task`` is text-only and ``model``
+    has an audio trunk (the wav2vec2 model, the subsampler or audio-only
+    encoder layers), else ``()``.
+
+    The reference's Adam steps only the parameters whose ``.grad`` is set,
+    so in the MT stage the trunk never gets Adam moments; the JAX package
+    masks it out of the optimizer to the same effect, and the port follows
+    it, so that an MT checkpoint's optimizer tree is the same in both."""
+    if not getattr(task, "text_only", False):
+        return ()
+    for name, _ in model.named_parameters():
+        if _FIX_PREDICATES["fix_audio_trunk"](torch_to_flax_path("interlingua", name)[0]):
+            return ("fix_audio_trunk",)
+    return ()
 
 
 def frozen_fraction(model: torch.nn.Module, fixes: Iterable[str]) -> float:

@@ -3,13 +3,17 @@ lr_schedulers.py): functions update count -> lr, registered by name.
 
 The step evaluates a schedule at the number of updates applied so far, as
 optax does at the optimizer's count before it increments: with a warm-up,
-the first update runs at ``warmup_init_lr`` (0 unless set).
+the first update runs at ``warmup_init_lr`` (0 unless set). A schedule
+also takes the count as an integer tensor (the train step's count on the
+device) and then returns an fp64 tensor there, without reading the device.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Callable, Dict
+
+import torch
 
 from ..config.registry import LR_SCHEDULERS, register_lr_scheduler
 
@@ -28,7 +32,13 @@ def fixed(cfg: Dict) -> Callable[[int], float]:
     warmup = int(cfg.get("warmup_updates", 0))
     init = _warmup_init(cfg, warmup, lr)
 
-    def sched(step: int) -> float:
+    def sched(step):
+        if torch.is_tensor(step):
+            s = step.double()
+            if warmup <= 0:
+                return torch.full_like(s, lr)
+            return torch.where(s < warmup, init + (lr - init) * s.clamp(max=warmup) / warmup,
+                               lr)
         if warmup > 0 and step < warmup:
             return init + (lr - init) * min(step, warmup) / warmup
         return lr
@@ -46,7 +56,11 @@ def inverse_sqrt(cfg: Dict) -> Callable[[int], float]:
     lr_step = (lr - init) / max(warmup, 1)
     decay_factor = lr * math.sqrt(max(warmup, 1))
 
-    def sched(step: int) -> float:
+    def sched(step):
+        if torch.is_tensor(step):
+            s = step.double()
+            return torch.where(s < warmup, init + s * lr_step,
+                               decay_factor * s.clamp(min=1.0) ** -0.5)
         if step < warmup:
             return init + step * lr_step
         return decay_factor * max(step, 1.0) ** -0.5

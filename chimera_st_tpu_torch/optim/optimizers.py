@@ -3,19 +3,21 @@ the recipes use). bf16 compute over fp32 parameters needs no loss scaler.
 
 ``adam``: ``torch.optim.Adam`` (the update of ``optax.adam``); with
 ``weight_decay`` > 0 ``torch.optim.AdamW``, a decoupled decay as
-``optax.adamw`` (not Adam's L2 on the gradient). The learning rate of each
-update is set by the caller from the schedule. ``clip_norm`` > 0 clips as
-``optax.clip_by_global_norm``. Parameters frozen by a ``--fix-*`` flag
-(``optim/freeze.py``) stay out of the torch optimizer; the clip then takes
-the norm of the trained gradients alone, as the clip inside optax's
-``multi_transform`` does. ``state_to_optax`` / ``load_optax`` carry the
+``optax.adamw`` (not Adam's L2 on the gradient). Both run fused, whose
+``found_inf`` skips an update on the device: parameters, moments and
+steps stay as they were, as the JAX step's non-finite skip leaves them.
+The learning rate of each update is set by the caller from the schedule.
+``clip_norm`` > 0 clips as ``optax.clip_by_global_norm``. Parameters
+frozen by a ``--fix-*`` flag (``optim/freeze.py``) stay out of the torch
+optimizer; the clip then takes the norm of the trained gradients alone, as
+the clip inside optax's ``multi_transform`` does. ``state_to_optax`` / ``load_optax`` carry the
 state to and from the JAX checkpoint's optax tree (``convert``).
 """
 
 from __future__ import annotations
 
 import ast
-from typing import Any, Callable, Dict, Iterable, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,8 +38,9 @@ def adam(cfg: Dict, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimiz
     eps = float(cfg.get("adam_eps", 1e-8))
     wd = float(cfg.get("weight_decay", 0.0))
     if wd > 0:
-        return torch.optim.AdamW(params, lr=0.0, betas=betas, eps=eps, weight_decay=wd)
-    return torch.optim.Adam(params, lr=0.0, betas=betas, eps=eps)
+        return torch.optim.AdamW(params, lr=0.0, betas=betas, eps=eps, weight_decay=wd,
+                                 fused=True)
+    return torch.optim.Adam(params, lr=0.0, betas=betas, eps=eps, fused=True)
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
@@ -63,9 +66,12 @@ class Optimizer:
     def _trained(self):
         return [p for g in self.optimizer.param_groups for p in g["params"]]
 
-    def step(self, lr: float, g_norm: torch.Tensor) -> None:
-        """One update of the parameters whose ``.grad`` is set, at ``lr``;
-        ``g_norm`` is the global norm of every gradient, frozen ones too."""
+    def step(self, lr, g_norm: torch.Tensor, skip: Optional[torch.Tensor] = None) -> None:
+        """One update of the parameters whose ``.grad`` is set, at ``lr`` (a
+        float, or an fp32 scalar tensor on the parameters' device);
+        ``g_norm`` is the global norm of every gradient, frozen ones too.
+        Where the device scalar ``skip`` is true the update leaves every
+        parameter and every state as it was."""
         if self.clip_norm > 0:
             grads = [p.grad for p in self._trained() if p.grad is not None]
             if self.frozen:
@@ -75,7 +81,11 @@ class Optimizer:
             clip_by_global_norm_(grads, self.clip_norm, g_norm)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.optimizer.step()
+        self.optimizer.found_inf = None if skip is None else skip.float()
+        try:
+            self.optimizer.step()
+        finally:
+            self.optimizer.found_inf = None
 
     @property
     def decoupled(self) -> bool:
@@ -113,7 +123,7 @@ class Optimizer:
             if s:
                 p = named[name]
                 self.optimizer.state[p] = {
-                    "step": s["step"], "exp_avg": s["exp_avg"].to(p.device),
+                    "step": s["step"].to(p.device), "exp_avg": s["exp_avg"].to(p.device),
                     "exp_avg_sq": s["exp_avg_sq"].to(p.device)}
         return schedule_count
 

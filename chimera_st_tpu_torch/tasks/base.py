@@ -145,27 +145,36 @@ class ChimeraTask:
         """The JAX package's iterator over ``dataset``: batches by size over
         the descending stable sort, every batch padded to the smallest
         covering bucket edge, shuffled per epoch from ``seed`` and sharded
-        by the iterator. Datasets that re-sample per epoch wait with
-        comma-joined splits (ROADMAP A10b)."""
+        by the iterator. A dataset that re-samples per epoch (``set_epoch``)
+        is re-packed each epoch, its bucket edges those of epoch 1."""
         if len(dataset) == 0:
             raise ValueError(
                 "dataset is empty after size filtering — check "
                 "min/max sample-size limits against the manifest"
             )
 
-        sizes = np.asarray([dataset.num_tokens(int(i)) for i in range(len(dataset))])
-        order = np.argsort(-sizes, kind="stable")
-        if max_positions is not None:
-            order = order[sizes[order] <= max_positions]
-        batches = batch_by_size(
-            order,
-            sizes,
-            max_tokens=max_tokens,
-            max_sentences=max_sentences,
-            required_batch_size_multiple=required_batch_size_multiple,
-        )
+        def token_sizes():
+            return np.asarray([dataset.num_tokens(int(i)) for i in range(len(dataset))])
+
+        sizes = token_sizes()
         edges = optimal_buckets(sizes[sizes > 0] if (sizes > 0).any() else sizes,
                                 num_length_buckets)
+
+        def build_batches(epoch: int):
+            epoch_sizes = sizes
+            if hasattr(dataset, "set_epoch"):
+                dataset.set_epoch(epoch)
+                epoch_sizes = token_sizes()
+            order = np.argsort(-epoch_sizes, kind="stable")
+            if max_positions is not None:
+                order = order[epoch_sizes[order] <= max_positions]
+            return batch_by_size(
+                order,
+                epoch_sizes,
+                max_tokens=max_tokens,
+                max_sentences=max_sentences,
+                required_batch_size_multiple=required_batch_size_multiple,
+            )
 
         def collate(idx: np.ndarray):
             batch_max = max(dataset.num_tokens(int(i)) for i in idx)
@@ -173,7 +182,7 @@ class ChimeraTask:
 
         return EpochBatchIterator(
             collate,
-            batches,
+            build_batches if hasattr(dataset, "set_epoch") else build_batches(1),
             seed=seed,
             num_shards=num_shards,
             shard_id=shard_id,

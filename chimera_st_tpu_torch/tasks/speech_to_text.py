@@ -1,5 +1,5 @@
 """Speech-to-text task (counterpart of chimera_st_tpu/tasks/speech_to_text.py;
-the BLEU-validating variant waits for fbank training, ROADMAP A10b)."""
+the BLEU-validating variant waits for fbank training, ROADMAP A10c)."""
 
 from __future__ import annotations
 

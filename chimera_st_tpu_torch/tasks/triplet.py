@@ -49,6 +49,7 @@ class TripletTask(ChimeraTask):
             split.startswith("train"),
             src_dict=self.src_dict,
             triplet=True,
+            seed=int(self.cfg.get("seed", 1)),
         )
 
     @property
@@ -74,6 +75,17 @@ class TripletTask(ChimeraTask):
             text_target_len=round16_or_none(tgt_max),
             src_target_len=round16_or_none(src_max),
         )
+
+    def dump_memories(self, model, batch) -> Dict[str, np.ndarray]:
+        """The audio and (where the batch has source text) text memory banks
+        of a prepared batch, as fp32 numpy arrays (``--dump-feature-to-file``
+        of the validate CLI)."""
+        audio_mem, _ = model.encode_audio(batch["audio"], batch["audio_padding_mask"])
+        out = {"audio_memory": audio_mem.float().cpu().numpy()}
+        if "src_text" in batch:
+            text_mem, _ = model.encode_text(batch["src_text"])
+            out["text_memory"] = text_mem.float().cpu().numpy()
+        return out
 
     # ------------------------------------------------------- interactive
 

@@ -9,7 +9,7 @@ from .train_step import (
     prepare_batch,
     valid_step,
 )
-from .trainer import Trainer, nonfinite_grad_names
+from .trainer import Trainer
 
 __all__ = ["TrainStep", "Trainer", "apply_gradients", "global_norm", "microbatch_grad",
-           "microbatch_seed", "nonfinite_grad_names", "prepare_batch", "valid_step"]
+           "microbatch_seed", "prepare_batch", "valid_step"]

@@ -8,16 +8,24 @@ train_step.py): the same semantics, run eagerly.
 - ``apply_gradients``: divide by the total sample size, the fp32 global
   norm (reported before any clipping), then the optimizer at the schedule's
   lr; a non-finite norm leaves parameters, optimizer state and the update
-  count unchanged. Deciding that is the update's one host sync.
+  count unchanged. The skip is decided on the device (the fused Adam's
+  ``found_inf``), so an update needs no host sync.
 - ``TrainStep``: the accumulated update, bf16 compute under
   ``torch.autocast`` over fp32 parameters, dropout masks from a
   ``torch.Generator`` on the model's device, seeded afresh for each
   micro-batch from the update's seed (``microbatch_seed``), so a resumed
-  run draws the masks an uninterrupted one draws.
+  run draws the masks an uninterrupted one draws. ``dispatch`` queues an
+  update and returns its results on the device; ``collect`` reads them (the
+  host's one sync) and takes back the host's count of a skipped update;
+  calling the step does both. The exact count lives on the device
+  (``count``, raised only by a finite update): the learning rate and the
+  criterion's update count are taken from it, as the JAX step takes them
+  from its optimizer's count, so they need no host read.
 - ``valid_step``: the criterion in eval mode without gradients.
 
 The learning rate of an update is the schedule at the number of updates
-applied before it (optax evaluates it at its count before incrementing).
+applied before it (optax evaluates it at its count before incrementing),
+in fp32 as optax's schedule gives it.
 A parameter the loss does not reach gets a zero gradient, as every leaf of
 a JAX gradient tree has one, so Adam decays its moments as optax does.
 """
@@ -25,7 +33,7 @@ a JAX gradient tree has one, so Adam decays its moments as optax does.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,13 +45,19 @@ _TOKEN_KEYS = ("prev_output_tokens", "target", "src_text", "src_tokens", "id")
 
 def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """Arrays of a collated batch -> tensors on ``device`` (token ids as
-    int64); other entries (``ntokens``, ``nsentences``) pass through."""
+    int64); other entries (``ntokens``, ``nsentences``) pass through. A
+    copy to the card goes from pinned memory without waiting for the
+    card's queue."""
+    device = torch.device(device)
     out = {}
     for key, value in batch.items():
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
         if isinstance(value, torch.Tensor):
-            value = value.to(device)
+            if device.type == "cuda" and value.device.type == "cpu":
+                value = value.pin_memory().to(device, non_blocking=True)
+            else:
+                value = value.to(device)
             if key in _TOKEN_KEYS:
                 value = value.long()
         out[key] = value
@@ -75,29 +89,31 @@ def microbatch_seed(seed: int, i: int) -> int:
     return int(np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0])
 
 
+def tensor_norms(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """The fp32 L2 norm of each tensor, stacked."""
+    return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors])
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
+    return torch.linalg.vector_norm(tensor_norms(tensors))
 
 
-def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer, lr: float,
-                    sample_size: float,
-                    logged: Sequence[torch.Tensor] = ()) -> Tuple[float, bool, List[float]]:
+def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer,
+                    lr: torch.Tensor, sample_size: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalise the summed gradients by the total sample size, take their
-    global norm and, if it is finite, one optimizer update at ``lr``. The
-    norm and the ``logged`` scalars come to the host together -> (norm,
-    whether it was finite, logged values)."""
+    global norm and one optimizer update at ``lr``, which the optimizer
+    skips on the device where the norm is not finite -> (the global norm,
+    whether it is finite, each gradient's norm), on the device."""
     grads = [p.grad for p in params]
     denom = max(float(sample_size), 1.0)
     for g in grads:
         g.div_(denom)
-    g_norm = global_norm(grads)
-    host = torch.stack([g_norm, *(t.float() for t in logged)]).tolist()
-    finite = bool(np.isfinite(host[0]))
-    if finite:
-        optimizer.step(lr, g_norm)
-    return host[0], finite, host[1:]
+    norms = tensor_norms(grads)
+    g_norm = torch.linalg.vector_norm(norms)
+    finite = torch.isfinite(g_norm)
+    optimizer.step(lr, g_norm, skip=~finite)
+    return g_norm, finite, norms
 
 
 class TrainStep:
@@ -119,15 +135,33 @@ class TrainStep:
         self.compute_dtype = compute_dtype
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
-        self.num_updates = 0  # updates applied; a skipped one does not count
+        self.num_updates = 0
+
+    @property
+    def num_updates(self) -> int:
+        """Updates applied as the host counts them: every dispatched update
+        until ``collect`` finds it skipped."""
+        return self._num_updates
+
+    @num_updates.setter
+    def num_updates(self, n: int) -> None:
+        """Sets the count on the host and on the device (a start or a
+        restore)."""
+        self._num_updates = int(n)
+        self.count = torch.tensor(int(n), dtype=torch.int64, device=self.device)
 
     def autocast(self):
         if self.compute_dtype == torch.float32:
             return contextlib.nullcontext()
         return torch.autocast(device_type=self.device.type, dtype=self.compute_dtype)
 
-    def __call__(self, micro_batches: Iterable[Dict[str, Any]],
-                 seed: Optional[int] = None) -> Dict[str, float]:
+    def dispatch(self, micro_batches: Iterable[Dict[str, Any]],
+                 seed: Optional[int] = None) -> Dict[str, Any]:
+        """Queues one accumulated update without reading the device. The
+        host's update count is raised at once, as if the update were
+        finite; ``collect`` takes it back if it was skipped. ``seed``
+        defaults to the constructor's plus the host's count. -> the
+        update's results, for ``collect``."""
         if seed is None:
             seed = self.seed + self.num_updates
         self.model.train()
@@ -140,24 +174,46 @@ class TrainStep:
             batch = prepare_batch(batch, self.device)
             with self.autocast():
                 ss, logging = microbatch_grad(self.model, self.criterion, batch,
-                                              self.generator, self.num_updates)
+                                              self.generator, self.count)
             sample_size += float(ss)
             for k, v in logging.items():
                 totals[k] = totals[k] + v if k in totals else v
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        lr = self.lr_schedule(self.num_updates)
+        lr = torch.as_tensor(self.lr_schedule(self.count), dtype=torch.float32,
+                             device=self.device)
+        g_norm, finite, norms = apply_gradients(self.params, self.optimizer, lr, sample_size)
+        self.count = self.count + finite
+        self._num_updates += 1
         on_device = [k for k, v in totals.items() if torch.is_tensor(v)]
-        gnorm, finite, values = apply_gradients(self.params, self.optimizer, lr, sample_size,
-                                                [totals[k] for k in on_device])
-        if finite:
-            self.num_updates += 1
-        metrics = {k: float(v) for k, v in totals.items() if not torch.is_tensor(v)}
-        metrics.update(zip(on_device, values))
-        metrics.update(gnorm=gnorm, sample_size_total=sample_size,
-                       nonfinite_grad=0.0 if finite else 1.0, lr=lr)
+        values = torch.stack([g_norm, finite.float(), lr,
+                              *(totals[k].detach().float() for k in on_device)])
+        return {"values": values, "keys": on_device, "norms": norms,
+                "sample_size_total": sample_size,
+                "host": {k: float(v) for k, v in totals.items() if not torch.is_tensor(v)}}
+
+    def collect(self, pending: Dict[str, Any]) -> Dict[str, float]:
+        """The metrics of a dispatched update, read from the device;
+        ``nonfinite_names`` lists the parameters whose gradient is not
+        finite where the update was skipped."""
+        values = pending["values"].tolist()
+        finite = bool(values[1])
+        if not finite:
+            self._num_updates -= 1
+        metrics = dict(pending["host"])
+        metrics.update(zip(pending["keys"], values[3:]))
+        metrics.update(gnorm=values[0], sample_size_total=pending["sample_size_total"],
+                       nonfinite_grad=0.0 if finite else 1.0, lr=values[2])
+        if not finite:
+            names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+            metrics["nonfinite_names"] = [
+                n for n, ok in zip(names, torch.isfinite(pending["norms"]).tolist()) if not ok]
         return metrics
+
+    def __call__(self, micro_batches: Iterable[Dict[str, Any]],
+                 seed: Optional[int] = None) -> Dict[str, float]:
+        return self.collect(self.dispatch(micro_batches, seed))
 
 
 def valid_step(model, criterion: Callable, batch: Dict[str, Any]) -> Dict[str, float]:

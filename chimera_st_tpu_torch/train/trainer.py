@@ -7,6 +7,19 @@ of chimera_st_tpu/train/trainer.py).
   norm, the learning rate of ``schedule(updates - 1)`` and the ``ups`` /
   ``wps`` rates. On a skipped (non-finite) update it names the parameters
   whose gradient is not finite.
+- ``async_depth`` > 0 (``--async-dispatch``): ``train_step`` only queues
+  the update on the device and returns None; the results wait, and
+  ``drain_metrics`` reads them all at once and records them in order. At
+  most ``async_depth`` updates are in flight: one more waits for the
+  oldest. ``num_updates`` counts every queued update until a drain
+  reconciles it with the skipped ones, as the JAX trainer's mirror does.
+  The learning rate and the criterion's update count come from the step's
+  exact count on the device, as the JAX step's do, so the logged lines,
+  the parameters and the count equal depth 0, a skipped update included.
+  The one thing keyed by the mirror is the dropout seed the CLI passes
+  (``--seed`` + ``num_updates``, as the JAX CLI passes it): with dropout
+  on, the updates queued behind a skipped one draw the masks of the next
+  count until a drain, in both packages.
 - ``valid_step(batch)``: the criterion's logging in eval mode.
 - ``extra_state`` / ``load_extra_state``: the meters, the training time and
   the iterator position, restored as three independent concerns
@@ -15,9 +28,6 @@ of chimera_st_tpu/train/trainer.py).
 - ``host_state`` / ``load_params`` / ``load_opt_state``: the interlingua
   model's parameters and Adam state as the JAX checkpoint's trees
   (``convert``).
-
-The port's step reads the host once an update, so the JAX trainer's
-deferred-metrics dispatch (``async_depth`` > 0) is not ported.
 """
 
 from __future__ import annotations
@@ -36,22 +46,17 @@ from .train_step import TrainStep, prepare_batch, valid_step
 logger = logging.getLogger(__name__)
 
 
-def nonfinite_grad_names(model: torch.nn.Module) -> List[str]:
-    """Names of the parameters whose gradient holds a NaN or an infinity."""
-    return [n for n, p in model.named_parameters()
-            if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
-
-
 class Trainer:
     def __init__(self, model, criterion: Callable, optimizer, lr_schedule: Callable[[int], float],
                  compute_dtype=torch.bfloat16, async_depth: int = 0):
-        if async_depth > 0:
-            raise NotImplementedError("--async-dispatch above 0 (deferred metrics) is not "
-                                      "ported yet (ROADMAP A10b); pass --async-dispatch 0")
         self.model, self.criterion, self.optimizer = model, criterion, optimizer
         self.lr_schedule = lr_schedule
         self.step = TrainStep(model, criterion, optimizer, lr_schedule, compute_dtype)
         self.cumulative_training_time = 0.0
+        self.async_depth = int(async_depth)
+        self._deferred: List[Dict[str, Any]] = []
+        self._waited = 0  # deferred updates known to be done on the device
+        self._base_updates = 0  # the exact count before the first deferred update
 
     @property
     def num_updates(self) -> int:
@@ -62,24 +67,51 @@ class Trainer:
 
     # ------------------------------------------------------------- stepping
 
-    def train_step(self, microbatches: List[Dict[str, Any]], seed: int = 0) -> Dict[str, Any]:
+    def train_step(self, microbatches: List[Dict[str, Any]], seed: int = 0):
         """One optimizer update over ``microbatches``; ``seed`` keys its
-        dropout masks."""
+        dropout masks. -> its recorded metrics, or None when the update is
+        deferred (``async_depth`` > 0)."""
         t0 = time.time()
-        m = self.step(microbatches, seed)
+        if self.async_depth > 0 and not self._deferred:
+            self._base_updates = self.num_updates
+        pending = self.step.dispatch(microbatches, seed)
         self.cumulative_training_time += time.time() - t0
-        out = {k: v for k, v in m.items()
-               if k not in ("lr", "nonfinite_grad", "sample_size_total", "gnorm")}
-        return self._record_update(out, m["gnorm"], not m["nonfinite_grad"],
-                                   m["sample_size_total"], self.num_updates)
+        if self.async_depth > 0:
+            if pending["values"].is_cuda:
+                pending["done"] = torch.cuda.Event()
+                pending["done"].record()
+            self._deferred.append(pending)
+            if len(self._deferred) - self._waited > self.async_depth:
+                done = self._deferred[self._waited].get("done")
+                if done is not None:
+                    done.synchronize()
+                self._waited += 1
+            return None
+        return self._record_update(self.step.collect(pending), self.num_updates)
 
-    def _record_update(self, out, gnorm, finite, total_ss, num_updates):
-        """Bookkeeping of one completed update; ``num_updates`` is the count
-        after it."""
-        out = dict(out)
-        out["gnorm"] = gnorm
-        if not finite:
-            bad = nonfinite_grad_names(self.model)
+    def drain_metrics(self):
+        """Reads every deferred update's results and records them in the
+        order they were queued; reconciles ``num_updates`` with the skipped
+        ones. -> the last update's metrics, or None if none was deferred."""
+        if not self._deferred:
+            return None
+        entries, self._deferred, self._waited = self._deferred, [], 0
+        n, out = self._base_updates, None
+        for pending in entries:
+            m = self.step.collect(pending)
+            n += 0 if m["nonfinite_grad"] else 1
+            out = self._record_update(m, n)
+        if n != self.num_updates:
+            raise AssertionError(f"update count {self.num_updates} after a drain, {n} applied")
+        return out
+
+    def _record_update(self, m: Dict[str, Any], num_updates: int) -> Dict[str, Any]:
+        """Bookkeeping of one completed update from its collected metrics
+        ``m``; ``num_updates`` is the count after it."""
+        out = {k: v for k, v in m.items()
+               if k not in ("lr", "nonfinite_grad", "sample_size_total", "nonfinite_names")}
+        if m["nonfinite_grad"]:
+            bad = m["nonfinite_names"]
             logger.warning(
                 f"non-finite gradient norm at update {num_updates}; "
                 f"update skipped; non-finite leaves: {bad[:8]}"
@@ -88,7 +120,7 @@ class Trainer:
             out["nonfinite_grad"] = 1.0
         if self.lr_schedule is not None:
             out["lr"] = float(self.lr_schedule(max(num_updates - 1, 0)))
-        ss = max(total_ss, 1.0)
+        ss = max(m["sample_size_total"], 1.0)
         # every criterion's loss-like keys reach the metrics
         skip_keys = {"gnorm", "lr", "nonfinite_grad", "sample_size",
                      "sample_size_total", "ntokens", "nsentences"}

@@ -124,9 +124,41 @@ Phases (any failure raises and the script exits non-zero):
              (updates/s after the first update beside train's, seconds a
              save, the file's size, the resume's load seconds, validation
              seconds, peak memory, launches) and deletes its files.
-8. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
-             paths: both serve runs, cli_serve, text, both train runs and
-             train_cli's training and decode;
+8. mt      - the MT pre-training stage (recipes/train-en2any-MT.sh) on
+             seeded parallel text (880 training pairs of 4-120 Zipf-drawn
+             subwords, targets within +-20 % of their source's length, 128
+             valid and 128 test pairs) with a joined dictionary of 40,000,
+             binarized by the port's preprocess CLI. mt_parity: the base
+             preset in fp32, every dropout 0, one update of 2 micro-batches
+             of 8 pairs on the card (K1 through its Function) and on the
+             CPU from the same weights: loss, gnorm, every trained gradient
+             and the Adam update within train_parity's gates; the audio
+             trunk masked out of Adam (bit-identical to its start on both
+             devices, no Adam state), the optimizer tree of the JAX
+             trainer's masked layout. mt_cli: the train CLI in-process with
+             the recipe's flags (interlingua length 64, label smoothing
+             0.1, Adam (0.9, 0.98), inverse_sqrt lr 5e-4, --max-tokens 4096
+             --update-freq 8) and the cut --warmup-updates 4, bf16: run A
+             to epoch 2, run B resumed to epoch 3, the averaging tool over
+             the three epoch files, then cli.generate --task translation of
+             the averaged file (beam 5, max decode length 64, batches of
+             32, bf16). Exact launches (a training micro-batch none; a
+             validation batch K1 12; the decode K1 12 a batch and K3 6 a
+             decoder step); written = held and the resume's state as in
+             train_cli; prints {"mt_cli": {...}} (updates and source /
+             target tokens a second after the first update, over run A's
+             second epoch, seconds a save, the
+             file's size beside the unmasked tree's, the resume's load
+             seconds, validation seconds, the averaging's seconds, the
+             decode's sentences a second, peak memory, launches; with
+             --profile one update under torch.profiler). mt_shapes: K1
+             against its plain version at every shape the MT phases
+             launched, bf16 and fp32, and K3 at every shape of the decode
+             as phase 3 holds it (steps 0, 31, 63; bf16 and fp32; cache
+             writes bit-equal).
+9. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
+             paths: both serve runs, cli_serve, text, both train runs,
+             train_cli's training and decode and mt_cli's;
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
 
@@ -137,7 +169,7 @@ With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
 of the wall time and the device time by kernel; cli_serve runs its command
 once more under the profiler and prints the device's busy seconds; train
-profiles one more update.
+and mt_cli profile one more update.
 
 Longer logs (the compiler's register/shared-memory report, the profiles) go
 to chiprun_out/.
@@ -898,32 +930,41 @@ def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int
 
 
 @contextlib.contextmanager
-def recorded_shapes(enc_attn, conv_tail):
-    """While open, notes the input shape and dtype of every K1 and K2 launch
-    (the wrappers reach ``encoder_attention_cuda`` / ``conv_tail_cuda`` through
-    their modules, where these stand in). Yields {kernel: [(shape, dtype)]},
-    each distinct pair once, in the order of its first launch."""
-    seen = {"encoder_attention": [], "conv_tail": []}
+def recorded_shapes(enc_attn, conv_tail, dec_attn):
+    """While open, notes the input shape and dtype of every K1, K2 and K3
+    launch (the wrappers reach ``encoder_attention_cuda`` / ``conv_tail_cuda``
+    / ``decode_attention_cuda`` through their modules, where these stand in).
+    Yields {kernel: [(shape, dtype)]}, each distinct pair once, in the order
+    of its first launch; K3's shape is the cache's (N, H, L, D) and the
+    beam."""
+    seen = {"encoder_attention": [], "conv_tail": [], "decode_attention": []}
     k1, k2 = enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda
+    k3 = dec_attn.decode_attention_cuda
 
-    def note(name, x):
-        key = (tuple(x.shape), x.dtype)
+    def note(name, shape, dtype):
+        key = (tuple(shape), dtype)
         if key not in seen[name]:
             seen[name].append(key)
 
     def noted_k1(q, k, v, key_padding_mask=None):
-        note("encoder_attention", q)
+        note("encoder_attention", q.shape, q.dtype)
         return k1(q, k, v, key_padding_mask)
 
     def noted_k2(x, weights):
-        note("conv_tail", x)
+        note("conv_tail", x.shape, x.dtype)
         return k2(x, weights)
 
+    def noted_k3(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam):
+        note("decode_attention", (*k_cache.shape, beam), q.dtype)
+        return k3(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam)
+
     enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda = noted_k1, noted_k2
+    dec_attn.decode_attention_cuda = noted_k3
     try:
         yield seen
     finally:
         enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda = k1, k2
+        dec_attn.decode_attention_cuda = k3
 
 
 @contextlib.contextmanager
@@ -1315,7 +1356,8 @@ def train_cli_argv(fx, w2v2: Path, save_dir: Path, max_update: int):
     """The recipe's flags (recipes/train-en2any-ST.sh), then the cuts:
     warm-up 4, micro-batches of 8, 3 an update (one epoch of the 24 wavs),
     bf16, ``max_update`` updates, no epoch files, the 24-wav split as the
-    valid subset."""
+    valid subset; each update's results read before the next (``--async-dispatch
+    0``), so that its host-clock seconds end with its device work."""
     return [str(fx["root"]), "--task", "triplet", "--config-yaml", "config_wave.yaml",
             "--arch", "s2t_transformer_w2v2_interlingua_base", "--interlingua-length", "64",
             "--w2v2-model-path", str(w2v2), "--w2v2-heads", "12",
@@ -1326,7 +1368,7 @@ def train_cli_argv(fx, w2v2: Path, save_dir: Path, max_update: int):
             "--update-freq", "3", "--max-update", str(max_update), "--save-dir", str(save_dir),
             "--keep-last-epochs", "10", "--best-checkpoint-metric", "st_loss",
             "--dtype", "bfloat16", "--no-epoch-checkpoints", "--train-subset", "train_wave",
-            "--valid-subset", "tst_wave"]
+            "--valid-subset", "tst_wave", "--async-dispatch", "0"]
 
 
 def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
@@ -1475,6 +1517,419 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
     print(json.dumps({"train_cli": rec}), flush=True)
     train_counts = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
     return train_counts, counts["decode"]
+
+
+# ---- the MT stage: the translation task at the recipe's operating point
+# (recipes/train-en2any-MT.sh), on seeded parallel text binarized by the
+# port's preprocess CLI
+
+MT_VOCAB = 40000  # the recipe's --subword-tokens 40000 (prepare-wmt-en2any.sh)
+MT_TRAIN_PAIRS = 880  # about 2 updates an epoch at --max-tokens 4096 --update-freq 8
+MT_EVAL_PAIRS = 128
+MT_LENGTHS = (4, 120)
+MT_MODEL = {"arch": "s2t_transformer_w2v2_interlingua_base", "interlingua_length": 64}
+MT_CRITERION = {"_name": "label_smoothed_cross_entropy", "label_smoothing": 0.1}
+MT_DECODE_BATCH = 32
+MT_MAX_TOKENS = 4096  # the recipe's --max-tokens
+
+
+def make_mt_fixture(root: Path, seed: int = 13) -> dict:
+    """Seeded parallel text (en -> de) and a joined dictionary of MT_VOCAB
+    subwords, binarized by the port's preprocess CLI (``--joined-dictionary
+    --srcdict``): source lengths uniform in MT_LENGTHS, symbols drawn from a
+    Zipf law (exponent 1.1) over the vocabulary, each target within +-20 %
+    of its source's length; MT_TRAIN_PAIRS training pairs, MT_EVAL_PAIRS each
+    for valid and test."""
+    from chimera_st_tpu_torch.cli import preprocess
+
+    rng = np.random.default_rng(seed)
+    n_words = MT_VOCAB - 4  # + bos, pad, eos, unk
+    words = np.asarray([f"s{i}" for i in range(n_words)])
+    p = 1.0 / np.arange(1, n_words + 1) ** 1.1
+    p /= p.sum()
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    counts = np.zeros(n_words, np.int64)
+    n_tokens = {}
+    for split, n in (("train", MT_TRAIN_PAIRS), ("valid", MT_EVAL_PAIRS),
+                     ("test", MT_EVAL_PAIRS)):
+        src_len = rng.integers(MT_LENGTHS[0], MT_LENGTHS[1] + 1, n)
+        tgt_len = np.maximum(1, np.rint(src_len * rng.uniform(0.8, 1.2, n))).astype(int)
+        for lang, lengths in (("en", src_len), ("de", tgt_len)):
+            ids = rng.choice(n_words, size=int(lengths.sum()), p=p)
+            counts += np.bincount(ids, minlength=n_words)
+            rows = np.split(words[ids], np.cumsum(lengths)[:-1])
+            (raw / f"{split}.{lang}").write_text("".join(" ".join(r) + "\n" for r in rows))
+            n_tokens[(split, lang)] = int(lengths.sum())
+    dict_file = root / "dict.txt"
+    dict_file.write_text("".join(f"{w} {c}\n" for w, c in zip(words, np.maximum(counts, 1))))
+    bin_dir = root / "bin"
+    t0 = time.perf_counter()
+    preprocess.main(["-s", "en", "-t", "de", "--joined-dictionary", "--srcdict", str(dict_file),
+                     "--trainpref", str(raw / "train"), "--validpref", str(raw / "valid"),
+                     "--testpref", str(raw / "test"), "--destdir", str(bin_dir)])
+    log(f"mt fixture: {MT_TRAIN_PAIRS} training pairs ({n_tokens[('train', 'en')]} source, "
+        f"{n_tokens[('train', 'de')]} target subwords), {MT_EVAL_PAIRS} valid and test pairs, "
+        f"a joined dictionary of {MT_VOCAB}; binarized in {time.perf_counter() - t0:.1f} s")
+    return dict(root=root, bin=bin_dir, raw=raw)
+
+
+def mt_task(fx):
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    return setup_task({"_name": "translation", "data": str(fx["bin"]), "source_lang": "en",
+                       "target_lang": "de"})
+
+
+def phase_mt_parity(torch, fx):
+    """One text-only update of the MT model at full width in fp32 (TF32
+    off), every dropout 0, 2 micro-batches of 8 binarized pairs (the longest
+    of the split), the audio trunk masked out of Adam as the train CLI masks
+    it: on the card (K1 through its Function) and on the CPU. Gates of
+    train_parity: loss and nll_loss 1e-5, gnorm 1e-3 (relative), every
+    trained gradient 1e-2 (L2 per tensor), the Adam update within lr *
+    min(2, |dg| / eps). The trunk bit-identical to its start on both
+    devices and without Adam state; the optimizer tree, pickled and read
+    back, has the JAX trainer's masked layout (``opt_state_from_optax``
+    checks structure and shapes)."""
+    import itertools
+    import pickle
+
+    from chimera_st_tpu_torch.convert import opt_state_from_optax
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.optim.freeze import auto_text_only_fixes, wrap_freeze
+    from chimera_st_tpu_torch.train import TrainStep
+
+    task = mt_task(fx)
+    micro = list(itertools.islice(task.make_batch_iterator(
+        task.dataset("train"), max_sentences=8).next_epoch_itr(shuffle=False), 2))
+    log(f"mt_parity: fp32, every dropout 0, 2 micro-batches of 8 pairs (source / target padded "
+        f"to {[b['src_tokens'].shape[1] for b in micro]} / "
+        f"{[b['target'].shape[1] for b in micro]}), card vs CPU, one Adam update at lr 1e-4")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = task.build_model(dict(MT_MODEL, dropout=0.0, attention_dropout=0.0,
+                                      activation_dropout=0.0), device="cpu", train=True)
+        init_params_(model, torch.Generator().manual_seed(17)).to(device)
+        fixes = auto_text_only_fixes(task, model)
+        trained, frozen = wrap_freeze(model, fixes)
+        opt = build_optimizer({"_name": "adam", "adam_betas": "(0.9, 0.98)"}, trained,
+                              frozen=frozen)
+        step = TrainStep(model, task.build_criterion(MT_CRITERION), opt,
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         compute_dtype=torch.float32)
+        frozen_names = {n for n, p in model.named_parameters() if any(p is f for f in frozen)}
+        before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        metrics = step(micro)
+        log(f"  {device}: {time.perf_counter() - t0:.2f} s, loss {metrics['loss']:.4f}, gnorm "
+            f"{metrics['gnorm']:.4f}; {fixes}: {len(frozen_names)} of {len(before)} tensors "
+            f"({sum(before[n].numel() for n in frozen_names) / 1e6:.1f} M parameters) masked")
+        no_state = all(p not in opt.optimizer.state for p in frozen) and all(
+            p in opt.optimizer.state for p in trained)
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        tree = pickle.loads(pickle.dumps(opt.state_to_optax(model, step.num_updates)))
+        opt_state_from_optax(tree, frozen_names, shapes)  # raises on another layout
+        mu = tree["inner_states"]["train"]["inner_state"]["0"]["mu"]["params"]
+        if fixes != ("fix_audio_trunk",) or not no_state or mu["wav2vec_model"] \
+                ["post_extract_proj"]["kernel"] != {} or tree["inner_states"]["freeze"] != \
+                {"inner_state": {}}:
+            raise AssertionError(f"mt_parity ({device}): the trunk is not masked out of Adam "
+                                 f"as the JAX trainer masks it ({fixes})")
+        out[device] = (metrics, before, frozen_names,
+                       {k: p.grad.cpu() for k, p in model.named_parameters()},
+                       {k: p.detach().cpu() for k, p in model.named_parameters()})
+        del model, step, opt
+    (mg, before, frozen, gg, pg), (mc, _, _, gc, pc) = out["cuda"], out["cpu"]
+    for key in ("loss", "nll_loss"):
+        check(f"mt {key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]), 1e-5)
+    check("mt gnorm card vs CPU (relative)", abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], 1e-3)
+    trained = [k for k in gc if k not in frozen]
+    rel = sorted(((float((gg[k] - gc[k]).norm() / gc[k[:-4] + "weight" if k.endswith(
+        "k_proj.bias") else k].norm().clamp_min(1e-30)), k) for k in trained
+        if gc[k].abs().max() > 0), reverse=True)
+    log("  largest gradient differences (L2, relative): "
+        + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
+    check(f"every trained gradient ({len(rel)} tensors) card vs CPU, |d| / |g| per tensor",
+          rel[0][0], 1e-2)
+    zero_grad = [k for k in trained if gc[k].abs().max() == 0]
+    trunk_same = all(torch.equal(pg[k], before[k]) and torch.equal(pc[k], before[k])
+                     for k in frozen)
+    lr, eps = 1e-4, 1e-8
+    excess, moved = 0.0, 0
+    for k in trained:
+        allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
+            + 4 * torch.finfo(torch.float32).eps * pc[k].abs() + 1e-6 * lr
+        excess = max(excess, float(((pg[k] - pc[k]).abs() - allowed).max()))
+        moved += int(not torch.equal(pc[k], before[k]))
+    log(f"  Adam update: {moved} of {len(trained)} trained tensors moved ({len(zero_grad)} with "
+        f"a zero gradient); the {len(frozen)} trunk tensors bit-identical to their start on "
+        f"both devices: {trunk_same}")
+    if excess > 0 or moved != len(trained) - len(zero_grad) or not trunk_same:
+        raise AssertionError(f"mt_parity: {excess} beyond the bound, {moved} tensors moved, "
+                             f"trunk unchanged {trunk_same}")
+    torch.cuda.empty_cache()
+
+
+def mt_train_argv(fx, save_dir: Path, max_epoch: int):
+    """recipes/train-en2any-MT.sh:13-24 (TGT de), then the cut: warm-up 4
+    (recipe 4,000), so that parameters move; ``max_epoch`` epochs."""
+    return [str(fx["bin"]), "--task", "translation", "-s", "en", "-t", "de",
+            "--arch", "s2t_transformer_w2v2_interlingua_base", "--interlingua-length", "64",
+            "--criterion", "label_smoothed_cross_entropy", "--label-smoothing", "0.1",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--clip-norm", "0.0",
+            "--lr", "5e-4", "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4",
+            "--max-tokens", str(MT_MAX_TOKENS), "--update-freq", "8", "--max-update", "500000",
+            "--save-dir", str(save_dir), "--keep-last-epochs", "10",
+            "--best-checkpoint-metric", "loss", "--max-epoch", str(max_epoch)]
+
+
+def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
+                 profile=False):
+    """The MT stage through the entry points, in-process, at the recipe's
+    model (full width and depth, interlingua length 64) and flags, bf16:
+    run A from a fresh start to 2 epochs, run B resumed from A's
+    checkpoint_last to epoch 3, the averaging tool over the three epoch
+    files, then the generate CLI on the test split of the averaged file
+    (beam 5, max decode length 64, batches of 32, bf16).
+
+    Launch counts (zeroed before each run, read after): a training
+    micro-batch none (attention dropout 0.1 takes the plain path; the text
+    branch runs no trunk, so no K2, no K4); a validation batch, in eval
+    mode, K1 12 (the 12 shared-encoder layers on text); the decode K1 12 a
+    batch and K3 6 a decoder step that ran (64 a batch unless every
+    hypothesis of the batch ended before: beam search stops there). Checks: the counts; A's
+    checkpoint_last read back equals the trainer's parameters and Adam
+    state bit for bit (the trunk without moments), and so does the same
+    file restored by the CLI's load_state; B starts at A's step and
+    iterator and ends an epoch later with the iterator and best metric of
+    the JAX rules; the averaged parameters are the fp64 mean of the three
+    files cast to fp32; the decode prints one hypothesis a test pair.
+    Returns ({"mt_cli": launches of A + B, "mt_cli_decode": ...}, the K1
+    and K3 shapes seen); prints the record as {"mt_cli": {...}}; deletes
+    its files."""
+    import pickle
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import load_state, read_state
+    from chimera_st_tpu_torch.cli import generate, train
+    from chimera_st_tpu_torch.convert import checkpoint_tensors
+    from chimera_st_tpu_torch.tools import average_checkpoints
+
+    task = mt_task(fx)
+    n_train = len(task.make_batch_iterator(task.dataset("train"), max_tokens=MT_MAX_TOKENS))
+    n_valid = len(task.make_batch_iterator(task.dataset("valid"), max_tokens=MT_MAX_TOKENS))
+    per_epoch = -(-n_train // 8)
+    src_tokens = int(task.dataset("train").src_sizes.sum())
+    tgt_tokens = int(task.dataset("train").tgt_sizes.sum())
+    log(f"mt_cli: the train CLI at recipes/train-en2any-MT.sh's operating point, bf16: "
+        f"{n_train} micro-batches of at most {MT_MAX_TOKENS} tokens an epoch, {per_epoch} "
+        "updates; "
+        f"{n_valid} validation batches")
+    base = work / "mt_cli"
+    save_dir = base / "checkpoints"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, counts = {}, {}
+    layers = {}  # the model's shared-encoder and decoder layers
+    with recorded_shapes(enc_attn, conv_tail, dec_attn) as seen:
+        for label, max_epoch in (("A", 2), ("B", 3)):
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with counted_decoder_steps() as steps:
+                out = train.main(mt_train_argv(fx, save_dir, max_epoch))
+            torch.cuda.synchronize()
+            counts[label] = {fn.__name__: fn.launches for fn in kernels}
+            runs[label] = out
+            t = out["times"]
+            cfg = out["trainer"].model.cfg
+            layers = {"encoder": cfg.encoder_layers, "decoder": cfg.decoder_layers}
+            implied = {"encoder_attention": layers["encoder"] * n_valid * len(t["valid_s"]),
+                       "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+            log(f"  run {label}: {time.perf_counter() - t0:.1f} s, step {t['restored']['step']} "
+                f"-> {out['trainer'].num_updates}; epochs {[round(s, 2) for s in t['epoch_s']]} s "
+                f"for {t['epoch_updates']} updates; saves {[round(s, 2) for s in t['save_s']]} s, "
+                f"validations {[round(s, 2) for s in t['valid_s']]} s, load {t['load_s']:.2f} s; "
+                f"launches {counts[label]}")
+            if counts[label] != implied or steps[0] or t["epoch_updates"] != \
+                    [per_epoch] * len(t["epoch_updates"]):
+                raise AssertionError(f"mt_cli run {label}: launches {counts[label]} (want "
+                                     f"{implied}), {steps[0]} decoder steps, updates an epoch "
+                                     f"{t['epoch_updates']} (want {per_epoch})")
+            if label == "A":
+                trainer = out["trainer"]
+                last = save_dir / "checkpoint_last.ckpt"
+                size = last.stat().st_size
+                payload = read_state(str(last))
+                named = dict(trainer.model.named_parameters())
+                frozen = {n for n, p in named.items()
+                          if any(p is f for f in trainer.optimizer.frozen)}
+                shapes = {n: tuple(p.shape) for n, p in named.items()}
+                params, state, count = checkpoint_tensors(payload, shapes, frozen=frozen)
+                adam = trainer.optimizer.optimizer.state
+                same = (sorted(params) == sorted(named)
+                        and all(torch.equal(params[n], p.detach().cpu()) for n, p in named.items())
+                        and count == payload["step"] == trainer.num_updates == 2 * per_epoch
+                        and all((state[n] is None) == (n in frozen) for n in named)
+                        and all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in
+                                named.items() if n not in frozen
+                                for k in ("exp_avg", "exp_avg_sq")))
+                adam.clear()
+                load_state(payload, trainer)
+                restored = trainer.num_updates == 2 * per_epoch and all(
+                    torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
+                    if n not in frozen for k in ("exp_avg", "exp_avg_sq")) and not any(
+                    p in adam for n, p in named.items() if n in frozen)
+                n_all = sum(p.numel() for p in named.values())
+                n_trained = sum(p.numel() for n, p in named.items() if n not in frozen)
+                log(f"  checkpoint_last: {size / 1e9:.3f} GB ({n_all / 1e6:.1f} M parameters, "
+                    f"{n_trained / 1e6:.1f} M of them with Adam moments; the same tree unmasked "
+                    f"would hold {12 * n_all / 1e9:.3f} GB of fp32 leaves, masked "
+                    f"{(4 * n_all + 8 * n_trained) / 1e9:.3f} GB); read back = the trainer's "
+                    f"state bit for bit: {same}; restored through load_state: {restored}")
+                if not (same and restored):
+                    raise AssertionError("mt_cli: the written checkpoint is not the trainer's "
+                                         "state")
+                stored_iterator = payload["extra"]["train_iterator"]
+                best_a = payload["extra"]["best"]
+                del trainer, params, payload, state, adam, named, out
+                runs["A"].pop("trainer")
+                torch.cuda.empty_cache()
+        b = runs["B"]
+        payload = read_state(str(save_dir / "checkpoint_last.ckpt"))
+        vals = b["times"]["valid"]
+        log(f"  run B: restored at step {b['times']['restored']['step']} with iterator "
+            f"{b['times']['restored']['train_iterator']} (stored {stored_iterator}); ended at "
+            f"step {payload['step']}, iterator {payload['extra']['train_iterator']}, best "
+            f"{payload['extra']['best']:.4f} (run A's {best_a:.4f}, B's validation "
+            f"{[round(v, 4) for v in vals]})")
+        if (b["times"]["restored"]["step"] != 2 * per_epoch
+                or b["times"]["restored"]["train_iterator"] != stored_iterator
+                or payload["step"] != 3 * per_epoch or b["trainer"].num_updates != 3 * per_epoch
+                or payload["extra"]["train_iterator"] != {"epoch": 4, "iterations_in_epoch": 0,
+                                                         "shuffle": True}
+                or payload["extra"]["best"] != min([best_a] + vals)):
+            raise AssertionError("mt_cli: run B did not resume and end as the JAX rules give")
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            import itertools
+
+            micro = list(itertools.islice(task.make_batch_iterator(
+                task.dataset("train"), max_tokens=MT_MAX_TOKENS).next_epoch_itr(shuffle=False),
+                8))
+            prof = train_profile(torch, b["trainer"].step, micro)
+        del b["trainer"], payload
+        torch.cuda.empty_cache()
+
+        # the averaging tool over the three epoch files
+        epochs = [save_dir / f"checkpoint{e}.ckpt" for e in (1, 2, 3)]
+        avg = base / "averaged.ckpt"
+        t0 = time.perf_counter()
+        average_checkpoints.main(["--inputs", *map(str, epochs), "--output", str(avg)])
+        avg_s = time.perf_counter() - t0
+        def leaf(path):
+            with open(path, "rb") as f:
+                node = pickle.load(f)["params"]
+            for k in ("params", "decoder", "layer_norm", "scale"):
+                node = node[k]
+            return np.asarray(node)
+
+        parts = [leaf(p) for p in epochs]
+        if not np.array_equal(leaf(avg), ((parts[0].astype(np.float64) + parts[1] + parts[2])
+                                          / 3).astype(np.float32)):
+            raise AssertionError("mt_cli: the averaged parameters are not the fp64 mean")
+        log(f"  averaged {len(epochs)} epoch files of {epochs[0].stat().st_size / 1e9:.2f} GB in "
+            f"{avg_s:.1f} s")
+
+        # the generate CLI on the averaged file
+        for fn in kernels:
+            fn.launches = 0
+        out_dir = base / "decode"
+        out_dir.mkdir()
+        with counted_decoder_steps() as steps:
+            t0 = time.perf_counter()
+            stats = generate.main([str(fx["bin"]), "--task", "translation", "--path", str(avg),
+                                   "--gen-subset", "test", "--beam", "5", "--max-decode-len",
+                                   "64", "--batch-size", str(MT_DECODE_BATCH), "--dtype",
+                                   "bfloat16", "--scoring", "bleu", "--results-path",
+                                   str(out_dir)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts["decode"] = {fn.__name__: fn.launches for fn in kernels}
+    hyps, full, last_line = parse_protocol((out_dir / "generate-test.txt").read_text())
+    batches = -(-MT_EVAL_PAIRS // MT_DECODE_BATCH)
+    implied = {"encoder_attention": layers["encoder"] * batches, "conv_tail": 0,
+               "decode_attention": layers["decoder"] * steps[0], "logmel": 0}
+    log(f"  decode of the averaged file: {stats['sentences']} sentences in {wall:.1f} s "
+        f"(decode {stats['decode_s']:.2f} s, {stats['sentences'] / stats['decode_s']:.1f} "
+        f"sentences/s; load {stats['load_s']:.2f} s), {steps[0]} decoder steps for {batches} "
+        f"batches ({64 * batches} if no hypothesis ended early); launches {counts['decode']}; "
+        f"{last_line}")
+    if (len(full) != MT_EVAL_PAIRS or any(len(h) != 1 or not np.isfinite(h[0][0])
+                                          for h in hyps.values())
+            or counts["decode"] != implied or steps[0] == 0):
+        raise AssertionError(f"mt_cli decode: {len(full)} samples with all lines, launches "
+                             f"{counts['decode']} (want {implied})")
+    epoch_s = runs["A"]["times"]["epoch_s"] + runs["B"]["times"]["epoch_s"]
+    # the rates after the first update: run A's second epoch, every update of
+    # which follows the run's first (an epoch's seconds end with its device
+    # work; run B's one epoch holds the resumed trainer's first update)
+    after_first_s = runs["A"]["times"]["epoch_s"][1]
+    rec = {"updates_per_epoch": per_epoch, "micro_batches_per_epoch": n_train,
+           "epoch_s": epoch_s,
+           "updates_per_s_after_first": per_epoch / after_first_s,
+           "source_tokens_per_s_after_first": src_tokens / after_first_s,
+           "target_tokens_per_s_after_first": tgt_tokens / after_first_s,
+           "update_s": {k: r["times"]["update_s"] for k, r in runs.items()},
+           "save_s": {k: r["times"]["save_s"] for k, r in runs.items()},
+           "checkpoint_bytes": size, "resume_load_s": runs["B"]["times"]["load_s"],
+           "valid_s": {k: r["times"]["valid_s"] for k, r in runs.items()},
+           "peak_memory_gb": peak / 1e9, "average_s": avg_s, "decode_s": stats["decode_s"],
+           "decode_load_s": stats["load_s"], "decoder_steps": steps[0],
+           "sentences_per_s": stats["sentences"] / stats["decode_s"], "launches": counts}
+    if profile:
+        rec["profile"] = prof
+    log(f"  after the first update (run A's epoch 2): "
+        f"{rec['updates_per_s_after_first']:.3f} updates/s, "
+        f"{rec['source_tokens_per_s_after_first']:.0f} source / "
+        f"{rec['target_tokens_per_s_after_first']:.0f} target tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    shutil.rmtree(base)
+    print(json.dumps({"mt_cli": rec}), flush=True)
+    train_counts = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
+    return {"mt_cli": train_counts, "mt_cli_decode": counts["decode"]}, seen
+
+
+def phase_mt_shapes(torch, enc_attn, dec_attn, seen, records):
+    """Every K1 shape the MT phases launched (validation batches of text
+    under --max-tokens 4096, the decode batches), held against the plain
+    version in bf16 and fp32 like the shapes of phase 3; and every K3 shape
+    of the decode (batches of 32 at beam 5), held as phase 3 holds K3: steps
+    0, 31 and 63, bf16 and fp32, the cache writes bit-equal. The records go
+    into each kernel's `shapes`, K3's main numbers those of step 63."""
+    shapes = list(dict.fromkeys(shape for shape, _ in seen["encoder_attention"]))
+    k3_shapes = list(dict.fromkeys(shape for shape, _ in seen["decode_attention"]))
+    log(f"mt_shapes: the MT phases launched K1 at {len(shapes)} shapes {shapes}, K3 at "
+        f"{len(k3_shapes)} {k3_shapes} (N, H, L, D, beam) in "
+        f"{sorted({str(d) for _, d in seen['decode_attention']})}")
+    if not shapes or not k3_shapes or seen["conv_tail"]:
+        raise AssertionError(f"mt_shapes: K1 at {shapes}, K3 at {k3_shapes}, K2 at "
+                             f"{seen['conv_tail']}")
+    tensor = Inputs(torch, 6)
+    k1_rec, k3_rec = (next(r for r in records if r["name"] == n)
+                      for n in ("encoder_attention", "decode_attention"))
+    for B, T, H, D in shapes:
+        label = f"mt_B{B}_T{T}_H{H}_D{D}"
+        k1_rec["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T, H, D)
+    rng = np.random.default_rng(7)
+    for N, H, L, D, C in k3_shapes:
+        label = f"mt_S{N // C}_C{C}_H{H}"
+        inputs = k3_inputs(torch, tensor, rng, N // C, C, H, L, D)
+        steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx) for idx in (63, 31, 0)}
+        k3_rec.setdefault("shapes", {})[f"{label}_L{L}"] = dict(
+            steps[63], steps={"0": steps[0], "31": steps[31]})
 
 
 def phase_cli_shapes(torch, enc_attn, conv_tail, seen, records):
@@ -1852,7 +2307,7 @@ def main() -> int:
             W2V_CONV_FEATURE_LAYERS)
         task, loaded = phase_checkpoint(torch, fx)
         del loaded
-        with recorded_shapes(encoder_attention, conv_tail) as seen:
+        with recorded_shapes(encoder_attention, conv_tail, decode_attention) as seen:
             phase_cli_parity(torch, fx, work)
             counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
             phase_interactive(torch, fx, work)
@@ -1865,13 +2320,21 @@ def main() -> int:
             torch, training, kernels, args.profile)
         counts["train_cli"], counts["train_cli_decode"] = phase_train_cli(
             torch, fx, work, kernels, train_rec)
+        # 8. the MT stage
+        mt_fx = make_mt_fixture(work / "mt")
+        phase_mt_parity(torch, mt_fx)
+        mt_counts, mt_seen = phase_mt_cli(torch, mt_fx, work, kernels, encoder_attention,
+                                          conv_tail, decode_attention, args.profile)
+        counts.update(mt_counts)
     phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
+    phase_mt_shapes(torch, encoder_attention, decode_attention, mt_seen, records)
 
-    # 8. report
+    # 9. report
     for r in records:
         r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())
-        if "steps_0_63_ms" in r:  # K3: the 64-step sweep times the counted launches
+        if "steps_0_63_ms" in r:
+            # K3: the 64-step sweep times the counted launches
             for label, shape in (("flagship", r), ("fbank", r["fbank_shape"])):
                 n = r["launches_per_path"][label] / SERVE_BATCHES
                 per_batch = n / 64 * shape["steps_0_63_ms"]

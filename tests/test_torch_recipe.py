@@ -2,12 +2,13 @@
 against the port on the CPU: console-script shims point ``chimera-train``,
 ``chimera-generate`` and ``chimera-auto-generate`` at the port's modules.
 
-The stand-ins: a tiny seeded fairseq-layout wav2vec2 ``.pt`` for
-``wav2vec_small.pt`` (the recipe's ``--w2v2-model-path``), and for the MT
-stage's best checkpoint, ``MT_CKPT``, the port's own train CLI run for 2
-updates on the same fixture (the MT task waits for ROADMAP A10b). Tiny
-flags appended after the recipe's own win (argparse: last wins). The
-recipe copies ``MT_CKPT`` to ``checkpoint_last.ckpt`` and restores it with
+A tiny seeded fairseq-layout wav2vec2 ``.pt`` stands in for
+``wav2vec_small.pt`` (the recipe's ``--w2v2-model-path``). ``MT_CKPT`` is
+the MT stage's best checkpoint, trained by the port: seeded parallel text
+binarized against the fixture's dictionary by the port's preprocess, then
+the port's train CLI on ``--task translation`` for 2 updates. Tiny flags
+appended after the recipe's own win (argparse: last wins). The recipe
+copies ``MT_CKPT`` to ``checkpoint_last.ckpt`` and restores it with
 ``--reset-optimizer``, so the update count restarts at 0 and ends at
 ``MAX_UPDATE`` = 2; its background auto-evaluator decodes each new
 checkpoint and stops on the flag the recipe's exit trap raises."""
@@ -22,8 +23,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from chimera_st_tpu_torch.cli import train
-from tests.synthetic_data import TINY_ARCH_FLAGS, make_triplet_dir
+from chimera_st_tpu_torch.cli import preprocess, train
+from tests.synthetic_data import TINY_ARCH_FLAGS, make_parallel_text, make_triplet_dir
 from tests.torch_reference import TorchW2V2
 
 REPO = Path(__file__).resolve().parents[1]
@@ -59,14 +60,20 @@ def test_st_recipe_runs_against_the_port(tmp_path, shim_bin):
     torch.save({"args": Namespace(encoder_embed_dim=16), "model": w2v2.state_dict()},
                str(w2v2_pt))
 
+    raw = make_parallel_text(str(tmp_path / "wmt_raw"))
+    bin_dir = str(tmp_path / "bin")
+    preprocess.main(["-s", "en", "-t", "de", "--trainpref", f"{raw}/train",
+                     "--validpref", f"{raw}/valid", "--destdir", bin_dir,
+                     "--srcdict", f"{data}/dict.txt", "--tgtdict", f"{data}/dict.txt"])
     mt_dir = tmp_path / "mt"
-    train.main([data, "--task", "triplet", *TINY_ARCH_FLAGS,
-                "--criterion", "triplet_st_mt_contrastive", "--lr", "1e-3",
-                "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "2", "--batch-size", "4",
-                "--max-update", "2", "--dtype", "float32", "--num-length-buckets", "2",
-                "--save-dir", str(mt_dir), "--device", "cpu"])
+    train.main([bin_dir, "--task", "translation", "-s", "en", "-t", "de", *TINY_ARCH_FLAGS,
+                "--criterion", "label_smoothed_cross_entropy", "--label-smoothing", "0.1",
+                "--lr", "1e-3", "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "2",
+                "--batch-size", "4", "--max-update", "2", "--dtype", "float32",
+                "--num-length-buckets", "2", "--save-dir", str(mt_dir), "--device", "cpu"])
     mt_best = mt_dir / "checkpoint_best.ckpt"
     assert _load(mt_best)["step"] == 2
+    assert _load(mt_best)["extra"]["task_cfg"]["_name"] == "translation"
 
     st_dir = tmp_path / "st"
     env = dict(os.environ)

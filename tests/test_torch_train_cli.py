@@ -237,12 +237,11 @@ def test_resumed_run_equals_uninterrupted_run_with_dropout(runs, tmp_path):
 
 
 UNPORTED_TRAIN_FLAGS = {
-    "task": ["--task", "translation"],
+    "task": ["--task", "speech_to_text"],
     "task_configs": ["--task-configs", "a.yaml"],
     "optimizer": ["--optimizer", "sgd"],
     "lr_scheduler": ["--lr-scheduler", "cosine"],
     "best_checkpoint_metric": ["--best-checkpoint-metric", "wer"],
-    "async_dispatch": ["--async-dispatch", "3"],
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],
     "user_dir": ["--user-dir", "plugins"],
