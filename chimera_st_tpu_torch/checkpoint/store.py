@@ -53,6 +53,17 @@ def save_state(path: str, state: TrainState, extra: Dict[str, Any]) -> None:
     Path(tmp).replace(path)
 
 
+def save_model(path: str, model, model_cfg: Dict[str, Any], kind: str = "interlingua") -> None:
+    """A native checkpoint of ``model``'s parameters alone (no optimizer
+    state) with ``model_cfg`` in ``extra``: what either package's generate
+    CLI rebuilds the model from. ``kind`` names ``convert``'s table
+    (``interlingua`` or ``s2t``)."""
+    from .. import convert
+
+    save_state(path, TrainState(0, convert.params_to_flax(model.state_dict(), kind), None),
+               {"model_cfg": dict(model_cfg)})
+
+
 def read_state(path: str) -> Dict[str, Any]:
     """The payload of a native checkpoint."""
     with open(path, "rb") as f:

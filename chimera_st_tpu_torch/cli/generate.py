@@ -1,6 +1,6 @@
 """Batched beam-search evaluation (counterpart of
 chimera_st_tpu/cli/generate.py: the same output protocol, S-/T-/H-/D-/P-
-lines and the final corpus score line, for the single-model beam path).
+(and A-) lines and the final corpus score line).
 
     python -m chimera_st_tpu_torch.cli.generate DATA_DIR --task triplet \\
         --path model.pt --gen-subset tst-COMMON_wave --beam 10 --lenpen 1.5
@@ -9,7 +9,14 @@ lines and the final corpus score line, for the single-model beam path).
 
 A batch with audio decodes through ``generate_audio``; a text batch
 (``src_tokens``, the translation task) through ``generate_text``, its S-
-line the source sentence.
+line the source sentence. ``--path a.pt:b.ckpt`` decodes with the ensemble of
+the checkpoints; ``--score-reference`` scores the references instead of
+searching (T-/H-/P- lines); ``--print-alignment`` adds an A- line (the last
+decoder layer's head-averaged cross-attention argmax per target position,
+over a teacher-forced pass of the best hypothesis) and ``--replace-unk``
+replaces a text source's unknown words through it. The search options
+(``--sampling*``, ``--diverse-beam-*``, ``--diversity-rate``,
+``--kv-cache-int8``, ``--retain-dropout``) reach the generator.
 
 The model runs on ``--device`` (default ``cuda``: the hand-written kernels;
 ``cpu``: their plain PyTorch versions). ``--path`` takes a fairseq ``.pt`` of
@@ -105,6 +112,84 @@ class GenCfg:
         self.temperature = args.temperature
         self.max_decode_len = args.max_decode_len
         self.no_repeat_ngram_size = getattr(args, "no_repeat_ngram_size", 0)
+        self.diverse_beam_groups = max(args.diverse_beam_groups, 0)
+        self.diverse_beam_strength = args.diverse_beam_strength
+        self.diversity_rate = args.diversity_rate
+        self.sampling = args.sampling
+        self.sampling_topk = args.sampling_topk
+        self.sampling_topp = args.sampling_topp
+        self.seed = args.seed
+        self.kv_cache_int8 = args.kv_cache_int8
+        self.retain_dropout = args.retain_dropout
+
+
+def run_score_reference(args, task, model, itr, out, on_device, strip) -> int:
+    """``--score-reference``: each reference teacher-forced through the
+    model; T-, H- (mean log-prob) and P- (each token's log-prob) lines."""
+    from ..generation.scorer import SequenceScorer
+
+    tgt_dict = task.target_dictionary
+    scorer = SequenceScorer(model, pad=tgt_dict.pad(), eos=tgt_dict.eos(),
+                            retain_dropout=args.retain_dropout, seed=args.seed)
+    n_sent = 0
+    for batch in itr:
+        target = on_device(batch["target"]).long()
+        if "audio" in batch:
+            res = scorer.score_audio(on_device(batch["audio"]),
+                                     on_device(batch["audio_padding_mask"]), target)
+        else:
+            res = scorer.score_text(on_device(batch["src_tokens"]).long(), target)
+        score, pos, length = (res[k].cpu().numpy()
+                              for k in ("score", "positional_scores", "length"))
+        for b in range(target.shape[0]):
+            sid = int(batch["id"][b]) if "id" in batch else n_sent
+            ref_str = tgt_dict.string(batch["target"][b], bpe_symbol=args.remove_bpe,
+                                      extra_symbols_to_ignore=strip)
+            if not args.quiet:
+                print(f"T-{sid}\t{ref_str}", file=out)
+                print(f"H-{sid}\t{score[b]:.4f}\t{ref_str}", file=out)
+                print(f"P-{sid}\t" + " ".join(f"{p:.4f}" for p in pos[b][:int(length[b])]),
+                      file=out)
+            n_sent += 1
+    logger.info(f"Scored {n_sent} reference sentences")
+    return n_sent
+
+
+def best_alignments(model, batch, tokens, eos: int, on_device):
+    """[B, max_decode_len] source positions: the argmax of the last decoder
+    layer's head-averaged cross-attention over a teacher-forced pass of each
+    sentence's best hypothesis."""
+    import numpy as np
+    import torch
+
+    with torch.inference_mode():
+        if "audio" in batch:
+            enc, enc_mask = model.encode_audio(on_device(batch["audio"]),
+                                               on_device(batch["audio_padding_mask"]))
+        else:
+            enc, enc_mask = model.encode_text(on_device(batch["src_tokens"]).long())
+        prev = np.concatenate([np.full((tokens.shape[0], 1), eos, np.int64),
+                               tokens[:, 0, :-1].astype(np.int64)], axis=1)
+        attn = model.decoder.cross_attention_weights(on_device(prev), enc, enc_mask)
+    return attn.argmax(dim=-1).cpu().numpy()
+
+
+def unk_replaced(task, src_tokens, hyp_ids, alignment, align_dict, remove_bpe, strip) -> str:
+    """The hypothesis string with each <unk> replaced by its aligned source
+    word (before BPE is removed, as the alignment indexes raw source
+    tokens)."""
+    from ..data.dictionary import post_process
+    from ..generation.unk_replace import replace_unk_tokens
+
+    tgt_dict = task.target_dictionary
+    src_dict = getattr(task, "source_dictionary", None) or tgt_dict
+    src_words = [src_dict[int(t)] for t in src_tokens
+                 if int(t) not in (src_dict.pad(), src_dict.eos())]
+    syms = replace_unk_tokens([tgt_dict[int(t)] for t in hyp_ids], src_words, alignment,
+                              align_dict, tgt_dict[tgt_dict.unk()])
+    kept = [sym for t, sym in zip(hyp_ids, syms)
+            if int(t) not in strip and int(t) not in (tgt_dict.pad(), tgt_dict.eos())]
+    return post_process(" ".join(kept), remove_bpe)
 
 
 def main(argv=None) -> dict:
@@ -134,12 +219,12 @@ def main(argv=None) -> dict:
     tgt_dict = task.target_dictionary
 
     t_load = time.time()
-    model = load_model_and_params(args.path, task, torch_dtype(args.dtype), device,
-                                  model_overrides)
+    paths = args.path.split(":")
+    models = [load_model_and_params(path, task, torch_dtype(args.dtype), device,
+                                    model_overrides) for path in paths]
+    model = models[0]
     load_s = time.time() - t_load
     logger.info(f"loaded {args.path} on {device} in {load_s:.1f}s")
-    generator = task.build_generator(model, GenCfg(args))
-    scorer = build_scorer({"_name": args.scoring}, tgt_dict)
 
     itr = task.make_batch_iterator(
         dataset,
@@ -151,13 +236,38 @@ def main(argv=None) -> dict:
     out = open(Path(args.results_path) / f"generate-{args.gen_subset}.txt", "w") \
         if args.results_path else sys.stdout
     strip = task.lang_tag_indices() if hasattr(task, "lang_tag_indices") else set()
+    on_device = functools.partial(to_device, device=device)
+
+    if args.score_reference:
+        t0 = time.time()
+        n_sent = run_score_reference(args, task, model, itr, out, on_device, strip)
+        if out is not sys.stdout:
+            out.close()
+        return {"sentences": n_sent, "tokens": 0, "load_s": load_s,
+                "decode_s": time.time() - t0}
+
+    gen_cfg = GenCfg(args)
+    if len(models) > 1:
+        # plain beam search; the single-model options raise there
+        from ..generation.ensemble import EnsembleSequenceGenerator
+        from ..generation.generator import settings_from_cfg
+
+        generator = EnsembleSequenceGenerator(models, settings_from_cfg(gen_cfg),
+                                              pad=tgt_dict.pad(), eos=tgt_dict.eos(),
+                                              unk=tgt_dict.unk())
+    else:
+        generator = task.build_generator(model, gen_cfg)
+    scorer = build_scorer({"_name": args.scoring}, tgt_dict)
+    align_dict = None
+    if args.replace_unk:
+        from ..generation.unk_replace import load_align_dict
+
+        align_dict = load_align_dict(args.replace_unk)
 
     prefix_size = int(getattr(args, "prefix_size", 0) or 0)
     if prefix_size > 0 and not getattr(generator, "supports_prefix", False):
         raise NotImplementedError("--prefix-size is only supported for the single-model "
                                   "beam decode")
-
-    on_device = functools.partial(to_device, device=device)
 
     n_sent = 0
     n_tokens = 0
@@ -184,6 +294,9 @@ def main(argv=None) -> dict:
                 **extra,
             )
         tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
+        alignments = None
+        if args.print_alignment or (args.replace_unk and "src_tokens" in batch):
+            alignments = best_alignments(model, batch, tokens, tgt_dict.eos(), on_device)
         for b in range(tokens.shape[0]):
             sid = int(ids[b])
             target = batch.get("target")
@@ -206,12 +319,21 @@ def main(argv=None) -> dict:
             for k in range(min(args.nbest, tokens.shape[1])):
                 L = int(lens[b, k])
                 hyp_ids = tokens[b, k, :L]
-                hyp_str = tgt_dict.string(
-                    hyp_ids, bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
+                if args.replace_unk and alignments is not None and "src_tokens" in batch \
+                        and k == 0:
+                    hyp_str = unk_replaced(task, batch["src_tokens"][b], hyp_ids,
+                                           alignments[b][:L], align_dict, args.remove_bpe,
+                                           strip)
+                else:
+                    hyp_str = tgt_dict.string(
+                        hyp_ids, bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
                 if not args.quiet:
                     print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
                     print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
                     print(f"P-{sid}\t{scores[b, k]:.4f}", file=out)
+                    if alignments is not None and k == 0 and args.print_alignment:
+                        pairs = " ".join(f"{int(alignments[b, t])}-{t}" for t in range(L))
+                        print(f"A-{sid}\t{pairs}", file=out)
                 if k == 0 and ref_str is not None:
                     if hasattr(scorer, "add_string"):
                         scorer.add_string(ref_str, hyp_str)

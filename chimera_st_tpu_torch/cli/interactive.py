@@ -9,8 +9,9 @@ sentences, encoded with the source dictionary and padded to a multiple of
     python -m chimera_st_tpu_torch.cli.interactive DATA_BIN --task translation \\
         -s en -t de --path checkpoint_best.ckpt --beam 5 < sentences.txt
 
-Lexically constrained decoding (``--constraints``) is not ported yet and
-raises."""
+With ``--constraints {ordered,unordered}`` (text tasks) a line is the source
+sentence followed by tab-separated target phrases that every hypothesis
+must contain, in the given order or in any order."""
 
 from __future__ import annotations
 
@@ -37,6 +38,23 @@ def buffered_read(input_fh, buffer_size: int):
         yield buf
 
 
+def constraint_strategy(tgt_dict, mode: str, constraints):
+    """The search strategy that meets each sentence's constraint phrases
+    (``ordered``: in order; ``unordered``: in any order)."""
+    from ..generation.search_strategies import (
+        LexicallyConstrainedSearch,
+        UnorderedLexicallyConstrainedSearch,
+        pack_constraint_phrases,
+        pack_constraints,
+    )
+
+    pad, eos = tgt_dict.pad(), tgt_dict.eos()
+    if mode == "unordered":
+        return UnorderedLexicallyConstrainedSearch(
+            pack_constraint_phrases(constraints, pad=pad), pad=pad, eos=eos)
+    return LexicallyConstrainedSearch(pack_constraints(constraints, pad=pad), pad=pad, eos=eos)
+
+
 def main(argv=None) -> None:
     from . import options
     from .generate import load_model_and_params, to_device, torch_dtype
@@ -47,7 +65,9 @@ def main(argv=None) -> None:
     p.add_argument("--input", default="-")
     p.add_argument("--constraints", nargs="?", const="ordered", default=None,
                    choices=["ordered", "unordered"],
-                   help="lexically constrained decoding (text tasks); not ported yet")
+                   help="lexically constrained decoding (text tasks): input lines are "
+                        "'source\\tphrase1\\tphrase2...'; 'ordered' requires the phrases in "
+                        "the given order, 'unordered' in any order")
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
     device = options.resolve_device(args)
@@ -69,16 +89,24 @@ def main(argv=None) -> None:
     # generation arguments; a dropped one that is set raises instead
     for flag, default in (("no_repeat_ngram_size", 0), ("min_len_a", 0.0), ("min_len_b", 0),
                           ("prefix_size", 0), ("match_source_len", False),
-                          ("unnormalized", False)):
+                          ("unnormalized", False), ("sampling", False), ("sampling_topk", -1),
+                          ("sampling_topp", -1.0), ("diverse_beam_groups", -1),
+                          ("diversity_rate", -1.0), ("retain_dropout", False),
+                          ("score_reference", False), ("print_alignment", False),
+                          ("replace_unk", None)):
         if getattr(args, flag) != default:
             raise ValueError(f"--{flag.replace('_', '-')} has no effect on interactive "
                              "decoding; use the generate CLI")
     gen_cfg = SimpleNamespace(
         beam=args.beam, max_len_a=args.max_len_a, max_len_b=args.max_len_b,
         min_len=args.min_len, lenpen=args.lenpen, unkpen=args.unkpen,
-        temperature=args.temperature, max_decode_len=args.max_decode_len)
+        temperature=args.temperature, max_decode_len=args.max_decode_len,
+        kv_cache_int8=args.kv_cache_int8)
     generator = task.build_generator(model, gen_cfg)
     is_audio_task = hasattr(task, "get_interactive_examples")
+    if args.constraints and is_audio_task:
+        raise NotImplementedError("--constraints applies to text tasks: lines of an audio task "
+                                  "are wav paths, and neither package constrains audio input")
     logger.info("Type a .wav file path per line and press Enter:" if is_audio_task
                 else "Type a source sentence per line and press Enter:")
 
@@ -102,11 +130,21 @@ def main(argv=None) -> None:
                 from ..data.batching import collate_tokens, round16
 
                 src_dict = task.source_dictionary
+                gen = generator
+                if args.constraints:
+                    # "source\tphrase\tphrase...": the phrases in the target dictionary
+                    split = [line.split("\t") for line in lines]
+                    lines = [parts[0] for parts in split]
+                    constraints = [[[int(t) for t in tgt_dict.encode_line(p, append_eos=False)]
+                                    for p in parts[1:]] for parts in split]
+                    if any(any(c) for c in constraints):
+                        gen = task.build_generator(model, gen_cfg, strategy=constraint_strategy(
+                            tgt_dict, args.constraints, constraints))
                 encoded = [src_dict.encode_line(line) for line in lines]
                 src = collate_tokens(encoded, src_dict.pad(),
                                      target_len=round16(max(len(e) for e in encoded)))
                 lengths = np.asarray([len(e) for e in encoded], np.int32)
-                tokens, scores, lens = generator.generate_text(
+                tokens, scores, lens = gen.generate_text(
                     on_device(src).long(), src_lengths=on_device(lengths))
             tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
             for b, line in enumerate(lines):

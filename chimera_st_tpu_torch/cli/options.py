@@ -277,8 +277,9 @@ PORTED_OPTIMIZERS = ("adam",)
 PORTED_SCHEDULES = ("inverse_sqrt", "fixed")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
-    ("task", lambda v: v == "speech_to_text", "--task speech_to_text (fbank training)",
-     "A10c"),
+    ("task", lambda v: v == "speech_to_text",
+     "--task speech_to_text (fbank training; the JAX train CLI cannot train this model "
+     "either: its init_params_for_task has no S2T branch, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
      "--task other than triplet / translation", "A14"),
     ("task_configs", bool, "--task-configs (joint training)", "A14"),

@@ -14,8 +14,10 @@ chimera_st_tpu/data/manifests.py, the part inference reads):
   (``sampling_alpha``) of training splits each epoch.
 
 ``config_wave.yaml`` is read with ``yaml`` where that is installed and as JSON
-(which is YAML) where it is not. Not ported yet, and raising if asked for:
-the fbank feature transforms (SpecAugment, CMVN; ROADMAP A11).
+(which is YAML) where it is not. Features (``use_audio_input`` false) go
+through the split's feature transforms (``feature_transforms.py``: SpecAugment,
+CMVN), whose parameters sit at the top level of the config, as the
+reference's ``gen_config_yaml`` writes them.
 """
 
 from __future__ import annotations
@@ -198,11 +200,16 @@ class SpeechToTextDataset:
             _tok_cfg_to_registry(data_cfg.pre_tokenizer)
         )
         self.bpe = build_bpe(_bpe_cfg_to_registry(data_cfg.bpe_tokenizer))
-        # fbank-mode feature transforms (specaugment/cmvn); wave mode has none
+        # fbank-mode feature transforms (specaugment/cmvn); wave mode has none.
+        # Each transform's parameters live at the top level of the config
+        from .feature_transforms import CompositeAudioFeatureTransform
+
         tf_list = data_cfg.get_feature_transforms(split, is_train_split)
-        if tf_list and not data_cfg.use_audio_input:
-            raise NotImplementedError(
-                f"feature transforms {tf_list} are not ported yet (ROADMAP A11)")
+        self.feature_transforms = (
+            CompositeAudioFeatureTransform.from_config_dict(
+                {**{k: v for k, v in data_cfg.config.items() if k != "transforms"},
+                 "transforms": tf_list})
+            if tf_list and not data_cfg.use_audio_input else None)
         self.pad = tgt_dict.pad() if tgt_dict else 1
         self.eos = tgt_dict.eos() if tgt_dict else 2
         if data_cfg.prepend_tgt_lang_tag and tgt_dict is not None and tgt_langs:
@@ -242,6 +249,8 @@ class SpeechToTextDataset:
             use_audio_input=self.cfg.use_audio_input,
             audio_root=self.cfg.audio_root,
         ).astype(np.float32)
+        if self.feature_transforms is not None:
+            audio = self.feature_transforms(audio)
         return S2TExample(index, audio, self._get_tgt_tokens(index))
 
     # --------------------------------------------------------------- collate

@@ -20,6 +20,19 @@ finished hypotheses on the device. Kept from the reference:
   and no alive one can beat its worst at the longest reachable length;
 - a sentence with no finished hypothesis falls back to its alive ones.
 
+Two ways to pick candidates besides the flat top-2K:
+
+- diverse beam groups (``diverse_beam_groups`` G > 1): the beams split into
+  G groups that search on their own, each group's first beam live at the
+  start; group g's log-probs are lowered by ``diverse_beam_strength`` times
+  the count of each token that groups before it picked this step (all 2K/G
+  candidates of each), and each group keeps its best K/G alive;
+- a ``SearchStrategy`` (``search_strategies.py``): hooks that adjust the
+  log-probs, pick the 2K candidates and carry per-beam state on the device.
+  Its candidates are consumed in the order it gives them, not by score, so
+  the alive set (and the ancestry that ``reorder_fn`` builds from it) is not
+  score-sorted.
+
 ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk`` does
 not promise an order, so every top-k here is a stable descending sort.
 """
@@ -31,6 +44,28 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 NEG_INF = -1.0e7
+
+
+class SearchStrategy:
+    """Candidate-selection hooks of the beam search (the JAX package's
+    ``SearchStrategy``). Every hook runs on the device and reads nothing
+    back to the host."""
+
+    def init_state(self, batch_size: int, beam_size: int, device):
+        """Per-beam strategy state (tensors, or None)."""
+        return None
+
+    def adjust(self, logprobs, state, step: int, alive_seq):
+        """Modify the log-probs [B, K, V] before candidates are scored."""
+        return logprobs
+
+    def select(self, alive_scores, logprobs, state, step: int):
+        """(scores, beam, token), each [B, 2K], or None for the flat top-2K."""
+        return None
+
+    def update(self, state, topk_beam, topk_tok, alive_pick, step: int):
+        """Re-align the state with the chosen alive set (alive_pick [B, K])."""
+        return state
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,6 +98,25 @@ def _ngram_bans(alive_seq: torch.Tensor, i: int, n: int, vocab: int) -> torch.Te
     return bans > 0
 
 
+def _diverse_top2k(alive_scores, logprobs, groups: int, strength: float):
+    """Diverse beam search's candidates: each group's top 2K/G over its own
+    beams, its log-probs lowered by ``strength`` times the count of each
+    token that the groups before it picked (every one of their 2K/G
+    candidates) -> (scores, global beam, token), each [B, 2K]."""
+    B, K, V = logprobs.shape
+    kp = K // groups
+    counts = torch.zeros((B, V), dtype=torch.float32, device=logprobs.device)
+    parts = []
+    for g in range(groups):
+        lp_g = logprobs[:, g * kp:(g + 1) * kp, :] - strength * counts[:, None, :]
+        cand_g = alive_scores[:, g * kp:(g + 1) * kp, None] + lp_g
+        sc, idx = _top_k(cand_g.reshape(B, kp * V), 2 * kp)
+        tok = idx % V
+        counts = counts.scatter_add(1, tok, torch.ones_like(sc))
+        parts.append((sc, idx // V + g * kp, tok))
+    return tuple(torch.cat([p[j] for p in parts], dim=1) for j in range(3))
+
+
 def beam_search(
     step_fn: Callable,  # (tokens [B*K, 1], index, caches) -> (logprobs [B*K, V] fp32, caches)
     init_caches: Any,
@@ -82,6 +136,9 @@ def beam_search(
     min_lens: Optional[torch.Tensor] = None,  # [B] per-sentence min length
     prefix_tokens: Optional[torch.Tensor] = None,  # [B, P] forced prefix (pad = none)
     no_repeat_ngram_size: int = 0,
+    diverse_beam_groups: int = 0,  # > 1: diverse beam search
+    diverse_beam_strength: float = 0.5,
+    strategy: Optional[SearchStrategy] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (tokens [B, K, max_len], scores [B, K], lengths [B, K]),
     best first along K. Tokens exclude the bos seed, include eos, and are
@@ -95,16 +152,23 @@ def beam_search(
     max_lens = torch.clamp(max_lens, max=max_len - 1).to(torch.int32)
     max_steps = int(max_lens.max()) + 1  # the eos-forcing step included
 
+    G = diverse_beam_groups if diverse_beam_groups > 1 else 1
+    if K % G:
+        raise ValueError(f"beam size {K} is not divisible by {G} diverse beam groups")
+    kp = K // G
+
     alive_seq = torch.full((B, K, max_len + 1), pad, dtype=torch.long, device=device)
     alive_seq[:, :, 0] = bos
-    # only beam 0 is live at first, so the first expansion is not K copies
+    # only the first beam (of each group) is live at first, so the first
+    # expansion is not K copies
     alive_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=device)
-    alive_scores[:, 0] = 0.0
+    alive_scores[:, ::kp] = 0.0
     fin_seq = torch.full((B, K, max_len + 1), pad, dtype=torch.long, device=device)
     fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=device)
     fin_lens = torch.zeros((B, K), dtype=torch.int32, device=device)
     fin_flags = torch.zeros((B, K), dtype=torch.bool, device=device)
     caches = init_caches
+    search_state = strategy.init_state(B, K, device) if strategy is not None else None
 
     def length_norm(length):
         return torch.clamp(length, min=1).to(torch.float32) ** len_penalty
@@ -147,20 +211,47 @@ def beam_search(
             logprobs = torch.where(_ngram_bans(alive_seq, i, no_repeat_ngram_size, V),
                                    NEG_INF, logprobs)
 
-        # flat top-2K over [B, K*V]
-        cand = (alive_scores[:, :, None] + logprobs).reshape(B, K * V)
-        topk_scores, topk_idx = _top_k(cand, 2 * K)
-        topk_beam, topk_tok = topk_idx // V, topk_idx % V
+        if strategy is not None:
+            logprobs = strategy.adjust(logprobs, search_state, i, alive_seq)
+        selected = (strategy.select(alive_scores, logprobs, search_state, i)
+                    if strategy is not None else None)
+        if selected is not None:
+            topk_scores, topk_beam, topk_tok = selected
+        elif G > 1:
+            topk_scores, topk_beam, topk_tok = _diverse_top2k(
+                alive_scores, logprobs, G, diverse_beam_strength)
+        else:
+            # flat top-2K over [B, K*V]
+            cand = (alive_scores[:, :, None] + logprobs).reshape(B, K * V)
+            topk_scores, topk_idx = _top_k(cand, 2 * K)
+            topk_beam, topk_tok = topk_idx // V, topk_idx % V
 
         cand_seq = _gather_beams(alive_seq, topk_beam)
         cand_seq[:, :, i + 1] = topk_tok
         is_eos = (topk_tok == eos) & (topk_scores > 0.5 * NEG_INF)
 
-        # alive set: the best K non-eos candidates
-        alive_scores, alive_pick = _top_k(torch.where(is_eos, NEG_INF, topk_scores), K)
+        alive_rank = torch.where(is_eos, NEG_INF, topk_scores)
+        if selected is not None:
+            # a strategy's candidates are taken in the order it gave them
+            # (the order encodes its bank allocation), eos ones skipped
+            n_cand = topk_scores.shape[1]
+            order = -torch.arange(n_cand, dtype=torch.float32, device=device)
+            _, alive_pick = _top_k(torch.where(is_eos, NEG_INF, order[None, :]), K)
+            new_alive_scores = torch.gather(topk_scores, 1, alive_pick)
+        elif G > 1:
+            # each group keeps its best K/G of its own 2K/G candidates
+            picks = [_top_k(alive_rank[:, 2 * kp * g:2 * kp * (g + 1)], kp) for g in range(G)]
+            new_alive_scores = torch.cat([sc for sc, _ in picks], dim=1)
+            alive_pick = torch.cat([ix + 2 * kp * g for g, (_, ix) in enumerate(picks)], dim=1)
+        else:
+            # alive set: the best K non-eos candidates
+            new_alive_scores, alive_pick = _top_k(alive_rank, K)
+        alive_scores = new_alive_scores
         alive_seq = _gather_beams(cand_seq, alive_pick)
         picked_beam = torch.gather(topk_beam, 1, alive_pick)
         caches = reorder_fn(caches, picked_beam, i)
+        if strategy is not None:
+            search_state = strategy.update(search_state, topk_beam, topk_tok, alive_pick, i)
 
         # finished set: eos candidates merged with the previous finished
         fin_cand = torch.where(is_eos, topk_scores / length_norm(torch.tensor(gen_len)),

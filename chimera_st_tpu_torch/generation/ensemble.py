@@ -1,0 +1,103 @@
+"""Ensemble beam search (counterpart of chimera_st_tpu/generation/
+ensemble.py): each step emits log(mean_i p_i), the probability-space average
+of the models' tempered distributions.
+
+Each model keeps its own self-attention caches in the lazy-reorder layout of
+``SequenceGenerator``, with one ancestry map for all of them: the beam search
+reorders the hypotheses of every model together, so one permutation of the
+map is the gather of every model's caches. Each decoder layer of each model
+launches K3 once a step. Plain beam search only: the int8 cache, sampling,
+diverse beams and retained dropout are single-model features here as in the
+JAX package, and shallow fusion with a language model waits for
+``transformer_lm`` (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+
+from .beam_search import beam_search
+from .generator import (
+    GeneratorSettings,
+    lazy_reorder,
+    max_lens_from_settings,
+    min_lens_from_settings,
+)
+
+
+class EnsembleSequenceGenerator:
+    def __init__(self, models: List[torch.nn.Module], settings: GeneratorSettings,
+                 pad: int = 1, eos: int = 2, unk: int = 3, lm=None):
+        if not models:
+            raise ValueError("an ensemble needs at least one model")
+        if lm is not None:
+            raise NotImplementedError("language-model fusion in an ensemble needs "
+                                      "transformer_lm, which is not ported yet (ROADMAP A14)")
+        if settings.kv_cache_int8:
+            raise NotImplementedError("--kv-cache-int8 is a single-model decode feature; "
+                                      "ensemble decoding allocates full-precision caches")
+        for flag, on in (("--sampling", settings.sampling),
+                         ("--diverse-beam-groups", settings.diverse_beam_groups > 0),
+                         ("--diversity-rate", settings.diversity_rate >= 0),
+                         ("--retain-dropout", settings.retain_dropout)):
+            if on:
+                raise NotImplementedError(f"ensemble decoding supports plain beam search only; "
+                                          f"{flag} is a single-model feature")
+        self.models = models
+        self.s = settings
+        self.pad, self.eos, self.unk = pad, eos, unk
+
+    @torch.inference_mode()
+    def generate_from_encoders(self, encoder_outs, max_lens: Optional[torch.Tensor] = None,
+                               min_lens: Optional[torch.Tensor] = None):
+        """encoder_outs: one (encoder_out [B, S, C], padding mask or None)
+        per model -> (tokens [B, K, max_decode_len], scores [B, K],
+        lengths [B, K])."""
+        B, K, L = encoder_outs[0][0].shape[0], self.s.beam_size, self.s.max_decode_len
+        device = encoder_outs[0][0].device
+        per_model = []
+        for model, (enc, enc_mask) in zip(self.models, encoder_outs):
+            decoder = model.decoder
+            per_model.append((decoder, decoder.precompute_encoder_kv(enc), enc_mask,
+                              decoder.init_cache(B * K, L)))
+        ancestry, reorder_fn = lazy_reorder(B, K, L, device)
+        log_n = math.log(float(len(self.models)))
+
+        def step_fn(tokens, index, anc):
+            lps = []
+            for decoder, enc_kv, enc_mask, caches in per_model:
+                logits = decoder.step(tokens, index, caches, enc_kv, enc_mask, anc, K)
+                if self.s.temperature != 1.0:
+                    logits = logits / self.s.temperature
+                lps.append(torch.log_softmax(logits.float(), dim=-1))
+            if len(lps) == 1:
+                return lps[0], anc
+            return torch.logsumexp(torch.stack(lps), dim=0) - log_n, anc
+
+        return beam_search(
+            step_fn, ancestry, batch_size=B, beam_size=K, max_len=L, eos=self.eos, pad=self.pad,
+            reorder_fn=reorder_fn, device=device, min_len=self.s.min_len,
+            len_penalty=self.s.len_penalty, unk=self.unk, unk_penalty=self.s.unk_penalty,
+            max_lens=max_lens, min_lens=min_lens,
+            no_repeat_ngram_size=self.s.no_repeat_ngram_size)
+
+    def _lengths_for(self, src_lengths):
+        if src_lengths is None:
+            return None, None
+        return (max_lens_from_settings(self.s, src_lengths),
+                min_lens_from_settings(self.s, src_lengths))
+
+    @torch.inference_mode()
+    def generate_audio(self, source: torch.Tensor, padding_mask: torch.Tensor,
+                       src_lengths: Optional[torch.Tensor] = None):
+        encoder_outs = [m.encode_audio(source, padding_mask) for m in self.models]
+        return self.generate_from_encoders(encoder_outs, *self._lengths_for(src_lengths))
+
+    @torch.inference_mode()
+    def generate_text(self, src_tokens: torch.Tensor,
+                      src_lengths: Optional[torch.Tensor] = None):
+        encoder_outs = [m.encode_text(src_tokens) for m in self.models]
+        return self.generate_from_encoders(encoder_outs, *self._lengths_for(src_lengths))

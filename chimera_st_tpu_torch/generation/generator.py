@@ -8,10 +8,19 @@ the beams of a sentence share it. The self-attention caches
 search never permutes them. Instead an ancestry map [max_decode_len + 1,
 B*K] is permuted (``reorder_fn``), and the attention kernel reads each
 hypothesis's time-l entry from column ``ancestry[l, hyp]`` of its sentence.
+
+Besides plain beam search: diverse beam groups, a ``SearchStrategy``
+(lexical constraints, diverse siblings from ``diversity_rate``), sampling
+(``sample_decode``: the same cache layout, an ancestry never permuted), the
+int8 KV cache (plain PyTorch, ``layers.int8_cached_attention``) and
+``retain_dropout`` (the model in training mode through the encoder and every
+decode step, its masks drawn from a generator seeded by ``seed`` and the
+call's number).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -19,13 +28,14 @@ import numpy as np
 import torch
 
 from .beam_search import beam_search
+from .sampling import sample_decode
 
 
 @dataclass
 class GeneratorSettings:
-    """The JAX package's GeneratorSettings fields that the default beam path
-    reads (sampling, diverse beams and the TPU cache options are left
-    out)."""
+    """The JAX package's GeneratorSettings fields that the port reads (not
+    its TPU cache options ``cache_segment`` and ``lazy_beam_reorder``: the
+    port's caches are always the lazy-reorder layout of full length)."""
 
     beam_size: int = 5
     max_len_a: float = 0.0
@@ -39,33 +49,35 @@ class GeneratorSettings:
     max_decode_len: int = 256
     temperature: float = 1.0
     no_repeat_ngram_size: int = 0
+    diverse_beam_groups: int = 0
+    diverse_beam_strength: float = 0.5
+    # diverse siblings (--diversity-rate); <= 0 is off
+    diversity_rate: float = -1.0
+    # sampling (--sampling, --sampling-topk / --sampling-topp); ``seed``
+    # seeds the draws and the retained dropout's masks
+    sampling: bool = False
+    seed: int = 1
+    sampling_topk: int = -1
+    sampling_topp: float = -1.0
+    kv_cache_int8: bool = False
+    retain_dropout: bool = False
 
 
 # generator settings whose feature is not ported yet, under the names the
 # task's ``build_generator`` reads them by (the CLI's argument names):
-# (attribute, test on its value, flag, ROADMAP item)
+# (attribute, test on its value, flag, ROADMAP item). Each needs a model the
+# port does not have (transformer_lm, the CTC and non-autoregressive models).
 UNPORTED = (
-    ("sampling", bool, "--sampling", "A13"),
-    ("sampling_topk", lambda v: v > 0, "--sampling-topk", "A13"),
-    ("sampling_topp", lambda v: v > 0, "--sampling-topp", "A13"),
-    ("diverse_beam_groups", lambda v: v > 1, "--diverse-beam-groups", "A13"),
-    ("diversity_rate", lambda v: v > 0, "--diversity-rate", "A13"),
-    ("path", lambda v: v is not None and ":" in v, "--path with several checkpoints", "A13"),
-    ("lm_path", bool, "--lm-path", "A13"),
-    ("ctc_lm_path", bool, "--ctc-lm-path", "A13"),
-    ("score_reference", bool, "--score-reference", "A13"),
-    ("print_alignment", bool, "--print-alignment", "A13"),
-    ("replace_unk", lambda v: v is not None, "--replace-unk", "A13"),
-    ("kv_cache_int8", bool, "--kv-cache-int8", "A13"),
-    ("retain_dropout", bool, "--retain-dropout", "A13"),
-    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A13"),
-    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A13"),
-    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty", "A13"),
-    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam", "A13"),
-    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker", "A13"),
-    ("retain_iter_history", bool, "--retain-iter-history", "A13"),
-    ("print_step", bool, "--print-step", "A13"),
-    ("constraints", bool, "--constraints", "A13"),
+    ("lm_path", bool, "--lm-path (needs transformer_lm)", "A14"),
+    ("ctc_lm_path", bool, "--ctc-lm-path", "A14"),
+    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A14"),
+    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A14"),
+    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty", "A14"),
+    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam", "A14"),
+    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker",
+     "A14"),
+    ("retain_iter_history", bool, "--retain-iter-history", "A14"),
+    ("print_step", bool, "--print-step", "A14"),
 )
 
 
@@ -75,6 +87,86 @@ def require_ported(cfg, table=UNPORTED) -> None:
     for attr, is_set, flag, item in table:
         if hasattr(cfg, attr) and is_set(getattr(cfg, attr)):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+
+
+def settings_from_cfg(g) -> GeneratorSettings:
+    """GeneratorSettings from a generation config under the CLI's names
+    (``beam``, ``lenpen``, ``unkpen``, ...); a missing field keeps its
+    default."""
+    return GeneratorSettings(
+        beam_size=getattr(g, "beam", 5),
+        max_len_a=getattr(g, "max_len_a", 0.0),
+        max_len_b=getattr(g, "max_len_b", 200),
+        min_len=getattr(g, "min_len", 1),
+        min_len_a=getattr(g, "min_len_a", 0.0),
+        min_len_b=getattr(g, "min_len_b", 0),
+        len_penalty=getattr(g, "lenpen", 1.0),
+        unk_penalty=getattr(g, "unkpen", 0.0),
+        max_decode_len=getattr(g, "max_decode_len", 256),
+        temperature=getattr(g, "temperature", 1.0),
+        no_repeat_ngram_size=getattr(g, "no_repeat_ngram_size", 0),
+        diverse_beam_groups=getattr(g, "diverse_beam_groups", 0),
+        diverse_beam_strength=getattr(g, "diverse_beam_strength", 0.5),
+        sampling=getattr(g, "sampling", False),
+        seed=getattr(g, "seed", 1),
+        sampling_topk=getattr(g, "sampling_topk", -1),
+        sampling_topp=getattr(g, "sampling_topp", -1.0),
+        diversity_rate=getattr(g, "diversity_rate", -1.0),
+        kv_cache_int8=getattr(g, "kv_cache_int8", False),
+        retain_dropout=getattr(g, "retain_dropout", False),
+    )
+
+
+def seeded_generator(seed: int, call: int, device, stream: int = 0) -> torch.Generator:
+    """A generator on ``device`` for one call: seeded by (seed, call number,
+    stream), so that a call's draws do not depend on earlier calls."""
+    return torch.Generator(device=device).manual_seed(
+        (int(seed) << 24) + (int(call) << 2) + stream)
+
+
+def max_lens_from_settings(s: GeneratorSettings, src_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-sentence max real tokens a * src_len + b, clamped to the decode
+    buffer minus the eos slot."""
+    ml = (s.max_len_a * src_lengths + s.max_len_b).to(torch.int32)
+    return torch.clamp(ml, max=s.max_decode_len - 1)
+
+
+def min_lens_from_settings(s: GeneratorSettings, src_lengths: torch.Tensor
+                           ) -> Optional[torch.Tensor]:
+    """Per-sentence minimum lengths a * src_len + b, or None when unset."""
+    if s.min_len_a == 0.0 and s.min_len_b == 0:
+        return None
+    ml = (s.min_len_a * src_lengths + s.min_len_b).to(torch.int32)
+    return torch.clamp(ml, max=s.max_decode_len - 1)
+
+
+def lazy_reorder(B: int, K: int, L: int, device):
+    """The identity ancestry map [L + 1, B*K] (one row past the last step,
+    so the row-(i+1) reset never clips) and the beam search's ``reorder_fn``
+    that permutes it: the caches themselves never move."""
+    iota_cols = torch.arange(K, dtype=torch.int32, device=device).repeat(B)
+    ancestry = iota_cols[None, :].repeat(L + 1, 1).contiguous()
+    sentence_base = torch.arange(B, device=device)[:, None] * K
+
+    def reorder_fn(anc, picked_beam, index):
+        anc = anc[:, (sentence_base + picked_beam).reshape(-1)]
+        anc[index + 1] = iota_cols
+        return anc.contiguous()
+
+    return ancestry, reorder_fn
+
+
+@contextlib.contextmanager
+def dropout_mode(model: torch.nn.Module, on: bool):
+    """While open, ``model`` is in training mode if ``on`` (its dropouts
+    act), then back in the mode it had."""
+    was_training = model.training
+    if on:
+        model.train()
+    try:
+        yield
+    finally:
+        model.train(was_training)
 
 
 class SequenceGenerator:
@@ -90,50 +182,84 @@ class SequenceGenerator:
     supports_prefix = True
 
     def __init__(self, model: torch.nn.Module, settings: GeneratorSettings,
-                 pad: int = 1, eos: int = 2, unk: int = 3, bos: Optional[int] = None):
+                 pad: int = 1, eos: int = 2, unk: int = 3, bos: Optional[int] = None,
+                 strategy=None):
         self.model = model
-        self.s = settings
+        self.s = s = settings
         self.pad, self.eos, self.unk = pad, eos, unk
         self.bos = eos if bos is None else bos
+        if s.sampling:
+            conflicts = [flag for flag, on in (
+                ("--diversity-rate", s.diversity_rate > 0),
+                ("--diverse-beam-groups", s.diverse_beam_groups > 0),
+                ("--no-repeat-ngram-size", s.no_repeat_ngram_size > 0),
+                (f"search strategy {type(strategy).__name__}", strategy is not None)) if on]
+            if conflicts:
+                raise ValueError("--sampling is mutually exclusive with: "
+                                 + ", ".join(conflicts))
+            if s.kv_cache_int8:
+                raise NotImplementedError(
+                    "--kv-cache-int8 is only supported on the default lazy-reorder beam "
+                    "decode path; incompatible with --sampling")
+        if s.diversity_rate > 0 and s.diverse_beam_groups > 0:
+            raise ValueError("--diversity-rate (diverse siblings) and --diverse-beam-groups "
+                             "are mutually exclusive search modes")
+        if s.retain_dropout and not hasattr(getattr(model, "cfg", None), "dropout"):
+            raise NotImplementedError(
+                f"--retain-dropout: {type(model).__name__} is built without dropout in the "
+                "port (ROADMAP A14)")
+        if strategy is None and s.diversity_rate > 0:
+            from .search_strategies import DiverseSiblingsSearch
+
+            strategy = DiverseSiblingsSearch(s.diversity_rate)
+        self.strategy = strategy
+        self._call_count = 0
 
     def max_lens_for_src(self, src_lengths: torch.Tensor) -> torch.Tensor:
-        """Per-sentence max real tokens a * src_len + b, clamped to the decode
-        buffer minus the eos slot."""
-        ml = (self.s.max_len_a * src_lengths + self.s.max_len_b).to(torch.int32)
-        return torch.clamp(ml, max=self.s.max_decode_len - 1)
+        return max_lens_from_settings(self.s, src_lengths)
 
     def min_lens_for_src(self, src_lengths: torch.Tensor) -> Optional[torch.Tensor]:
-        if self.s.min_len_a == 0.0 and self.s.min_len_b == 0:
-            return None
-        ml = (self.s.min_len_a * src_lengths + self.s.min_len_b).to(torch.int32)
-        return torch.clamp(ml, max=self.s.max_decode_len - 1)
+        return min_lens_from_settings(self.s, src_lengths)
 
     @torch.inference_mode()
     def generate_from_encoder(self, encoder_out: torch.Tensor,
                               encoder_padding_mask: Optional[torch.Tensor],
                               max_lens: Optional[torch.Tensor] = None,
                               min_lens: Optional[torch.Tensor] = None,
-                              prefix_tokens: Optional[torch.Tensor] = None):
+                              prefix_tokens: Optional[torch.Tensor] = None,
+                              dropout_generator: Optional[torch.Generator] = None,
+                              sample_generator: Optional[torch.Generator] = None):
+        """Beam search (or sampling) from the encoder's output ->
+        (tokens [B, K, max_decode_len], scores [B, K], lengths [B, K]).
+        ``dropout_generator`` drives the decoder's dropouts when the model is
+        in training mode; ``sample_generator`` the sampling draws."""
         decoder = self.model.decoder
         B, K, L = encoder_out.shape[0], self.s.beam_size, self.s.max_decode_len
         device = encoder_out.device
         enc_kv = decoder.precompute_encoder_kv(encoder_out)
-        kv_caches = decoder.init_cache(B * K, L)
-        iota_cols = torch.arange(K, dtype=torch.int32, device=device).repeat(B)
-        # one row past the last step, so the row-(i+1) reset never clips
-        ancestry = iota_cols[None, :].repeat(L + 1, 1).contiguous()
-        sentence_base = torch.arange(B, device=device)[:, None] * K
+        kv_caches = decoder.init_cache(B * K, L, int8=self.s.kv_cache_int8)
+        ancestry, reorder_fn = lazy_reorder(B, K, L, device)
 
         def step_fn(tokens, index, anc):
-            logits = decoder.step(tokens, index, kv_caches, enc_kv, encoder_padding_mask, anc, K)
+            logits = decoder.step(tokens, index, kv_caches, enc_kv, encoder_padding_mask, anc, K,
+                                  dropout_generator)
             if self.s.temperature != 1.0:
                 logits = logits / self.s.temperature
             return torch.log_softmax(logits, dim=-1), anc
 
-        def reorder_fn(anc, picked_beam, index):
-            anc = anc[:, (sentence_base + picked_beam).reshape(-1)]
-            anc[index + 1] = iota_cols
-            return anc.contiguous()
+        if self.s.sampling:
+            if prefix_tokens is not None:
+                raise NotImplementedError("--prefix-size with --sampling is not supported "
+                                          "(prefix forcing is a beam-decode feature)")
+            if sample_generator is None:
+                sample_generator = seeded_generator(self.s.seed, 0, device)
+            # the samples never swap columns: the ancestry stays the identity
+            return sample_decode(
+                step_fn, ancestry, batch_size=B, num_samples=K, max_len=L, eos=self.eos,
+                pad=self.pad, generator=sample_generator, device=device, bos=self.bos,
+                top_k=max(self.s.sampling_topk, 0), top_p=max(self.s.sampling_topp, 0.0),
+                min_len=self.s.min_len, max_lens=max_lens, min_lens=min_lens,
+                len_penalty=self.s.len_penalty, unk=self.unk, unk_penalty=self.s.unk_penalty)
 
         return beam_search(
             step_fn, ancestry, batch_size=B, beam_size=K, max_len=L, eos=self.eos, pad=self.pad,
@@ -141,14 +267,30 @@ class SequenceGenerator:
             len_penalty=self.s.len_penalty, unk=self.unk, unk_penalty=self.s.unk_penalty,
             max_lens=max_lens, min_lens=min_lens, prefix_tokens=prefix_tokens,
             no_repeat_ngram_size=self.s.no_repeat_ngram_size,
+            diverse_beam_groups=self.s.diverse_beam_groups,
+            diverse_beam_strength=self.s.diverse_beam_strength, strategy=self.strategy,
         )
 
-    def _generate(self, enc, enc_mask, src_lengths, prefix_tokens):
-        max_lens = min_lens = None
-        if src_lengths is not None:
-            max_lens = self.max_lens_for_src(src_lengths)
-            min_lens = self.min_lens_for_src(src_lengths)
-        return self.generate_from_encoder(enc, enc_mask, max_lens, min_lens, prefix_tokens)
+    def _generate(self, encode, src_lengths, prefix_tokens, device):
+        """Encodes (``encode(generator)``) and decodes one batch; with
+        ``retain_dropout`` both in training mode."""
+        self._call_count += 1
+        gens = {}
+        if self.s.sampling:
+            gens["sample_generator"] = seeded_generator(self.s.seed, self._call_count, device)
+        with dropout_mode(self.model, self.s.retain_dropout):
+            if self.s.retain_dropout:
+                gens["dropout_generator"] = seeded_generator(self.s.seed, self._call_count,
+                                                             device, stream=1)
+                enc, enc_mask = encode(gens["dropout_generator"])
+            else:
+                enc, enc_mask = encode(None)
+            max_lens = min_lens = None
+            if src_lengths is not None:
+                max_lens = self.max_lens_for_src(src_lengths)
+                min_lens = self.min_lens_for_src(src_lengths)
+            return self.generate_from_encoder(enc, enc_mask, max_lens, min_lens, prefix_tokens,
+                                              **gens)
 
     @torch.inference_mode()
     def generate_audio(self, source: torch.Tensor, padding_mask: torch.Tensor,
@@ -156,8 +298,12 @@ class SequenceGenerator:
                        prefix_tokens: Optional[torch.Tensor] = None):
         """source [B, T] waveform, padding_mask [B, T] True = pad ->
         (tokens [B, K, max_decode_len], scores [B, K], lengths [B, K])."""
-        enc, enc_mask = self.model.encode_audio(source, padding_mask)
-        return self._generate(enc, enc_mask, src_lengths, prefix_tokens)
+        def encode(generator):
+            if generator is None:
+                return self.model.encode_audio(source, padding_mask)
+            return self.model.encode_audio(source, padding_mask, generator)
+
+        return self._generate(encode, src_lengths, prefix_tokens, source.device)
 
     @torch.inference_mode()
     def generate_text(self, src_tokens: torch.Tensor,
@@ -165,8 +311,12 @@ class SequenceGenerator:
                       prefix_tokens: Optional[torch.Tensor] = None):
         """src_tokens [B, T] int, pad = the model's padding index -> as
         ``generate_audio``."""
-        enc, enc_mask = self.model.encode_text(src_tokens)
-        return self._generate(enc, enc_mask, src_lengths, prefix_tokens)
+        def encode(generator):
+            if generator is None:
+                return self.model.encode_text(src_tokens)
+            return self.model.encode_text(src_tokens, generator)
+
+        return self._generate(encode, src_lengths, prefix_tokens, src_tokens.device)
 
     @staticmethod
     def to_hypotheses(tokens, scores, lens, nbest: int = 1) -> List[List[Dict[str, Any]]]:

@@ -183,16 +183,71 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out.reshape(N, 1, self.embed_dim))
 
     def cached_step(self, query: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    ancestry: torch.Tensor, cache_index: int, groups: int) -> torch.Tensor:
+                    ancestry: torch.Tensor, cache_index: int, groups: int,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step of self-attention, query [N, 1, C], over the
-        lazily reordered cache [N, H, L, D] (K3; updates the cache in
-        place at ``cache_index``)."""
+        lazily reordered cache [N, H, L, D] (updated in place at
+        ``cache_index``): K3, or ``int8_cached_attention`` over an int8 cache
+        with its scales."""
         N = query.shape[0]
         q = self._split(self.q_proj(query))[:, 0]  # [N, H, D]
         k_new = self._split(self.k_proj(query))[:, 0]
         v_new = self._split(self.v_proj(query))[:, 0]
-        out = decode_attention(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, groups)
+        if k_scale is not None:
+            out = int8_cached_attention(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+                                        ancestry, cache_index, groups)
+        else:
+            out = decode_attention(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index,
+                                   groups)
         return self.out_proj(out.reshape(N, 1, self.embed_dim))
+
+    def attention_weights(self, query: torch.Tensor, kv: torch.Tensor,
+                          key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Head-averaged attention probabilities [B, Tq, Tk] (for
+        ``--print-alignment``)."""
+        q = self._split(self.q_proj(query))
+        k = self._split(self.k_proj(kv))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * self.head_dim**-0.5
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+        return torch.softmax(logits, dim=-1).mean(dim=1)
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per row: x [N, H, D] -> (int8 [N, H, D], fp32 scale
+    [N]), the scale amax / 127 over each row's H x D values, rounded half to
+    even (``torch.round``, as ``jnp.round``)."""
+    r = x.float()
+    s = torch.clamp(r.abs().amax(dim=(1, 2)), min=1e-8) / 127.0
+    return torch.round(r / s[:, None, None]).to(torch.int8), s
+
+
+def int8_cached_attention(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, ancestry,
+                          cache_index: int, beam: int) -> torch.Tensor:
+    """One beam step of self-attention over an int8 KV cache, the
+    ``--kv-cache-int8`` path: plain PyTorch (the JAX package runs it in XLA,
+    never in Pallas), the contract of ``decode_attention_plain`` with int8
+    caches [N, H, L, D] and their fp32 scales [N, L]. This step's K/V rows
+    are quantised into the caches in place; the dequantisation is folded in
+    as JAX folds it: each logit times its key row's scale, each probability
+    times its value row's scale (before the cast to the compute dtype)."""
+    k_q, k_s = quantize_rows(k_new)
+    v_q, v_s = quantize_rows(v_new)
+    k_cache[:, :, cache_index], v_cache[:, :, cache_index] = k_q, v_q
+    k_scale[:, cache_index], v_scale[:, cache_index] = k_s, v_s
+    N, _, _, D = k_cache.shape
+    steps = cache_index + 1
+    first_col = torch.arange(N, device=q.device) // beam * beam
+    src = first_col[None, :] + ancestry[:steps].long()  # [steps, N] global columns
+    t = torch.arange(steps, device=q.device)[:, None]
+    dtype = q.dtype
+    k_sel = k_cache[src, :, t].to(dtype)  # [steps, N, H, D]
+    v_sel = v_cache[src, :, t].to(dtype)
+    logits = torch.einsum("nhd,lnhd->nhl", q.float(), k_sel.float()) * D**-0.5
+    logits = logits * k_scale[src, t].t()[:, None, :]
+    probs = torch.softmax(logits, dim=-1) * v_scale[src, t].t()[:, None, :]
+    return torch.einsum("nhl,lnhd->nhd", probs.to(dtype).float(), v_sel.float()).to(dtype)
 
 
 class _Sublayers(nn.Module):
@@ -297,12 +352,30 @@ class TransformerDecoderLayer(_Sublayers):
         return self._ffn_sublayer(x, generator)
 
     def step(self, x: torch.Tensor, encoder_kv: Tuple[torch.Tensor, torch.Tensor],
-             encoder_padding_mask: Optional[torch.Tensor], k_cache: torch.Tensor,
-             v_cache: torch.Tensor, ancestry: torch.Tensor, cache_index: int,
-             groups: int) -> torch.Tensor:
-        """x [B*groups, 1, C] -> [B*groups, 1, C]; caches updated in place."""
+             encoder_padding_mask: Optional[torch.Tensor], cache: Tuple[torch.Tensor, ...],
+             ancestry: torch.Tensor, cache_index: int, groups: int,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B*groups, 1, C] -> [B*groups, 1, C]; the cache updated in
+        place. In training mode (``--retain-dropout``) the residual and
+        activation dropouts act, as in the JAX cached step; the attention
+        probabilities are not dropped there."""
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn.cached_step(
-            h, k_cache, v_cache, ancestry, cache_index, groups))
+            h, *cache[:2], ancestry, cache_index, groups, *cache[2:]), generator)
         x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn.
-                           grouped_cross(h, *encoder_kv, encoder_padding_mask, groups))
-        return self._ffn_sublayer(x)
+                           grouped_cross(h, *encoder_kv, encoder_padding_mask, groups),
+                           generator)
+        return self._ffn_sublayer(x, generator)
+
+    def encoder_attn_weights(self, x: torch.Tensor, encoder_out: torch.Tensor,
+                             encoder_padding_mask: Optional[torch.Tensor],
+                             self_attn_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Head-averaged cross-attention probabilities [B, T, S] of this
+        layer for its input x [B, T, C] (no dropout)."""
+        residual = x
+        if self.normalize_before:
+            x = self.self_attn_layer_norm(x)
+        x = residual + self.self_attn(x, key_padding_mask=self_attn_padding_mask, causal=True)
+        if not self.normalize_before:
+            x = self.self_attn_layer_norm(x)
+        q = self.encoder_attn_layer_norm(x) if self.normalize_before else x
+        return self.encoder_attn.attention_weights(q, encoder_out, encoder_padding_mask)

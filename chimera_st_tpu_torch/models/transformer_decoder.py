@@ -1,9 +1,11 @@
 """Transformer decoder with tied embeddings (counterpart of
 chimera_st_tpu/models/transformer_decoder.py): the teacher-forced forward
 and the incremental ``step`` of the lazy-reorder beam search, whose
-self-attention caches are ``[N, H, L, D]`` per layer (N = sentences * beam)
-and are updated in place. In training the forward drops the embeddings
-(JAX ``transformer_decoder.py:176``) and each layer's sublayers."""
+self-attention caches are ``[N, H, L, D]`` per layer (N = sentences * beam;
+int8 with per-row scales under ``--kv-cache-int8``) and are updated in
+place, and ``cross_attention_weights`` for alignments. In training the
+forward drops the embeddings (JAX ``transformer_decoder.py:176``) and each
+layer's sublayers."""
 
 from __future__ import annotations
 
@@ -73,24 +75,53 @@ class TransformerDecoder(nn.Module):
         once per sentence and shared by its beams."""
         return [layer.encoder_attn.compute_kv(encoder_out) for layer in self.layers]
 
-    def init_cache(self, columns: int, max_len: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Zeroed self-attention caches, one (k, v) [columns, H, max_len, D]
-        pair per layer, in the compute dtype."""
+    def init_cache(self, columns: int, max_len: int, int8: bool = False
+                   ) -> List[Tuple[torch.Tensor, ...]]:
+        """Zeroed self-attention caches, one per layer: (k, v) [columns, H,
+        max_len, D] in the compute dtype, or with ``int8`` (k, v) in int8
+        and their fp32 scales (k_scale, v_scale) [columns, max_len]."""
         w = self.embed_tokens.weight
         shape = (columns, self.num_heads, max_len, self.embed_dim // self.num_heads)
+        if int8:
+            return [(torch.zeros(shape, dtype=torch.int8, device=w.device),
+                     torch.zeros(shape, dtype=torch.int8, device=w.device),
+                     torch.zeros(shape[::2], dtype=torch.float32, device=w.device),
+                     torch.zeros(shape[::2], dtype=torch.float32, device=w.device))
+                    for _ in self.layers]
         return [(torch.zeros(shape, dtype=w.dtype, device=w.device),
                  torch.zeros(shape, dtype=w.dtype, device=w.device)) for _ in self.layers]
 
     def step(self, tokens: torch.Tensor, step_index: int,
-             caches: List[Tuple[torch.Tensor, torch.Tensor]],
+             caches: List[Tuple[torch.Tensor, ...]],
              encoder_kv, encoder_padding_mask: Optional[torch.Tensor],
-             ancestry: torch.Tensor, groups: int) -> torch.Tensor:
+             ancestry: torch.Tensor, groups: int,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One decode step: tokens [N, 1] -> fp32 logits [N, V]. ``caches``
         are written in place at ``step_index``; ``ancestry`` [>L, N] int32 is
-        the lazy-reorder map, ``groups`` the beam size."""
+        the lazy-reorder map, ``groups`` the beam size. In training mode
+        (``--retain-dropout``) the embedding and each layer's residual and
+        activation dropouts draw their masks from ``generator``."""
         x = self.embed_scale * self.embed_tokens(tokens)
         pos = position_at_step(self.positions, step_index, self.padding_idx)
         x = x + pos.to(x.dtype)
-        for layer, (kc, vc), ekv in zip(self.layers, caches, encoder_kv):
-            x = layer.step(x, ekv, encoder_padding_mask, kc, vc, ancestry, step_index, groups)
+        x = dropout(x, self.dropout if self.training else 0.0, generator)
+        for layer, cache, ekv in zip(self.layers, caches, encoder_kv):
+            x = layer.step(x, ekv, encoder_padding_mask, cache, ancestry, step_index, groups,
+                           generator)
         return self._output(x)[:, 0, :]
+
+    def cross_attention_weights(self, prev_output_tokens: torch.Tensor,
+                                encoder_out: torch.Tensor,
+                                encoder_padding_mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+        """[B, T, S] head-averaged cross-attention of the last layer over a
+        teacher-forced pass (for ``--print-alignment`` / ``--replace-unk``),
+        without dropout."""
+        pad_mask = prev_output_tokens == self.padding_idx
+        x = self.embed_scale * self.embed_tokens(prev_output_tokens)
+        x = x + positional_embedding_from_mask(pad_mask, self.embed_dim,
+                                               self.padding_idx).to(x.dtype)
+        for layer in self.layers[:-1]:
+            x = layer(x, encoder_out, encoder_padding_mask, pad_mask)
+        return self.layers[-1].encoder_attn_weights(x, encoder_out, encoder_padding_mask,
+                                                    pad_mask)

@@ -101,30 +101,13 @@ class ChimeraTask:
         )
         return cfg
 
-    def build_generator(self, model, gen_cfg):
-        from ..generation.generator import (
-            GeneratorSettings,
-            SequenceGenerator,
-            require_ported,
-        )
+    def build_generator(self, model, gen_cfg, strategy=None):
+        from ..generation.generator import SequenceGenerator, require_ported, settings_from_cfg
 
-        g = gen_cfg
-        require_ported(g)  # a setting whose feature is not ported raises
-        settings = GeneratorSettings(
-            beam_size=getattr(g, "beam", 5),
-            max_len_a=getattr(g, "max_len_a", 0.0),
-            max_len_b=getattr(g, "max_len_b", 200),
-            min_len=getattr(g, "min_len", 1),
-            min_len_a=getattr(g, "min_len_a", 0.0),
-            min_len_b=getattr(g, "min_len_b", 0),
-            len_penalty=getattr(g, "lenpen", 1.0),
-            unk_penalty=getattr(g, "unkpen", 0.0),
-            max_decode_len=getattr(g, "max_decode_len", 256),
-            temperature=getattr(g, "temperature", 1.0),
-            no_repeat_ngram_size=getattr(g, "no_repeat_ngram_size", 0),
-        )
+        require_ported(gen_cfg)  # a setting whose feature is not ported raises
         d = self.target_dictionary
-        return SequenceGenerator(model, settings, pad=d.pad(), eos=d.eos(), unk=d.unk())
+        return SequenceGenerator(model, settings_from_cfg(gen_cfg), pad=d.pad(), eos=d.eos(),
+                                 unk=d.unk(), strategy=strategy)
 
     # ------------------------------------------------------------ batching
 

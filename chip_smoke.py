@@ -58,6 +58,31 @@ Phases (any failure raises and the script exits non-zero):
              path must have launched, and no other. The counts are exact:
              per batch K1 24 (flagship) or 12 (fbank), K2 6, K4 1, K3 384
              (6 decoder layers x 64 steps).
+5b. search - the flagship's generation surface on one seeded batch of 8
+             utterances of 2-6 s, beam 10, max_decode_len 64 (a second model
+             from another seed for the ensemble): plain beam, diverse groups
+             (2, strength 0.5), diverse siblings (rate 0.5), ordered and
+             unordered lexical constraints (two seeded phrases a sentence),
+             the two-model ensemble, reference scoring, alignments (the last
+             layer's cross-attention over the best hypotheses), the int8 KV
+             cache, sampling at top-k 1 and retained dropout. Each mode but
+             the last in fp32 on the card (kernels) and on the CPU (plain
+             versions) from the same weights and encoder inputs: best
+             hypotheses token-identical, best scores within 1e-4 (reference
+             scores 1e-4 the mean, 1e-3 each token; alignment weights 1e-4
+             and their argmax), constrained hypotheses hold their phrases,
+             top-k 1 is the CPU model's greedy decode; every K3 launch at
+             steps 5, 31 and 63 is held against the plain version on
+             clones of its inputs at the ancestry the mode built (1e-4, the
+             rows written bit-equal; sampling's ancestry must stay the
+             identity). Then each mode in bf16 on the card between CUDA
+             events, 3 rounds of the modes in turn (median, min, max),
+             counts zeroed before and exact after each run (a batch: K1 24,
+             K2 6, K3 6 a decoder step; the ensemble and the alignment pass
+             encode twice; int8 and reference scoring launch no K3; retained
+             dropout no K1); retained dropout gives the same tokens in every
+             round with one seed, and not plain beam search's; then K3 timed
+             at each mode's step-63 ancestry. Prints {"search": {...}}.
 6. cli     - the entry points a user starts, on a fixture made from a seed
              under a temporary directory with the port's own code: 24 wavs of
              2-6 s, a manifest, 10,000-entry dictionaries, config_wave.yaml
@@ -156,9 +181,19 @@ Phases (any failure raises and the script exits non-zero):
              launched, bf16 and fp32, and K3 at every shape of the decode
              as phase 3 holds it (steps 0, 31, 63; bf16 and fp32; cache
              writes bit-equal).
+             fbank_features (run with the CLI phases): the s2t_transformer_s
+             preset (vocabulary 8000, seeded native .ckpt) served by
+             cli.generate --task speech_to_text, beam 5, on 16 seeded
+             utterances of 200-600 80-d frames (8 .npy, 8 zip-packed), the
+             config naming utterance_cmvn for '*' and specaugment +
+             utterance_cmvn for _train; fp32 card vs --device cpu identical,
+             then bf16 with exact launches (K1 12 a batch, K3 6 a decoder
+             step, K2 and K4 0). Prints {"fbank_features": {...}}.
 9. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
-             paths: both serve runs, cli_serve, text, both train runs,
-             train_cli's training and decode and mt_cli's;
+             paths: both serve runs, every search mode, cli_serve, text,
+             fbank_features, both train runs, train_cli's training and
+             decode and mt_cli's; K3's record holds its times at the search
+             modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
 
@@ -172,7 +207,8 @@ once more under the profiler and prints the device's busy seconds; train
 and mt_cli profile one more update.
 
 Longer logs (the compiler's register/shared-memory report, the profiles) go
-to chiprun_out/.
+to chiprun_out/, and so does a copy of the whole standard output
+(chiprun_out/chip_smoke.log).
 """
 
 from __future__ import annotations
@@ -201,6 +237,25 @@ SERVE_BATCHES = 3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Tee:
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+    def __getattr__(self, name):  # isatty, fileno, encoding: the first stream's
+        return getattr(self.streams[0], name)
 
 
 def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
@@ -814,9 +869,9 @@ def phase_profile(torch, label, serve, batch):
     (ROOT / "chiprun_out" / f"serve_profile_{label}.txt").write_text("\n".join(lines) + "\n")
 
 
-def seeded_builder(torch, make):
+def seeded_builder(torch, make, seed: int = 0):
     """build(device, dtype): the model from make(device) with the same
-    seeded random weights every time (drawn once on the CPU)."""
+    seeded random weights every time (drawn once on the CPU from ``seed``)."""
     from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.models.layers import cast_compute_dtype_
 
@@ -825,7 +880,7 @@ def seeded_builder(torch, make):
     def build(device, dtype):
         model = make(device)
         if not weights:
-            weights.update(init_params_(make("cpu"), torch.Generator().manual_seed(0))
+            weights.update(init_params_(make("cpu"), torch.Generator().manual_seed(seed))
                            .state_dict())
         model.load_state_dict(weights)
         return cast_compute_dtype_(model.eval(), dtype)
@@ -2192,6 +2247,474 @@ def phase_text(torch, fx, task, kernels):
     return counts
 
 
+# ---- the search surface: every generation mode of the flagship on one
+# batch, card vs CPU in fp32 with K3 held in place at each mode's ancestries,
+# then each mode timed in bf16 with exact launch counts
+
+SEARCH_BATCH = 8
+SEARCH_REPS = 3  # bf16 timing rounds, the modes in turn
+# per sentence, two target phrases of seeded random tokens (ids 4..9999)
+SEARCH_PHRASE_SEED = 21
+
+
+def search_phrases():
+    rng = np.random.default_rng(SEARCH_PHRASE_SEED)
+    return [[[int(t) for t in rng.integers(4, 10000, size=2)], [int(rng.integers(4, 10000))]]
+            for _ in range(SEARCH_BATCH)]
+
+
+@contextlib.contextmanager
+def k3_held_in_place(torch, dec_attn, steps=(5, 31, 63)):
+    """While open, every K3 launch at a decode step in ``steps`` is held
+    against the plain version on clones of its own inputs (fp32, tolerance
+    1e-4; the cache rows it writes bit-equal to the plain version's), at
+    the ancestry the search really built. Yields a record: launches checked,
+    the largest error, and the share of ancestry entries up to the step that
+    are not the identity (0 for a never-permuted ancestry)."""
+    k3 = dec_attn.decode_attention_cuda
+    rec = {"checked": 0, "max_abs_err": 0.0, "non_identity": []}
+
+    def checked(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam):
+        if cache_index not in steps or q.dtype != torch.float32:
+            return k3(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam)
+        kc, vc = k_cache.clone(), v_cache.clone()
+        ref = dec_attn.decode_attention_plain(q, k_new, v_new, kc, vc, ancestry, cache_index,
+                                              beam)
+        out = k3(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam)
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err(out, ref))
+        if not (torch.equal(k_cache[:, :, cache_index], kc[:, :, cache_index])
+                and torch.equal(v_cache[:, :, cache_index], vc[:, :, cache_index])):
+            raise AssertionError(f"K3 step {cache_index}: cache rows differ from the plain "
+                                 "version's")
+        N = q.shape[0]
+        own = (torch.arange(N, device=q.device) % beam).to(torch.int32)
+        rec["non_identity"].append(float((ancestry[:cache_index + 1] != own).float().mean()))
+        rec["checked"] += 1
+        return out
+
+    dec_attn.decode_attention_cuda = checked
+    try:
+        yield rec
+    finally:
+        dec_attn.decode_attention_cuda = k3
+
+
+@contextlib.contextmanager
+def k3_snapshot(torch, dec_attn, step=63):
+    """While open, keeps a copy of the inputs of the first K3 launch at
+    ``step`` (layer 0), for timing the kernel afterwards at that ancestry."""
+    k3 = dec_attn.decode_attention_cuda
+    snap = {}
+
+    def noted(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam):
+        if cache_index == step and not snap:
+            snap["args"] = [t.clone() for t in (q, k_new, v_new, k_cache, v_cache, ancestry)]
+            snap["beam"] = beam
+        return k3(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index, beam)
+
+    dec_attn.decode_attention_cuda = noted
+    try:
+        yield snap
+    finally:
+        dec_attn.decode_attention_cuda = k3
+
+
+def k3_time_snapshot(torch, dec_attn, snap, step=63):
+    """K3 and its plain version timed on a snapshot's inputs, with the bytes
+    bound of the rows that ancestry references."""
+    q, k_new, v_new, kc, vc, anc = snap["args"]
+    C = snap["beam"]
+    N, H, L, D = kc.shape
+    S = N // C
+    with torch.inference_mode():  # the snapshot's tensors were made in inference mode
+        ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, step,
+                                                            C), reps=50)
+        plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc, vc, anc,
+                                                                   step, C), reps=50)
+    anc_np = anc.cpu().numpy()
+    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(step + 1))
+    e = q.element_size()
+    n_bytes = 2 * rows * H * D * e + 6 * N * H * D * e + (step + 1) * N * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * N * H * (step + 1) * D)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms, "distinct_rows": rows}
+
+
+SEARCH_MODES = ("beam", "diverse_groups", "diverse_siblings", "ordered_constraints",
+                "unordered_constraints", "ensemble", "score_reference", "print_alignment",
+                "kv_cache_int8", "sampling_topk1", "retain_dropout")
+
+
+def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
+    """One generation mode of the flagship on (wav, mask) -> its results.
+    ``models`` holds two seeded models (the second for the ensemble), on one
+    device; ``enc`` [(encoder_out, mask)] per model is reused by the modes
+    that decode from the encoder, or None (they encode here)."""
+    from chimera_st_tpu_torch.generation import search_strategies as ss
+    from chimera_st_tpu_torch.generation.ensemble import EnsembleSequenceGenerator
+    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+    from chimera_st_tpu_torch.generation.scorer import SequenceScorer
+
+    m0 = models[0]
+
+    def settings(**kw):
+        return GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5, min_len=30,
+                                 **kw)
+
+    def decode(gen):
+        t = gen.generate_audio(wav, mask) if enc is None else gen.generate_from_encoder(*enc[0])
+        return {"tokens": t[0], "scores": t[1], "lens": t[2]}
+
+    if name == "beam":
+        return decode(SequenceGenerator(m0, settings()))
+    if name == "diverse_groups":
+        return decode(SequenceGenerator(m0, settings(diverse_beam_groups=2,
+                                                     diverse_beam_strength=0.5)))
+    if name == "diverse_siblings":
+        return decode(SequenceGenerator(m0, settings(diversity_rate=0.5)))
+    if name in ("ordered_constraints", "unordered_constraints"):
+        phrases = search_phrases()
+        strategy = (ss.LexicallyConstrainedSearch(ss.pack_constraints(phrases))
+                    if name.startswith("ordered") else
+                    ss.UnorderedLexicallyConstrainedSearch(ss.pack_constraint_phrases(phrases)))
+        return decode(SequenceGenerator(m0, settings(), strategy=strategy))
+    if name == "ensemble":
+        ens = EnsembleSequenceGenerator(models, settings())
+        t = ens.generate_audio(wav, mask) if enc is None else ens.generate_from_encoders(enc)
+        return {"tokens": t[0], "scores": t[1], "lens": t[2]}
+    if name == "score_reference":
+        rng = np.random.default_rng(5)
+        target = np.full((wav.shape[0], 21), 1, np.int64)
+        for b in range(wav.shape[0]):
+            n = int(rng.integers(6, 21))
+            target[b, :n] = rng.integers(4, 10000, size=n)
+            target[b, n] = 2
+        res = SequenceScorer(m0).score_audio(wav, mask, torch.from_numpy(target).to(wav.device))
+        return {"score": res["score"], "positional": res["positional_scores"]}
+    if name == "print_alignment":
+        res = decode(SequenceGenerator(m0, settings()))
+        with torch.inference_mode():
+            e, em = enc[0] if enc is not None else m0.encode_audio(wav, mask)
+            toks = res["tokens"][:, 0]
+            prev = torch.cat([torch.full_like(toks[:, :1], 2), toks[:, :-1]], dim=1)
+            res["attn"] = m0.decoder.cross_attention_weights(prev, e, em)
+        return res
+    if name == "kv_cache_int8":
+        return decode(SequenceGenerator(m0, settings(kv_cache_int8=True)))
+    if name == "sampling_topk1":
+        return decode(SequenceGenerator(m0, settings(sampling=True, sampling_topk=1, seed=seed)))
+    if name == "retain_dropout":
+        t = SequenceGenerator(m0, settings(retain_dropout=True, seed=seed)).generate_audio(
+            wav, mask)
+        return {"tokens": t[0], "scores": t[1], "lens": t[2]}
+    raise KeyError(name)
+
+
+def greedy_positions(torch, model, enc, res):
+    """Top-k 1 sampling is greedy decoding: (positions that decide, whether
+    the best sample's token there is the argmax of the model's teacher-
+    forced log-probs). Decided: inside the sample, eos not banned (below
+    min_len 30) or forced (the last step), top two apart by more than 1e-4."""
+    toks, lens = res["tokens"][:, 0], res["lens"][:, 0]
+    with torch.inference_mode():
+        prev = torch.cat([torch.full_like(toks[:, :1], 2), toks[:, :-1]], dim=1)
+        lp = torch.log_softmax(model.decode(prev, *enc).float(), -1)
+        lp[:, :, 1] = -1e9  # pad is never drawn
+        lp[:, :30, 2] = -1e9  # eos banned while the length is at most min_len
+        top2 = lp.topk(2, dim=-1)
+        pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+        clear = ((top2.values[..., 0] - top2.values[..., 1]) > 1e-4) & (pos < lens[:, None] - 1)
+        return torch.stack([clear, top2.indices[..., 0] == toks])
+
+
+def search_launches(name, steps):
+    """The exact launches of one mode's batch (encode included) for the
+    decoder steps that ran (counted over every model's decoder)."""
+    k1, k2 = 24, 6  # 12 trunk + 12 shared-encoder layers; 6 conv-tail layers
+    k3 = 6 * steps  # 6 decoder layers a decoder step
+    if name == "ensemble":
+        k1, k2 = 2 * k1, 2 * k2
+    elif name == "score_reference":
+        k3 = 0  # teacher forcing: no cached step
+    elif name == "print_alignment":
+        k1, k2 = 2 * k1, 2 * k2  # the alignment pass encodes once more
+    elif name == "kv_cache_int8":
+        k3 = 0  # the int8 cache runs its plain PyTorch path
+    elif name == "retain_dropout":
+        k1 = 0  # attention dropout 0.1 takes the plain path
+    return {"encoder_attention": k1, "conv_tail": k2, "decode_attention": k3, "logmel": 0}
+
+
+def phase_search(torch, build0, build1, kernels, dec_attn):
+    """The flagship's generation surface on one seeded batch of 8 utterances
+    of 2-6 s, beam 10, max_decode_len 64: each mode in fp32 on the card
+    (kernels; K3 held in place at the mode's ancestries) and on the CPU
+    (plain versions) from the same weights, best hypotheses token-identical
+    and scores within the parity phase's 1e-4; then each mode in bf16 on
+    the card between CUDA events, counts zeroed before and exact after.
+    Returns ({mode: launches}, {mode: K3 record})."""
+    wav_np, mask_np = make_audio(np.random.default_rng(17), SEARCH_BATCH, 2.0, 6.0)
+    log(f"search: flagship, {SEARCH_BATCH} utterances of "
+        f"{(~mask_np).sum(1).min() / 16000:.2f}..{(~mask_np).sum(1).max() / 16000:.2f} s, "
+        f"beam 10, max_decode_len 64; fp32 card (kernels) vs CPU (plain), then bf16 timing")
+    results, k3_recs = {}, {}
+    for on_card, device in ((True, "cuda"), (False, "cpu")):
+        models = [build0(device, torch.float32), build1(device, torch.float32)]
+        wav = torch.tensor(wav_np, device=device)
+        mask = torch.tensor(mask_np, device=device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            enc = [m.encode_audio(wav, mask) for m in models]
+        log(f"  {device}: both models encoded in {time.perf_counter() - t0:.2f} s")
+        for name in SEARCH_MODES:
+            if name == "retain_dropout":
+                continue  # its masks come from each device's own generator
+            t0 = time.perf_counter()
+            if on_card:
+                with k3_held_in_place(torch, dec_attn) as rec:
+                    res = run_search_mode(torch, name, models, enc, wav, mask)
+                k3_recs[name] = rec
+            else:
+                res = run_search_mode(torch, name, models, enc, wav, mask)
+                if name == "sampling_topk1":
+                    res["greedy"] = greedy_positions(torch, models[0], enc[0], res)
+            results.setdefault(name, {})["card" if on_card else "host"] = {
+                k: v.cpu() for k, v in res.items()}
+            log(f"  {device} {name}: {time.perf_counter() - t0:.2f} s")
+        del models, enc
+    for name, r in results.items():
+        g, c = r["card"], r["host"]
+        if name == "score_reference":
+            check("search score_reference: mean log-prob, card vs CPU",
+                  max_err(g["score"], c["score"]), 1e-4)
+            check("search score_reference: every token's log-prob, card vs CPU",
+                  max_err(g["positional"], c["positional"]), 1e-3)
+            continue
+        for b in range(SEARCH_BATCH):
+            if not torch.equal(g["tokens"][b, 0], c["tokens"][b, 0]) \
+                    or int(g["lens"][b, 0]) != int(c["lens"][b, 0]):
+                raise AssertionError(f"search {name}: best hypothesis of sentence {b} differs "
+                                     f"between the card and the CPU")
+        same_beams = int((g["tokens"] == c["tokens"]).all(dim=2).sum())
+        check(f"search {name}: {SEARCH_BATCH} best hypotheses token-identical "
+              f"({same_beams} of {g['tokens'].shape[0] * g['tokens'].shape[1]} beams); best "
+              "scores", max_err(g["scores"][:, 0], c["scores"][:, 0]), 1e-4)
+        if name == "print_alignment":
+            check("search print_alignment: cross-attention weights, card vs CPU",
+                  max_err(g["attn"], c["attn"]), 1e-4)
+            top2 = c["attn"].topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+            if not torch.equal(g["attn"].argmax(-1)[clear], c["attn"].argmax(-1)[clear]):
+                raise AssertionError("search print_alignment: alignments differ")
+        if name in ("ordered_constraints", "unordered_constraints"):
+            for b, phrases in enumerate(search_phrases()):
+                hyp = g["tokens"][b, 0, :int(g["lens"][b, 0])].tolist()
+                for p in phrases:
+                    if not any(hyp[j:j + len(p)] == p for j in range(len(hyp))):
+                        raise AssertionError(f"search {name}: sentence {b} lacks phrase {p}")
+        if name == "sampling_topk1":
+            clear, agree = c["greedy"][0], c["greedy"][1]
+            if not bool(agree[clear].all()):
+                raise AssertionError("search sampling_topk1: not the greedy decode")
+            log(f"  search sampling_topk1: the greedy token at {int(clear.sum())} of "
+                f"{clear.numel()} positions (the rest within 1e-4 of a tie, forced, or past "
+                "the end)")
+        rec = k3_recs.get(name, {"checked": 0})
+        if rec["checked"]:
+            check(f"search {name}: K3 in place at steps 5 / 31 / 63, {rec['checked']} launches "
+                  f"at ancestries {100 * max(rec['non_identity']):.1f} % off the identity",
+                  rec["max_abs_err"], 1e-4)
+            if name == "sampling_topk1" and max(rec["non_identity"]) != 0.0:
+                raise AssertionError("search sampling: the ancestry was permuted")
+    # bf16 timing, counts exact
+    models = [build0("cuda", torch.bfloat16), build1("cuda", torch.bfloat16)]
+    wav, mask = torch.tensor(wav_np, device="cuda"), torch.tensor(mask_np, device="cuda")
+    run_search_mode(torch, "beam", models, None, wav, mask)  # warm-up
+    torch.cuda.synchronize()
+    counts, times, snaps, first = {}, {n: [] for n in SEARCH_MODES}, {}, {}
+    for rep in range(SEARCH_REPS):  # the modes in turn, SEARCH_REPS rounds
+        for name in SEARCH_MODES:
+            for fn in kernels:
+                fn.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with counted_decoder_steps() as steps, k3_snapshot(torch, dec_attn) as snap:
+                start.record()
+                res = run_search_mode(torch, name, models, None, wav, mask, seed=3)
+                end.record()
+                end.synchronize()
+            times[name].append(start.elapsed_time(end))
+            counts[name] = {fn.__name__: fn.launches for fn in kernels}
+            implied = search_launches(name, steps[0])
+            if counts[name] != implied:
+                raise AssertionError(f"search {name} launches {counts[name]}, the batch "
+                                     f"implies {implied}")
+            for key, t in res.items():
+                if not torch.isfinite(t.float()).all():
+                    raise AssertionError(f"search {name}: {key} not finite")
+            res = {k: v.cpu() for k, v in res.items()}
+            if rep == 0:
+                first[name] = res
+                if snap:
+                    snaps[name] = snap
+            elif name == "retain_dropout" and not torch.equal(res["tokens"],
+                                                              first[name]["tokens"]):
+                raise AssertionError("search retain_dropout: the same seed gave other tokens")
+    rates = {}
+    for name, ms in times.items():
+        med = statistics.median(ms)
+        rates[name] = {"ms": med, "ms_min": min(ms), "ms_max": max(ms),
+                       "sentences_per_s": SEARCH_BATCH / med * 1e3,
+                       "vs_beam": statistics.median(times["beam"]) / med,
+                       "launches": counts[name]}
+        log(f"  bf16 {name}: median {med:.1f} ms ({min(ms):.1f}-{max(ms):.1f}) over "
+            f"{SEARCH_REPS} runs, {SEARCH_BATCH / med * 1e3:.2f} sentences/s, "
+            f"{rates[name]['vs_beam']:.2f}x plain beam; launches {counts[name]} (each run)")
+    if torch.equal(first["beam"]["tokens"], first["retain_dropout"]["tokens"]):
+        raise AssertionError("search retain_dropout: the dropout changed nothing")
+    log(f"  retain_dropout: the same seed gave the same tokens in all {SEARCH_REPS} runs on "
+        "the card; they differ from plain beam search's")
+    k3_times = {}
+    for name, snap in snaps.items():
+        k3_times[name] = k3_time_snapshot(torch, dec_attn, snap)
+        t = k3_times[name]
+        log(f"  K3 bf16 at {name}'s step-63 ancestry: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{t['distinct_rows']} distinct rows; {100 * t['bound_share']:.1f} %)")
+    del models
+    print(json.dumps({"search": {"modes": rates, "k3_at_ancestry": k3_times,
+                                 "k3_in_place": {n: {"checked": r["checked"],
+                                                     "max_abs_err": r["max_abs_err"],
+                                                     "non_identity": max(r["non_identity"],
+                                                                         default=0.0)}
+                                                 for n, r in k3_recs.items()}}}), flush=True)
+    return counts, k3_times
+
+
+# ---- fbank features: the s2t_transformer_s preset served by the generate CLI
+# on precomputed features (.npy and zip-packed) with utterance CMVN
+
+FBANK_UTTS = 16
+FBANK_ARCH = {"arch": "s2t_transformer_s"}
+
+
+def make_fbank_fixture(torch, root: Path, seed: int = 23) -> dict:
+    """16 seeded utterances of 200-600 frames of 80-d features (8 as .npy,
+    8 zip-packed: stored members addressed by byte offset and length), an
+    8,000-entry dictionary, a config naming utterance_cmvn for '*' and
+    specaugment + utterance_cmvn for _train (parameters at the top level),
+    and a native .ckpt of a seeded s2t_transformer_s."""
+    import zipfile
+
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.models.s2t_transformer import build_s2t_transformer
+
+    rng = np.random.default_rng(seed)
+    (root / "feats").mkdir(parents=True)
+    feats = [(rng.normal(size=(int(n), 80)) * 4.0 + rng.normal(size=80) * 6.0).astype(np.float32)
+             for n in rng.integers(200, 601, size=FBANK_UTTS)]
+    half = FBANK_UTTS // 2
+    with zipfile.ZipFile(root / "feats.zip", "w", zipfile.ZIP_STORED) as z:
+        for i in range(half, FBANK_UTTS):
+            with z.open(f"u{i}.npy", "w") as f:
+                np.save(f, feats[i])
+    audio = {}
+    with zipfile.ZipFile(root / "feats.zip") as z:
+        for info in z.infolist():
+            offset = info.header_offset + 30 + len(info.filename.encode()) + len(info.extra)
+            audio[int(info.filename[1:-4])] = f"feats.zip:{offset}:{info.file_size}"
+    for i in range(half):
+        np.save(root / "feats" / f"u{i}.npy", feats[i])
+        audio[i] = f"feats/u{i}.npy"
+    words = [f"w{i}" for i in range(8000 - 4)]
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    rows = "".join(f"u{i}\t{audio[i]}\t{len(f)}\t"
+                   f"{' '.join(rng.choice(words, size=int(rng.integers(5, 20))))}\tspk\n"
+                   for i, f in enumerate(feats))
+    (root / "tst_fbank.tsv").write_text("id\taudio\tn_frames\ttgt_text\tspeaker\n" + rows)
+    (root / "config_wave.yaml").write_text(json.dumps({
+        "audio_root": str(root), "use_audio_input": False, "input_feat_per_channel": 80,
+        "vocab_filename": "dict.txt",
+        "transforms": {"*": ["utterance_cmvn"], "_train": ["specaugment", "utterance_cmvn"]},
+        "specaugment": {"freq_mask_N": 2, "freq_mask_F": 27, "time_mask_N": 2,
+                        "time_mask_T": 100, "time_mask_p": 1.0},
+        "utterance_cmvn": {"norm_means": True, "norm_vars": True}}))
+    model_cfg = dict(FBANK_ARCH)
+    arch = model_cfg.pop("arch")
+    model = init_params_(build_s2t_transformer(arch, {**model_cfg, "tgt_vocab_size": 8000},
+                                               device="cpu"),
+                         torch.Generator().manual_seed(seed))
+    ckpt = root / "s2t_s.ckpt"
+    save_model(str(ckpt), model, FBANK_ARCH, "s2t")
+    log(f"fbank fixture: {FBANK_UTTS} utterances, {sum(len(f) for f in feats)} frames "
+        f"({half} .npy, {FBANK_UTTS - half} zip-packed), dictionary of 8000, {ckpt.name} "
+        f"{ckpt.stat().st_size / 1e6:.0f} MB")
+    return {"root": root, "ckpt": ckpt, "feats": feats}
+
+
+def phase_fbank_features(torch, root: Path, kernels):
+    """cli.generate --task speech_to_text on the fixture's features, beam 5:
+    fp32 on the card and with --device cpu, best hypotheses identical as
+    strings; then bf16 on the card with the counts zeroed before and exact
+    after (K1 12 a batch, K3 6 a decoder step, K2 and K4 0)."""
+    from chimera_st_tpu_torch.cli import generate
+    from chimera_st_tpu_torch.data.manifests import S2TDataConfig, make_dataset_from_tsv
+    from chimera_st_tpu_torch.data.dictionary import Dictionary
+
+    fx = make_fbank_fixture(torch, root)
+    # the transforms the data layer applies: utterance CMVN on this split
+    data_cfg = S2TDataConfig(str(root / "config_wave.yaml"))
+    ds = make_dataset_from_tsv(str(root), "tst_fbank", data_cfg,
+                               Dictionary.load(str(root / "dict.txt")), False)
+    x = fx["feats"][FBANK_UTTS - 1]
+    check("fbank_features: a zip-packed utterance after utterance_cmvn vs numpy",
+          float(np.abs(ds[FBANK_UTTS - 1].audio - (x - x.mean(0)) / x.std(0)).max()), 1e-5)
+
+    def run(out, extra):
+        (root / out).mkdir()
+        t0 = time.perf_counter()
+        stats = generate.main([str(root), "--task", "speech_to_text", "--path", str(fx["ckpt"]),
+                               "--gen-subset", "tst_fbank", "--beam", "5", "--max-decode-len",
+                               "64", "--batch-size", "8", "--scoring", "bleu",
+                               "--results-path", str(root / out), *extra])
+        return ((root / out / "generate-tst_fbank.txt").read_text(), stats,
+                time.perf_counter() - t0)
+
+    log(f"fbank_features: cli.generate --task speech_to_text, s2t_transformer_s, beam 5, "
+        f"{FBANK_UTTS} utterances in batches of 8, fp32 card vs --device cpu")
+    gpu_text, _, gpu_s = run("fp32_cuda", ["--dtype", "float32"])
+    cpu_text, _, cpu_s = run("fp32_cpu", ["--dtype", "float32", "--device", "cpu"])
+    (gh, gfull, glast), (ch, cfull, clast) = parse_protocol(gpu_text), parse_protocol(cpu_text)
+    if len(gfull) != FBANK_UTTS or len(cfull) != FBANK_UTTS:
+        raise AssertionError(f"fbank_features: samples with all lines {len(gfull)}, "
+                             f"{len(cfull)}")
+    same_hypotheses("fbank_features", gh, ch, FBANK_UTTS)
+    if glast != clast:
+        raise AssertionError(f"fbank_features: corpus lines differ:\n  {glast}\n  {clast}")
+    log(f"  card {gpu_s:.1f} s, CPU {cpu_s:.1f} s; {glast}")
+    for fn in kernels:
+        fn.launches = 0
+    with counted_decoder_steps() as steps:
+        text, stats, wall = run("bf16", ["--dtype", "bfloat16"])
+        torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    batches = -(-FBANK_UTTS // 8)
+    implied = {"encoder_attention": 12 * batches, "conv_tail": 0,
+               "decode_attention": 6 * steps[0], "logmel": 0}
+    if counts != implied or steps[0] == 0:
+        raise AssertionError(f"fbank_features launches {counts}, the batches imply {implied}")
+    hyps, full, _ = parse_protocol(text)
+    if len(full) != FBANK_UTTS or not all(np.isfinite(h[0][0]) for h in hyps.values()):
+        raise AssertionError("fbank_features: bf16 output incomplete or not finite")
+    rec = {"sentences": stats["sentences"], "wall_s": wall,
+           "sentences_per_s": stats["sentences"] / stats["decode_s"], "load_s": stats["load_s"],
+           "decoder_steps": steps[0], "launches": counts}
+    log(f"  bf16: {stats['sentences'] / stats['decode_s']:.2f} sentences/s, launches {counts}")
+    print(json.dumps({"fbank_features": rec}), flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -2213,6 +2736,10 @@ def main() -> int:
     if not (tree / "chimera_st_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
+    if not args.kernels_of:
+        # the whole standard output also goes to chiprun_out/chip_smoke.log
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        sys.stdout = Tee(sys.stdout, open(ROOT / "chiprun_out" / "chip_smoke.log", "w"))
     sys.path.insert(0, str(tree))
     from chimera_st_tpu_torch.generation.generator import GeneratorSettings
     from chimera_st_tpu_torch.models.interlingua import ChimeraInterlinguaModel, InterlinguaConfig
@@ -2295,6 +2822,13 @@ def main() -> int:
                                     p["seed"], args.profile)
         del model
 
+    # 5b. the search surface on the flagship, and the fbank model on features
+    build_second = seeded_builder(
+        torch, lambda d: ChimeraInterlinguaModel(flagship_cfg, device=d), seed=1)
+    search_counts, search_k3 = phase_search(torch, paths["flagship"]["build"], build_second,
+                                            kernels, decode_attention)
+    counts.update({f"search_{name}": c for name, c in search_counts.items()})
+
     # 6. the CLI phases, on a fixture under a temporary directory
     import tempfile
 
@@ -2312,6 +2846,7 @@ def main() -> int:
             counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
             phase_interactive(torch, fx, work)
             counts["text"] = phase_text(torch, fx, task, kernels)
+        counts["fbank_features"] = phase_fbank_features(torch, work / "fbank", kernels)
         # 7. training
         phase_train_kernels(torch, encoder_attention, conv_tail, records)
         training = train_task(fx)
@@ -2330,6 +2865,9 @@ def main() -> int:
     phase_mt_shapes(torch, encoder_attention, decode_attention, mt_seen, records)
 
     # 9. report
+    for r in records:
+        if r["name"] == "decode_attention":
+            r["search_ancestries"] = search_k3
     for r in records:
         r["launches_per_path"] = {label: c[r["name"]] for label, c in counts.items()}
         r["launches"] = sum(r["launches_per_path"].values())

@@ -341,19 +341,8 @@ def test_interactive_text_branch_matches_jax_generate_text(fixture, capsys):
 
 
 UNPORTED_FLAGS = {
-    "sampling": ["--sampling"],
-    "sampling_topk": ["--sampling-topk", "5"],
-    "sampling_topp": ["--sampling-topp", "0.9"],
-    "diverse_beam_groups": ["--diverse-beam-groups", "3"],
-    "diversity_rate": ["--diversity-rate", "0.5"],
-    "two_paths": ["--path", "a.pt:b.pt"],
     "lm_path": ["--lm-path", "lm.ckpt"],
     "ctc_lm_path": ["--ctc-lm-path", "lm.arpa"],
-    "score_reference": ["--score-reference"],
-    "print_alignment": ["--print-alignment"],
-    "replace_unk": ["--replace-unk"],
-    "kv_cache_int8": ["--kv-cache-int8"],
-    "retain_dropout": ["--retain-dropout"],
     "iter_decode_max_iter": ["--iter-decode-max-iter", "3"],
     "iter_decode_force_max_iter": ["--iter-decode-force-max-iter"],
     "iter_decode_eos_penalty": ["--iter-decode-eos-penalty", "0.5"],

@@ -331,7 +331,16 @@ def test_feature_transforms_and_joined_splits_raise(triplet_dir):
         "transforms:\n  '*': [utterance_cmvn]\n")
     task = setup_task({"_name": "speech_to_text", "data": str(triplet_dir),
                        "config_yaml": "config_tf.yaml"})
-    with pytest.raises(NotImplementedError, match="A11"):
+    task.load_dataset("test")  # ported: the transforms of features are built
+    assert [type(t).__name__ for t in task.dataset("test").feature_transforms.transforms] == \
+        ["UtteranceCMVN"]
+    # a transform that neither package knows raises
+    (triplet_dir / "config_tf.yaml").write_text(
+        f"audio_root: {triplet_dir}\nvocab_filename: dict.txt\n"
+        "transforms:\n  '*': [warp_drive]\n")
+    task = setup_task({"_name": "speech_to_text", "data": str(triplet_dir),
+                       "config_yaml": "config_tf.yaml"})
+    with pytest.raises(KeyError, match="unknown feature transform"):
         task.load_dataset("test")
     # comma-joined splits are concatenated (tests/test_torch_mt.py holds
     # their resampling against the JAX package)
