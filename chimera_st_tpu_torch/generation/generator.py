@@ -215,12 +215,6 @@ class SequenceGenerator:
         self.strategy = strategy
         self._call_count = 0
 
-    def max_lens_for_src(self, src_lengths: torch.Tensor) -> torch.Tensor:
-        return max_lens_from_settings(self.s, src_lengths)
-
-    def min_lens_for_src(self, src_lengths: torch.Tensor) -> Optional[torch.Tensor]:
-        return min_lens_from_settings(self.s, src_lengths)
-
     @torch.inference_mode()
     def generate_from_encoder(self, encoder_out: torch.Tensor,
                               encoder_padding_mask: Optional[torch.Tensor],
@@ -239,10 +233,13 @@ class SequenceGenerator:
         enc_kv = decoder.precompute_encoder_kv(encoder_out)
         kv_caches = decoder.init_cache(B * K, L, int8=self.s.kv_cache_int8)
         ancestry, reorder_fn = lazy_reorder(B, K, L, device)
+        # the JAX step drops cross-attention probabilities where its encoder
+        # K/V is not grouped: at beam 1 and in sampling's repeated layout
+        cross_attention_dropout = K == 1 or self.s.sampling
 
         def step_fn(tokens, index, anc):
             logits = decoder.step(tokens, index, kv_caches, enc_kv, encoder_padding_mask, anc, K,
-                                  dropout_generator)
+                                  dropout_generator, cross_attention_dropout)
             if self.s.temperature != 1.0:
                 logits = logits / self.s.temperature
             return torch.log_softmax(logits, dim=-1), anc
@@ -252,7 +249,8 @@ class SequenceGenerator:
                 raise NotImplementedError("--prefix-size with --sampling is not supported "
                                           "(prefix forcing is a beam-decode feature)")
             if sample_generator is None:
-                sample_generator = seeded_generator(self.s.seed, 0, device)
+                raise ValueError("sampling needs sample_generator (seeded_generator(seed, "
+                                 "call, device))")
             # the samples never swap columns: the ancestry stays the identity
             return sample_decode(
                 step_fn, ancestry, batch_size=B, num_samples=K, max_len=L, eos=self.eos,
@@ -287,8 +285,8 @@ class SequenceGenerator:
                 enc, enc_mask = encode(None)
             max_lens = min_lens = None
             if src_lengths is not None:
-                max_lens = self.max_lens_for_src(src_lengths)
-                min_lens = self.min_lens_for_src(src_lengths)
+                max_lens = max_lens_from_settings(self.s, src_lengths)
+                min_lens = min_lens_from_settings(self.s, src_lengths)
             return self.generate_from_encoder(enc, enc_mask, max_lens, min_lens, prefix_tokens,
                                               **gens)
 

@@ -24,11 +24,6 @@ def _argsort(x: torch.Tensor) -> torch.Tensor:
     return torch.argsort(x, dim=1, stable=True)
 
 
-def _bcast_gather(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """table [B, P] gathered at index [B, N] along dim 1."""
-    return torch.gather(table, 1, index)
-
-
 class PrefixConstrainedSearch(SearchStrategy):
     """Masks the log-probs through a callback ``allowed_fn(alive_seq [B, K,
     L], step) -> [B, K, V]``: a boolean allowed-mask, or an additive float
@@ -122,7 +117,7 @@ class LexicallyConstrainedSearch(SearchStrategy):
 
     def _next_token(self, progress):
         C = self.constraints.shape[1]
-        return _bcast_gather(self.constraints, progress.clamp(max=C - 1))
+        return torch.gather(self.constraints, 1, progress.clamp(max=C - 1))
 
     def _advanced(self, prog, tok):
         adv = (tok == self._next_token(prog)) & (prog < self.n_constraints[:, None])
@@ -199,7 +194,7 @@ class UnorderedLexicallyConstrainedSearch(SearchStrategy):
         cur_ix = cur.clamp(0, P - 1)
         pos_ix = pos.clamp(0, L - 1)
         cont_tok = torch.gather(self._phrase_rows(cur_ix), 2, pos_ix[..., None])[..., 0]
-        cur_len = _bcast_gather(self.lens, cur_ix)
+        cur_len = torch.gather(self.lens, 1, cur_ix)
         continuing = (cur >= 0) & (tok == cont_tok)
         done_cont = continuing & (pos + 1 >= cur_len)
 
@@ -208,7 +203,7 @@ class UnorderedLexicallyConstrainedSearch(SearchStrategy):
         startable = open_p & (tok[..., None] == first[:, None, :])
         any_start = startable.any(dim=-1)
         p_star = startable.to(torch.int8).argmax(dim=-1)  # the first open phrase it starts
-        start_len = _bcast_gather(self.lens, p_star)
+        start_len = torch.gather(self.lens, 1, p_star)
         done_start = any_start & (start_len <= 1)
 
         new_mask = torch.where(done_cont, mask | (1 << cur_ix),

@@ -168,17 +168,19 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
     def grouped_cross(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      key_padding_mask: Optional[torch.Tensor], groups: int) -> torch.Tensor:
+                      key_padding_mask: Optional[torch.Tensor], groups: int,
+                      dropout_rate: float = 0.0,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Beam cross-attention: query [B*groups, 1, C] against the
         UN-repeated encoder k/v [B, S, H, D] that the beams of one sentence
-        share."""
+        share; ``dropout_rate`` > 0 drops the attention probabilities."""
         N = query.shape[0]
         B = N // groups
         q = self._split(self.q_proj(query)).reshape(B, groups, self.num_heads, self.head_dim)
         logits = torch.einsum("bkhd,bshd->bhks", q.float(), k.float()) * self.head_dim**-0.5
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(query.dtype)
+        probs = dropout(torch.softmax(logits, dim=-1).to(query.dtype), dropout_rate, generator)
         out = torch.einsum("bhks,bshd->bkhd", probs.float(), v.float()).to(query.dtype)
         return self.out_proj(out.reshape(N, 1, self.embed_dim))
 
@@ -354,16 +356,21 @@ class TransformerDecoderLayer(_Sublayers):
     def step(self, x: torch.Tensor, encoder_kv: Tuple[torch.Tensor, torch.Tensor],
              encoder_padding_mask: Optional[torch.Tensor], cache: Tuple[torch.Tensor, ...],
              ancestry: torch.Tensor, cache_index: int, groups: int,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             cross_attention_dropout: bool = False) -> torch.Tensor:
         """x [B*groups, 1, C] -> [B*groups, 1, C]; the cache updated in
         place. In training mode (``--retain-dropout``) the residual and
-        activation dropouts act, as in the JAX cached step; the attention
-        probabilities are not dropped there."""
+        activation dropouts act, as in the JAX cached step. The cached
+        self-attention never drops its probabilities; the cross-attention
+        drops them only with ``cross_attention_dropout``: the JAX step does
+        where the encoder K/V batch equals the query batch (beam 1, and
+        sampling's repeated layout), and not in its grouped beam branch."""
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn.cached_step(
             h, *cache[:2], ancestry, cache_index, groups, *cache[2:]), generator)
+        rate = self.encoder_attn.dropout if self.training and cross_attention_dropout else 0.0
         x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn.
-                           grouped_cross(h, *encoder_kv, encoder_padding_mask, groups),
-                           generator)
+                           grouped_cross(h, *encoder_kv, encoder_padding_mask, groups, rate,
+                                         generator), generator)
         return self._ffn_sublayer(x, generator)
 
     def encoder_attn_weights(self, x: torch.Tensor, encoder_out: torch.Tensor,

@@ -95,19 +95,21 @@ class TransformerDecoder(nn.Module):
              caches: List[Tuple[torch.Tensor, ...]],
              encoder_kv, encoder_padding_mask: Optional[torch.Tensor],
              ancestry: torch.Tensor, groups: int,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             cross_attention_dropout: bool = False) -> torch.Tensor:
         """One decode step: tokens [N, 1] -> fp32 logits [N, V]. ``caches``
         are written in place at ``step_index``; ``ancestry`` [>L, N] int32 is
         the lazy-reorder map, ``groups`` the beam size. In training mode
         (``--retain-dropout``) the embedding and each layer's residual and
-        activation dropouts draw their masks from ``generator``."""
+        activation dropouts draw their masks from ``generator``, and with
+        ``cross_attention_dropout`` the cross-attention probabilities too."""
         x = self.embed_scale * self.embed_tokens(tokens)
         pos = position_at_step(self.positions, step_index, self.padding_idx)
         x = x + pos.to(x.dtype)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
         for layer, cache, ekv in zip(self.layers, caches, encoder_kv):
             x = layer.step(x, ekv, encoder_padding_mask, cache, ancestry, step_index, groups,
-                           generator)
+                           generator, cross_attention_dropout)
         return self._output(x)[:, 0, :]
 
     def cross_attention_weights(self, prev_output_tokens: torch.Tensor,

@@ -81,8 +81,11 @@ Phases (any failure raises and the script exits non-zero):
              K2 6, K3 6 a decoder step; the ensemble and the alignment pass
              encode twice; int8 and reference scoring launch no K3; retained
              dropout no K1); retained dropout gives the same tokens in every
-             round with one seed, and not plain beam search's; then K3 timed
-             at each mode's step-63 ancestry. Prints {"search": {...}}.
+             round with one seed, and not plain beam search's; then K3 in
+             bf16 at each mode's step-63 ancestry held against the fp32 plain
+             version (2e-2, the rows written bit-equal) and timed, its bytes
+             bound counting the cache rows that ancestry references before
+             the step. Prints {"search": {...}}.
 6. cli     - the entry points a user starts, on a fixture made from a seed
              under a temporary directory with the port's own code: 24 wavs of
              2-6 s, a manifest, 10,000-entry dictionaries, config_wave.yaml
@@ -437,8 +440,9 @@ def k3_step(torch, dec_attn, inputs, label, C, idx):
                  reps=50)
     plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc_k, vc_k, anc,
                                                                idx, C), reps=50)
-    # rows the step must read: distinct ancestor columns per (sentence, time)
-    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx + 1))
+    # cache rows the step must read: distinct ancestor columns per (sentence,
+    # time) before the step (the step's own row is read from k_new / v_new)
+    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx))
     n_bytes = (2 * rows * H * D * 2  # referenced K and V rows
                + 3 * N * H * D * 2  # q, k_new, v_new
                + 2 * N * H * D * 2  # the new rows written into the caches
@@ -2319,25 +2323,39 @@ def k3_snapshot(torch, dec_attn, step=63):
         dec_attn.decode_attention_cuda = k3
 
 
-def k3_time_snapshot(torch, dec_attn, snap, step=63):
-    """K3 and its plain version timed on a snapshot's inputs, with the bytes
-    bound of the rows that ancestry references."""
+def k3_time_snapshot(torch, dec_attn, snap, label, step=63):
+    """K3 on a snapshot's (bf16) inputs: held against the fp32 plain version
+    (2e-2, as phase 3; the cache rows it writes bit-equal), then it and its
+    plain version timed, with the bytes bound of the cache rows that
+    ancestry references before the step."""
     q, k_new, v_new, kc, vc, anc = snap["args"]
     C = snap["beam"]
     N, H, L, D = kc.shape
     S = N // C
     with torch.inference_mode():  # the snapshot's tensors were made in inference mode
+        kc32, vc32 = kc.float(), vc.float()
+        ref = dec_attn.decode_attention_plain(q.float(), k_new.float(), v_new.float(), kc32,
+                                              vc32, anc, step, C)
+        kc_k, vc_k = kc.clone(), vc.clone()
+        err = max_err(dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, step, C),
+                      ref)
+        check(f"K3 bf16 at {label}'s step-{step} ancestry vs fp32 plain", err, 2e-2)
+        for got, want in ((kc_k, kc32), (vc_k, vc32)):
+            if not torch.equal(got.float(), want):
+                raise AssertionError(f"K3 bf16 at {label}'s ancestry: the cache after the call "
+                                     "differs from the plain one")
         ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, step,
                                                             C), reps=50)
         plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc, vc, anc,
                                                                    step, C), reps=50)
     anc_np = anc.cpu().numpy()
-    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(step + 1))
+    # the step's own row is read from k_new / v_new, counted in the 6 N H D
+    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(step))
     e = q.element_size()
     n_bytes = 2 * rows * H * D * e + 6 * N * H * D * e + (step + 1) * N * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * N * H * (step + 1) * D)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_share": b_ms / ms, "distinct_rows": rows}
+            "bound_share": b_ms / ms, "distinct_rows": rows, "max_abs_err": err}
 
 
 SEARCH_MODES = ("beam", "diverse_groups", "diverse_siblings", "ordered_constraints",
@@ -2352,7 +2370,11 @@ def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
     that decode from the encoder, or None (they encode here)."""
     from chimera_st_tpu_torch.generation import search_strategies as ss
     from chimera_st_tpu_torch.generation.ensemble import EnsembleSequenceGenerator
-    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+    from chimera_st_tpu_torch.generation.generator import (
+        GeneratorSettings,
+        SequenceGenerator,
+        seeded_generator,
+    )
     from chimera_st_tpu_torch.generation.scorer import SequenceScorer
 
     m0 = models[0]
@@ -2361,8 +2383,9 @@ def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
         return GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5, min_len=30,
                                  **kw)
 
-    def decode(gen):
-        t = gen.generate_audio(wav, mask) if enc is None else gen.generate_from_encoder(*enc[0])
+    def decode(gen, **kw):
+        t = gen.generate_audio(wav, mask) if enc is None else gen.generate_from_encoder(*enc[0],
+                                                                                       **kw)
         return {"tokens": t[0], "scores": t[1], "lens": t[2]}
 
     if name == "beam":
@@ -2402,7 +2425,9 @@ def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
     if name == "kv_cache_int8":
         return decode(SequenceGenerator(m0, settings(kv_cache_int8=True)))
     if name == "sampling_topk1":
-        return decode(SequenceGenerator(m0, settings(sampling=True, sampling_topk=1, seed=seed)))
+        # the draws of a served generator's first call
+        return decode(SequenceGenerator(m0, settings(sampling=True, sampling_topk=1, seed=seed)),
+                      sample_generator=seeded_generator(seed, 1, wav.device))
     if name == "retain_dropout":
         t = SequenceGenerator(m0, settings(retain_dropout=True, seed=seed)).generate_audio(
             wav, mask)
@@ -2576,7 +2601,7 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
         "the card; they differ from plain beam search's")
     k3_times = {}
     for name, snap in snaps.items():
-        k3_times[name] = k3_time_snapshot(torch, dec_attn, snap)
+        k3_times[name] = k3_time_snapshot(torch, dec_attn, snap, name)
         t = k3_times[name]
         log(f"  K3 bf16 at {name}'s step-63 ancestry: {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "

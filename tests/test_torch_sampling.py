@@ -160,10 +160,12 @@ def test_sampling_conflicts_raise(models):
                                                             diverse_beam_groups=2))
 
 
-def _dropout_model(params, rate):
+def _dropout_model(params, rate, attention_rate=None):
+    attention_rate = rate if attention_rate is None else attention_rate
     cfg = dataclasses.replace(
-        port_config(TINY), dropout=rate, attention_dropout=rate, activation_dropout=rate,
-        w2v2_dropout=rate, w2v2_attention_dropout=rate, w2v2_activation_dropout=rate)
+        port_config(TINY), dropout=rate, attention_dropout=attention_rate,
+        activation_dropout=rate, w2v2_dropout=rate, w2v2_attention_dropout=attention_rate,
+        w2v2_activation_dropout=rate)
     from chimera_st_tpu_torch.convert import params_from_flax
 
     model = ChimeraInterlinguaModel(cfg, device="cpu")
@@ -213,3 +215,81 @@ def test_retain_dropout_needs_a_model_with_dropout():
         "decoder_ffn_dim": 32, "conv_channels": 8}, device="cpu")
     with pytest.raises(NotImplementedError, match="--retain-dropout"):
         SequenceGenerator(model, GeneratorSettings(retain_dropout=True))
+
+
+# beam 1 and sampling: the JAX step's encoder K/V batch equals its query batch,
+# so its cross-attention takes the dropping branch; beam 3 takes the grouped one
+RETAIN_MODES = {
+    "beam3": dict(beam_size=3, min_len=2),
+    "beam1": dict(beam_size=1, min_len=2),
+    "sampling": dict(beam_size=2, min_len=2, sampling=True, sampling_topk=1),
+}
+
+
+def _routes(monkeypatch):
+    """Counts the calls of the K1 and K3 wrappers from the model's layers."""
+    from chimera_st_tpu_torch.models import layers
+
+    calls = {"encoder_attention": 0, "decode_attention": 0}
+    for name in calls:
+        real = getattr(layers, name)
+
+        def counted(*a, _name=name, _real=real):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(layers, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["beam1", "sampling"])
+def test_retain_dropout_at_beam_1_and_sampling(models, monkeypatch, mode):
+    """Beam 1 and sampling (top-k 1): retained dropout at rate 0 gives the
+    plain decode's results through the same K1 and K3 calls; at rate 0.3 a
+    seed repeats, another seed differs, and both differ from plain."""
+    settings = dict(max_decode_len=MAX_LEN, **RETAIN_MODES[mode])
+    calls = _routes(monkeypatch)
+
+    def run(model, **extra):
+        before = dict(calls)
+        out = SequenceGenerator(model, GeneratorSettings(**settings, **extra)).generate_audio(
+            models["wav"], models["mask"])
+        return out, {k: calls[k] - before[k] for k in calls}
+
+    model = _dropout_model(models["params"], 0.0)
+    (want, plain_calls), (got, kept_calls) = run(model), run(model, retain_dropout=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kept_calls == plain_calls and all(plain_calls.values())
+    model = _dropout_model(models["params"], 0.3)
+    (a, _), (b, _), (c, _) = (run(model, retain_dropout=True, seed=s) for s in (5, 5, 6))
+    plain, _ = run(model)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[1], c[1]) and not torch.equal(a[1], plain[1])
+    assert not model.training
+
+
+@pytest.mark.parametrize("mode, drops", [("beam3", False), ("beam1", True), ("sampling", True)])
+def test_retained_cross_attention_dropout_follows_jax(models, mode, drops):
+    """Only attention dropout (0.5), the decode in training mode from a
+    fixed encoder output: the step drops cross-attention probabilities at
+    beam 1 and in sampling, as the JAX step's ungrouped branch, and nothing
+    in grouped beam search (the cached self-attention never drops)."""
+    from chimera_st_tpu_torch.generation.generator import dropout_mode, seeded_generator
+
+    model = _dropout_model(models["params"], 0.0, attention_rate=0.5)
+    settings = GeneratorSettings(max_decode_len=MAX_LEN, **RETAIN_MODES[mode])
+    gen = SequenceGenerator(model, settings)
+    with torch.inference_mode():
+        enc = model.encode_audio(models["wav"], models["mask"])
+
+    def decode(**kw):
+        if settings.sampling:
+            kw["sample_generator"] = seeded_generator(4, 1, "cpu")
+        return gen.generate_from_encoder(*enc, **kw)
+
+    plain = decode()
+    with dropout_mode(model, True):
+        kept = decode(dropout_generator=seeded_generator(5, 1, "cpu", stream=1))
+    assert (not torch.equal(kept[1], plain[1])) == drops
