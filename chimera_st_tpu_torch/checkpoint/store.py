@@ -53,13 +53,14 @@ def save_state(path: str, state: TrainState, extra: Dict[str, Any]) -> None:
     Path(tmp).replace(path)
 
 
-def save_model(path: str, model, model_cfg: Dict[str, Any], kind: str = "interlingua") -> None:
+def save_model(path: str, model, model_cfg: Dict[str, Any], kind: Optional[str] = None) -> None:
     """A native checkpoint of ``model``'s parameters alone (no optimizer
     state) with ``model_cfg`` in ``extra``: what either package's generate
-    CLI rebuilds the model from. ``kind`` names ``convert``'s table
-    (``interlingua`` or ``s2t``)."""
+    CLI rebuilds the model from. ``kind`` names ``convert``'s table (by
+    default ``convert.model_kind(model)``)."""
     from .. import convert
 
+    kind = kind or convert.model_kind(model)
     save_state(path, TrainState(0, convert.params_to_flax(model.state_dict(), kind), None),
                {"model_cfg": dict(model_cfg)})
 

@@ -18,11 +18,17 @@ replaces a text source's unknown words through it. The search options
 (``--sampling*``, ``--diverse-beam-*``, ``--diversity-rate``,
 ``--kv-cache-int8``, ``--retain-dropout``) reach the generator.
 
+``--lm-path LM.ckpt --lm-weight W`` fuses a ``transformer_lm`` into the
+decode (shallow fusion, ``generation/ensemble.py``): each step's
+distribution is log(mean_i p_i) + W * log_softmax(LM), with one model or
+several, speech or text.
+
 The model runs on ``--device`` (default ``cuda``: the hand-written kernels;
 ``cpu``: their plain PyTorch versions). ``--path`` takes a fairseq ``.pt`` of
-the interlingua model or a native ``.ckpt`` the JAX trainer wrote. Options
-whose feature is not ported yet raise ``NotImplementedError``
-(``options.require_ported``)."""
+the interlingua model or a native ``.ckpt`` the JAX trainer wrote (the
+interlingua model, ``s2t_transformer*``, and under ``--task translation``
+the ``transformer*`` MT presets). Options whose feature is not ported yet
+raise ``NotImplementedError`` (``options.require_ported``)."""
 
 from __future__ import annotations
 
@@ -62,18 +68,45 @@ def load_model_and_params(path: str, task, dtype, device="cuda", gen_model_overr
         return cast_compute_dtype_(model.eval(), dtype)
     # native checkpoint: the train CLI stores model_cfg in extra, so the
     # exact model rebuilds without repeating arch flags
-    from .. import convert
     from ..checkpoint.store import load_native_checkpoint
-    from ..models.s2t_transformer import S2TTransformerModel
 
     tree, model_cfg = load_native_checkpoint(path)
     model_cfg.update(gen_model_overrides or {})
     model_cfg.setdefault("arch", "s2t_transformer_w2v2_interlingua_base")
+    return build_and_load(task, model_cfg, tree, dtype, device)
+
+
+def build_and_load(task, model_cfg, tree, dtype, device):
+    """``task.build_model(model_cfg)`` with the flax ``tree`` loaded through
+    the converter table of its model type (``strict=True``)."""
+    from .. import convert
+
     model = task.build_model(model_cfg, dtype=dtype, device=device)
-    from_flax = (convert.s2t_params_from_flax if isinstance(model, S2TTransformerModel)
-                 else convert.params_from_flax)
-    model.load_state_dict(from_flax(tree), strict=True)
+    model.load_state_dict(convert.params_from_flax(tree, convert.model_kind(model)),
+                          strict=True)
     return model
+
+
+def load_language_model(path: str, task, dtype, device="cuda", overrides=None):
+    """The ``transformer_lm`` of a native ``.ckpt`` (``--lm-path``,
+    ``eval_lm --path``), built on the task's target dictionary, with
+    ``overrides`` applied to its stored config. The checkpoint's own
+    architecture is kept (``transformer_lm`` only where it names none): the
+    JAX CLIs replace it with ``transformer_lm``
+    (``chimera_st_tpu/cli/generate.py:362-366``, ``cli/eval_lm.py:56``),
+    which rebuilds an LM saved under a preset such as ``transformer_lm_gpt``
+    at the base preset's widths and activation (ROADMAP C)."""
+    from ..checkpoint.store import load_native_checkpoint
+    from ..models.transformer_mt import ARCHITECTURES
+
+    if not path.endswith(".ckpt"):
+        raise ValueError(f"{path}: a language model is a native .ckpt")
+    tree, model_cfg = load_native_checkpoint(path)
+    model_cfg.update(overrides or {})
+    arch = model_cfg.setdefault("arch", "transformer_lm")
+    if ARCHITECTURES.get(arch, (None,))[0] != "transformer_lm":
+        raise ValueError(f"{path}: {arch} is not a transformer_lm architecture")
+    return build_and_load(task, model_cfg, tree, dtype, device)
 
 
 def torch_dtype(name: str):
@@ -247,14 +280,18 @@ def main(argv=None) -> dict:
                 "decode_s": time.time() - t0}
 
     gen_cfg = GenCfg(args)
-    if len(models) > 1:
+    if len(models) > 1 or args.lm_path:
         # plain beam search; the single-model options raise there
         from ..generation.ensemble import EnsembleSequenceGenerator
         from ..generation.generator import settings_from_cfg
 
+        lm = None
+        if args.lm_path:
+            lm = (load_language_model(args.lm_path, task, torch_dtype(args.dtype), device),
+                  args.lm_weight)
         generator = EnsembleSequenceGenerator(models, settings_from_cfg(gen_cfg),
                                               pad=tgt_dict.pad(), eos=tgt_dict.eos(),
-                                              unk=tgt_dict.unk())
+                                              unk=tgt_dict.unk(), lm=lm)
     else:
         generator = task.build_generator(model, gen_cfg)
     scorer = build_scorer({"_name": args.scoring}, tgt_dict)

@@ -93,7 +93,7 @@ def main(argv=None) -> None:
                           ("sampling_topp", -1.0), ("diverse_beam_groups", -1),
                           ("diversity_rate", -1.0), ("retain_dropout", False),
                           ("score_reference", False), ("print_alignment", False),
-                          ("replace_unk", None)):
+                          ("replace_unk", None), ("lm_path", None)):
         if getattr(args, flag) != default:
             raise ValueError(f"--{flag.replace('_', '-')} has no effect on interactive "
                              "decoding; use the generate CLI")

@@ -16,6 +16,7 @@ import contextlib
 from typing import Any, Dict, Tuple
 
 from ..generation import generator
+from ..models.transformer_mt import ARCHITECTURES as TRANSFORMER_FAMILY
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -280,6 +281,11 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
      "--task speech_to_text (fbank training; the JAX train CLI cannot train this model "
      "either: its init_params_for_task has no S2T branch, ROADMAP C)", "A10c"),
+    ("arch", lambda v: v in TRANSFORMER_FAMILY,
+     "--arch of the Transformer family (transformer*, transformer_lm*: serving is ported, "
+     "training is not)", "A15"),
+    ("task", lambda v: v == "language_modeling",
+     "--task language_modeling (training transformer_lm)", "A15"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
      "--task other than triplet / translation", "A14"),
     ("task_configs", bool, "--task-configs (joint training)", "A14"),

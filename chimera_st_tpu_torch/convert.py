@@ -6,14 +6,17 @@ One table, ``_RULES``, names each module on both sides: a module of the
 port's state dict (``encoder.transformer_layers.3.fc1``) and its flax path
 (``transformer_layers_3/fc1``), with the kind that says how its leaves map:
 
-- ``dense``  ``weight [out, in]``          <-> ``kernel [in, out]``
+- ``dense``  ``weight [out, in]``          <-> ``kernel [in, out]`` (``dense_nobias``:
+  without ``bias``, the untied ``output_projection``)
 - ``conv``   ``weight [out, in/groups, k]`` <-> ``kernel [k, in/groups, out]``
 - ``norm``   ``weight``                     <-> ``scale``
 - ``embed``  ``weight``                     <-> ``embedding``
 
 ``bias`` keeps its name and layout. ``params_from_flax`` and
 ``params_to_flax`` read the same table in the two directions, so they
-cannot drift apart. Every leaf must match a rule and every module must have
+cannot drift apart. The tables are ``interlingua``, ``s2t``, ``wav2vec2``,
+``transformer`` (the MT ``TransformerModel``) and ``transformer_lm``;
+``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
 
@@ -44,6 +47,7 @@ Path = Tuple[str, ...]
 # kind -> ((torch leaf, flax leaf, required), ...)
 _LEAVES = {
     "dense": (("weight", "kernel", True), ("bias", "bias", True)),
+    "dense_nobias": (("weight", "kernel", True),),
     "conv": (("weight", "kernel", True), ("bias", "bias", True)),
     "conv_opt_bias": (("weight", "kernel", True), ("bias", "bias", False)),
     "norm": (("weight", "scale", True), ("bias", "bias", True)),
@@ -52,7 +56,7 @@ _LEAVES = {
 
 
 def _to_torch_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and kind == "dense":
+    if leaf == "kernel" and kind.startswith("dense"):
         return a.T
     if leaf == "kernel":  # conv [k, in/g, out] -> [out, in/g, k]
         return a.transpose(2, 1, 0)
@@ -60,7 +64,7 @@ def _to_torch_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
 
 
 def _to_flax_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "weight" and kind == "dense":
+    if leaf == "weight" and kind.startswith("dense"):
         return a.T
     if leaf == "weight" and kind.startswith("conv"):
         return a.transpose(2, 1, 0)
@@ -98,10 +102,20 @@ def _wav2vec2(t: str, f: str) -> List[Tuple[str, str, str]]:
     ]
 
 
-def _decoder() -> List[Tuple[str, str, str]]:
+def _decoder(cross_attention: bool = True) -> List[Tuple[str, str, str]]:
+    layer = _dec_layer if cross_attention else _enc_layer
     return [("decoder.embed_tokens", "decoder/embed_tokens", "embed"),
-            *_dec_layer("decoder.layers.{i}", "decoder/layers_{i}"),
+            *layer("decoder.layers.{i}", "decoder/layers_{i}"),
             ("decoder.layer_norm", "decoder/layer_norm", "norm")]
+
+
+# the Transformer family's decoder options (JAX transformer_decoder.py:104-117;
+# flax names the decoder's embedding LayerNorm after its attribute)
+_DECODER_OPTIONS = [
+    ("decoder.embed_positions", "decoder/embed_positions", "embed"),
+    ("decoder.layernorm_embedding", "decoder/layernorm_embedding_mod", "norm"),
+    ("decoder.output_projection", "decoder/output_projection", "dense_nobias"),
+]
 
 
 def _encoder_stacks(*stacks: str) -> List[Tuple[str, str, str]]:
@@ -128,6 +142,15 @@ _RULES = {
     "s2t": [*_SUBSAMPLE, *_encoder_stacks("transformer_layers"),
             ("encoder.layer_norm", "encoder_layer_norm", "norm"), *_decoder()],
     "wav2vec2": _wav2vec2("", ""),
+    "transformer": [
+        ("encoder.embed_tokens", "embed_tokens", "embed"),
+        ("encoder.embed_positions", "embed_positions", "embed"),
+        ("encoder.layernorm_embedding", "layernorm_embedding", "norm"),
+        *_enc_layer("encoder.layers.{i}", "layers_{i}"),
+        ("encoder.layer_norm", "encoder_layer_norm", "norm"),
+        *_decoder(), *_DECODER_OPTIONS,
+    ],
+    "transformer_lm": [*_decoder(cross_attention=False), *_DECODER_OPTIONS],
 }
 
 
@@ -223,8 +246,9 @@ def _from_flax(model: str, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def torch_to_flax_path(model: str, key: str) -> Tuple[Path, str]:
-    """A state-dict key of the port's ``model`` ('interlingua', 's2t',
-    'wav2vec2') -> (its flax leaf path without the 'params' root, kind)."""
+    """A state-dict key of the port's ``model`` (a table name: 'interlingua',
+    's2t', 'wav2vec2', 'transformer', 'transformer_lm') -> (its flax leaf path
+    without the 'params' root, kind)."""
     module, _, leaf = key.rpartition(".")
     fmod, kind = _TABLES[model].from_torch(module)
     flax_leaf = {tl: fl for tl, fl, _ in _LEAVES[kind]}.get(leaf)
@@ -253,10 +277,19 @@ def wav2vec2_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor
     return _from_flax("wav2vec2", tree)
 
 
-def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``ChimeraInterlinguaModel`` params -> state dict of the port's
-    ``ChimeraInterlinguaModel`` (tied decoder embeddings)."""
-    return _from_flax("interlingua", tree)
+def params_from_flax(tree: Mapping[str, Any], model: str = "interlingua"
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``model`` (a table name: by default
+    ``ChimeraInterlinguaModel``) -> state dict of the port's model."""
+    return _from_flax(model, tree)
+
+
+def model_kind(model: torch.nn.Module) -> str:
+    """The table name of a port model: ``interlingua``, ``s2t``,
+    ``transformer`` or ``transformer_lm``."""
+    return {"ChimeraInterlinguaModel": "interlingua", "S2TTransformerModel": "s2t",
+            "TransformerModel": "transformer", "TransformerLM": "transformer_lm",
+            "Wav2Vec2Encoder": "wav2vec2"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

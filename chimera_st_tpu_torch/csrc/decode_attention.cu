@@ -29,8 +29,11 @@
 //   ancestry entry of the row it copies (trip 1), then starts 16-byte
 //   cp.async copies of that row's K and V slices into shared memory
 //   (trip 2). A tile is 512 16-byte chunks of K and of V: 64 times in bf16,
-//   32 in fp32. Longer timelines loop over tiles through a two-stage ring,
-//   the next tile's copies in flight while this one is reduced.
+//   32 in fp32 at D = 64; 32 and 16 at D = 128 (the MT and LM presets of
+//   512 / 4 and 1024 / 8 heads), where a row is 16 or 32 chunks and the same
+//   128 threads copy 4 chunks each. Longer timelines loop over tiles
+//   through a two-stage ring, the next tile's copies in flight while this
+//   one is reduced.
 // - The time-`step` row is taken from k_new / v_new of the ancestor column
 //   (inputs, never written), and a block writes only its own column's row
 //   into the cache: no block reads what another block writes, so there is
@@ -89,12 +92,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         T* __restrict__ out, int n_cols, int beam, int heads, int max_len,
                         int step, float scale_log2) {
   constexpr int EPC = 16 / sizeof(T);           // elements per 16-byte chunk
-  constexpr int CH = D / EPC;                   // chunks per row: 8 (bf16), 16 (fp32)
-  constexpr int TILE = CHUNKS_PER_TILE / CH;    // times per tile: 64, 32
-  constexpr int TPR = K3_THREADS / TILE;        // copying threads per row: 2, 4
+  // D = 64: bf16 / fp32; D = 128: bf16 / fp32
+  constexpr int CH = D / EPC;                   // chunks per row: 8, 16; 16, 32
+  constexpr int TILE = CHUNKS_PER_TILE / CH;    // times per tile: 64, 32; 32, 16
+  constexpr int TPR = K3_THREADS / TILE;        // copying threads per row: 2, 4; 4, 8
   constexpr int CPT = CH / TPR;                 // chunks a thread copies per row: 4
-  constexpr int CPL = CH / 8;                   // chunks a lane reads per row: 1, 2
-  constexpr int PASSES = TILE / (4 * K3_WARPS);  // 4-row groups a warp takes per tile
+  constexpr int CPL = CH / 8;                   // chunks a lane reads per row: 1, 2; 2, 4
+  constexpr int PASSES = TILE / (4 * K3_WARPS);  // 4-row groups a warp takes per tile: 4, 2; 2, 1
+  static_assert(TILE % (4 * K3_WARPS) == 0 && CH % TPR == 0 && D <= K3_THREADS,
+                "tile arithmetic");
   constexpr int ROW_BYTES = D * sizeof(T);
 
   __shared__ __align__(16) unsigned char k_tile[2][TILE * ROW_BYTES];
@@ -266,14 +272,15 @@ template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const int* anc, void* out, int n_cols, int beam, int heads, int head_dim,
            int max_len, int step, float scale, cudaStream_t stream) {
-  if (head_dim != 64 || beam < 1 || beam > MAX_BEAM || n_cols % beam != 0 || heads > 65535 ||
-      step < 0 || step >= max_len)
+  if ((head_dim != 64 && head_dim != 128) || beam < 1 || beam > MAX_BEAM ||
+      n_cols % beam != 0 || heads > 65535 || step < 0 || step >= max_len)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k_new, v_new, (const void*)k_cache, (const void*)v_cache,
                         (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   dim3 grid(n_cols, heads);
-  decode_attention_kernel<T, 64><<<grid, K3_THREADS, 0, stream>>>(
+  auto kernel = head_dim == 64 ? decode_attention_kernel<T, 64> : decode_attention_kernel<T, 128>;
+  kernel<<<grid, K3_THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), anc, static_cast<T*>(out), n_cols,
       beam, heads, max_len, step, scale * 1.4426950408889634f);

@@ -28,7 +28,10 @@
 // through a 2-stage ring with TMA (a 4-D tensor map over [B, T, H, D]; keys
 // past T read as zeros), signalling full/empty mbarriers. D is cut into
 // 32-column slabs of 64-byte rows in the 64-byte swizzle, so D = 96 (192-byte
-// rows, not a 128-byte atom) and D = 64 share one layout. S = Q.K^T runs as
+// rows, not a 128-byte atom), D = 64 and D = 128 share one layout. At D = 128
+// (the MT presets of 512 / 4 and 1024 / 8 heads) a stage holds 32 KB of K
+// and V, the Q tile 16 KB: 81 KB of shared memory a block, two blocks an SM;
+// the O accumulator is 64 registers a thread. S = Q.K^T runs as
 // wgmma m64n64k16 with Q and K both K-major in shared memory; the online
 // softmax (running max and sum in fp32, in the log2 domain) runs on the
 // accumulator fragments; P is rounded to bf16 in registers and is the A
@@ -42,7 +45,9 @@
 // must agree with the fp32 plain version to 1e-4 and TF32 tensor cores keep
 // only ~3 decimal digits. One block per (query tile of 32, head, batch); 8
 // warps, each owns 4 queries; keys stream through shared memory 32 at a
-// time, lane j scores key j, the warp keeps an online softmax per query.
+// time, lane j scores key j, the warp keeps an online softmax per query. At
+// D = 128 a warp owns 2 queries (a tile of 16), which keeps the block's
+// static shared memory under 48 KB.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -55,14 +60,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int KT = 32;                // keys per shared-memory tile (one per lane)
 constexpr int WARPS = 8;
-constexpr int QPW = 4;                // queries per warp
-constexpr int QT = WARPS * QPW;       // queries per block
+// queries per warp and per block: 4 and 32, 2 and 16 at D = 128
+template <int D>
+struct F32Tile {
+  static constexpr int QPW = D > 96 ? 2 : 4;
+  static constexpr int QT = WARPS * QPW;
+};
 
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 encoder_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const uint8_t* __restrict__ mask,
                              float* __restrict__ out, int seq, int heads, float scale) {
+  constexpr int QPW = F32Tile<D>::QPW, QT = F32Tile<D>::QT;
   constexpr int DL = D / 32;  // output columns per lane
   __shared__ float qs[QT][D];
   __shared__ float ks[KT][D + 1];
@@ -294,8 +304,10 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint64_t desc_v = gmma_desc(v_s + kk * 1024, SLAB_BYTES, 512, GMMA_SW64);
       if constexpr (D == 64)
         wgmma_m64n64k16_rs_tb(o, a[kk], desc_v);
-      else
+      else if constexpr (D == 96)
         wgmma_m64n96k16_rs_tb(o, a[kk], desc_v);
+      else
+        wgmma_m64n128k16_rs_tb(o, a[kk], desc_v);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -322,20 +334,13 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
-               int batch, int seq, int heads, int head_dim, float scale, cudaStream_t stream) {
-  dim3 grid((seq + QT - 1) / QT, heads, batch);
-  dim3 block(WARPS * 32);
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(out);
-  if (head_dim == 64)
-    encoder_attention_f32_kernel<64><<<grid, block, 0, stream>>>(qp, kp, vp, mask, op, seq, heads, scale);
-  else if (head_dim == 96)
-    encoder_attention_f32_kernel<96><<<grid, block, 0, stream>>>(qp, kp, vp, mask, op, seq, heads, scale);
-  else
-    return (int)cudaErrorInvalidValue;
+               int batch, int seq, int heads, float scale, cudaStream_t stream) {
+  dim3 grid((seq + F32Tile<D>::QT - 1) / F32Tile<D>::QT, heads, batch);
+  encoder_attention_f32_kernel<D><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, static_cast<float*>(out), seq, heads, scale);
   return (int)cudaGetLastError();
 }
 
@@ -381,11 +386,15 @@ extern "C" int chimera_encoder_attention(int dtype, const void* q, const void* k
                                          float scale, void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == CHIMERA_F32)
-    return launch_f32(q, k, v, m, out, batch, seq, heads, head_dim, scale, s);
+  if (dtype == CHIMERA_F32) {
+    if (head_dim == 64) return launch_f32<64>(q, k, v, m, out, batch, seq, heads, scale, s);
+    if (head_dim == 96) return launch_f32<96>(q, k, v, m, out, batch, seq, heads, scale, s);
+    if (head_dim == 128) return launch_f32<128>(q, k, v, m, out, batch, seq, heads, scale, s);
+  }
   if (dtype == CHIMERA_BF16) {
     if (head_dim == 64) return launch_tc<64>(q, k, v, m, out, batch, seq, heads, scale, s);
     if (head_dim == 96) return launch_tc<96>(q, k, v, m, out, batch, seq, heads, scale, s);
+    if (head_dim == 128) return launch_tc<128>(q, k, v, m, out, batch, seq, heads, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

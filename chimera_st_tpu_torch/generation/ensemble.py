@@ -1,15 +1,19 @@
-"""Ensemble beam search (counterpart of chimera_st_tpu/generation/
-ensemble.py): each step emits log(mean_i p_i), the probability-space average
-of the models' tempered distributions.
+"""Ensemble beam search with optional language-model shallow fusion
+(counterpart of chimera_st_tpu/generation/ensemble.py; reference
+fairseq/sequence_generator.py EnsembleModel and fairseq_cli/generate.py
+``--lm-path``): each step emits log(mean_i p_i), the probability-space
+average of the models' tempered distributions, plus ``lm_weight`` times the
+language model's log_softmax (the LM untempered, as in the JAX package).
 
-Each model keeps its own self-attention caches in the lazy-reorder layout of
-``SequenceGenerator``, with one ancestry map for all of them: the beam search
-reorders the hypotheses of every model together, so one permutation of the
-map is the gather of every model's caches. Each decoder layer of each model
-launches K3 once a step. Plain beam search only: the int8 cache, sampling,
-diverse beams and retained dropout are single-model features here as in the
-JAX package, and shallow fusion with a language model waits for
-``transformer_lm`` (ROADMAP A14).
+Each model, and the language model, keeps its own self-attention caches in
+the lazy-reorder layout of ``SequenceGenerator``, with one ancestry map for
+all of them: the beam search reorders the hypotheses of every model
+together, so one permutation of the map is the gather of every model's
+caches. Each decoder layer of each model, and each layer of the language
+model, launches K3 once a step. Plain beam search only: the int8 cache,
+sampling, diverse beams and retained dropout are single-model features here
+as in the JAX package. A single model with a language model decodes here
+too, as the JAX CLI does it.
 """
 
 from __future__ import annotations
@@ -31,11 +35,10 @@ from .generator import (
 class EnsembleSequenceGenerator:
     def __init__(self, models: List[torch.nn.Module], settings: GeneratorSettings,
                  pad: int = 1, eos: int = 2, unk: int = 3, lm=None):
+        """``lm``: (a ``TransformerLM`` on the models' device and target
+        dictionary, its weight), or None."""
         if not models:
             raise ValueError("an ensemble needs at least one model")
-        if lm is not None:
-            raise NotImplementedError("language-model fusion in an ensemble needs "
-                                      "transformer_lm, which is not ported yet (ROADMAP A14)")
         if settings.kv_cache_int8:
             raise NotImplementedError("--kv-cache-int8 is a single-model decode feature; "
                                       "ensemble decoding allocates full-precision caches")
@@ -49,6 +52,7 @@ class EnsembleSequenceGenerator:
         self.models = models
         self.s = settings
         self.pad, self.eos, self.unk = pad, eos, unk
+        self.lm = lm
 
     @torch.inference_mode()
     def generate_from_encoders(self, encoder_outs, max_lens: Optional[torch.Tensor] = None,
@@ -63,6 +67,10 @@ class EnsembleSequenceGenerator:
             decoder = model.decoder
             per_model.append((decoder, decoder.precompute_encoder_kv(enc), enc_mask,
                               decoder.init_cache(B * K, L)))
+        lm_decoder = lm_caches = None
+        if self.lm is not None:
+            lm_decoder = self.lm[0].decoder
+            lm_caches = lm_decoder.init_cache(B * K, L)
         ancestry, reorder_fn = lazy_reorder(B, K, L, device)
         log_n = math.log(float(len(self.models)))
 
@@ -74,8 +82,13 @@ class EnsembleSequenceGenerator:
                     logits = logits / self.s.temperature
                 lps.append(torch.log_softmax(logits.float(), dim=-1))
             if len(lps) == 1:
-                return lps[0], anc
-            return torch.logsumexp(torch.stack(lps), dim=0) - log_n, anc
+                avg = lps[0]
+            else:
+                avg = torch.logsumexp(torch.stack(lps), dim=0) - log_n
+            if lm_decoder is not None:
+                lm_logits = lm_decoder.step(tokens, index, lm_caches, None, None, anc, K)
+                avg = avg + self.lm[1] * torch.log_softmax(lm_logits.float(), dim=-1)
+            return avg, anc
 
         return beam_search(
             step_fn, ancestry, batch_size=B, beam_size=K, max_len=L, eos=self.eos, pad=self.pad,

@@ -66,9 +66,8 @@ class GeneratorSettings:
 # generator settings whose feature is not ported yet, under the names the
 # task's ``build_generator`` reads them by (the CLI's argument names):
 # (attribute, test on its value, flag, ROADMAP item). Each needs a model the
-# port does not have (transformer_lm, the CTC and non-autoregressive models).
+# port does not have (the CTC and non-autoregressive models).
 UNPORTED = (
-    ("lm_path", bool, "--lm-path (needs transformer_lm)", "A14"),
     ("ctc_lm_path", bool, "--ctc-lm-path", "A14"),
     ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A14"),
     ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A14"),

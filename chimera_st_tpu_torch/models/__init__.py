@@ -1,6 +1,7 @@
 """Model modules of the serving path and of the triplet fine-tune, and the
-registry of the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``
-and the seven fbank ``s2t_transformer*`` presets (counterpart of the
+registry of the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``,
+the seven fbank ``s2t_transformer*`` presets and the 23 presets of the
+Transformer family (``transformer*``, ``transformer_lm*``; counterpart of the
 registrations in chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
@@ -14,6 +15,7 @@ from typing import Dict
 
 from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
 from . import s2t_transformer as _s2t
+from . import transformer_mt as _mt
 from .interlingua import ChimeraInterlinguaModel, InterlinguaConfig
 
 
@@ -59,6 +61,11 @@ def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
 
 for _arch, _preset in _s2t.ARCHITECTURES.items():
     register_model_architecture("s2t_transformer", _arch)(_preset)
+
+for _name, _build in _mt.MODEL_BUILDERS.items():
+    register_model(_name)(_build)
+for _arch, (_model, _preset) in _mt.ARCHITECTURES.items():
+    register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",
            "build_interlingua_model", "build_s2t_model"]

@@ -321,39 +321,46 @@ class TransformerEncoderLayer(_Sublayers):
 
 class TransformerDecoderLayer(_Sublayers):
     """Pre/post-LN causal decoder layer: teacher-forced ``forward`` and the
-    lazy-reorder beam ``step``."""
+    lazy-reorder beam ``step``. With ``cross_attention=False`` (the
+    decoder-only language model) it has no ``encoder_attn`` and no
+    ``encoder_attn_layer_norm``, as a flax tree of that model has none: flax
+    creates them only when they are called, and a call without encoder input
+    skips them (JAX ``layers.py:729``)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, activation: str = "relu",
                  normalize_before: bool = True, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 device="cuda"):
+                 cross_attention: bool = True, device="cuda"):
         super().__init__()
         self.normalize_before = normalize_before
         self.dropout, self.activation_dropout = dropout, activation_dropout
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
                                             device=device)
-        self.encoder_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
-                                               device=device)
         self.self_attn_layer_norm = LayerNorm(embed_dim, device=device)
-        self.encoder_attn_layer_norm = LayerNorm(embed_dim, device=device)
+        if cross_attention:
+            self.encoder_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
+                                                   device=device)
+            self.encoder_attn_layer_norm = LayerNorm(embed_dim, device=device)
         self.fc1 = linear(embed_dim, ffn_dim, device=device)
         self.fc2 = linear(ffn_dim, embed_dim, device=device)
         self.final_layer_norm = LayerNorm(embed_dim, device=device)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor, encoder_out: torch.Tensor,
+    def forward(self, x: torch.Tensor, encoder_out: Optional[torch.Tensor],
                 encoder_padding_mask: Optional[torch.Tensor] = None,
                 self_attn_padding_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``encoder_out`` None: no cross-attention (the language model)."""
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn(
             h, key_padding_mask=self_attn_padding_mask, causal=True, generator=generator),
             generator)
-        x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn(
-            h, kv=encoder_out, key_padding_mask=encoder_padding_mask, generator=generator),
-            generator)
+        if encoder_out is not None:
+            x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn(
+                h, kv=encoder_out, key_padding_mask=encoder_padding_mask, generator=generator),
+                generator)
         return self._ffn_sublayer(x, generator)
 
-    def step(self, x: torch.Tensor, encoder_kv: Tuple[torch.Tensor, torch.Tensor],
+    def step(self, x: torch.Tensor, encoder_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
              encoder_padding_mask: Optional[torch.Tensor], cache: Tuple[torch.Tensor, ...],
              ancestry: torch.Tensor, cache_index: int, groups: int,
              generator: Optional[torch.Generator] = None,
@@ -364,9 +371,12 @@ class TransformerDecoderLayer(_Sublayers):
         self-attention never drops its probabilities; the cross-attention
         drops them only with ``cross_attention_dropout``: the JAX step does
         where the encoder K/V batch equals the query batch (beam 1, and
-        sampling's repeated layout), and not in its grouped beam branch."""
+        sampling's repeated layout), and not in its grouped beam branch.
+        ``encoder_kv`` None: no cross-attention (the language model)."""
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn.cached_step(
             h, *cache[:2], ancestry, cache_index, groups, *cache[2:]), generator)
+        if encoder_kv is None:
+            return self._ffn_sublayer(x, generator)
         rate = self.encoder_attn.dropout if self.training and cross_attention_dropout else 0.0
         x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn.
                            grouped_cross(h, *encoder_kv, encoder_padding_mask, groups, rate,

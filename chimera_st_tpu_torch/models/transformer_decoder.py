@@ -5,7 +5,14 @@ self-attention caches are ``[N, H, L, D]`` per layer (N = sentences * beam;
 int8 with per-row scales under ``--kv-cache-int8``) and are updated in
 place, and ``cross_attention_weights`` for alignments. In training the
 forward drops the embeddings (JAX ``transformer_decoder.py:176``) and each
-layer's sublayers."""
+layer's sublayers.
+
+The options of the Transformer family (JAX ``transformer_decoder.py:50-52``,
+``:104-117``): learned positions (``embed_positions``, ids ``padding_idx + 1
++ t`` over the non-pad steps), a LayerNorm over the scaled embeddings
+(``layernorm_embedding``), an untied ``output_projection``, and the
+decoder-only form of the language model (``cross_attention=False``: layers
+without cross-attention, no encoder input in ``forward`` or ``step``)."""
 
 from __future__ import annotations
 
@@ -20,10 +27,22 @@ from .layers import (
     LayerNorm,
     TransformerDecoderLayer,
     dropout,
+    linear,
     position_at_step,
     positional_embedding_from_mask,
     sinusoidal_positions,
 )
+
+
+def learned_positions(embed_positions: Embed, pad_mask: torch.Tensor,
+                      padding_idx: int) -> torch.Tensor:
+    """[B, T, C] learned positions of a padded batch: non-pad step t takes
+    row ``padding_idx + 1 + t`` (counting only non-pad steps), a pad the
+    padding row; an id past the table takes its last row, as the JAX gather
+    clamps."""
+    nonpad = (~pad_mask).long()
+    ids = torch.cumsum(nonpad, dim=1) * nonpad + padding_idx
+    return embed_positions(ids.clamp(max=embed_positions.weight.shape[0] - 1))
 
 
 class TransformerDecoder(nn.Module):
@@ -32,19 +51,28 @@ class TransformerDecoder(nn.Module):
                  normalize_before: bool = True, padding_idx: int = 1,
                  no_scale_embedding: bool = False, max_target_positions: int = 1024,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0, device="cuda"):
+                 activation_dropout: float = 0.0, learned_pos: bool = False,
+                 layernorm_embedding: bool = False, share_input_output_embed: bool = True,
+                 cross_attention: bool = True, device="cuda"):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.padding_idx = padding_idx
         self.dropout = dropout
         self.embed_tokens = Embed(vocab_size, embed_dim, padding_idx=padding_idx, device=device)
+        if learned_pos:
+            self.embed_positions = Embed(max_target_positions + padding_idx + 1, embed_dim,
+                                         padding_idx=padding_idx, device=device)
+        if layernorm_embedding:
+            self.layernorm_embedding = LayerNorm(embed_dim, device=device)
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
                                     dropout, attention_dropout, activation_dropout,
-                                    device=device)
+                                    cross_attention, device=device)
             for _ in range(num_layers)
         ])
         self.layer_norm = LayerNorm(embed_dim, device=device) if normalize_before else None
+        if not share_input_output_embed:
+            self.output_projection = linear(embed_dim, vocab_size, bias=False, device=device)
         self.embed_scale = 1.0 if no_scale_embedding else math.sqrt(embed_dim)
         self.register_buffer(
             "positions",
@@ -52,23 +80,50 @@ class TransformerDecoder(nn.Module):
             persistent=False,
         )
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.layer_norm is None else self.layer_norm(x)
+
     def _output(self, x: torch.Tensor) -> torch.Tensor:
-        if self.layer_norm is not None:
-            x = self.layer_norm(x)
+        x = self._features(x)
+        if hasattr(self, "output_projection"):
+            # products of the compute-dtype values summed in fp32, as ``attend``
+            return torch.matmul(x.float(), self.output_projection.weight.float().t())
         return self.embed_tokens.attend(x)
 
-    def forward(self, prev_output_tokens: torch.Tensor, encoder_out: torch.Tensor,
+    def _embed(self, tokens: torch.Tensor, pad_mask: Optional[torch.Tensor],
+               step_index: Optional[int] = None) -> torch.Tensor:
+        """Scaled token embeddings plus positions (of ``pad_mask``, or of
+        decode step ``step_index``), through ``layernorm_embedding``."""
+        x = self.embed_scale * self.embed_tokens(tokens)
+        learned = hasattr(self, "embed_positions")
+        if step_index is not None:
+            if learned:
+                table = self.embed_positions.weight
+                pos = table[min(self.padding_idx + 1 + step_index, table.shape[0] - 1)]
+            else:
+                pos = position_at_step(self.positions, step_index, self.padding_idx)
+        elif learned:
+            pos = learned_positions(self.embed_positions, pad_mask, self.padding_idx)
+        else:
+            pos = positional_embedding_from_mask(pad_mask, self.embed_dim, self.padding_idx)
+        x = x + pos.to(x.dtype)
+        if hasattr(self, "layernorm_embedding"):
+            x = self.layernorm_embedding(x)
+        return x
+
+    def forward(self, prev_output_tokens: torch.Tensor, encoder_out: Optional[torch.Tensor],
                 encoder_padding_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Teacher-forced forward: [B, T] tokens -> fp32 logits [B, T, V]."""
+                generator: Optional[torch.Generator] = None,
+                features_only: bool = False) -> torch.Tensor:
+        """Teacher-forced forward: [B, T] tokens -> fp32 logits [B, T, V]
+        (``encoder_out`` None: the language model); ``features_only`` ->
+        the final states [B, T, C] before the output projection."""
         pad_mask = prev_output_tokens == self.padding_idx
-        x = self.embed_scale * self.embed_tokens(prev_output_tokens)
-        x = x + positional_embedding_from_mask(pad_mask, self.embed_dim,
-                                               self.padding_idx).to(x.dtype)
+        x = self._embed(prev_output_tokens, pad_mask)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
         for layer in self.layers:
             x = layer(x, encoder_out, encoder_padding_mask, pad_mask, generator)
-        return self._output(x)
+        return self._features(x) if features_only else self._output(x)
 
     def precompute_encoder_kv(self, encoder_out: torch.Tensor):
         """Per layer (k, v) [B, S, H, D] of the cross-attention, projected
@@ -99,14 +154,15 @@ class TransformerDecoder(nn.Module):
              cross_attention_dropout: bool = False) -> torch.Tensor:
         """One decode step: tokens [N, 1] -> fp32 logits [N, V]. ``caches``
         are written in place at ``step_index``; ``ancestry`` [>L, N] int32 is
-        the lazy-reorder map, ``groups`` the beam size. In training mode
+        the lazy-reorder map, ``groups`` the beam size; ``encoder_kv`` None
+        for the language model. In training mode
         (``--retain-dropout``) the embedding and each layer's residual and
         activation dropouts draw their masks from ``generator``, and with
         ``cross_attention_dropout`` the cross-attention probabilities too."""
-        x = self.embed_scale * self.embed_tokens(tokens)
-        pos = position_at_step(self.positions, step_index, self.padding_idx)
-        x = x + pos.to(x.dtype)
+        x = self._embed(tokens, None, step_index)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
+        if encoder_kv is None:  # the language model
+            encoder_kv = [None] * len(self.layers)
         for layer, cache, ekv in zip(self.layers, caches, encoder_kv):
             x = layer.step(x, ekv, encoder_padding_mask, cache, ancestry, step_index, groups,
                            generator, cross_attention_dropout)
@@ -120,9 +176,7 @@ class TransformerDecoder(nn.Module):
         teacher-forced pass (for ``--print-alignment`` / ``--replace-unk``),
         without dropout."""
         pad_mask = prev_output_tokens == self.padding_idx
-        x = self.embed_scale * self.embed_tokens(prev_output_tokens)
-        x = x + positional_embedding_from_mask(pad_mask, self.embed_dim,
-                                               self.padding_idx).to(x.dtype)
+        x = self._embed(prev_output_tokens, pad_mask)
         for layer in self.layers[:-1]:
             x = layer(x, encoder_out, encoder_padding_mask, pad_mask)
         return self.layers[-1].encoder_attn_weights(x, encoder_out, encoder_padding_mask,

@@ -1,0 +1,344 @@
+"""The fairseq Transformer family (counterpart of
+chimera_st_tpu/models/transformer_mt.py): the encoder-decoder MT
+``TransformerModel`` (fairseq ``transformer``) and the decoder-only
+``TransformerLM`` (fairseq ``transformer_lm``), with their 23 presets.
+
+Both reuse the shared layers. The MT encoder's self-attention is
+bidirectional, so on the card it runs K1; the MT decoder's and the LM's
+cached self-attention in the beam search run K3. The LM's full forward is
+causal and runs no kernel (K1 covers bidirectional attention only, as the
+Pallas kernel's gate ``flash_attention_applicable``).
+
+Module names follow the fairseq state dict: ``encoder.embed_tokens``,
+``encoder.embed_positions``, ``encoder.layernorm_embedding``,
+``encoder.layers.{i}``, ``encoder.layer_norm``, ``decoder.*``.
+
+A field the port cannot honour raises instead of being dropped:
+``adaptive_softmax_cutoffs`` and ``character_embeddings`` (separate
+modules, ROADMAP A16), ``pipeline_stages`` above 1 (A12) and
+``decoder_causal`` False (the CMLM decoder of the NAT family, A17).
+``share_all_embeddings`` is declared and not honoured, in the JAX package
+as here: the source and target embeddings stay two tables (ROADMAP C).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .embedding import Embed
+from .layers import LayerNorm, TransformerEncoderLayer, dropout, positional_embedding_from_mask
+from .transformer_decoder import TransformerDecoder, learned_positions
+
+
+@dataclass(frozen=True)
+class TransformerMTConfig:
+    """The JAX package's TransformerMTConfig (``transformer_mt.py:35-70``)."""
+
+    src_vocab_size: int = 8
+    tgt_vocab_size: int = 8
+    padding_idx: int = 1
+    encoder_embed_dim: int = 512
+    encoder_ffn_dim: int = 2048
+    encoder_layers: int = 6
+    encoder_heads: int = 8
+    encoder_normalize_before: bool = False
+    decoder_embed_dim: int = 512
+    decoder_ffn_dim: int = 2048
+    decoder_layers: int = 6
+    decoder_heads: int = 8
+    decoder_normalize_before: bool = False
+    share_decoder_input_output_embed: bool = True
+    share_all_embeddings: bool = False  # declared, not honoured (as in the JAX package)
+    max_target_positions: int = 1024
+    decoder_causal: bool = True
+    dropout: float = 0.1
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    activation: str = "relu"
+    no_scale_embedding: bool = False
+    learned_pos: bool = False
+    layernorm_embedding: bool = False
+    pipeline_stages: int = 0
+    pipeline_chunks: int = 0
+    pipeline_remat: bool = False
+
+
+@dataclass(frozen=True)
+class TransformerLMConfig:
+    """The JAX package's TransformerLMConfig (``transformer_mt.py:221-252``)."""
+
+    vocab_size: int = 8
+    padding_idx: int = 1
+    embed_dim: int = 512
+    ffn_dim: int = 2048
+    layers: int = 6
+    heads: int = 8
+    normalize_before: bool = True
+    max_target_positions: int = 1024
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    activation: str = "relu"
+    adaptive_softmax_cutoffs: Optional[Tuple[int, ...]] = None
+    character_embeddings: bool = False
+    character_filters: Optional[Tuple[Tuple[int, int], ...]] = None
+    character_embedding_dim: int = 4
+    char_embedder_highway_layers: int = 2
+    max_char_len: int = 50
+    pipeline_stages: int = 0
+    pipeline_chunks: int = 0
+    pipeline_remat: bool = False
+
+
+def _refuse(cfg) -> None:
+    """Raises for a field whose module or mode the port lacks."""
+    if getattr(cfg, "adaptive_softmax_cutoffs", None):
+        raise NotImplementedError("adaptive_softmax_cutoffs: AdaptiveSoftmax "
+                                  "(models/adaptive_softmax.py) is not ported yet (ROADMAP A16)")
+    if getattr(cfg, "character_embeddings", False):
+        raise NotImplementedError("character_embeddings: the character embedder "
+                                  "(models/character_embedder.py) is not ported yet "
+                                  "(ROADMAP A16)")
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError("pipeline_stages above 1 is not ported yet (ROADMAP A12)")
+    if not getattr(cfg, "decoder_causal", True):
+        raise NotImplementedError("decoder_causal=False (the CMLM decoder of the NAT family) "
+                                  "is not ported yet (ROADMAP A17)")
+
+
+class _Encoder(nn.Module):
+    """The fairseq ``encoder`` submodule."""
+
+    def __init__(self, c: TransformerMTConfig, device):
+        super().__init__()
+        self.embed_tokens = Embed(c.src_vocab_size, c.encoder_embed_dim,
+                                  padding_idx=c.padding_idx, device=device)
+        if c.learned_pos:  # the JAX model sizes it by max_target_positions
+            self.embed_positions = Embed(c.max_target_positions + c.padding_idx + 1,
+                                         c.encoder_embed_dim, padding_idx=c.padding_idx,
+                                         device=device)
+        if c.layernorm_embedding:
+            self.layernorm_embedding = LayerNorm(c.encoder_embed_dim, device=device)
+        self.layers = nn.ModuleList([
+            TransformerEncoderLayer(c.encoder_embed_dim, c.encoder_ffn_dim, c.encoder_heads,
+                                    c.activation, c.encoder_normalize_before, c.dropout,
+                                    c.attention_dropout, c.activation_dropout, device=device)
+            for _ in range(c.encoder_layers)
+        ])
+        if c.encoder_normalize_before:
+            self.layer_norm = LayerNorm(c.encoder_embed_dim, device=device)
+
+
+class TransformerModel(nn.Module):
+    """Encoder-decoder MT transformer. In training mode (``--retain-dropout``)
+    every dropout of the JAX model acts, its masks drawn from the
+    ``generator`` each forward takes."""
+
+    def __init__(self, cfg: TransformerMTConfig, device="cuda"):
+        super().__init__()
+        _refuse(cfg)
+        self.cfg = c = cfg
+        self.encoder = _Encoder(cfg, device)
+        self.decoder = TransformerDecoder(
+            c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
+            c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
+            c.no_scale_embedding, c.max_target_positions, c.dropout, c.attention_dropout,
+            c.activation_dropout, learned_pos=c.learned_pos,
+            layernorm_embedding=c.layernorm_embedding,
+            share_input_output_embed=c.share_decoder_input_output_embed, device=device,
+        )
+        self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
+
+    def encode(self, src_tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """src_tokens [B, S] int -> (encoder states [B, S, C], padding mask
+        [B, S])."""
+        c, enc = self.cfg, self.encoder
+        pad_mask = src_tokens == c.padding_idx
+        x = self.embed_scale * enc.embed_tokens(src_tokens)
+        if c.learned_pos:
+            pos = learned_positions(enc.embed_positions, pad_mask, c.padding_idx)
+        else:
+            pos = positional_embedding_from_mask(pad_mask, c.encoder_embed_dim, c.padding_idx)
+        x = x + pos.to(x.dtype)
+        if c.layernorm_embedding:
+            x = enc.layernorm_embedding(x)
+        x = dropout(x, c.dropout if self.training else 0.0, generator)
+        for layer in enc.layers:
+            x = layer(x, pad_mask, generator)
+        if c.encoder_normalize_before:
+            x = enc.layer_norm(x)
+        return x, pad_mask
+
+    def encode_text(self, src_tokens: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
+        """The text API of the interlingua model (what the generator, the
+        scorer and the criterions call)."""
+        return self.encode(src_tokens, generator)
+
+    def decode(self, prev_output_tokens: torch.Tensor, encoder_out: torch.Tensor,
+               encoder_padding_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.decoder(prev_output_tokens, encoder_out, encoder_padding_mask, generator)
+
+    def forward(self, src_tokens, prev_output_tokens,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced: -> fp32 logits [B, T, V]."""
+        return self.forward_text_with_internal(src_tokens, prev_output_tokens, generator)[0]
+
+    def forward_text_with_internal(self, src_tokens, prev_output_tokens,
+                                   generator: Optional[torch.Generator] = None):
+        """-> (logits [B, T, V], encoder states [B, S, C])."""
+        enc, enc_mask = self.encode(src_tokens, generator)
+        return self.decode(prev_output_tokens, enc, enc_mask, generator), enc
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only language model: the shared decoder without
+    cross-attention. ``forward`` is causal (no kernel); ``decoder.step``
+    with ``encoder_kv`` None is the cached beam step of shallow fusion (K3
+    once a layer)."""
+
+    def __init__(self, cfg: TransformerLMConfig, device="cuda"):
+        super().__init__()
+        _refuse(cfg)
+        self.cfg = c = cfg
+        self.decoder = TransformerDecoder(
+            c.vocab_size, c.embed_dim, c.ffn_dim, c.layers, c.heads, c.activation,
+            c.normalize_before, c.padding_idx, False, c.max_target_positions, c.dropout,
+            c.attention_dropout, c.activation_dropout, cross_attention=False, device=device,
+        )
+
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T] tokens -> fp32 logits [B, T, V] (causal)."""
+        return self.decoder(tokens, None, None, generator)
+
+
+def _config(config_cls, cfg_dict: Dict):
+    names = {f.name for f in dataclasses.fields(config_cls)}
+    return config_cls(**{k: v for k, v in cfg_dict.items() if k in names})
+
+
+def build_transformer(cfg_dict: Dict, device="cuda") -> TransformerModel:
+    return TransformerModel(_config(TransformerMTConfig, cfg_dict), device=device)
+
+
+def build_transformer_lm(cfg_dict: Dict, device="cuda") -> TransformerLM:
+    d = dict(cfg_dict)
+    d.setdefault("vocab_size", d.pop("tgt_vocab_size", 8))
+    return TransformerLM(_config(TransformerLMConfig, d), device=device)
+
+
+# ---- presets (JAX transformer_mt.py:392-566; reference fairseq
+# models/transformer.py:988-1025, transformer_align.py:89-93,
+# transformer_lm.py:310-393): each fills its defaults, a given field wins
+
+def transformer_base(cfg: Dict) -> Dict:
+    d = dict(cfg)
+    d.setdefault("encoder_embed_dim", 512)
+    d.setdefault("encoder_ffn_dim", 2048)
+    d.setdefault("encoder_layers", 6)
+    d.setdefault("encoder_heads", 8)
+    d.setdefault("decoder_embed_dim", d["encoder_embed_dim"])
+    d.setdefault("decoder_ffn_dim", d["encoder_ffn_dim"])
+    d.setdefault("decoder_layers", 6)
+    d.setdefault("decoder_heads", 8)
+    return d
+
+
+def transformer_iwslt(cfg: Dict) -> Dict:
+    d = dict(cfg)
+    d.setdefault("encoder_embed_dim", 512)
+    d.setdefault("encoder_ffn_dim", 1024)
+    d.setdefault("encoder_heads", 4)
+    d.setdefault("decoder_ffn_dim", 1024)
+    d.setdefault("decoder_heads", 4)
+    return transformer_base(d)
+
+
+def transformer_vaswani_big(cfg: Dict) -> Dict:
+    d = dict(cfg)
+    d.setdefault("encoder_embed_dim", 1024)
+    d.setdefault("encoder_ffn_dim", 4096)
+    d.setdefault("encoder_heads", 16)
+    d.setdefault("decoder_heads", 16)
+    d.setdefault("dropout", 0.3)
+    return transformer_base(d)
+
+
+def transformer_big(cfg: Dict) -> Dict:
+    return transformer_vaswani_big({"attention_dropout": 0.1, **cfg})
+
+
+def transformer_vaswani_fr_big(cfg: Dict) -> Dict:
+    return transformer_vaswani_big({"dropout": 0.1, **cfg})
+
+
+def transformer_big_t2t(cfg: Dict) -> Dict:
+    return transformer_vaswani_big({"encoder_normalize_before": True,
+                                    "decoder_normalize_before": True,
+                                    "attention_dropout": 0.1, "activation_dropout": 0.1, **cfg})
+
+
+def transformer_lm_base(cfg: Dict) -> Dict:
+    return dict(cfg)
+
+
+def transformer_lm_big(cfg: Dict) -> Dict:
+    return {"layers": 12, "embed_dim": 1024, "ffn_dim": 4096, "heads": 16, **cfg}
+
+
+def transformer_lm_wiki103(cfg: Dict) -> Dict:
+    return transformer_lm_big({"layers": 16, "heads": 8, "dropout": 0.3,
+                               "attention_dropout": 0.1, "activation_dropout": 0.1,
+                               "adaptive_softmax_cutoffs": (20000, 60000), **cfg})
+
+
+def transformer_lm_gbw(cfg: Dict) -> Dict:
+    return transformer_lm_big({"embed_dim": 512, "dropout": 0.1, "attention_dropout": 0.1,
+                               **cfg})
+
+
+def _gpt_preset(embed: int, ffn: int, layers: int, heads: int):
+    return lambda cfg: {"embed_dim": embed, "ffn_dim": ffn, "layers": layers, "heads": heads,
+                        "dropout": 0.1, "attention_dropout": 0.1, "activation": "gelu", **cfg}
+
+
+# arch name -> (model name, preset)
+ARCHITECTURES = {
+    "transformer": ("transformer", transformer_base),
+    "transformer_iwslt_de_en": ("transformer", transformer_iwslt),
+    "transformer_wmt_en_de_big": ("transformer", transformer_big),
+    "transformer_align": ("transformer_align", transformer_base),
+    "transformer_wmt_en_de": ("transformer", transformer_base),
+    "transformer_vaswani_wmt_en_de_big": ("transformer", transformer_vaswani_big),
+    "transformer_vaswani_wmt_en_fr_big": ("transformer", transformer_vaswani_fr_big),
+    "transformer_wmt_en_de_big_t2t": ("transformer", transformer_big_t2t),
+    # the reference pins alignment_layer / alignment_heads; the A- lines here
+    # always head-average the last layer (as the JAX package)
+    "transformer_wmt_en_de_big_align": ("transformer", transformer_big),
+    "transformer_iwslt_de_en_pipeline_parallel": ("transformer", transformer_iwslt),
+    "transformer_wmt_en_de_big_pipeline_parallel": ("transformer", transformer_big),
+    "transformer_lm": ("transformer_lm", transformer_lm_base),
+    "transformer_lm_big": ("transformer_lm", transformer_lm_big),
+    "transformer_lm_wiki103": ("transformer_lm", transformer_lm_wiki103),
+    "transformer_lm_baevski_wiki103": ("transformer_lm", transformer_lm_wiki103),
+    "transformer_lm_gbw": ("transformer_lm", transformer_lm_gbw),
+    "transformer_lm_baevski_gbw": ("transformer_lm", transformer_lm_gbw),
+    "transformer_lm_gpt": ("transformer_lm", _gpt_preset(768, 3072, 12, 12)),
+    "transformer_lm_gpt2_small": ("transformer_lm", _gpt_preset(1024, 4096, 24, 16)),
+    "transformer_lm_gpt2_medium": ("transformer_lm", _gpt_preset(1280, 5120, 36, 20)),
+    "transformer_lm_gpt2_big": ("transformer_lm", _gpt_preset(1600, 6400, 48, 25)),
+    "transformer_lm_megatron": ("transformer_lm", _gpt_preset(3072, 3072 * 4, 72, 32)),
+    "transformer_lm_megatron_11b": ("transformer_lm", _gpt_preset(3072, 3072 * 6, 72, 32)),
+}
+
+# the model names of the family (the registry's and the task's)
+MODEL_BUILDERS = {"transformer": build_transformer, "transformer_align": build_transformer,
+                  "transformer_lm": build_transformer_lm}

@@ -29,6 +29,8 @@ import torch
 
 from . import _build
 
+HEAD_DIMS = (64, 128)
+
 
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index: int,
                            beam: int):
@@ -55,7 +57,7 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, ancestry, cache_ind
     contiguous and 16-byte aligned on one CUDA device (the C entry point
     checks the alignment and the launch raises on its error); q, k_new,
     v_new and the caches share one dtype (float32 or bfloat16); head_dim
-    64; ancestry int32."""
+    in HEAD_DIMS; ancestry int32."""
     if not q.is_cuda:
         raise RuntimeError("decode_attention_cuda takes CUDA tensors")
     N, H, L, D = k_cache.shape
@@ -67,9 +69,12 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, ancestry, cache_ind
             raise ValueError("caches must be contiguous [N, H, L, D]")
     if ancestry.dtype != torch.int32 or not ancestry.is_contiguous() or ancestry.shape[1] != N:
         raise ValueError("ancestry must be contiguous int32 [rows, N]")
-    if not 0 <= cache_index < min(L, ancestry.shape[0]) or N % beam or D != 64 or beam > 32:
-        raise ValueError("decode attention kernel takes head_dim 64, beam <= 32, "
+    if not 0 <= cache_index < min(L, ancestry.shape[0]) or N % beam or beam > 32:
+        raise ValueError("decode attention kernel takes beam <= 32 dividing N, "
                          "0 <= cache_index < L")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode attention kernel takes head_dim in {HEAD_DIMS}; other head "
+                         f"dims wait for a model that asks (ROADMAP B)")
     if len({t.device for t in (q, k_new, v_new, k_cache, v_cache, ancestry)}) != 1:
         raise ValueError("all tensors must be on one device")
     out = torch.empty_like(q)

@@ -30,7 +30,7 @@ import torch
 from . import _build
 from .attention import NEG_INF, dot_product_attention
 
-HEAD_DIMS = (64, 96)
+HEAD_DIMS = (64, 96, 128)
 
 
 def encoder_attention_plain(q, k, v, key_padding_mask=None):
@@ -56,7 +56,8 @@ def encoder_attention_cuda(
         if not t.is_contiguous():
             raise ValueError("q, k and v must be contiguous")
     if D not in HEAD_DIMS or T == 0:
-        raise ValueError(f"encoder attention kernel takes head_dim in {HEAD_DIMS}, T > 0")
+        raise ValueError(f"encoder attention kernel takes head_dim in {HEAD_DIMS}, T > 0; "
+                         f"other head dims wait for a model that asks (ROADMAP B)")
     if key_padding_mask is not None:
         if (key_padding_mask.shape != (B, T) or key_padding_mask.dtype != torch.bool
                 or key_padding_mask.device != q.device):

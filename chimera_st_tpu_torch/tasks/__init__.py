@@ -1,6 +1,6 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
-from . import speech_to_text, translation, triplet  # noqa: F401 — registration
+from . import language_modeling, speech_to_text, translation, triplet  # noqa: F401 — registration
 
 
 def setup_task(cfg: dict, **kwargs) -> ChimeraTask:

@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It drives both ported serving paths: the flagship interlingua model (raw
 wav -> wav2vec2 trunk -> ... -> beam 10) and the fbank speech-to-text
 transformer ``s2t_transformer_s`` with ``compute_fbank`` (raw wav -> log-mel
--> subsampler -> encoder -> beam 5).
+-> subsampler -> encoder -> beam 5); then the training recipe, and the
+fairseq Transformer family (MT serving, an LM fused into the decode, LM
+perplexity).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -24,11 +26,15 @@ Phases (any failure raises and the script exits non-zero):
              unless stated: K1 (encoder attention) at the flagship shapes,
              at the fbank encoder's (4 heads), at a 30 s trunk (batch 2,
              T 1,499), at T 65 and at the trunk shape of a released
-             checkpoint (12 heads of 64, T 299); K2 (conv tail) on 6 s and, at batch 3,
+             checkpoint (12 heads of 64, T 299) and at head dim 128 (B 32,
+             T 64 / 128, 4 heads: transformer_iwslt_de_en's MT batches);
+             K2 (conv tail) on 6 s and, at batch 3,
              1.5 s inputs; K3 (beam-step decode attention) at beam 10 /
              8 heads and beam 5 / 4 heads, each at steps 0, 31 and 63 of a
              64-long cache and, with 2 sentences, at step 150 of a 200-long
-             one, the ancestry row of the step drawn at random, cache rows
+             one, and at head dim 128 (32 sentences x beam 5, 4 heads; beside
+             it SDPA over the gathered rows), the ancestry row of the step
+             drawn at random, cache rows
              past the step NaN, the cache after the call bit-equal to the
              plain version's; K4 (log-mel) on 6 s rows, a 33,000-sample row
              (204 frames) and rows of 99 frames at unaligned addresses. bf16
@@ -63,7 +69,10 @@ Phases (any failure raises and the script exits non-zero):
              from another seed for the ensemble): plain beam, diverse groups
              (2, strength 0.5), diverse siblings (rate 0.5), ordered and
              unordered lexical constraints (two seeded phrases a sentence),
-             the two-model ensemble, reference scoring, alignments (the last
+             the two-model ensemble, LM shallow fusion (lm_fusion: a
+             transformer_lm of transformer_lm_gpt's widths, 12 x 768, GELU,
+             over the 10,000-word vocabulary, weight 0.3), reference
+             scoring, alignments (the last
              layer's cross-attention over the best hypotheses), the int8 KV
              cache, sampling at top-k 1 and retained dropout. Each mode but
              the last in fp32 on the card (kernels) and on the CPU (plain
@@ -78,8 +87,9 @@ Phases (any failure raises and the script exits non-zero):
              identity). Then each mode in bf16 on the card between CUDA
              events, 3 rounds of the modes in turn (median, min, max),
              counts zeroed before and exact after each run (a batch: K1 24,
-             K2 6, K3 6 a decoder step; the ensemble and the alignment pass
-             encode twice; int8 and reference scoring launch no K3; retained
+             K2 6, K3 6 a decoder step, 6 + 12 with the LM; the ensemble and
+             the alignment pass encode twice; int8 and reference scoring
+             launch no K3; retained
              dropout no K1); retained dropout gives the same tokens in every
              round with one seed, and not plain beam search's; then K3 in
              bf16 at each mode's step-63 ancestry held against the fp32 plain
@@ -192,10 +202,35 @@ Phases (any failure raises and the script exits non-zero):
              utterance_cmvn for _train; fp32 card vs --device cpu identical,
              then bf16 with exact launches (K1 12 a batch, K3 6 a decoder
              step, K2 and K4 0). Prints {"fbank_features": {...}}.
-9. report  - one JSON line {"kernels": [...]} ("launches" sums the driven
+9. family  - the fairseq Transformer family on seeded text over one joined
+             dictionary of 32,768 subwords (binarized by the port's
+             preprocess: 128 test and 8 parity pairs of 4-120 Zipf-drawn
+             subwords; a 200,000-token monolingual stream), each model
+             seeded and written as a native .ckpt by the port's writer in
+             the JAX layout. mt_big: transformer_wmt_en_de_big (6 + 6 x 1024,
+             FFN 4096, 16 heads of 64, post-norm, ReLU; separate source and
+             target embeddings) through cli.generate --task translation
+             --beam 4 --lenpen 0.6 --max-decode-len 64 (fairseq's WMT'16
+             en-de big evaluation): fp32 card vs --device cpu identical on
+             one batch of 8, then bf16 in batches of 32 with exact launches
+             (K1 6 a batch, K3 6 a decoder step, K2 and K4 0); prints
+             {"mt_big": {...}} (sentences/s, load_s, peak memory).
+             lm_fusion: the same with --lm-path of a transformer_lm saved
+             with transformer_lm_gpt's widths stated (12 x 768, FFN 3072,
+             12 heads, GELU) and --lm-weight 0.3 (K3 6 + 12 a step).
+             eval_lm: cli.eval_lm of that LM on the stream,
+             --tokens-per-sample 512, context windows 0 and 256: fp32 card
+             vs CPU within 1e-5 bits/token over the first 8 blocks, then
+             the whole stream in bf16 (tokens/s), no kernel launched (the
+             forward is causal). iwslt: transformer_iwslt_de_en (6 + 6 x
+             512, 4 heads of 128) served as mt_big, K1 and K3 at head dim
+             128. family_shapes (after mt_shapes): K1 and K3 against their
+             plain versions at every shape these phases launched, as
+             mt_shapes.
+10. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, every search mode, cli_serve, text,
              fbank_features, both train runs, train_cli's training and
-             decode and mt_cli's; K3's record holds its times at the search
+             decode, mt_cli's and the family's; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -655,12 +690,15 @@ def phase_kernels(torch, ops):
     # ---- K1: wav2vec2 trunk (T 299, D 96), shared encoder (T 75, D 64),
     # fbank encoder of a 6 s utterance (598 frames -> T 150, H 4, D 64), a
     # 30 s trunk (T 1,499: no cap on T), T 65 (one ragged key and query tile),
-    # and the trunk as a released checkpoint builds it (12 heads of 64)
+    # the trunk as a released checkpoint builds it (12 heads of 64), and head
+    # dim 128 at the MT shapes of transformer_iwslt_de_en (512 / 4 heads)
     log("K1 encoder_attention")
     k1 = {label: k1_case(torch, enc_attn, tensor, label, B, T, H, D)
           for label, B, T, H, D in (("trunk", 8, 299, 8, 96), ("shared", 8, 75, 8, 64),
                                     ("fbank", 8, 150, 4, 64), ("trunk_30s", 2, 1499, 8, 96),
-                                    ("ragged", 8, 65, 8, 64), ("trunk_h12", 8, 299, 12, 64))}
+                                    ("ragged", 8, 65, 8, 64), ("trunk_h12", 8, 299, 12, 64),
+                                    ("d128_T64", 32, 64, 4, 128),
+                                    ("d128_T128", 32, 128, 4, 128))}
     records.append(dict(name="encoder_attention", route="cuda",
                         source="chimera_st_tpu_torch/csrc/encoder_attention.cu",
                         replaces="chimera_st_tpu/ops/pallas_attention.py:31",
@@ -679,8 +717,33 @@ def phase_kernels(torch, ops):
 
     for rec, fn in zip(phase_k3_k4(torch, dec_attn, lm), (dec_attn.decode_attention, lm.logmel)):
         records.append(dict(rec, launches_of=fn, launch_floor_ms=floor_ms))
+    next(r for r in records if r["name"] == "decode_attention")["shapes"] = {
+        "d128_S32_C5_H4": k3_d128_case(torch, dec_attn, tensor)}
     k3_misaligned_raises(torch, dec_attn, tensor, np.random.default_rng(2))
     return records
+
+
+def k3_d128_case(torch, dec_attn, tensor):
+    """K3 at head dim 128, the MT decode's shape of transformer_iwslt_de_en
+    (32 sentences x beam 5, 4 heads, a 64-step cache) at steps 63, 31 and 0,
+    as phase 3 holds it; beside it SDPA over the rows the ancestry selects,
+    gathered beforehand (not the same function: K3 also gathers and writes
+    the cache, so its library_ms stays null)."""
+    import torch.nn.functional as F
+
+    log("K3 decode_attention at head dim 128")
+    inputs = k3_inputs(torch, tensor, np.random.default_rng(3), 32, 5, 4, 64, D=128)
+    steps = {idx: k3_step(torch, dec_attn, inputs, "d128", 5, idx) for idx in (63, 31, 0)}
+    q, _, _, kc, vc, anc, _ = inputs
+    N = q.shape[0]
+    src = (torch.arange(N, device="cuda") // 5 * 5)[None, :] + anc[:64].long()
+    t = torch.arange(64, device="cuda")[:, None]
+    kg, vg = (c[src, :, t].permute(1, 2, 0, 3).contiguous() for c in (kc, vc))  # [N, H, 64, D]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg), reps=50)
+    log(f"  d128 step 63: SDPA over the 64 gathered rows (no gather, no cache write) "
+        f"{sdpa_ms:.4f} ms beside the kernel's {steps[63]['ms']:.4f} ms")
+    return dict(steps[63], steps={"0": steps[0], "31": steps[31]},
+                sdpa_on_gathered_rows_ms=sdpa_ms)
 
 
 SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "DFMA", "LDL", "STL")
@@ -738,7 +801,8 @@ def sass_check(lib: Path, out_dir: Path) -> dict:
     return short
 
 
-def ptxas_report(build_log: str, names=("decode_attention_kernel", "logmel_kernel")) -> None:
+def ptxas_report(build_log: str, names=("decode_attention_kernel", "logmel_kernel",
+                                        "encoder_attention_tc")) -> None:
     """Prints registers, spill bytes and shared memory of the named kernels
     from the compiler's -Xptxas=-v output."""
     import re
@@ -1028,14 +1092,17 @@ def recorded_shapes(enc_attn, conv_tail, dec_attn):
 
 @contextlib.contextmanager
 def counted_decoder_steps():
-    """While open, counts the decoder steps that run: yields [count]."""
+    """While open, counts the decoder steps that run: yields [steps, layer
+    steps] (every decoder's, a language model's too; the layer steps are
+    the K3 launches they imply)."""
     from chimera_st_tpu_torch.models.transformer_decoder import TransformerDecoder
 
-    steps = [0]
+    steps = [0, 0]
     decoder_step = TransformerDecoder.step
 
     def counted_step(self, *args, **kwargs):
         steps[0] += 1
+        steps[1] += len(self.layers)
         return decoder_step(self, *args, **kwargs)
 
     TransformerDecoder.step = counted_step
@@ -1961,7 +2028,7 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
     return {"mt_cli": train_counts, "mt_cli_decode": counts["decode"]}, seen
 
 
-def phase_mt_shapes(torch, enc_attn, dec_attn, seen, records):
+def phase_mt_shapes(torch, enc_attn, dec_attn, seen, records, prefix="mt"):
     """Every K1 shape the MT phases launched (validation batches of text
     under --max-tokens 4096, the decode batches), held against the plain
     version in bf16 and fp32 like the shapes of phase 3; and every K3 shape
@@ -1970,21 +2037,21 @@ def phase_mt_shapes(torch, enc_attn, dec_attn, seen, records):
     into each kernel's `shapes`, K3's main numbers those of step 63."""
     shapes = list(dict.fromkeys(shape for shape, _ in seen["encoder_attention"]))
     k3_shapes = list(dict.fromkeys(shape for shape, _ in seen["decode_attention"]))
-    log(f"mt_shapes: the MT phases launched K1 at {len(shapes)} shapes {shapes}, K3 at "
+    log(f"{prefix}_shapes: the phases launched K1 at {len(shapes)} shapes {shapes}, K3 at "
         f"{len(k3_shapes)} {k3_shapes} (N, H, L, D, beam) in "
         f"{sorted({str(d) for _, d in seen['decode_attention']})}")
     if not shapes or not k3_shapes or seen["conv_tail"]:
-        raise AssertionError(f"mt_shapes: K1 at {shapes}, K3 at {k3_shapes}, K2 at "
+        raise AssertionError(f"{prefix}_shapes: K1 at {shapes}, K3 at {k3_shapes}, K2 at "
                              f"{seen['conv_tail']}")
     tensor = Inputs(torch, 6)
     k1_rec, k3_rec = (next(r for r in records if r["name"] == n)
                       for n in ("encoder_attention", "decode_attention"))
     for B, T, H, D in shapes:
-        label = f"mt_B{B}_T{T}_H{H}_D{D}"
+        label = f"{prefix}_B{B}_T{T}_H{H}_D{D}"
         k1_rec["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T, H, D)
     rng = np.random.default_rng(7)
     for N, H, L, D, C in k3_shapes:
-        label = f"mt_S{N // C}_C{C}_H{H}"
+        label = f"{prefix}_S{N // C}_C{C}_H{H}_D{D}"
         inputs = k3_inputs(torch, tensor, rng, N // C, C, H, L, D)
         steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx) for idx in (63, 31, 0)}
         k3_rec.setdefault("shapes", {})[f"{label}_L{L}"] = dict(
@@ -2359,15 +2426,17 @@ def k3_time_snapshot(torch, dec_attn, snap, label, step=63):
 
 
 SEARCH_MODES = ("beam", "diverse_groups", "diverse_siblings", "ordered_constraints",
-                "unordered_constraints", "ensemble", "score_reference", "print_alignment",
-                "kv_cache_int8", "sampling_topk1", "retain_dropout")
+                "unordered_constraints", "ensemble", "lm_fusion", "score_reference",
+                "print_alignment", "kv_cache_int8", "sampling_topk1", "retain_dropout")
+SEARCH_LM_WEIGHT = 0.3
 
 
-def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
+def run_search_mode(torch, name, models, enc, wav, mask, seed=1, lm=None):
     """One generation mode of the flagship on (wav, mask) -> its results.
     ``models`` holds two seeded models (the second for the ensemble), on one
     device; ``enc`` [(encoder_out, mask)] per model is reused by the modes
-    that decode from the encoder, or None (they encode here)."""
+    that decode from the encoder, or None (they encode here); ``lm`` is the
+    language model of ``lm_fusion`` on the same device."""
     from chimera_st_tpu_torch.generation import search_strategies as ss
     from chimera_st_tpu_torch.generation.ensemble import EnsembleSequenceGenerator
     from chimera_st_tpu_torch.generation.generator import (
@@ -2401,9 +2470,12 @@ def run_search_mode(torch, name, models, enc, wav, mask, seed=1):
                     if name.startswith("ordered") else
                     ss.UnorderedLexicallyConstrainedSearch(ss.pack_constraint_phrases(phrases)))
         return decode(SequenceGenerator(m0, settings(), strategy=strategy))
-    if name == "ensemble":
-        ens = EnsembleSequenceGenerator(models, settings())
-        t = ens.generate_audio(wav, mask) if enc is None else ens.generate_from_encoders(enc)
+    if name in ("ensemble", "lm_fusion"):
+        members, fused = (models, None) if name == "ensemble" else \
+            (models[:1], (lm, SEARCH_LM_WEIGHT))
+        ens = EnsembleSequenceGenerator(members, settings(), lm=fused)
+        t = ens.generate_audio(wav, mask) if enc is None else \
+            ens.generate_from_encoders(enc[:len(members)])
         return {"tokens": t[0], "scores": t[1], "lens": t[2]}
     if name == "score_reference":
         rng = np.random.default_rng(5)
@@ -2452,11 +2524,12 @@ def greedy_positions(torch, model, enc, res):
         return torch.stack([clear, top2.indices[..., 0] == toks])
 
 
-def search_launches(name, steps):
+def search_launches(name, layer_steps):
     """The exact launches of one mode's batch (encode included) for the
-    decoder steps that ran (counted over every model's decoder)."""
+    decoder layer steps that ran (counted over every model's decoder, and
+    the language model's)."""
     k1, k2 = 24, 6  # 12 trunk + 12 shared-encoder layers; 6 conv-tail layers
-    k3 = 6 * steps  # 6 decoder layers a decoder step
+    k3 = layer_steps  # one a layer a step: 6 decoder layers (+ 12 of the LM)
     if name == "ensemble":
         k1, k2 = 2 * k1, 2 * k2
     elif name == "score_reference":
@@ -2470,7 +2543,7 @@ def search_launches(name, steps):
     return {"encoder_attention": k1, "conv_tail": k2, "decode_attention": k3, "logmel": 0}
 
 
-def phase_search(torch, build0, build1, kernels, dec_attn):
+def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
     """The flagship's generation surface on one seeded batch of 8 utterances
     of 2-6 s, beam 10, max_decode_len 64: each mode in fp32 on the card
     (kernels; K3 held in place at the mode's ancestries) and on the CPU
@@ -2485,6 +2558,7 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
     results, k3_recs = {}, {}
     for on_card, device in ((True, "cuda"), (False, "cpu")):
         models = [build0(device, torch.float32), build1(device, torch.float32)]
+        lm = build_lm(device, torch.float32)
         wav = torch.tensor(wav_np, device=device)
         mask = torch.tensor(mask_np, device=device)
         t0 = time.perf_counter()
@@ -2497,16 +2571,16 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
             t0 = time.perf_counter()
             if on_card:
                 with k3_held_in_place(torch, dec_attn) as rec:
-                    res = run_search_mode(torch, name, models, enc, wav, mask)
+                    res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm)
                 k3_recs[name] = rec
             else:
-                res = run_search_mode(torch, name, models, enc, wav, mask)
+                res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm)
                 if name == "sampling_topk1":
                     res["greedy"] = greedy_positions(torch, models[0], enc[0], res)
             results.setdefault(name, {})["card" if on_card else "host"] = {
                 k: v.cpu() for k, v in res.items()}
             log(f"  {device} {name}: {time.perf_counter() - t0:.2f} s")
-        del models, enc
+        del models, enc, lm
     for name, r in results.items():
         g, c = r["card"], r["host"]
         if name == "score_reference":
@@ -2553,6 +2627,7 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
                 raise AssertionError("search sampling: the ancestry was permuted")
     # bf16 timing, counts exact
     models = [build0("cuda", torch.bfloat16), build1("cuda", torch.bfloat16)]
+    lm = build_lm("cuda", torch.bfloat16)
     wav, mask = torch.tensor(wav_np, device="cuda"), torch.tensor(mask_np, device="cuda")
     run_search_mode(torch, "beam", models, None, wav, mask)  # warm-up
     torch.cuda.synchronize()
@@ -2565,12 +2640,12 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
             end = torch.cuda.Event(enable_timing=True)
             with counted_decoder_steps() as steps, k3_snapshot(torch, dec_attn) as snap:
                 start.record()
-                res = run_search_mode(torch, name, models, None, wav, mask, seed=3)
+                res = run_search_mode(torch, name, models, None, wav, mask, seed=3, lm=lm)
                 end.record()
                 end.synchronize()
             times[name].append(start.elapsed_time(end))
             counts[name] = {fn.__name__: fn.launches for fn in kernels}
-            implied = search_launches(name, steps[0])
+            implied = search_launches(name, steps[1])
             if counts[name] != implied:
                 raise AssertionError(f"search {name} launches {counts[name]}, the batch "
                                      f"implies {implied}")
@@ -2606,7 +2681,7 @@ def phase_search(torch, build0, build1, kernels, dec_attn):
         log(f"  K3 bf16 at {name}'s step-63 ancestry: {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
             f"{t['distinct_rows']} distinct rows; {100 * t['bound_share']:.1f} %)")
-    del models
+    del models, lm
     print(json.dumps({"search": {"modes": rates, "k3_at_ancestry": k3_times,
                                  "k3_in_place": {n: {"checked": r["checked"],
                                                      "max_abs_err": r["max_abs_err"],
@@ -2740,6 +2815,251 @@ def phase_fbank_features(torch, root: Path, kernels):
     return counts
 
 
+# ---- the fairseq Transformer family: transformer_wmt_en_de_big and
+# transformer_iwslt_de_en served by cli.generate --task translation, a
+# transformer_lm of GPT widths fused in with --lm-path, and eval_lm
+
+FAMILY_VOCAB = 32768  # one joined dictionary: the size fairseq's WMT'16 en-de big dictionary is near
+FAMILY_TEST_PAIRS = 128
+FAMILY_PARITY_PAIRS = 8
+FAMILY_BATCH = 32
+FAMILY_DECODE = ["--beam", "4", "--lenpen", "0.6", "--max-decode-len", "64"]  # WMT'16 en-de big
+LM_STREAM_TOKENS = 200_000
+LM_BLOCK = 512
+LM_GPT = {"arch": "transformer_lm", "embed_dim": 768, "ffn_dim": 3072, "layers": 12,
+          "heads": 12, "activation": "gelu"}  # transformer_lm_gpt's widths, stated
+FAMILY_MODELS = {"mt_big": {"arch": "transformer_wmt_en_de_big"},
+                 "iwslt": {"arch": "transformer_iwslt_de_en"}}
+
+
+def zipf_rows(rng, words, p, n_rows, lengths=MT_LENGTHS):
+    """n_rows sentences of Zipf-drawn words, lengths uniform in ``lengths``;
+    -> (the text lines, the word ids drawn)."""
+    lens = rng.integers(lengths[0], lengths[1] + 1, n_rows)
+    ids = rng.choice(len(words), size=int(lens.sum()), p=p)
+    rows = np.split(words[ids], np.cumsum(lens)[:-1])
+    return [" ".join(r) for r in rows], ids
+
+
+def make_family_fixture(root: Path, seed: int = 29) -> dict:
+    """Seeded text over one joined dictionary of FAMILY_VOCAB subwords
+    (Zipf exponent 1.1), binarized by the port's preprocess CLI: MT en -> de
+    with FAMILY_TEST_PAIRS test pairs of 4-120 subwords (targets within
+    +-20 % of the source's length) and FAMILY_PARITY_PAIRS more as the
+    ``valid`` split; a monolingual stream of LM_STREAM_TOKENS tokens in
+    sentences of 4-120 (``--only-source``: split ``test``, and its leading
+    sentences up to 8 blocks of LM_BLOCK tokens as split ``valid``)."""
+    from chimera_st_tpu_torch.cli import preprocess
+
+    rng = np.random.default_rng(seed)
+    n_words = FAMILY_VOCAB - 4
+    words = np.asarray([f"s{i}" for i in range(n_words)])
+    p = 1.0 / np.arange(1, n_words + 1) ** 1.1
+    p /= p.sum()
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    counts = np.zeros(n_words, np.int64)
+    for split, n in (("test", FAMILY_TEST_PAIRS), ("valid", FAMILY_PARITY_PAIRS)):
+        src, ids = zipf_rows(rng, words, p, n)
+        counts += np.bincount(ids, minlength=n_words)
+        tgt = []
+        for line in src:
+            n_tgt = max(1, int(round(len(line.split()) * rng.uniform(0.8, 1.2))))
+            t_ids = rng.choice(n_words, size=n_tgt, p=p)
+            counts += np.bincount(t_ids, minlength=n_words)
+            tgt.append(" ".join(words[t_ids]))
+        (raw / f"{split}.en").write_text("\n".join(src) + "\n")
+        (raw / f"{split}.de").write_text("\n".join(tgt) + "\n")
+    stream, n_stream = [], 0
+    while n_stream < LM_STREAM_TOKENS:
+        rows, ids = zipf_rows(rng, words, p, 256)
+        counts += np.bincount(ids, minlength=n_words)
+        stream += rows
+        n_stream += len(ids)
+    head, n_head = [], 0
+    for row in stream:  # + eos per sentence, as binarized
+        if n_head >= 8 * LM_BLOCK:
+            break
+        head.append(row)
+        n_head += len(row.split()) + 1
+    (raw / "lm.txt").write_text("\n".join(stream) + "\n")
+    (raw / "lm_head.txt").write_text("\n".join(head) + "\n")
+    dict_file = root / "dict.txt"
+    dict_file.write_text("".join(f"{w} {c}\n" for w, c in zip(words, np.maximum(counts, 1))))
+    t0 = time.perf_counter()
+    preprocess.main(["-s", "en", "-t", "de", "--joined-dictionary", "--srcdict", str(dict_file),
+                     "--validpref", str(raw / "valid"), "--testpref", str(raw / "test"),
+                     "--destdir", str(root / "mt")])
+    preprocess.main(["--only-source", "--srcdict", str(dict_file), "--testpref",
+                     str(raw / "lm.txt"), "--validpref", str(raw / "lm_head.txt"),
+                     "--destdir", str(root / "lm")])
+    stream_tokens = sum(len(r.split()) + 1 for r in stream)
+    log(f"family fixture: {FAMILY_TEST_PAIRS} + {FAMILY_PARITY_PAIRS} MT pairs, an LM stream of "
+        f"{stream_tokens} tokens ({len(stream)} sentences; {n_head} in its first "
+        f"{len(head)}), a joined dictionary of {FAMILY_VOCAB}; binarized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(root=root, mt=root / "mt", lm=root / "lm", stream_tokens=stream_tokens)
+
+
+def family_checkpoint(torch, fx, name: str, model_cfg: dict, seed: int) -> Path:
+    """A native checkpoint (the JAX layout, through the port's writer) of
+    ``model_cfg`` built on the fixture's dictionary with seeded random
+    weights (``init_params_``); ``model_cfg`` is what it stores."""
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "language_modeling", "data": str(fx["lm"])}
+                      if model_cfg["arch"].startswith("transformer_lm") else
+                      {"_name": "translation", "data": str(fx["mt"]), "source_lang": "en",
+                       "target_lang": "de"})
+    t0 = time.perf_counter()
+    model = init_params_(task.build_model(dict(model_cfg), device="cpu", train=True),
+                         torch.Generator().manual_seed(seed))
+    path = fx["root"] / f"{name}.ckpt"
+    save_model(str(path), model, model_cfg)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {name}: {model_cfg['arch']}, {n / 1e6:.1f} M parameters, {type(model).__name__}; "
+        f"{path.stat().st_size / 1e9:.2f} GB written in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def family_generate(fx, ckpt: Path, out_dir: Path, subset: str, extra):
+    """cli.generate --task translation on the fixture -> (output text, its
+    returned counts and times)."""
+    from chimera_st_tpu_torch.cli import generate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats = generate.main([str(fx["mt"]), "--task", "translation", "-s", "en", "-t", "de",
+                           "--path", str(ckpt), "--gen-subset", subset, *FAMILY_DECODE,
+                           "--scoring", "bleu", "--results-path", str(out_dir), *extra])
+    return (out_dir / f"generate-{subset}.txt").read_text(), stats
+
+
+def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int, extra=()):
+    """One model of the family through the generate CLI: fp32 on the card
+    against --device cpu on the ``valid`` split (one batch of
+    FAMILY_PARITY_PAIRS), best hypotheses identical; then bf16 on the
+    ``test`` split in batches of FAMILY_BATCH with the launch counts zeroed
+    before and read after: K1 (the encoder's layers) a batch, K3
+    ``per_step`` a decoder step (the MT decoder's layers, and an LM's),
+    K2 and K4 none. Returns the launches; prints {label: {...}}."""
+    work = fx["root"] / label
+    log(f"{label}: cli.generate --task translation {' '.join(FAMILY_DECODE + list(extra))}; "
+        f"fp32 card vs CPU on {FAMILY_PARITY_PAIRS} pairs, then bf16 on "
+        f"{FAMILY_TEST_PAIRS} in batches of {FAMILY_BATCH}")
+    common = ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "float32", *extra]
+    t0 = time.perf_counter()
+    gpu_text, _ = family_generate(fx, ckpt, work / "parity_cuda", "valid", common)
+    gpu_s = time.perf_counter() - t0
+    cpu_text, _ = family_generate(fx, ckpt, work / "parity_cpu", "valid",
+                                  common + ["--device", "cpu"])
+    log(f"  fp32: card {gpu_s:.1f} s, CPU {time.perf_counter() - t0 - gpu_s:.1f} s")
+    (gh, gfull, _), (ch, cfull, _) = parse_protocol(gpu_text), parse_protocol(cpu_text)
+    if len(gfull) != FAMILY_PARITY_PAIRS or len(cfull) != FAMILY_PARITY_PAIRS:
+        raise AssertionError(f"{label}: samples with all lines, card {len(gfull)}, CPU "
+                             f"{len(cfull)}")
+    same_hypotheses(f"{label} fp32 card vs CPU", gh, ch, FAMILY_PARITY_PAIRS)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_decoder_steps() as steps:
+        t0 = time.perf_counter()
+        text, stats = family_generate(fx, ckpt, work / "serve", "test",
+                                      ["--batch-size", str(FAMILY_BATCH), "--dtype", "bfloat16",
+                                       *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    hyps, full, last = parse_protocol(text)
+    batches = -(-FAMILY_TEST_PAIRS // FAMILY_BATCH)
+    decoders = 2 if "--lm-path" in extra else 1  # the MT decoder, and the LM's
+    mt_steps = steps[0] // decoders
+    layers = 6  # the encoder's layers in both presets
+    implied = {"encoder_attention": layers * batches, "conv_tail": 0,
+               "decode_attention": per_step * mt_steps, "logmel": 0}
+    rec = {"sentences": stats["sentences"], "wall_s": wall, "decode_s": stats["decode_s"],
+           "load_s": stats["load_s"], "sentences_per_s": stats["sentences"] / stats["decode_s"],
+           "decoder_steps": mt_steps, "peak_memory_gb": peak / 1e9, "launches": counts}
+    log(f"  bf16: {stats['sentences']} sentences in {wall:.1f} s (decode "
+        f"{stats['decode_s']:.2f} s, {rec['sentences_per_s']:.1f} sentences/s; load "
+        f"{stats['load_s']:.2f} s), {mt_steps} decoder steps for {batches} batches; peak "
+        f"{peak / 1e9:.2f} GB; launches {counts}; {last}")
+    if (counts != implied or steps[1] != per_step * mt_steps or mt_steps == 0
+            or steps[0] != decoders * mt_steps
+            or len(full) != FAMILY_TEST_PAIRS
+            or any(not np.isfinite(h[0][0]) for h in hyps.values())):
+        raise AssertionError(f"{label}: launches {counts} (want {implied}), {len(full)} samples")
+    print(json.dumps({label: rec}), flush=True)
+    return counts
+
+
+def phase_eval_lm(torch, fx, ckpt: Path, kernels):
+    """cli.eval_lm on the seeded stream, --tokens-per-sample LM_BLOCK, context
+    windows 0 and LM_BLOCK / 2: fp32 card vs CPU on the stream's first 8
+    blocks (split ``valid``, loss within 1e-5 bits/token), then the whole
+    stream in bf16 on the card with the counts zeroed: no kernel launches
+    (the forward is causal). Returns the launches; prints {"eval_lm": ...}."""
+    from chimera_st_tpu_torch.cli import eval_lm
+
+    rec = {}
+    for ctx in (0, LM_BLOCK // 2):
+        argv = [str(fx["lm"]), "--path", str(ckpt), "--tokens-per-sample", str(LM_BLOCK),
+                "--context-window", str(ctx), "--batch-size", "8"]
+        t0 = time.perf_counter()
+        gpu = eval_lm.main(argv + ["--gen-subset", "valid", "--dtype", "float32"])
+        cpu = eval_lm.main(argv + ["--gen-subset", "valid", "--dtype", "float32",
+                                   "--device", "cpu"])
+        check(f"eval_lm context {ctx}: fp32 card vs CPU over {gpu['tokens']} tokens, "
+              "bits/token", abs(gpu["loss_bits"] - cpu["loss_bits"]), 1e-5)
+        log(f"  fp32 pair {time.perf_counter() - t0:.1f} s")
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = eval_lm.main(argv + ["--gen-subset", "test", "--dtype", "bfloat16"])
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        if any(counts.values()) or out["tokens"] != fx["stream_tokens"] \
+                or not np.isfinite(out["loss_bits"]):
+            raise AssertionError(f"eval_lm context {ctx}: launches {counts}, {out['tokens']} "
+                                 f"tokens of {fx['stream_tokens']}")
+        rec[f"context_{ctx}"] = dict(out, tokens_per_s=out["tokens"] / out["eval_s"],
+                                     wall_s=time.perf_counter() - t0,
+                                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                     fp32_card_vs_cpu_bits=abs(gpu["loss_bits"]
+                                                               - cpu["loss_bits"]))
+        log(f"  context {ctx}: bf16 {out['tokens']} tokens in {out['eval_s']:.2f} s "
+            f"({rec[f'context_{ctx}']['tokens_per_s']:.0f} tokens/s), loss "
+            f"{out['loss_bits']:.4f} bits/token; launches {counts}")
+    print(json.dumps({"eval_lm": rec}), flush=True)
+    return counts
+
+
+def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
+    """mt_big, lm_fusion, eval_lm and iwslt on one fixture. Returns
+    ({phase: launches}, the K1 / K3 shapes seen)."""
+    fx = make_family_fixture(work / "family")
+    ckpts = {name: family_checkpoint(torch, fx, name, cfg, seed)
+             for (name, cfg), seed in zip(FAMILY_MODELS.items(), (31, 37))}
+    ckpts["lm"] = family_checkpoint(torch, fx, "lm", LM_GPT, 41)
+    counts = {}
+    with recorded_shapes(enc_attn, conv_tail, dec_attn) as seen:
+        counts["mt_big"] = phase_family_serve(torch, fx, "mt_big", ckpts["mt_big"], kernels, 6)
+        counts["lm_fusion"] = phase_family_serve(
+            torch, fx, "lm_fusion", ckpts["mt_big"], kernels, 6 + LM_GPT["layers"],
+            ["--lm-path", str(ckpts["lm"]), "--lm-weight", "0.3"])
+        counts["eval_lm"] = phase_eval_lm(torch, fx, ckpts["lm"], kernels)
+        counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6)
+    if not any(s[3] == 128 for s, _ in seen["encoder_attention"]) or \
+            not any(s[3] == 128 for s, _ in seen["decode_attention"]):
+        raise AssertionError(f"iwslt launched no head-dim-128 K1 / K3: {seen}")
+    return counts, seen
+
+
 def main() -> int:
     import argparse
 
@@ -2850,8 +3170,12 @@ def main() -> int:
     # 5b. the search surface on the flagship, and the fbank model on features
     build_second = seeded_builder(
         torch, lambda d: ChimeraInterlinguaModel(flagship_cfg, device=d), seed=1)
+    from chimera_st_tpu_torch.models.transformer_mt import build_transformer_lm
+
+    build_lm = seeded_builder(torch, lambda d: build_transformer_lm(
+        dict(LM_GPT, vocab_size=10000), device=d), seed=4)
     search_counts, search_k3 = phase_search(torch, paths["flagship"]["build"], build_second,
-                                            kernels, decode_attention)
+                                            build_lm, kernels, decode_attention)
     counts.update({f"search_{name}": c for name, c in search_counts.items()})
 
     # 6. the CLI phases, on a fixture under a temporary directory
@@ -2886,10 +3210,15 @@ def main() -> int:
         mt_counts, mt_seen = phase_mt_cli(torch, mt_fx, work, kernels, encoder_attention,
                                           conv_tail, decode_attention, args.profile)
         counts.update(mt_counts)
+        # 9. the Transformer family
+        family_counts, family_seen = phase_family(torch, work, kernels, encoder_attention,
+                                                  conv_tail, decode_attention)
+        counts.update(family_counts)
     phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
     phase_mt_shapes(torch, encoder_attention, decode_attention, mt_seen, records)
+    phase_mt_shapes(torch, encoder_attention, decode_attention, family_seen, records, "family")
 
-    # 9. report
+    # 10. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

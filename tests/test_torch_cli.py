@@ -341,7 +341,6 @@ def test_interactive_text_branch_matches_jax_generate_text(fixture, capsys):
 
 
 UNPORTED_FLAGS = {
-    "lm_path": ["--lm-path", "lm.ckpt"],
     "ctc_lm_path": ["--ctc-lm-path", "lm.arpa"],
     "iter_decode_max_iter": ["--iter-decode-max-iter", "3"],
     "iter_decode_force_max_iter": ["--iter-decode-force-max-iter"],
@@ -398,7 +397,7 @@ def test_unported_scorer_and_task_raise(fixture):
         generate.main([str(fixture), *COMMON, "--path", str(fixture / "ref.pt"),
                        "--scoring", "wer", "--device", "cpu"])
     with pytest.raises(KeyError):
-        generate.main([str(fixture), *COMMON[2:], "--task", "language_modeling",
+        generate.main([str(fixture), *COMMON[2:], "--task", "multilingual_translation",
                        "--path", str(fixture / "ref.pt"), "--device", "cpu"])
 
 

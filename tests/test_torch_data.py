@@ -367,8 +367,12 @@ def test_registry_lists_what_is_ported():
             "s2t_transformer_sp", "s2t_transformer_m", "s2t_transformer_mp", "s2t_transformer_l",
             "s2t_transformer_lp"} <= archs
     assert {"bleu", "sacrebleu"} <= set(get_registry("scoring").keys())
+    # the Transformer family and its LM task
+    assert "language_modeling" in set(get_registry("task").keys())
+    assert {"transformer", "transformer_wmt_en_de_big", "transformer_iwslt_de_en",
+            "transformer_lm", "transformer_lm_gpt"} <= archs
     with pytest.raises(KeyError):
-        get_registry("task").get("language_modeling")
+        get_registry("task").get("multilingual_translation")
 
 
 # ------------------------------------------------------------------- bleu

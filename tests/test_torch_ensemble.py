@@ -105,8 +105,6 @@ def test_ensemble_refuses_single_model_options(models):
                          (dict(retain_dropout=True), "--retain-dropout")):
         with pytest.raises(NotImplementedError, match=match):
             EnsembleSequenceGenerator(models["port"], GeneratorSettings(**extra))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        EnsembleSequenceGenerator(models["port"], GeneratorSettings(), lm=object())
 
 
 @pytest.mark.parametrize("branch", ["audio", "text"])
