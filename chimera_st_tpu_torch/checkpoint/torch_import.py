@@ -258,6 +258,9 @@ def infer_interlingua_config(ckpt_args, tgt_vocab: int, src_vocab: Optional[int]
         no_interlingua=g("no_interlingua", False),
         conv_kernel_sizes=tuple(int(k) for k in str(g("conv_kernel_sizes", "5,5")).split(",")),
         conv_channels=g("conv_channels", 1024),
+        dropout=g("dropout", 0.1),
+        attention_dropout=g("attention_dropout", 0.1),
+        activation_dropout=g("activation_dropout", 0.1),
         activation=g("activation_fn", "relu"),
         no_scale_embedding=g("no_scale_embedding", False),
     )

@@ -80,7 +80,7 @@ def main(argv=None) -> dict:
     # the context tail rolls across the ordered blocks; context positions
     # get pad targets, so their loss is not counted
     carry = np.full((ctx,), pad, np.int64) if ctx else None
-    with torch.inference_mode():
+    with torch.inference_mode(), options.profiled(args):
         for batch in itr:
             nt = np.asarray(batch["net_tokens"])
             tg = np.asarray(batch["target"])

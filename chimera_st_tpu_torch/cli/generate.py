@@ -309,75 +309,76 @@ def main(argv=None) -> dict:
     n_sent = 0
     n_tokens = 0
     t0 = time.time()
-    for batch in itr:
-        ids = batch["id"]
-        extra = {}
-        if prefix_size > 0 and batch.get("target") is not None:
-            # force each hypothesis to start with the reference's first
-            # prefix_size tokens; pad rows force nothing
-            extra["prefix_tokens"] = on_device(
-                np.asarray(batch["target"])[:, :prefix_size].astype(np.int64))
-        if "audio" in batch:
-            tokens, scores, lens = generator.generate_audio(
-                on_device(batch["audio"]),
-                on_device(batch["audio_padding_mask"]),
-                src_lengths=on_device(batch["audio_lengths"]),
-                **extra,
-            )
-        else:
-            tokens, scores, lens = generator.generate_text(
-                on_device(batch["src_tokens"]).long(),
-                src_lengths=on_device(batch["src_lengths"]),
-                **extra,
-            )
-        tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
-        alignments = None
-        if args.print_alignment or (args.replace_unk and "src_tokens" in batch):
-            alignments = best_alignments(model, batch, tokens, tgt_dict.eos(), on_device)
-        for b in range(tokens.shape[0]):
-            sid = int(ids[b])
-            target = batch.get("target")
-            ref_str = None
-            if target is not None:
-                ref_str = tgt_dict.string(
-                    target[b], bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
-            if not args.quiet:
-                # S- carries the detokenized source when a text source
-                # exists; audio inputs print an empty source
-                src_str = ""
-                src_dict = getattr(task, "source_dictionary", None)
-                if "src_tokens" in batch and src_dict is not None:
-                    src_str = src_dict.string(
-                        batch["src_tokens"][b], bpe_symbol=args.remove_bpe,
-                        extra_symbols_to_ignore=strip)
-                print(f"S-{sid}\t{src_str}", file=out)
-                if ref_str is not None:
-                    print(f"T-{sid}\t{ref_str}", file=out)
-            for k in range(min(args.nbest, tokens.shape[1])):
-                L = int(lens[b, k])
-                hyp_ids = tokens[b, k, :L]
-                if args.replace_unk and alignments is not None and "src_tokens" in batch \
-                        and k == 0:
-                    hyp_str = unk_replaced(task, batch["src_tokens"][b], hyp_ids,
-                                           alignments[b][:L], align_dict, args.remove_bpe,
-                                           strip)
-                else:
-                    hyp_str = tgt_dict.string(
-                        hyp_ids, bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
+    with options.profiled(args):
+        for batch in itr:
+            ids = batch["id"]
+            extra = {}
+            if prefix_size > 0 and batch.get("target") is not None:
+                # force each hypothesis to start with the reference's first
+                # prefix_size tokens; pad rows force nothing
+                extra["prefix_tokens"] = on_device(
+                    np.asarray(batch["target"])[:, :prefix_size].astype(np.int64))
+            if "audio" in batch:
+                tokens, scores, lens = generator.generate_audio(
+                    on_device(batch["audio"]),
+                    on_device(batch["audio_padding_mask"]),
+                    src_lengths=on_device(batch["audio_lengths"]),
+                    **extra,
+                )
+            else:
+                tokens, scores, lens = generator.generate_text(
+                    on_device(batch["src_tokens"]).long(),
+                    src_lengths=on_device(batch["src_lengths"]),
+                    **extra,
+                )
+            tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
+            alignments = None
+            if args.print_alignment or (args.replace_unk and "src_tokens" in batch):
+                alignments = best_alignments(model, batch, tokens, tgt_dict.eos(), on_device)
+            for b in range(tokens.shape[0]):
+                sid = int(ids[b])
+                target = batch.get("target")
+                ref_str = None
+                if target is not None:
+                    ref_str = tgt_dict.string(
+                        target[b], bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
                 if not args.quiet:
-                    print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
-                    print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
-                    print(f"P-{sid}\t{scores[b, k]:.4f}", file=out)
-                    if alignments is not None and k == 0 and args.print_alignment:
-                        pairs = " ".join(f"{int(alignments[b, t])}-{t}" for t in range(L))
-                        print(f"A-{sid}\t{pairs}", file=out)
-                if k == 0 and ref_str is not None:
-                    if hasattr(scorer, "add_string"):
-                        scorer.add_string(ref_str, hyp_str)
+                    # S- carries the detokenized source when a text source
+                    # exists; audio inputs print an empty source
+                    src_str = ""
+                    src_dict = getattr(task, "source_dictionary", None)
+                    if "src_tokens" in batch and src_dict is not None:
+                        src_str = src_dict.string(
+                            batch["src_tokens"][b], bpe_symbol=args.remove_bpe,
+                            extra_symbols_to_ignore=strip)
+                    print(f"S-{sid}\t{src_str}", file=out)
+                    if ref_str is not None:
+                        print(f"T-{sid}\t{ref_str}", file=out)
+                for k in range(min(args.nbest, tokens.shape[1])):
+                    L = int(lens[b, k])
+                    hyp_ids = tokens[b, k, :L]
+                    if args.replace_unk and alignments is not None and "src_tokens" in batch \
+                            and k == 0:
+                        hyp_str = unk_replaced(task, batch["src_tokens"][b], hyp_ids,
+                                               alignments[b][:L], align_dict, args.remove_bpe,
+                                               strip)
                     else:
-                        scorer.add([int(t) for t in target[b]], [int(t) for t in hyp_ids])
-                    n_tokens += L
-            n_sent += 1
+                        hyp_str = tgt_dict.string(
+                            hyp_ids, bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
+                    if not args.quiet:
+                        print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
+                        print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
+                        print(f"P-{sid}\t{scores[b, k]:.4f}", file=out)
+                        if alignments is not None and k == 0 and args.print_alignment:
+                            pairs = " ".join(f"{int(alignments[b, t])}-{t}" for t in range(L))
+                            print(f"A-{sid}\t{pairs}", file=out)
+                    if k == 0 and ref_str is not None:
+                        if hasattr(scorer, "add_string"):
+                            scorer.add_string(ref_str, hyp_str)
+                        else:
+                            scorer.add([int(t) for t in target[b]], [int(t) for t in hyp_ids])
+                        n_tokens += L
+                n_sent += 1
     dt = time.time() - t0
     logger.info(
         f"Translated {n_sent} sentences ({n_tokens} tokens) in {dt:.1f}s "

@@ -115,50 +115,51 @@ def main(argv=None) -> None:
     input_fh = sys.stdin if args.input == "-" else open(args.input)
     start_id = 0
     try:
-        for lines in buffered_read(input_fh, args.buffer_size):
-            t0 = time.time()
-            if is_audio_task:
-                wavs = task.get_interactive_examples(lines)
-                batch = task.batch_interactive(wavs)
-                tokens, scores, lens = generator.generate_audio(
-                    on_device(batch["audio"]),
-                    on_device(batch["audio_padding_mask"]),
-                    src_lengths=on_device(batch["audio_lengths"]),
-                )
-            else:
-                # text task: lines are source sentences
-                from ..data.batching import collate_tokens, round16
+        with options.profiled(args):
+            for lines in buffered_read(input_fh, args.buffer_size):
+                t0 = time.time()
+                if is_audio_task:
+                    wavs = task.get_interactive_examples(lines)
+                    batch = task.batch_interactive(wavs)
+                    tokens, scores, lens = generator.generate_audio(
+                        on_device(batch["audio"]),
+                        on_device(batch["audio_padding_mask"]),
+                        src_lengths=on_device(batch["audio_lengths"]),
+                    )
+                else:
+                    # text task: lines are source sentences
+                    from ..data.batching import collate_tokens, round16
 
-                src_dict = task.source_dictionary
-                gen = generator
-                if args.constraints:
-                    # "source\tphrase\tphrase...": the phrases in the target dictionary
-                    split = [line.split("\t") for line in lines]
-                    lines = [parts[0] for parts in split]
-                    constraints = [[[int(t) for t in tgt_dict.encode_line(p, append_eos=False)]
-                                    for p in parts[1:]] for parts in split]
-                    if any(any(c) for c in constraints):
-                        gen = task.build_generator(model, gen_cfg, strategy=constraint_strategy(
-                            tgt_dict, args.constraints, constraints))
-                encoded = [src_dict.encode_line(line) for line in lines]
-                src = collate_tokens(encoded, src_dict.pad(),
-                                     target_len=round16(max(len(e) for e in encoded)))
-                lengths = np.asarray([len(e) for e in encoded], np.int32)
-                tokens, scores, lens = gen.generate_text(
-                    on_device(src).long(), src_lengths=on_device(lengths))
-            tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
-            for b, line in enumerate(lines):
-                sid = start_id + b
-                print(f"S-{sid}\t{line}")
-                print(f"W-{sid}\t{time.time() - t0:.3f}\tseconds")
-                for k in range(min(args.nbest, tokens.shape[1])):
-                    L = int(lens[b, k])
-                    hyp = tgt_dict.string(tokens[b, k, :L], bpe_symbol=args.remove_bpe)
-                    print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp}")
-                    print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp}")
-                    print(f"P-{sid}\t{scores[b, k]:.4f}")
-            start_id += len(lines)
-            sys.stdout.flush()
+                    src_dict = task.source_dictionary
+                    gen = generator
+                    if args.constraints:
+                        # "source\tphrase\tphrase...": the phrases in the target dictionary
+                        split = [line.split("\t") for line in lines]
+                        lines = [parts[0] for parts in split]
+                        constraints = [[[int(t) for t in tgt_dict.encode_line(p, append_eos=False)]
+                                        for p in parts[1:]] for parts in split]
+                        if any(any(c) for c in constraints):
+                            gen = task.build_generator(model, gen_cfg, strategy=constraint_strategy(
+                                tgt_dict, args.constraints, constraints))
+                    encoded = [src_dict.encode_line(line) for line in lines]
+                    src = collate_tokens(encoded, src_dict.pad(),
+                                         target_len=round16(max(len(e) for e in encoded)))
+                    lengths = np.asarray([len(e) for e in encoded], np.int32)
+                    tokens, scores, lens = gen.generate_text(
+                        on_device(src).long(), src_lengths=on_device(lengths))
+                tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
+                for b, line in enumerate(lines):
+                    sid = start_id + b
+                    print(f"S-{sid}\t{line}")
+                    print(f"W-{sid}\t{time.time() - t0:.3f}\tseconds")
+                    for k in range(min(args.nbest, tokens.shape[1])):
+                        L = int(lens[b, k])
+                        hyp = tgt_dict.string(tokens[b, k, :L], bpe_symbol=args.remove_bpe)
+                        print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp}")
+                        print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp}")
+                        print(f"P-{sid}\t{scores[b, k]:.4f}")
+                start_id += len(lines)
+                sys.stdout.flush()
     finally:
         if input_fh is not sys.stdin:
             input_fh.close()

@@ -16,7 +16,7 @@ import contextlib
 from typing import Any, Dict, Tuple
 
 from ..generation import generator
-from ..models.transformer_mt import ARCHITECTURES as TRANSFORMER_FAMILY
+from ..models.s2t_transformer import ARCHITECTURES as S2T_ARCHITECTURES
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -267,13 +267,10 @@ _COMMON_UNPORTED = (
     ("pipeline_stages", lambda v: v > 1, "--pipeline-stages above 1", "A12"),
     ("user_dir", bool, "--user-dir", "A14"),
 )
-# the generation and validation CLIs add the generator's own list; a trace
-# is the train CLI's alone (as in the JAX package, whose others ignore it)
-UNPORTED = generator.UNPORTED + _COMMON_UNPORTED + (
-    ("profile", bool, "--profile outside the train CLI", "A13"),
-)
+# the generation and validation CLIs add the generator's own list
+UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
 
-PORTED_TRAIN_TASKS = ("triplet", "translation")
+PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_modeling")
 PORTED_OPTIMIZERS = ("adam",)
 PORTED_SCHEDULES = ("inverse_sqrt", "fixed")
 # the train CLI's
@@ -281,13 +278,11 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
      "--task speech_to_text (fbank training; the JAX train CLI cannot train this model "
      "either: its init_params_for_task has no S2T branch, ROADMAP C)", "A10c"),
-    ("arch", lambda v: v in TRANSFORMER_FAMILY,
-     "--arch of the Transformer family (transformer*, transformer_lm*: serving is ported, "
-     "training is not)", "A15"),
-    ("task", lambda v: v == "language_modeling",
-     "--task language_modeling (training transformer_lm)", "A15"),
+    ("arch", lambda v: v in S2T_ARCHITECTURES,
+     "--arch of the fbank s2t_transformer presets (the JAX train CLI cannot train this "
+     "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
-     "--task other than triplet / translation", "A14"),
+     "--task other than triplet / translation / translation_tts / language_modeling", "A14"),
     ("task_configs", bool, "--task-configs (joint training)", "A14"),
     ("optimizer", lambda v: v not in PORTED_OPTIMIZERS,
      "--optimizer other than adam (adamw: adam with --weight-decay)", "A14"),
@@ -305,7 +300,9 @@ def require_ported(args, table=UNPORTED) -> None:
 @contextlib.contextmanager
 def profiled(args):
     """``--profile DIR``: a torch.profiler trace of the block in DIR (a
-    Chrome trace, ``trace.json``), host and, on the card, device."""
+    Chrome trace, ``trace.json``), host and, on the card, device. Every CLI
+    wraps its main loop in it (the JAX package's CLIs other than train
+    accept the flag and ignore it)."""
     if not getattr(args, "profile", None):
         yield
         return

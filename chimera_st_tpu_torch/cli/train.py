@@ -1,6 +1,8 @@
 """Training entry point (counterpart of chimera_st_tpu/cli/train.py, for
-``--task triplet``, the ST fine-tune, and ``--task translation``, the MT
-pre-training stage): the same flags, loop, checkpoints and log lines.
+``--task triplet``, the ST fine-tune, ``--task translation`` /
+``translation_tts``, the MT pre-training stage or a ``transformer*`` model,
+and ``--task language_modeling``, a ``transformer_lm*`` model): the same
+flags, loop, checkpoints and log lines.
 
     python -m chimera_st_tpu_torch.cli.train DATA_DIR --task triplet \\
         --arch s2t_transformer_w2v2_interlingua_base \\
@@ -17,11 +19,23 @@ pre-training stage): the same flags, loop, checkpoints and log lines.
         --lr-scheduler inverse_sqrt --warmup-updates 4000 \\
         --max-tokens 4096 --update-freq 8 --save-dir checkpoints/mt
 
+    python -m chimera_st_tpu_torch.cli.train DATA_BIN --task translation \\
+        -s de -t en --arch transformer_iwslt_de_en --criterion \\
+        label_smoothed_cross_entropy --label-smoothing 0.1 --optimizer adam \\
+        --lr 5e-4 --lr-scheduler inverse_sqrt --warmup-updates 4000 --max-tokens 4096
+
+    python -m chimera_st_tpu_torch.cli.train LM_BIN --task language_modeling \\
+        --arch transformer_lm_gpt --criterion lm_cross_entropy \\
+        --tokens-per-sample 512 --optimizer adam --lr 5e-4 \\
+        --lr-scheduler inverse_sqrt --warmup-updates 4000 --max-tokens 4096
+
 In order: the task, the model (fp32 parameters in train mode), the
 schedule, the optimizer, the criterion, then the parameters (the seeded
 ``init_params_``, then ``--w2v2-model-path`` through
 ``import_wav2vec2_state_dict``), the ``--fix-*`` freezing (a text-only task
-adds the audio-trunk mask unless ``--fix-wav2vec`` is given), the restore
+adds the audio-trunk mask unless ``--fix-wav2vec`` is given; the Transformer
+family has no audio trunk, so ``--w2v2-model-path`` and ``--fix-*`` raise
+for it), the restore
 (``--restore-file`` / ``--finetune-from-model`` and the ``--reset-*`` rules of
 the JAX CLI), and the loop: ``--update-freq`` micro-batches an update, update
 ``n`` keyed by ``--seed`` + ``n`` as in JAX, ``--max-update`` /
@@ -92,6 +106,9 @@ def main(argv=None) -> dict:
         model_cfg["feature_grad_mult"] = args.feature_grad_mult
     model = task.build_model(model_cfg, device="cpu", train=True)
     logger.info(f"model arch {args.arch} ({type(model).__name__})")
+    from ..convert import model_kind
+
+    interlingua = model_kind(model) == "interlingua"
 
     lr_schedule = build_lr_schedule({
         "_name": args.lr_scheduler, "lr": parse_lr(args.lr),
@@ -109,14 +126,17 @@ def main(argv=None) -> dict:
     criterion = task.build_criterion(crit_cfg)
 
     # ----------------------------------------------------------- init params
-    init_params(model, args, model_overrides)
-    model.to(device)
     fixes = [f for f in ("fix_wav2vec", "fix_interlingua", "fix_decoder",
                          "fix_decoder_transformers", "fix_encoder_transformers")
              if getattr(args, f, False)]
+    if not interlingua and (fixes or model_overrides.get("w2v2_model_path")):
+        raise ValueError(f"{args.arch}: --w2v2-model-path and --fix-* apply to the "
+                         "interlingua model's audio trunk and memory, which this model has not")
+    init_params(model, args, model_overrides)
+    model.to(device)
     from ..optim.freeze import auto_text_only_fixes, frozen_fraction, wrap_freeze
 
-    if "fix_wav2vec" not in fixes:
+    if interlingua and "fix_wav2vec" not in fixes:
         # a text-only task never reaches the audio trunk: masked out of Adam,
         # as the JAX CLI masks it (and, like it, not under --fix-wav2vec)
         fixes.extend(auto_text_only_fixes(task, model))
@@ -237,7 +257,8 @@ def main(argv=None) -> dict:
     # its queueing); validation and saves excluded
     times["update_s"] = []
     # host-clock seconds of each epoch's training, up to the end of its
-    # device work (validation and saves excluded), and its updates
+    # device work, and its updates (the end-of-epoch validation and save
+    # excluded; those of --save-interval-updates fall inside)
     times["epoch_s"], times["epoch_updates"] = [], []
     mark = time.perf_counter()
     patience_left = args.patience
@@ -383,7 +404,8 @@ def validate_bleu(args, task, trainer, beam: int = 4, max_decode_len: int = 64) 
     """Corpus BLEU (sacrebleu, 13a) of beam ``beam`` hypotheses over the
     valid split, as the JAX CLI's: audio batches through
     ``generate_audio``, text batches (``src_tokens``) through
-    ``generate_text``."""
+    ``generate_text`` (the interlingua model's text branch, or a
+    ``transformer*`` model)."""
     import numpy as np
     import torch
 

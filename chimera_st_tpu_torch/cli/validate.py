@@ -7,7 +7,9 @@ chimera_st_tpu/cli/validate.py: the same flags and the same output line).
 
 ``--path`` takes a native ``.ckpt`` (either package's trainer) or a fairseq
 ``.pt`` of the interlingua model; ``--task translation`` validates an MT
-checkpoint on binarized text. Prints one line of the losses over the
+checkpoint on binarized text. A native checkpoint keeps the arch stored in
+it unless ``--arch`` is given (the JAX CLI replaces it with ``--arch``'s
+default, so a ``transformer`` checkpoint fails there without the flag). Prints one line of the losses over the
 sample size in bits, ``loss 1.2345 | st_loss 1.2345 | …``, and returns them.
 ``--dump-feature-to-file FILE`` pickles, for a task with ``dump_memories``
 (triplet), a list with one dict a batch: the audio and text memory banks
@@ -30,6 +32,9 @@ def main(argv=None) -> dict:
     options.add_train_args(p)
     p.add_argument("--path", required=True)
     p.add_argument("--dump-feature-to-file", default=None, metavar="FILE")
+    # a native checkpoint keeps its stored arch unless --arch is given (the
+    # JAX CLI replaces it with the parser's default; ROADMAP C)
+    p.set_defaults(arch=None)
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
     device = options.resolve_device(args)
@@ -48,7 +53,8 @@ def main(argv=None) -> dict:
     task = setup_task(task_cfg)
     task.load_dataset(args.valid_subset)
 
-    model_overrides.setdefault("arch", args.arch)
+    if args.arch is not None:
+        model_overrides.setdefault("arch", args.arch)
     model = load_model_and_params(args.path, task, torch_dtype(args.dtype), device,
                                   model_overrides)
     criterion = task.build_criterion({
@@ -65,7 +71,7 @@ def main(argv=None) -> dict:
     totals = {}
     dumped = []
     dump = args.dump_feature_to_file and hasattr(task, "dump_memories")
-    with torch.inference_mode():
+    with torch.inference_mode(), options.profiled(args):
         for batch in itr:
             ids = batch.get("id")
             batch = prepare_batch({k: v for k, v in batch.items() if k != "id"}, device)

@@ -28,22 +28,26 @@
 // - Indices first, then every row at once. Each thread loads the one
 //   ancestry entry of the row it copies (trip 1), then starts 16-byte
 //   cp.async copies of that row's K and V slices into shared memory
-//   (trip 2). A tile is 512 16-byte chunks of K and of V: 64 times in bf16,
-//   32 in fp32 at D = 64; 32 and 16 at D = 128 (the MT and LM presets of
-//   512 / 4 and 1024 / 8 heads), where a row is 16 or 32 chunks and the same
-//   128 threads copy 4 chunks each. Longer timelines loop over tiles
-//   through a two-stage ring, the next tile's copies in flight while this
-//   one is reduced.
+//   (trip 2). A tile holds at most 512 16-byte chunks of K (and of V), a
+//   whole number of rows: the largest power of two of times that fits,
+//   so 64 times in bf16 and 32 in fp32 at D = 64; 32 and 16 at D = 96 and
+//   D = 128; 128 and 64 at D = 32. A row is D / 8 chunks in bf16, D / 4
+//   in fp32, and the 128 threads split a tile's rows evenly, 1 to 8
+//   threads a row. Longer timelines loop over tiles through a two-stage
+//   ring, the next tile's copies in flight while this one is reduced.
 // - The time-`step` row is taken from k_new / v_new of the ancestor column
 //   (inputs, never written), and a block writes only its own column's row
 //   into the cache: no block reads what another block writes, so there is
 //   no race across blocks and the cache ends bit-equal to a plain copy.
-// - Wide reads from shared memory: eight lanes share a row, 16 bytes each,
-//   a 3-step shuffle finishes the dot product; the same lanes then read the
-//   same slice of the V row, so P.V needs no exchange of probabilities.
-//   Each warp takes every fourth group of 4 rows of a tile and keeps its
-//   own online softmax (max, sum, accumulator) in fp32; the four partial
-//   results are merged through shared memory at the end.
+// - Wide reads from shared memory: a group of 8 lanes shares a row (4 when
+//   the row's chunks do not divide by 8: D = 32 bf16, D = 96 bf16), each
+//   lane reading a whole number of 16-byte chunks; a shuffle across the
+//   group finishes the dot product, and the same lanes then read the same
+//   slice of the V row, so P.V needs no exchange of probabilities. A warp
+//   holds 4 (or 8) groups and takes every fourth run of them over a tile;
+//   each warp keeps its own online softmax (max, sum, accumulator) in
+//   fp32, and the four partial results are merged through shared memory at
+//   the end.
 #include "common.cuh"
 
 #include <initializer_list>
@@ -53,7 +57,9 @@ namespace {
 constexpr int MAX_BEAM = 32;
 constexpr int K3_WARPS = 4;
 constexpr int K3_THREADS = K3_WARPS * 32;
-constexpr int CHUNKS_PER_TILE = 512;  // 16-byte chunks of K (and of V) in one tile
+constexpr int CHUNKS_PER_TILE = 512;  // at most this many 16-byte chunks of K (and of V) a tile
+
+constexpr int pow2_floor(int n) { return n < 2 ? 1 : 2 * pow2_floor(n / 2); }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
@@ -84,6 +90,26 @@ __device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&out)[4], 
   out[3] = __uint_as_float(raw.w);
 }
 
+// the split of a (T, D) row and tile (see the header)
+template <typename T, int D>
+struct K3Split {
+  static constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+  static constexpr int CH = D / EPC;           // chunks per row
+  static constexpr int LPR = CH % 8 == 0 ? 8 : 4;  // lanes per row
+  static constexpr int CPL = CH / LPR;         // chunks a lane reads per row
+  static constexpr int GPW = 32 / LPR;         // row groups per warp
+  static constexpr int TILE = pow2_floor(CHUNKS_PER_TILE / CH);  // times per tile
+  static constexpr int TPR = K3_THREADS / TILE;  // copying threads per row
+  static constexpr int CPT = CH / TPR;         // chunks a thread copies per row
+  static constexpr int PASSES = TILE / (GPW * K3_WARPS);  // runs of groups a warp takes per tile
+  static_assert(D % EPC == 0 && CH % LPR == 0 && CPL >= 1, "a lane reads whole chunks");
+  static_assert(K3_THREADS % TILE == 0 && CH % TPR == 0 && CPT >= 1,
+                "the threads copy whole chunks of whole rows");
+  static_assert(PASSES >= 1 && TILE % (GPW * K3_WARPS) == 0, "a tile holds whole row groups");
+  static_assert(D <= K3_THREADS && 2 * CH <= K3_THREADS, "one thread an output element");
+  static_assert(2 * 2 * TILE * D * sizeof(T) <= 32 * 1024, "the ring fits in 32 KB");
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(K3_THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
@@ -91,16 +117,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         const int* __restrict__ anc,
                         T* __restrict__ out, int n_cols, int beam, int heads, int max_len,
                         int step, float scale_log2) {
-  constexpr int EPC = 16 / sizeof(T);           // elements per 16-byte chunk
-  // D = 64: bf16 / fp32; D = 128: bf16 / fp32
-  constexpr int CH = D / EPC;                   // chunks per row: 8, 16; 16, 32
-  constexpr int TILE = CHUNKS_PER_TILE / CH;    // times per tile: 64, 32; 32, 16
-  constexpr int TPR = K3_THREADS / TILE;        // copying threads per row: 2, 4; 4, 8
-  constexpr int CPT = CH / TPR;                 // chunks a thread copies per row: 4
-  constexpr int CPL = CH / 8;                   // chunks a lane reads per row: 1, 2; 2, 4
-  constexpr int PASSES = TILE / (4 * K3_WARPS);  // 4-row groups a warp takes per tile: 4, 2; 2, 1
-  static_assert(TILE % (4 * K3_WARPS) == 0 && CH % TPR == 0 && D <= K3_THREADS,
-                "tile arithmetic");
+  using S = K3Split<T, D>;
+  constexpr int EPC = S::EPC, CH = S::CH, LPR = S::LPR, CPL = S::CPL, GPW = S::GPW;
+  constexpr int TILE = S::TILE, TPR = S::TPR, CPT = S::CPT, PASSES = S::PASSES;
   constexpr int ROW_BYTES = D * sizeof(T);
 
   __shared__ __align__(16) unsigned char k_tile[2][TILE * ROW_BYTES];
@@ -109,7 +128,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   const int col = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 3, sub = lane & 7;
+  const int grp = lane / LPR, sub = lane % LPR;
   const int first_col = col / beam * beam;
   const size_t own = ((size_t)col * heads + h) * D;  // this block's row of q, k_new, v_new, out
 
@@ -152,12 +171,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   float qv[CPL][EPC];
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(q + own + (sub + 8 * j) * EPC);
+    const uint4 raw = *reinterpret_cast<const uint4*>(q + own + (sub + LPR * j) * EPC);
     chunk_to_f32(raw, qv[j], T());
   }
 
   // this warp's online softmax over its rows; lane (grp, sub) sees the rows
-  // of group grp and the columns of chunks sub, sub + 8
+  // of group grp and the columns of chunks sub, sub + LPR, ...
   float m = -INFINITY, l = 0.f, acc[CPL][EPC];
 #pragma unroll
   for (int j = 0; j < CPL; ++j)
@@ -179,7 +198,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     float tile_max = -INFINITY;
 #pragma unroll
     for (int i = 0; i < PASSES; ++i) {
-      const int row = (i * K3_WARPS + warp) * 4 + grp;
+      const int row = (i * K3_WARPS + warp) * GPW + grp;
       const bool live = tile * TILE + row <= step;
       float dot = 0.f;
       if (live) {
@@ -187,19 +206,19 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
         for (int j = 0; j < CPL; ++j) {
           float kv[EPC];
           chunk_to_f32(*reinterpret_cast<const uint4*>(k_tile[stage] + row * ROW_BYTES +
-                                                        (sub + 8 * j) * 16), kv, T());
+                                                        (sub + LPR * j) * 16), kv, T());
 #pragma unroll
           for (int e = 0; e < EPC; ++e) dot = fmaf(qv[j][e], kv[e], dot);
         }
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       s[i] = live ? dot * scale_log2 : -INFINITY;  // log2 domain
       tile_max = fmaxf(tile_max, s[i]);
     }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 8));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 16));
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
     if (tile_max > -INFINITY) {  // the warp has a live row in this tile (warp-uniform)
       const float m_new = fmaxf(m, tile_max);
       const float alpha = exp2f(m - m_new);  // 0 on the warp's first live tile
@@ -210,7 +229,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
         for (int e = 0; e < EPC; ++e) acc[j][e] *= alpha;
 #pragma unroll
       for (int i = 0; i < PASSES; ++i) {
-        const int row = (i * K3_WARPS + warp) * 4 + grp;
+        const int row = (i * K3_WARPS + warp) * GPW + grp;
         if (s[i] > -INFINITY) {  // a dead row's bytes are never loaded
           const float p = exp2f(s[i] - m_new);
           l += p;
@@ -218,7 +237,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
           for (int j = 0; j < CPL; ++j) {
             float vv[EPC];
             chunk_to_f32(*reinterpret_cast<const uint4*>(v_tile[stage] + row * ROW_BYTES +
-                                                          (sub + 8 * j) * 16), vv, T());
+                                                          (sub + LPR * j) * 16), vv, T());
 #pragma unroll
             for (int e = 0; e < EPC; ++e) acc[j][e] = fmaf(p, vv[e], acc[j][e]);
           }
@@ -229,18 +248,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     if (tile + 1 < n_tiles) __syncthreads();  // the stage is refilled two tiles on
   }
 
-  // the warp's four row groups -> one partial result (l is the same in the
-  // eight lanes of a group, so it is summed across groups only)
-  l += __shfl_xor_sync(0xffffffffu, l, 8);
-  l += __shfl_xor_sync(0xffffffffu, l, 16);
+  // the warp's row groups -> one partial result (l is the same in the
+  // lanes of a group, so it is summed across groups only)
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
   for (int j = 0; j < CPL; ++j)
 #pragma unroll
     for (int e = 0; e < EPC; ++e) {
       float a = acc[j][e];
-      a += __shfl_xor_sync(0xffffffffu, a, 8);
-      a += __shfl_xor_sync(0xffffffffu, a, 16);
-      if (grp == 0) part_acc[warp][(sub + 8 * j) * EPC + e] = a;
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (grp == 0) part_acc[warp][(sub + LPR * j) * EPC + e] = a;
     }
   if (lane == 0) {
     part_m[warp] = m;
@@ -272,14 +291,17 @@ template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const int* anc, void* out, int n_cols, int beam, int heads, int head_dim,
            int max_len, int step, float scale, cudaStream_t stream) {
-  if ((head_dim != 64 && head_dim != 128) || beam < 1 || beam > MAX_BEAM ||
-      n_cols % beam != 0 || heads > 65535 || step < 0 || step >= max_len)
+  if ((head_dim != 32 && head_dim != 64 && head_dim != 96 && head_dim != 128) || beam < 1 ||
+      beam > MAX_BEAM || n_cols % beam != 0 || heads > 65535 || step < 0 || step >= max_len)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k_new, v_new, (const void*)k_cache, (const void*)v_cache,
                         (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   dim3 grid(n_cols, heads);
-  auto kernel = head_dim == 64 ? decode_attention_kernel<T, 64> : decode_attention_kernel<T, 128>;
+  auto kernel = head_dim == 32   ? decode_attention_kernel<T, 32>
+                : head_dim == 64 ? decode_attention_kernel<T, 64>
+                : head_dim == 96 ? decode_attention_kernel<T, 96>
+                                 : decode_attention_kernel<T, 128>;
   kernel<<<grid, K3_THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), anc, static_cast<T*>(out), n_cols,

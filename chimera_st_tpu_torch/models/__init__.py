@@ -1,6 +1,7 @@
 """Model modules of the serving path and of the triplet fine-tune, and the
 registry of the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``,
-the seven fbank ``s2t_transformer*`` presets and the 23 presets of the
+the plain w2v2 + Transformer ST model ``s2t_transformer_w2v2`` (the
+interlingua model without its memory bank) with its five presets, the seven fbank ``s2t_transformer*`` presets and the 23 presets of the
 Transformer family (``transformer*``, ``transformer_lm*``; counterpart of the
 registrations in chimera_st_tpu/models/).
 
@@ -53,6 +54,37 @@ def interlingua_base(cfg: Dict) -> Dict:
     return d
 
 
+# the plain w2v2 + Transformer ST model of the Chimera paper (no memory
+# bank): the interlingua builder with no_interlingua=True (JAX
+# models/interlingua.py:419-466)
+@register_model("s2t_transformer_w2v2")
+def build_s2t_w2v2_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlinguaModel:
+    return build_interlingua_model({**cfg_dict, "no_interlingua": True}, device)
+
+
+def _s2t_w2v2_s(cfg: Dict) -> Dict:
+    d = dict(cfg)
+    d.setdefault("encoder_embed_dim", 256)
+    d.setdefault("encoder_ffn_dim", 256 * 8)
+    d.setdefault("encoder_heads", 4)
+    d.setdefault("decoder_heads", 4)
+    return interlingua_base(d)
+
+
+def _s2t_w2v2_sp(cfg: Dict) -> Dict:
+    return _s2t_w2v2_s({"encoder_layers": 16, **cfg})
+
+
+# asr_s differs from _s in the reference only by the trunk checkpoint it
+# loads (an ASR-fine-tuned wav2vec2): a --w2v2-model-path concern
+for _arch, _preset in (("s2t_transformer_w2v2", interlingua_base),
+                       ("s2t_transformer_w2v2_s", _s2t_w2v2_s),
+                       ("s2t_transformer_w2v2yr_s", _s2t_w2v2_s),
+                       ("s2t_transformer_w2v2_sp", _s2t_w2v2_sp),
+                       ("s2t_transformer_w2v2asr_s", _s2t_w2v2_s)):
+    register_model_architecture("s2t_transformer_w2v2", _arch)(_preset)
+
+
 @register_model("s2t_transformer")
 def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
     return _s2t.S2TTransformerModel(
@@ -68,4 +100,4 @@ for _arch, (_model, _preset) in _mt.ARCHITECTURES.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",
-           "build_interlingua_model", "build_s2t_model"]
+           "build_interlingua_model", "build_s2t_model", "build_s2t_w2v2_model"]

@@ -16,9 +16,11 @@ memory and by the launch, not by bytes (2 us' worth) or operations. It runs
 one block of four warps per (column, head), loads the ancestry entries
 first and then gathers every K and V row of a time tile at once into
 shared memory with 16-byte ``cp.async`` copies (two trips; a two-stage ring
-for timelines longer than a tile of 64 times in bf16, 32 in fp32). The
-warps split the tile's rows, eight lanes a row, and merge their partial
-(max, sum, accumulator) at the end. The time-``cache_index`` row is read
+for timelines longer than a tile: the most rows of a power of two within
+512 chunks, 64 times in bf16 and 32 in fp32 at D 64). The warps split the
+tile's rows, eight lanes a row (four where a row's chunks do not divide by
+eight: D 32 and D 96 in bf16), and merge their partial (max, sum,
+accumulator) at the end. Head dims 32, 64, 96 and 128 are instantiated. The time-``cache_index`` row is read
 from ``k_new`` / ``v_new`` of the ancestor column and a block writes only
 its own column's row, so no block reads what another writes.
 """
@@ -29,7 +31,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 
 
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index: int,
@@ -73,8 +75,7 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, ancestry, cache_ind
         raise ValueError("decode attention kernel takes beam <= 32 dividing N, "
                          "0 <= cache_index < L")
     if D not in HEAD_DIMS:
-        raise ValueError(f"decode attention kernel takes head_dim in {HEAD_DIMS}; other head "
-                         f"dims wait for a model that asks (ROADMAP B)")
+        raise ValueError(f"decode attention kernel takes head_dim in {HEAD_DIMS}")
     if len({t.device for t in (q, k_new, v_new, k_cache, v_cache, ancestry)}) != 1:
         raise ValueError("all tensors must be on one device")
     out = torch.empty_like(q)

@@ -94,7 +94,7 @@ class Optimizer:
     def state_to_optax(self, model: torch.nn.Module, schedule_count: int) -> Dict[str, Any]:
         """The optax tree a JAX checkpoint of this optimizer holds, numpy
         leaves copied to the host once."""
-        from ..convert import opt_state_to_optax
+        from ..convert import model_kind, opt_state_to_optax
 
         trained = {id(p) for p in self._trained()}
         state = {}
@@ -103,21 +103,22 @@ class Optimizer:
             state[name] = None if s is None else {
                 k: (v.detach().cpu().numpy() if k != "step" else int(v)) for k, v in s.items()}
         shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-        return opt_state_to_optax(state, shapes, schedule_count, clip=self.clip_norm > 0,
-                                  decoupled=self.decoupled)
+        return opt_state_to_optax(state, shapes, schedule_count, model=model_kind(model),
+                                  clip=self.clip_norm > 0, decoupled=self.decoupled)
 
     def load_optax(self, tree: Any, model: torch.nn.Module) -> int:
         """Restores the state from an optax tree of this optimizer's layout
         (ValueError otherwise, leaving the state as it was); returns the
         schedule's count."""
-        from ..convert import opt_state_from_optax
+        from ..convert import model_kind, opt_state_from_optax
 
         trained = {id(p) for p in self._trained()}
         named = dict(model.named_parameters())
         frozen = {n for n, p in named.items() if id(p) not in trained}
         shapes = {n: tuple(p.shape) for n, p in named.items()}
         state, schedule_count = opt_state_from_optax(
-            tree, frozen, shapes, clip=self.clip_norm > 0, decoupled=self.decoupled)
+            tree, frozen, shapes, model=model_kind(model), clip=self.clip_norm > 0,
+            decoupled=self.decoupled)
         self.optimizer.state.clear()
         for name, s in state.items():
             if s:

@@ -1,6 +1,7 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
-from . import language_modeling, speech_to_text, translation, triplet  # noqa: F401 — registration
+from . import (  # noqa: F401 — registration
+    language_modeling, speech_to_text, translation, translation_tts, triplet)
 
 
 def setup_task(cfg: dict, **kwargs) -> ChimeraTask:

@@ -3,8 +3,9 @@ chimera_st_tpu/tasks/language_modeling.py; reference
 fairseq/tasks/language_modeling.py): a monolingual binarized corpus
 (``dict.txt``, ``{split}.bin/idx`` from ``chimera-torch-preprocess
 --only-source``) cut into token blocks, each an (input, target) pair of the
-block shifted right behind eos and the block itself. What ``eval_lm`` reads;
-training a language model is not ported (ROADMAP A15)."""
+block shifted right behind eos and the block itself. What ``eval_lm`` reads
+and what the train CLI trains a ``transformer_lm*`` on, with the
+``lm_cross_entropy`` criterion registered here (or ``cross_entropy``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..config.registry import register_task
+from ..config.registry import register_criterion, register_task
 from ..data.batching import collate_tokens, round16
 from ..data.dictionary import Dictionary
 from ..data.indexed_dataset import MMapIndexedDataset
@@ -128,3 +129,15 @@ class LanguageModelingTask(ChimeraTask):
         block (the bucket edge is unused)."""
         samples = [dataset[int(i)] for i in idx]
         return dataset.collater(samples, round16(max(len(s["target"]) for s in samples)))
+
+
+@register_criterion("lm_cross_entropy")
+def make_lm_cross_entropy(cfg: Dict):
+    """Next-token cross entropy of a decoder-only LM on ``net_tokens``
+    batches, label-smoothed by ``label_smoothing`` (JAX
+    ``tasks/language_modeling.py:141-161``); the sample size is the token
+    count."""
+    from ..criterions.cross_entropy import token_cross_entropy
+
+    return token_cross_entropy(dict(cfg, sentence_avg=False),
+                               float(cfg.get("label_smoothing", 0.0)))

@@ -40,7 +40,7 @@ import torch
 
 from ..optim.optimizers import Optimizer
 
-_TOKEN_KEYS = ("prev_output_tokens", "target", "src_text", "src_tokens", "id")
+_TOKEN_KEYS = ("prev_output_tokens", "target", "src_text", "src_tokens", "net_tokens", "id")
 
 
 def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:

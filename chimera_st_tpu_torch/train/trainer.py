@@ -25,9 +25,10 @@ of chimera_st_tpu/train/trainer.py).
   the iterator position, restored as three independent concerns
   (``--reset-meters``, ``--reset-dataloader``; the lr schedules ported keep
   no state).
-- ``host_state`` / ``load_params`` / ``load_opt_state``: the interlingua
-  model's parameters and Adam state as the JAX checkpoint's trees
-  (``convert``).
+- ``host_state`` / ``load_params`` / ``load_opt_state``: the model's
+  parameters and Adam state as the JAX checkpoint's trees, through the
+  converter table of its type (``convert.model_kind``: the interlingua
+  model, ``transformer`` or ``transformer_lm``).
 """
 
 from __future__ import annotations
@@ -151,17 +152,17 @@ class Trainer:
     def host_state(self, save_optimizer: bool = True) -> TrainState:
         """Parameters and (unless not wanted) Adam state as the JAX
         checkpoint's trees, copied to the host once."""
-        from ..convert import params_to_flax
+        from ..convert import model_kind, params_to_flax
 
-        params = params_to_flax(self.model.state_dict())
+        params = params_to_flax(self.model.state_dict(), model_kind(self.model))
         opt = self.optimizer.state_to_optax(self.model, self.num_updates) if save_optimizer \
             else None
         return TrainState(self.num_updates, params, opt)
 
     def load_params(self, tree: Dict[str, Any]) -> None:
-        from ..convert import params_from_flax
+        from ..convert import model_kind, params_from_flax
 
-        self.model.load_state_dict(params_from_flax(tree), strict=True)
+        self.model.load_state_dict(params_from_flax(tree, model_kind(self.model)), strict=True)
 
     def load_opt_state(self, tree: Dict[str, Any]) -> None:
         self.optimizer.load_optax(tree, self.model)

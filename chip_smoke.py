@@ -33,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
              8 heads and beam 5 / 4 heads, each at steps 0, 31 and 63 of a
              64-long cache and, with 2 sentences, at step 150 of a 200-long
              one, and at head dim 128 (32 sentences x beam 5, 4 heads; beside
-             it SDPA over the gathered rows), the ancestry row of the step
+             it SDPA over the gathered rows), k3_wide: at head dims 96 (32
+             heads: the megatron LM presets) and 32 (16 heads: the gbw
+             ones), 32 sentences x beam 4, steps 0, 31 and 63, the ancestry row of the step
              drawn at random, cache rows
              past the step NaN, the cache after the call bit-equal to the
              plain version's; K4 (log-mel) on 6 s rows, a 33,000-sample row
@@ -64,6 +66,16 @@ Phases (any failure raises and the script exits non-zero):
              path must have launched, and no other. The counts are exact:
              per batch K1 24 (flagship) or 12 (fbank), K2 6, K4 1, K3 384
              (6 decoder layers x 64 steps).
+5a. w2v2_st - the plain w2v2 + Transformer ST model without a memory bank
+             (s2t_transformer_w2v2_s from the registries: 12 x 768 trunk at 12
+             heads of 64, 12 x 256 shared encoder at 4 heads, 6-layer
+             decoder; vocabularies of 10,000), as the flagship: fp32 card vs
+             CPU token-identical, then 3 bf16 batches of 8 with exact
+             launches a batch (K1 24, K2 6, K3 384) and one more batch under
+             torch.profiler (the device's busy share). In the CLI phases
+             (w2v2_st_cli) the same weights as a native .ckpt in the JAX
+             trainer's layout go through cli.generate in bf16 on the 24
+             wavs (K1 24 and K2 6 a batch, K3 6 a decoder step).
 5b. search - the flagship's generation surface on one seeded batch of 8
              utterances of 2-6 s, beam 10, max_decode_len 64 (a second model
              from another seed for the ensemble): plain beam, diverse groups
@@ -224,13 +236,50 @@ Phases (any failure raises and the script exits non-zero):
              the whole stream in bf16 (tokens/s), no kernel launched (the
              forward is causal). iwslt: transformer_iwslt_de_en (6 + 6 x
              512, 4 heads of 128) served as mt_big, K1 and K3 at head dim
-             128. family_shapes (after mt_shapes): K1 and K3 against their
-             plain versions at every shape these phases launched, as
+             128. lm_fusion_gbw / lm_fusion_megatron: mt_big with
+             --lm-path of a transformer_lm_gbw LM (the full preset: 12 x
+             512, 16 heads of 32) and of a transformer_lm_megatron LM at
+             full width (3072, 32 heads of 96) with 2 of its 72 layers, as
+             lm_fusion (K3 6 + 12 and 6 + 2 a step, at head dims 32 and
+             96). Each family serve phase then runs one more batch under
+             the CLI's --profile and reads the device's busy share from
+             its trace. family_shapes (after mt_shapes): K1 and K3 against
+             their plain versions at every shape these phases launched, as
              mt_shapes.
-10. report - one JSON line {"kernels": [...]} ("launches" sums the driven
-             paths: both serve runs, every search mode, cli_serve, text,
-             fbank_features, both train runs, train_cli's training and
-             decode, mt_cli's and the family's; K3's record holds its times at the search
+10. family training - family_train: cli.train --task translation --arch
+             transformer (512 / 2048 / 8 heads, 6 + 6 layers, attention
+             dropout 0) on 1,600 more seeded pairs of the family text,
+             fairseq's WMT'16 recipe (label smoothing 0.1, Adam (0.9,
+             0.98), inverse_sqrt lr 5e-4, --max-tokens 4096) with the
+             warm-up cut to 4, bf16, BLEU validation as the checkpoint
+             metric (scored by sacrebleu, or where it is not installed by
+             a stand-in module of the same formula): run A to update 10,
+             run B resumed to 20 under --profile; then cli.validate of the
+             checkpoint without --arch, cli.generate from it, and one
+             accumulated step at full width in fp32 on the card and on the
+             CPU (mt_parity's gates). Exact launches: K1 6 a training
+             micro-batch, 6 a validation batch and 6 a BLEU decode batch,
+             K3 6 a decoder step. Prints {"family_train": {...}} (updates
+             and tokens a second after run A's first update, from each
+             update's seconds: validations and saves excluded; peak
+             memory, busy share, seconds a save,
+             the checkpoint's size, the resume's load seconds). lm_train:
+             cli.train --task language_modeling --arch transformer_lm_gpt
+             --criterion lm_cross_entropy on the stream, 512-token blocks,
+             8 a micro-batch, 10 updates, bf16, then cli.eval_lm on the
+             result and the fp32 step parity; no kernel launched (causal).
+             Prints {"lm_train": {...}}. slice_shapes: every K1, K2 and K3
+             shape that w2v2_st (its parity and serving), w2v2_st_cli,
+             tts_update and family_train launched, held against the plain
+             versions as the other shape phases hold them (bf16 and fp32,
+             K3 at the first, middle and last step of its cache with the
+             cache writes bit-equal), accuracy only; the phase demands the
+             trunk (H 12), the shared encoder (H 4) and the family (H 8) in
+             K1, beams 10 / H 4 and 4 / H 8 in K3, and K2.
+11. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+             paths: both serve runs, w2v2_st, every search mode, cli_serve,
+             text, fbank_features, both train runs, train_cli's training and
+             decode, tts_update, mt_cli's and the family's; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -240,9 +289,11 @@ DIR and runs phase 3's K3 and K4 cases on it (what --parent starts).
 
 With --profile, each serve phase ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
-of the wall time and the device time by kernel; cli_serve runs its command
-once more under the profiler and prints the device's busy seconds; train
-and mt_cli profile one more update.
+and the device time by kernel; cli_serve runs its command once more with
+the CLI's --profile; train and mt_cli profile one more update. The busy
+share has one definition throughout (trace_busy): the union of the
+device's kernel, copy and set intervals in the profiler's trace over the
+span from its first event to its last.
 
 Longer logs (the compiler's register/shared-memory report, the profiles) go
 to chiprun_out/, and so does a copy of the whole standard output
@@ -355,15 +406,17 @@ def rate_fields(flops: float, ms: float, b_ms: float) -> dict:
     return dict(tflops=flops / ms / 1e9, bound_share=b_ms / ms)
 
 
-def k1_case(torch, enc_attn, tensor, label, B, T, H, D):
-    """K1 at one shape: accuracy (bf16 and fp32), times, bound. Row 1 is
-    padded from T // 2 on (across a 64-key tile edge), row 2, where B > 2,
-    entirely (uniform weights over its T keys)."""
+def k1_case(torch, enc_attn, tensor, label, B, T, H, D, timed=True):
+    """K1 at one shape: accuracy (bf16 and fp32); unless not ``timed``,
+    times and bound. Row 1, where B > 1, is padded from T // 2 on (across a
+    64-key tile edge), row 2, where B > 2, entirely (uniform weights over
+    its T keys)."""
     import torch.nn.functional as F
 
     q, k, v = (tensor((B, T, H, D)) for _ in range(3))
     mask = torch.zeros(B, T, dtype=torch.bool, device="cuda")
-    mask[1, T // 2:] = True
+    if B > 1:
+        mask[1, T // 2:] = True
     if B > 2:
         mask[2, :] = True
     ref = enc_attn.encoder_attention_plain(q.float(), k.float(), v.float(), mask)
@@ -371,6 +424,8 @@ def k1_case(torch, enc_attn, tensor, label, B, T, H, D):
     check(f"{label} bf16 kernel vs fp32 plain", bf_err, 2e-2)
     err = max_err(enc_attn.encoder_attention_cuda(q.float(), k.float(), v.float(), mask), ref)
     check(f"{label} fp32 kernel vs fp32 plain", err, 1e-4)
+    if not timed:
+        return dict(max_abs_err=bf_err, fp32_max_abs_err=err)
     ms = cuda_ms(lambda: enc_attn.encoder_attention_cuda(q, k, v, mask))
     plain_ms = cuda_ms(lambda: enc_attn.encoder_attention_plain(q, k, v, mask))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -387,10 +442,10 @@ def k1_case(torch, enc_attn, tensor, label, B, T, H, D):
                 library_ms=lib_ms, **rates)
 
 
-def k2_case(torch, conv_tail, tensor, B, T1, per_layer=False):
+def k2_case(torch, conv_tail, tensor, B, T1, per_layer=False, timed=True):
     """K2's six layers at one input length: accuracy (bf16 and fp32, against
-    the output's max), times, bound; with per_layer, each layer's time
-    beside its cuDNN conv + GELU."""
+    the output's max); unless not ``timed``, times and bound; with
+    per_layer, each layer's time beside its cuDNN conv + GELU."""
     CH = conv_tail.CH
     x = torch.nn.functional.gelu(tensor((B, T1, CH), dtype=torch.float32)).to(torch.bfloat16)
     ws = [tensor((CH, CH, k), scale=(2.0 / (k * CH)) ** 0.5) for k, _ in conv_tail.TAIL_SPEC]
@@ -399,9 +454,10 @@ def k2_case(torch, conv_tail, tensor, B, T1, per_layer=False):
     bf_err = max_err(conv_tail.conv_tail_cuda(x, ws), ref)
     check(f"B{B} T1 {T1} bf16 kernel vs fp32 plain (6 layers, bf16 between layers)", bf_err,
           3e-2 * scale)
-    check(f"B{B} T1 {T1} fp32 kernel vs fp32 plain",
-          max_err(conv_tail.conv_tail_cuda(x.float(), [w.float() for w in ws]), ref),
-          1e-4 * scale)
+    err = max_err(conv_tail.conv_tail_cuda(x.float(), [w.float() for w in ws]), ref)
+    check(f"B{B} T1 {T1} fp32 kernel vs fp32 plain", err, 1e-4 * scale)
+    if not timed:
+        return dict(max_abs_err=bf_err, fp32_max_abs_err=err, output_max=scale)
     ms = cuda_ms(lambda: conv_tail.conv_tail_cuda(x, ws), reps=5)
     plain_ms = cuda_ms(lambda: conv_tail.conv_tail_plain(x, ws), reps=5)
     lens = [T1]
@@ -444,10 +500,11 @@ def k3_inputs(torch, tensor, rng, S, C, H, L, D=64):
     return q, k_new, v_new, kc, vc, torch.tensor(anc_np, device="cuda"), anc_np
 
 
-def k3_step(torch, dec_attn, inputs, label, C, idx):
+def k3_step(torch, dec_attn, inputs, label, C, idx, timed=True):
     """K3 at one step of one shape: accuracy (bf16 and fp32 against the fp32
     plain version), the cache after the call bit-equal to the plain
-    version's, times and bound. Cache rows past the step are NaN."""
+    version's; unless not ``timed``, times and bound. Cache rows past the
+    step are NaN."""
     q, k_new, v_new, kc, vc, anc, anc_np = inputs
     N, H, L, D = kc.shape
     S = N // C
@@ -465,24 +522,20 @@ def k3_step(torch, dec_attn, inputs, label, C, idx):
         if not torch.equal(got.float().nan_to_num(nan=7.0), want.nan_to_num(nan=7.0)):
             raise AssertionError(f"{label}: bf16 cache after the call differs from the plain one")
     kc_f, vc_f = kc.float(), vc.float()
-    check(f"{label} fp32 kernel vs fp32 plain", max_err(dec_attn.decode_attention_cuda(
-        q.float(), k_new.float(), v_new.float(), kc_f, vc_f, anc, idx, C), ref), 1e-4)
+    err = max_err(dec_attn.decode_attention_cuda(q.float(), k_new.float(), v_new.float(), kc_f,
+                                                 vc_f, anc, idx, C), ref)
+    check(f"{label} fp32 kernel vs fp32 plain", err, 1e-4)
     if not (torch.equal(kc_f.nan_to_num(nan=7.0), kc32.nan_to_num(nan=7.0))
             and torch.equal(vc_f.nan_to_num(nan=7.0), vc32.nan_to_num(nan=7.0))):
         raise AssertionError(f"{label}: fp32 cache after the call differs from the plain one")
     log(f"  {label} cache writes (bf16 and fp32): bit-equal to the plain version's")
+    if not timed:
+        return dict(max_abs_err=bf_err, fp32_max_abs_err=err)
     ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc_k, vc_k, anc, idx, C),
                  reps=50)
     plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc_k, vc_k, anc,
                                                                idx, C), reps=50)
-    # cache rows the step must read: distinct ancestor columns per (sentence,
-    # time) before the step (the step's own row is read from k_new / v_new)
-    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx))
-    n_bytes = (2 * rows * H * D * 2  # referenced K and V rows
-               + 3 * N * H * D * 2  # q, k_new, v_new
-               + 2 * N * H * D * 2  # the new rows written into the caches
-               + (idx + 1) * N * 4  # ancestry rows
-               + N * H * D * 2)  # output
+    n_bytes = k3_bytes(anc_np, S, C, H, D, idx, 2)
     flops = 4 * N * H * (idx + 1) * D
     b_ms, b_by = bound_ms(n_bytes, flops)
     rec = dict(max_abs_err=bf_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -491,6 +544,17 @@ def k3_step(torch, dec_attn, inputs, label, C, idx):
         f"({100 * b_ms / ms:.1f} % of bound), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by})")
     return rec
+
+
+def k3_bytes(anc_np, S, C, H, D, idx, itemsize):
+    """The bytes one K3 call must move: the cache rows the step reads
+    (distinct ancestor columns per (sentence, time) before the step; the
+    step's own row comes from k_new / v_new), q, k_new and v_new, the new
+    rows written into the caches, the ancestry rows and the output."""
+    N = S * C
+    rows = sum(len(set(anc_np[l, s * C:(s + 1) * C])) for s in range(S) for l in range(idx))
+    return ((2 * rows + 6 * N) * H * D * itemsize  # rows read, q / k_new / v_new, rows written, out
+            + (idx + 1) * N * 4)
 
 
 def k3_case(torch, dec_attn, tensor, rng, label, C, H):
@@ -718,7 +782,8 @@ def phase_kernels(torch, ops):
     for rec, fn in zip(phase_k3_k4(torch, dec_attn, lm), (dec_attn.decode_attention, lm.logmel)):
         records.append(dict(rec, launches_of=fn, launch_floor_ms=floor_ms))
     next(r for r in records if r["name"] == "decode_attention")["shapes"] = {
-        "d128_S32_C5_H4": k3_d128_case(torch, dec_attn, tensor)}
+        "d128_S32_C5_H4": k3_d128_case(torch, dec_attn, tensor),
+        **k3_wide_cases(torch, dec_attn, tensor)}
     k3_misaligned_raises(torch, dec_attn, tensor, np.random.default_rng(2))
     return records
 
@@ -913,28 +978,59 @@ def phase_serve(torch, label, model, settings, kernels, on_path, seed, profile=F
     return counts
 
 
+def trace_busy(path: Path) -> dict:
+    """The device's busy share in a torch.profiler Chrome trace (what a
+    CLI's ``--profile DIR`` writes as DIR/trace.json): the union of the
+    kernel, copy and set intervals over the span from the trace's first
+    event to its last. The script's one definition of the busy share."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        raise RuntimeError(f"{path}: the trace holds no device events")
+    busy, end = 0.0, float("-inf")
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+            - min(float(e["ts"]) for e in events))
+    return {"wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3, "busy_share": busy / wall,
+            "device_events": len(device)}
+
+
+def profiler_busy(prof) -> dict:
+    """trace_busy of a finished torch.profiler run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return trace_busy(path)
+
+
 def phase_profile(torch, label, serve, batch):
     """Optional (--profile): one more served batch under torch.profiler.
-    Prints the device's busy share of the wall time, and the device time by
+    Prints the device's busy share (trace_busy) and the device time by
     kernel, largest first (also written to chiprun_out/serve_profile_<path>.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_enc, t_dec = serve(*batch)
-    wall_us = (t_enc + t_dec) * 1e6
+    busy = profiler_busy(prof)
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device events")
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile ({label}): one batch of 8, wall {wall_us / 1e3:.1f} ms (encode "
-        f"{t_enc * 1e3:.1f}, decode {t_dec * 1e3:.1f}), device busy {busy_us / 1e3:.1f} ms "
-        f"= {100 * busy_us / wall_us:.1f} % of wall, {sum(e.count for e in kernels)} launches")
+    log(f"profile ({label}): one batch of 8, encode {t_enc * 1e3:.1f} ms, decode "
+        f"{t_dec * 1e3:.1f} ms; device busy {busy['device_busy_ms']:.1f} ms = "
+        f"{100 * busy['busy_share']:.1f} % of the trace's {busy['wall_ms']:.1f} ms, "
+        f"{sum(e.count for e in kernels)} launches")
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)
     lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}"
              for e in rows]
     for line in lines[:15]:
         log("  " + line)
     (ROOT / "chiprun_out" / f"serve_profile_{label}.txt").write_text("\n".join(lines) + "\n")
+    return busy
 
 
 def seeded_builder(torch, make, seed: int = 0):
@@ -1053,14 +1149,15 @@ def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int
 
 
 @contextlib.contextmanager
-def recorded_shapes(enc_attn, conv_tail, dec_attn):
+def recorded_shapes(enc_attn, conv_tail, dec_attn, seen=None):
     """While open, notes the input shape and dtype of every K1, K2 and K3
     launch (the wrappers reach ``encoder_attention_cuda`` / ``conv_tail_cuda``
     / ``decode_attention_cuda`` through their modules, where these stand in).
-    Yields {kernel: [(shape, dtype)]}, each distinct pair once, in the order
-    of its first launch; K3's shape is the cache's (N, H, L, D) and the
-    beam."""
-    seen = {"encoder_attention": [], "conv_tail": [], "decode_attention": []}
+    Yields {kernel: [(shape, dtype)]} (``seen`` extended, where given), each
+    distinct pair once, in the order of its first launch; K3's shape is the
+    cache's (N, H, L, D) and the beam."""
+    if seen is None:
+        seen = {"encoder_attention": [], "conv_tail": [], "decode_attention": []}
     k1, k2 = enc_attn.encoder_attention_cuda, conv_tail.conv_tail_cuda
     k3 = dec_attn.decode_attention_cuda
 
@@ -1246,16 +1343,58 @@ def train_model(torch, task, device, **overrides):
     return init_params_(model, torch.Generator().manual_seed(11)).to(device)
 
 
+def compare_step(torch, label, cuda, cpu, before, keys=("loss", "nll_loss"), names=None):
+    """The gates of one fp32 update, card vs CPU from the same weights.
+    ``cuda`` / ``cpu`` are (metrics, gradients, parameters after), ``before``
+    the parameters before, ``names`` the trained tensors (default all). The
+    metrics in ``keys`` within 1e-5 and gnorm within 1e-3 (relative); every
+    gradient within 1e-2 (L2 per tensor: fp32 round-off grows through the
+    ReLU kinks and cuDNN's conv backward, a wrong backward would be O(1); a
+    key projection's bias, whose exact gradient is 0 since a softmax row
+    shifted by a constant does not change, against its weight's); the
+    parameters after one Adam update at lr 1e-4: where the two gradients
+    differ by d, Adam's first update may differ by up to lr * min(2, d /
+    eps), the bound each parameter is held to (plus 4 fp32 roundings of the
+    parameter and 1e-6 lr for the two optimizers' own rounding). Every
+    tensor whose gradient is not 0 on both devices must move. Returns the
+    relative loss, gnorm and largest gradient differences."""
+    (mg, gg, pg), (mc, gc, pc) = cuda, cpu
+    names = list(gc) if names is None else names
+    for key in keys:
+        check(f"{label} {key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]),
+              1e-5)
+    check(f"{label} gnorm card vs CPU (relative)", abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"],
+          1e-3)
+    live = [k for k in names if gc[k].abs().max() > 0 or gg[k].abs().max() > 0]
+    rel = sorted(((float((gg[k] - gc[k]).norm() / gc[k[:-4] + "weight" if k.endswith(
+        "k_proj.bias") else k].norm().clamp_min(1e-30)), k) for k in live), reverse=True)
+    log(f"  {label} largest gradient differences (L2, relative): "
+        + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
+    check(f"{label} every gradient ({len(rel)} tensors) card vs CPU, |d| / |g| per tensor",
+          rel[0][0], 1e-2)
+    lr, eps = 1e-4, 1e-8
+    excess, moved = 0.0, 0
+    for k in names:
+        allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
+            + 4 * torch.finfo(torch.float32).eps * pc[k].abs() + 1e-6 * lr
+        excess = max(excess, float(((pg[k] - pc[k]).abs() - allowed).max()))
+        moved += int(not torch.equal(pc[k], before[k]))
+    log(f"  {label} Adam update: {moved} of {len(names)} tensors moved ({len(names) - len(live)} "
+        f"with a zero gradient); max |card - CPU| / lr "
+        f"{max(max_err(pg[k], pc[k]) for k in names) / lr:.3e}")
+    if excess > 0 or moved != len(live):
+        raise AssertionError(f"{label} parity: {excess} beyond the bound, {moved} of "
+                             f"{len(live)} tensors moved")
+    return {"loss_rel": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+            "gnorm_rel": abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], "grad_rel_max": rel[0][0]}
+
+
 def phase_train_parity(torch, task):
     """One flagship step at full width in fp32 (TF32 off), every dropout 0,
     a batch of 2 from the fixture: on the card (K1, K2 through their
-    Functions) and on the CPU (plain versions). Loss terms (1e-5), gnorm
-    (1e-3) and every parameter's gradient (1e-2 per tensor, L2), then the
-    parameters after one Adam update at lr
-    1e-4 (a fixed schedule): where the two gradients differ by d, Adam's
-    first update may differ by up to lr * min(2, d / eps), which is the
-    bound each parameter is held to (plus 4 fp32 roundings of the parameter
-    and 1e-6 lr for the two optimizers' own rounding)."""
+    Functions) and on the CPU (plain versions), held by compare_step (the
+    loss terms, gnorm, every gradient, one Adam update at lr 1e-4 on a fixed
+    schedule)."""
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.train import TrainStep
 
@@ -1279,59 +1418,33 @@ def phase_train_parity(torch, task):
                        {k: p.detach().cpu() for k, p in model.named_parameters()})
         del model, step
     (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
-    for key in ("loss", "st_loss", "mt_loss", "contrastive_loss"):
-        check(f"{key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]), 1e-5)
-    check("gnorm card vs CPU (relative)", abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], 1e-3)
-    # per tensor |card - CPU| / |CPU| (L2): fp32 round-off grows through the
-    # ReLU kinks and cuDNN's conv backward; a wrong backward would be O(1).
-    # A key projection's bias has an exact gradient of 0 (a softmax row
-    # shifted by a constant): held against its weight's gradient.
-    rel = sorted(((float((gg[k] - gc[k]).norm() / gc[k[:-4] + "weight" if k.endswith(
-        "k_proj.bias") else k].norm().clamp_min(1e-30)), k) for k in gc), reverse=True)
-    log("  largest gradient differences (L2, relative): "
-        + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
-    check(f"every parameter's gradient ({len(gc)} tensors) card vs CPU, |d| / |g| per tensor",
-          rel[0][0], 1e-2)
-    lr, eps = 1e-4, 1e-8
-    excess, moved = 0.0, 0
-    for k in pc:
-        allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
-            + 4 * torch.finfo(torch.float32).eps * pc[k].abs() + 1e-6 * lr
-        excess = max(excess, float(((pg[k] - pc[k]).abs() - allowed).max()))
-        moved += int(not torch.equal(pc[k], before[k]))
-    log(f"  Adam update: {moved} of {len(pc)} tensors moved; max |card - CPU| / lr "
-        f"{max(max_err(pg[k], pc[k]) for k in pc) / lr:.3e}")
-    if excess > 0 or moved != len(pc):
-        raise AssertionError(f"parameters after the update: {excess} beyond the bound, "
-                             f"{moved} of {len(pc)} tensors moved")
+    compare_step(torch, "train", (mg, gg, pg), (mc, gc, pc), before,
+                 keys=("loss", "st_loss", "mt_loss", "contrastive_loss"))
     torch.cuda.empty_cache()
 
 
 def train_profile(torch, step, micro):
-    """One update under torch.profiler: the device's busy share of the wall
-    time and the device operations by time (also written to
+    """One update under torch.profiler: the device's busy share (trace_busy)
+    and the device operations by time (also written to
     chiprun_out/train_profile.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         step(micro)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = profiler_busy(prof)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device events")
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"  profile: one update, wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-        f"= {100 * busy_us / wall_us:.1f} % of wall, {sum(e.count for e in events)} launches")
+    log(f"  profile: one update, device busy {busy['device_busy_ms']:.1f} ms = "
+        f"{100 * busy['busy_share']:.1f} % of the trace's {busy['wall_ms']:.1f} ms, "
+        f"{sum(e.count for e in events)} launches")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)
     lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:110]}"
              for e in rows]
     for line in lines[:15]:
         log("  " + line)
     (ROOT / "chiprun_out" / "train_profile.txt").write_text("\n".join(lines) + "\n")
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3)
+    return busy
 
 
 TRAIN_UPDATES = 3  # timed, after one warm-up update
@@ -1768,33 +1881,14 @@ def phase_mt_parity(torch, fx):
                        {k: p.detach().cpu() for k, p in model.named_parameters()})
         del model, step, opt
     (mg, before, frozen, gg, pg), (mc, _, _, gc, pc) = out["cuda"], out["cpu"]
-    for key in ("loss", "nll_loss"):
-        check(f"mt {key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]), 1e-5)
-    check("mt gnorm card vs CPU (relative)", abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], 1e-3)
     trained = [k for k in gc if k not in frozen]
-    rel = sorted(((float((gg[k] - gc[k]).norm() / gc[k[:-4] + "weight" if k.endswith(
-        "k_proj.bias") else k].norm().clamp_min(1e-30)), k) for k in trained
-        if gc[k].abs().max() > 0), reverse=True)
-    log("  largest gradient differences (L2, relative): "
-        + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
-    check(f"every trained gradient ({len(rel)} tensors) card vs CPU, |d| / |g| per tensor",
-          rel[0][0], 1e-2)
-    zero_grad = [k for k in trained if gc[k].abs().max() == 0]
     trunk_same = all(torch.equal(pg[k], before[k]) and torch.equal(pc[k], before[k])
                      for k in frozen)
-    lr, eps = 1e-4, 1e-8
-    excess, moved = 0.0, 0
-    for k in trained:
-        allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
-            + 4 * torch.finfo(torch.float32).eps * pc[k].abs() + 1e-6 * lr
-        excess = max(excess, float(((pg[k] - pc[k]).abs() - allowed).max()))
-        moved += int(not torch.equal(pc[k], before[k]))
-    log(f"  Adam update: {moved} of {len(trained)} trained tensors moved ({len(zero_grad)} with "
-        f"a zero gradient); the {len(frozen)} trunk tensors bit-identical to their start on "
-        f"both devices: {trunk_same}")
-    if excess > 0 or moved != len(trained) - len(zero_grad) or not trunk_same:
-        raise AssertionError(f"mt_parity: {excess} beyond the bound, {moved} tensors moved, "
-                             f"trunk unchanged {trunk_same}")
+    log(f"  the {len(frozen)} trunk tensors bit-identical to their start on both devices: "
+        f"{trunk_same}")
+    if not trunk_same:
+        raise AssertionError("mt_parity: the masked trunk moved")
+    compare_step(torch, "mt", (mg, gg, pg), (mc, gc, pc), before, names=trained)
     torch.cuda.empty_cache()
 
 
@@ -2028,59 +2122,47 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
     return {"mt_cli": train_counts, "mt_cli_decode": counts["decode"]}, seen
 
 
-def phase_mt_shapes(torch, enc_attn, dec_attn, seen, records, prefix="mt"):
-    """Every K1 shape the MT phases launched (validation batches of text
-    under --max-tokens 4096, the decode batches), held against the plain
-    version in bf16 and fp32 like the shapes of phase 3; and every K3 shape
-    of the decode (batches of 32 at beam 5), held as phase 3 holds K3: steps
-    0, 31 and 63, bf16 and fp32, the cache writes bit-equal. The records go
-    into each kernel's `shapes`, K3's main numbers those of step 63."""
-    shapes = list(dict.fromkeys(shape for shape, _ in seen["encoder_attention"]))
-    k3_shapes = list(dict.fromkeys(shape for shape, _ in seen["decode_attention"]))
-    log(f"{prefix}_shapes: the phases launched K1 at {len(shapes)} shapes {shapes}, K3 at "
-        f"{len(k3_shapes)} {k3_shapes} (N, H, L, D, beam) in "
-        f"{sorted({str(d) for _, d in seen['decode_attention']})}")
-    if not shapes or not k3_shapes or seen["conv_tail"]:
-        raise AssertionError(f"{prefix}_shapes: K1 at {shapes}, K3 at {k3_shapes}, K2 at "
-                             f"{seen['conv_tail']}")
-    tensor = Inputs(torch, 6)
-    k1_rec, k3_rec = (next(r for r in records if r["name"] == n)
-                      for n in ("encoder_attention", "decode_attention"))
-    for B, T, H, D in shapes:
-        label = f"{prefix}_B{B}_T{T}_H{H}_D{D}"
-        k1_rec["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T, H, D)
-    rng = np.random.default_rng(7)
-    for N, H, L, D, C in k3_shapes:
-        label = f"{prefix}_S{N // C}_C{C}_H{H}_D{D}"
-        inputs = k3_inputs(torch, tensor, rng, N // C, C, H, L, D)
-        steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx) for idx in (63, 31, 0)}
-        k3_rec.setdefault("shapes", {})[f"{label}_L{L}"] = dict(
-            steps[63], steps={"0": steps[0], "31": steps[31]})
-
-
-def phase_cli_shapes(torch, enc_attn, conv_tail, seen, records):
-    """Every shape at which the CLI phases launched K1 and K2 (padded batches
-    of the fixture's wavs: the trunk at 12 heads of 64, the shared encoder
-    behind the subsampler, the text branch below one 64-key tile), held
-    against the plain version in bf16 and fp32 like the shapes of phase 3."""
+def phase_shapes(torch, ops, seen, records, prefix, expect, timed=True):
+    """Every shape at which a group of phases launched K1, K2 and K3 (``seen``
+    from recorded_shapes), held against the plain version as phase 3 holds
+    them: K1 and K2 in bf16 and fp32, K3 at the first, middle and last step
+    of the shape's cache (0, 31 and 63 of 64) in bf16 and fp32 with the
+    cache writes bit-equal; times
+    and bounds too where ``timed``. ``expect(shapes)`` says what the phases
+    must have launched. The records go into each kernel's ``shapes``, K3's
+    main numbers those of its last step."""
+    t0 = time.perf_counter()
+    enc_attn, conv_tail, dec_attn = ops
+    shapes = {name: list(dict.fromkeys(shape for shape, _ in pairs))
+              for name, pairs in seen.items()}
     dtypes = {name: sorted({str(d).replace("torch.", "") for _, d in pairs})
               for name, pairs in seen.items()}
-    k1_shapes = list(dict.fromkeys(shape for shape, _ in seen["encoder_attention"]))
-    k2_shapes = list(dict.fromkeys(shape for shape, _ in seen["conv_tail"]))
-    log(f"cli_shapes: the CLI phases launched K1 at {len(k1_shapes)} shapes "
-        f"{dtypes['encoder_attention']} and K2 at {len(k2_shapes)} {dtypes['conv_tail']}")
-    if (not any(H == 12 and D == 64 for _, _, H, D in k1_shapes)
-            or not any(T < 64 for _, T, _, _ in k1_shapes) or not k2_shapes):
-        raise AssertionError(f"expected the 12-head trunk, a text batch and the conv tail among "
-                             f"{k1_shapes} and {k2_shapes}")
+    log(f"{prefix}_shapes: the phases launched K1 at {len(shapes['encoder_attention'])} shapes "
+        f"(B, T, H, D) {shapes['encoder_attention']}, K2 at {len(shapes['conv_tail'])} (B, T1, "
+        f"C) {shapes['conv_tail']}, K3 at {len(shapes['decode_attention'])} (N, H, L, D, beam) "
+        f"{shapes['decode_attention']}; in {dtypes}")
+    if not expect(shapes):
+        raise AssertionError(f"{prefix}_shapes: not the launches the phases make: {shapes}")
     tensor = Inputs(torch, 4)
-    k1_rec, k2_rec = (next(r for r in records if r["name"] == n)
-                      for n in ("encoder_attention", "conv_tail"))
-    for B, T, H, D in k1_shapes:
-        label = f"cli_B{B}_T{T}_H{H}_D{D}"
-        k1_rec["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T, H, D)
-    for B, T1, _ in k2_shapes:
-        k2_rec["shapes"][f"cli_B{B}_T1_{T1}"] = k2_case(torch, conv_tail, tensor, B, T1)
+    rec = {r["name"]: r for r in records}
+    for B, T, H, D in shapes["encoder_attention"]:
+        label = f"{prefix}_B{B}_T{T}_H{H}_D{D}"
+        rec["encoder_attention"]["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T,
+                                                            H, D, timed=timed)
+    for B, T1, _ in shapes["conv_tail"]:
+        rec["conv_tail"]["shapes"][f"{prefix}_B{B}_T1_{T1}"] = k2_case(
+            torch, conv_tail, tensor, B, T1, timed=timed)
+    rng = np.random.default_rng(7)
+    for N, H, L, D, C in shapes["decode_attention"]:
+        label = f"{prefix}_S{N // C}_C{C}_H{H}_D{D}"
+        inputs = k3_inputs(torch, tensor, rng, N // C, C, H, L, D)
+        last, mid = L - 1, L // 2 - 1  # 63 and 31 of a 64-step cache
+        steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx, timed=timed)
+                 for idx in (last, mid, 0)}
+        rec["decode_attention"].setdefault("shapes", {})[f"{label}_L{L}"] = dict(
+            steps[last], steps={"0": steps[0], str(mid): steps[mid]})
+    log(f"{prefix}_shapes: {sum(map(len, shapes.values()))} shapes held in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def parse_protocol(text: str):
@@ -2222,24 +2304,14 @@ def phase_cli_serve(torch, fx, work: Path, kernels, profile=False):
         f"set-up {wall - stats['load_s'] - stats['decode_s']:.2f}; reading and collating the "
         f"{batches} batches alone takes {data_s:.3f} s")
     if profile:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, pstats, _ = cli_generate(fx, work / "serve_profiled", "tst_wave", serve_args)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not events:
-            raise RuntimeError("torch.profiler recorded no device events")
-        busy_s = sum(e.self_device_time_total for e in events) / 1e6
-        rec["profiled"] = {"decode_s": pstats["decode_s"], "load_s": pstats["load_s"],
-                           "device_busy_s": busy_s,
-                           "device_launches": sum(e.count for e in events)}
-        log(f"  under torch.profiler: batches {pstats['decode_s']:.2f} s, device busy "
-            f"{busy_s:.3f} s over load and batches = "
-            f"{100 * busy_s / (pstats['decode_s'] + pstats['load_s']):.1f} % of them, "
-            f"{rec['profiled']['device_launches']} launches")
+        _, pstats, _ = cli_generate(fx, work / "serve_profiled", "tst_wave",
+                                    [*serve_args, "--profile", str(work / "serve_trace")])
+        rec["profiled"] = dict(trace_busy(work / "serve_trace" / "trace.json"),
+                               decode_s=pstats["decode_s"], load_s=pstats["load_s"])
+        log(f"  under --profile: batches {pstats['decode_s']:.2f} s, device busy "
+            f"{rec['profiled']['device_busy_ms'] / 1e3:.3f} s = "
+            f"{100 * rec['profiled']['busy_share']:.1f} % of the trace's "
+            f"{rec['profiled']['wall_ms'] / 1e3:.2f} s")
     print(json.dumps({"cli": rec}), flush=True)
     return counts
 
@@ -2992,6 +3064,14 @@ def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int
             or len(full) != FAMILY_TEST_PAIRS
             or any(not np.isfinite(h[0][0]) for h in hyps.values())):
         raise AssertionError(f"{label}: launches {counts} (want {implied}), {len(full)} samples")
+    # the device's busy share: one more batch (the valid split) under --profile
+    family_generate(fx, ckpt, work / "profiled", "valid",
+                    ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "bfloat16",
+                     "--profile", str(work / "trace"), *extra])
+    rec["profile_one_batch"] = trace_busy(work / "trace" / "trace.json")
+    log(f"  one batch of {FAMILY_PARITY_PAIRS} under --profile: device busy "
+        f"{100 * rec['profile_one_batch']['busy_share']:.1f} % of "
+        f"{rec['profile_one_batch']['wall_ms']:.0f} ms")
     print(json.dumps({label: rec}), flush=True)
     return counts
 
@@ -3040,8 +3120,8 @@ def phase_eval_lm(torch, fx, ckpt: Path, kernels):
 
 
 def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
-    """mt_big, lm_fusion, eval_lm and iwslt on one fixture. Returns
-    ({phase: launches}, the K1 / K3 shapes seen)."""
+    """mt_big, lm_fusion, eval_lm, iwslt and lm_fusion_wide on one fixture.
+    Returns (the fixture, {phase: launches}, the K1 / K3 shapes seen)."""
     fx = make_family_fixture(work / "family")
     ckpts = {name: family_checkpoint(torch, fx, name, cfg, seed)
              for (name, cfg), seed in zip(FAMILY_MODELS.items(), (31, 37))}
@@ -3054,10 +3134,550 @@ def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
             ["--lm-path", str(ckpts["lm"]), "--lm-weight", "0.3"])
         counts["eval_lm"] = phase_eval_lm(torch, fx, ckpts["lm"], kernels)
         counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6)
+        counts.update(phase_lm_fusion_wide(torch, fx, ckpts["mt_big"], kernels))
     if not any(s[3] == 128 for s, _ in seen["encoder_attention"]) or \
-            not any(s[3] == 128 for s, _ in seen["decode_attention"]):
-        raise AssertionError(f"iwslt launched no head-dim-128 K1 / K3: {seen}")
-    return counts, seen
+            not all(any(s[3] == d for s, _ in seen["decode_attention"]) for d in (32, 96, 128)):
+        raise AssertionError(f"the family phases launched no head-dim-128 K1, or no K3 at one of "
+                             f"the head dims 32, 96, 128: {seen}")
+    for path in ckpts.values():
+        path.unlink()
+    return fx, counts, seen
+
+
+# ---- this slice: K3 at head dims 96 and 32, the plain w2v2 + Transformer
+# ST model, training the Transformer family, a translation_tts update
+
+K3_WIDE = (("d96_S32_C4_H32", 96, 32), ("d32_S32_C4_H16", 32, 16))
+
+
+def k3_wide_cases(torch, dec_attn, tensor):
+    """K3 at the head dims of the megatron LM presets (3072 / 32 heads: D 96)
+    and of the gbw ones (512 / 16 heads: D 32): 32 sentences x beam 4, a
+    64-step cache, steps 63, 31 and 0, as k3_step holds K3 (bf16 2e-2 and
+    fp32 1e-4 against the fp32 plain version, caches bit-equal, NaN past
+    the step)."""
+    log("k3_wide: K3 decode_attention at head dims 96 and 32")
+    out = {}
+    for label, D, H in K3_WIDE:
+        inputs = k3_inputs(torch, tensor, np.random.default_rng(D), 32, 4, H, 64, D=D)
+        steps = {}
+        for idx in (63, 31, 0):
+            steps[idx] = k3_step(torch, dec_attn, inputs, label, 4, idx)
+            steps[idx]["fp32"] = k3_fp32_time(torch, dec_attn, inputs, label, 4, idx)
+        out[label] = dict(steps[63], steps={"0": steps[0], "31": steps[31]})
+    return out
+
+
+def k3_fp32_time(torch, dec_attn, inputs, label, C, idx):
+    """The fp32 kernel's and plain version's times at one step of a K3
+    case (the same values as k3_step's bf16 inputs, in fp32), beside the
+    bound of its fp32 bytes and its operations at the fp32 peak."""
+    q, k_new, v_new, kc, vc, anc, anc_np = inputs
+    N, H, _, D = kc.shape
+    b_ms, bound_by = bound_ms(k3_bytes(anc_np, N // C, C, H, D, idx, 4),
+                              4 * N * H * (idx + 1) * D, FP32_FLOPS)
+    q, k_new, v_new, kc, vc = (t.float() for t in (q, k_new, v_new, kc, vc))
+    ms = cuda_ms(lambda: dec_attn.decode_attention_cuda(q, k_new, v_new, kc, vc, anc, idx, C),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: dec_attn.decode_attention_plain(q, k_new, v_new, kc, vc, anc,
+                                                               idx, C), reps=50)
+    log(f"  {label} step {idx} fp32: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f} % of its "
+        f"{b_ms:.5f} ms bound), plain {plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=bound_by,
+                bound_share=b_ms / ms)
+
+
+# the plain w2v2 + Transformer ST model of the paper (no memory bank) at its
+# small preset, the trunk as a released checkpoint builds it (12 heads)
+W2V2_ST = {"arch": "s2t_transformer_w2v2_s", "w2v2_heads": 12}
+W2V2_ST_ON_PATH = {"encoder_attention": 24, "conv_tail": 6, "decode_attention": 384}
+
+
+def w2v2_st_builder(torch):
+    """build(device, dtype) of ``s2t_transformer_w2v2_s`` through the
+    registries (vocabularies of 10,000), seeded weights."""
+    import chimera_st_tpu_torch.models  # noqa: F401 — registration
+    from chimera_st_tpu_torch.config.registry import ARCHITECTURES, MODELS
+
+    model_name, preset = ARCHITECTURES.get(W2V2_ST["arch"])
+    cfg = preset({**W2V2_ST, "tgt_vocab_size": 10000, "src_vocab_size": 10000})
+    return seeded_builder(torch, lambda d: MODELS.get(model_name)(cfg, device=d), seed=5)
+
+
+def phase_w2v2_ckpt(torch, fx, work: Path, build, kernels):
+    """The plain w2v2 model as a native ``.ckpt`` in the JAX trainer's layout
+    (``model_cfg`` the preset's name and the trunk's 12 heads), decoded by
+    the port's generate CLI in bf16 on the fixture's 24 wavs: every sample
+    printed, launches exact (K1 24 and K2 6 a batch, K3 6 a decoder step).
+    Returns the launches."""
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+
+    path = work / "w2v2_st.ckpt"
+    save_model(str(path), build("cpu", torch.float32), W2V2_ST)
+    for fn in kernels:
+        fn.launches = 0
+    with counted_decoder_steps() as steps:
+        text, stats, wall = cli_generate(fx, work / "w2v2_st_cli", "tst_wave",
+                                         ["--batch-size", str(CLI_BATCH), "--dtype", "bfloat16"],
+                                         path=path)
+        torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    hyps, full, last = parse_protocol(text)
+    batches = -(-CLI_WAVS // CLI_BATCH)
+    implied = {"encoder_attention": 24 * batches, "conv_tail": 6 * batches,
+               "decode_attention": 6 * steps[0], "logmel": 0}
+    log(f"w2v2_st_cli: {path.stat().st_size / 1e6:.0f} MB .ckpt ({W2V2_ST}) through "
+        f"cli.generate, bf16: {stats['sentences']} sentences in {wall:.1f} s (decode "
+        f"{stats['decode_s']:.2f} s, {stats['sentences'] / stats['decode_s']:.2f} sentences/s, "
+        f"load {stats['load_s']:.2f} s), {steps[0]} decoder steps; launches {counts}; {last}")
+    if (counts != implied or len(full) != CLI_WAVS or steps[0] == 0
+            or any(not np.isfinite(h[0][0]) for h in hyps.values())):
+        raise AssertionError(f"w2v2_st_cli: launches {counts} (want {implied}), {len(full)} "
+                             "samples")
+    path.unlink()
+    return counts
+
+
+LM_WIDE = {"lm_fusion_gbw": ({"arch": "transformer_lm_gbw"}, 43),
+           # full width (3072, 32 heads of 96), depth cut from 72 layers to 2
+           "lm_fusion_megatron": ({"arch": "transformer_lm_megatron", "layers": 2}, 47)}
+
+
+def lm_layers(model_cfg: dict) -> int:
+    from chimera_st_tpu_torch.models.transformer_mt import ARCHITECTURES
+
+    return ARCHITECTURES[model_cfg["arch"]][1](dict(model_cfg))["layers"]
+
+
+def phase_lm_fusion_wide(torch, fx, mt_ckpt: Path, kernels):
+    """``--lm-path`` with an LM of head dim 32 (transformer_lm_gbw, the full
+    preset: 12 x 512, 16 heads) and of head dim 96 (transformer_lm_megatron
+    at full width, 2 of its 72 layers), fused into transformer_wmt_en_de_big
+    as phase_family_serve runs it: fp32 card vs CPU token-identical, bf16
+    with K3 6 + the LM's layers a decoder step. Returns the launches."""
+    counts = {}
+    for name, (cfg, seed) in LM_WIDE.items():
+        ckpt = family_checkpoint(torch, fx, name, cfg, seed)
+        counts[name] = phase_family_serve(torch, fx, name, mt_ckpt, kernels, 6 + lm_layers(cfg),
+                                          ["--lm-path", str(ckpt), "--lm-weight", "0.3"])
+        ckpt.unlink()
+    return counts
+
+
+def ensure_sacrebleu(work: Path) -> None:
+    """BLEU validation (``--best-checkpoint-metric bleu``) scores through
+    sacrebleu as the JAX trainer does. Where the package is not installed
+    (the card's machine), a stand-in module under ``work`` gives its
+    ``corpus_bleu`` (13a tokenization, n-grams up to 4, the brevity penalty,
+    no smoothing of zero counts) so that the validation path runs."""
+    import importlib.util
+
+    if importlib.util.find_spec("sacrebleu") is not None:
+        return
+    shim = work / "shim"
+    shim.mkdir(parents=True, exist_ok=True)
+    (shim / "sacrebleu.py").write_text('''"""Corpus BLEU with 13a tokenization: a stand-in for sacrebleu."""
+import math
+import re
+from collections import Counter
+
+
+def _tok13a(line):
+    line = " " + line.replace("&quot;", '"').replace("&amp;", "&").replace("&lt;", "<") \\
+        .replace("&gt;", ">") + " "
+    line = re.sub(r"([\\{-\\~\\[-\\` -\\&\\(-\\+\\:-\\@\\/])", r" \\1 ", line)
+    line = re.sub(r"([^0-9])([\\.,])", r"\\1 \\2 ", line)
+    line = re.sub(r"([\\.,])([^0-9])", r" \\1 \\2", line)
+    line = re.sub(r"([0-9])(-)", r"\\1 \\2 ", line)
+    return line.split()
+
+
+class BLEU:
+    def __init__(self, counts, totals, sys_len, ref_len):
+        self.counts, self.totals, self.sys_len, self.ref_len = counts, totals, sys_len, ref_len
+        if min(totals) == 0 or min(counts) == 0:
+            self.score = 0.0
+        else:
+            logp = sum(math.log(c / t) for c, t in zip(counts, totals)) / 4
+            bp = 1.0 if sys_len > ref_len else math.exp(1 - ref_len / max(sys_len, 1))
+            self.score = 100 * bp * math.exp(logp)
+
+    def format(self):
+        return f"BLEU = {self.score:.2f} (stand-in for sacrebleu)"
+
+
+def corpus_bleu(hyps, refs, tokenize="13a", lowercase=False, **_):
+    counts, totals, sys_len, ref_len = [0] * 4, [0] * 4, 0, 0
+    for h, r in zip(hyps, refs[0]):
+        h, r = (s.lower() if lowercase else s for s in (h, r))
+        ht, rt = _tok13a(h), _tok13a(r)
+        sys_len, ref_len = sys_len + len(ht), ref_len + len(rt)
+        for n in range(1, 5):
+            hg = Counter(tuple(ht[i:i + n]) for i in range(len(ht) - n + 1))
+            rg = Counter(tuple(rt[i:i + n]) for i in range(len(rt) - n + 1))
+            counts[n - 1] += sum(min(c, rg[g]) for g, c in hg.items())
+            totals[n - 1] += max(len(ht) - n + 1, 0)
+    return BLEU(counts, totals, sys_len, ref_len)
+''')
+    sys.path.insert(0, str(shim))
+    log("sacrebleu is not installed here: BLEU validation scores through a stand-in module "
+        "(13a tokenization, corpus BLEU-4 without smoothing)")
+
+
+def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro):
+    """One accumulated update of a family model at full width in fp32 (TF32
+    off), every dropout 0, on the card (kernels) and on the CPU (plain
+    versions), from the same seeded weights, held by compare_step."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.train import TrainStep
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = task.build_model(dict(model_cfg, dropout=0.0, attention_dropout=0.0,
+                                      activation_dropout=0.0), device="cpu", train=True)
+        init_params_(model, torch.Generator().manual_seed(19)).to(device)
+        step = TrainStep(model, task.build_criterion(crit_cfg),
+                         build_optimizer({"_name": "adam", "adam_betas": "(0.9, 0.98)"},
+                                         list(model.parameters())),
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         compute_dtype=torch.float32)
+        before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        metrics = step(micro)
+        log(f"  {label} parity {device}: {time.perf_counter() - t0:.2f} s, loss "
+            f"{metrics['loss']:.4f}, gnorm {metrics['gnorm']:.4f}")
+        out[device] = (metrics, before, {k: p.grad.cpu() for k, p in model.named_parameters()},
+                       {k: p.detach().cpu() for k, p in model.named_parameters()})
+        del model, step
+    (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
+    torch.cuda.empty_cache()
+    return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before)
+
+
+FAMILY_TRAIN_PAIRS = 1600  # about 30 updates an epoch at --max-tokens 4096
+FAMILY_TRAIN_UPDATES = (10, 20)  # run A to 10, run B resumed to 20
+FAMILY_TRAIN_MODEL = {"arch": "transformer"}  # 512 / 2048 / 8 heads, 6 + 6 layers
+LM_TRAIN_MODEL = {"arch": "transformer_lm_gpt"}  # 12 x 768, 12 heads, GELU
+
+
+def model_flags(model_cfg: dict):
+    """``--arch`` and a flag for each other field of ``model_cfg``."""
+    return [x for k, v in model_cfg.items()
+            for x in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def family_train_fixture(fx) -> Path:
+    """FAMILY_TRAIN_PAIRS more seeded en -> de pairs (the family fixture's
+    Zipf law and lengths) as a ``train`` split, with the fixture's ``valid``
+    pairs, binarized on its joined dictionary."""
+    from chimera_st_tpu_torch.cli import preprocess
+
+    rng = np.random.default_rng(53)
+    n_words = FAMILY_VOCAB - 4
+    words = np.asarray([f"s{i}" for i in range(n_words)])
+    p = 1.0 / np.arange(1, n_words + 1) ** 1.1
+    p /= p.sum()
+    raw = fx["root"] / "raw"
+    src, _ = zipf_rows(rng, words, p, FAMILY_TRAIN_PAIRS)
+    tgt = [" ".join(words[rng.choice(n_words, size=max(1, int(round(
+        len(line.split()) * rng.uniform(0.8, 1.2)))), p=p)]) for line in src]
+    (raw / "train.en").write_text("\n".join(src) + "\n")
+    (raw / "train.de").write_text("\n".join(tgt) + "\n")
+    out = fx["root"] / "mt_train"
+    preprocess.main(["-s", "en", "-t", "de", "--joined-dictionary", "--srcdict",
+                     str(fx["root"] / "dict.txt"), "--trainpref", str(raw / "train"),
+                     "--validpref", str(raw / "valid"), "--destdir", str(out)])
+    return out
+
+
+def family_train_argv(data: Path, save_dir: Path, max_update: int, extra=()):
+    """fairseq's Transformer recipe on WMT'16 en-de (``transformer`` base,
+    label smoothing 0.1, Adam (0.9, 0.98), inverse_sqrt lr 5e-4, --max-tokens
+    4096), bf16, the warm-up cut to 4 updates so that parameters move; BLEU
+    validation as the checkpoint metric; a save at update 10."""
+    return [str(data), "--task", "translation", "-s", "en", "-t", "de",
+            *model_flags(FAMILY_TRAIN_MODEL), "--criterion", "label_smoothed_cross_entropy", "--label-smoothing", "0.1",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "5e-4",
+            "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4", "--max-tokens", "4096",
+            "--dtype", "bfloat16", "--max-update", str(max_update),
+            "--save-interval-updates", str(FAMILY_TRAIN_UPDATES[0]),
+            "--best-checkpoint-metric", "bleu", "--maximize-best-checkpoint-metric",
+            "--save-dir", str(save_dir), *extra]
+
+
+def phase_family_train(torch, fx, kernels):
+    """``cli.train --task translation --arch transformer`` (512 / 2048 / 8
+    heads, 6 + 6 layers, attention dropout 0: K1 forward in each encoder
+    layer of every micro-batch, with the plain backward) on the seeded
+    family text, bf16: run A to update 10 (a save and BLEU validation there,
+    and at the stop), run B resumed from A's checkpoint_last to update 20
+    under ``--profile``; then ``cli.validate`` on B's checkpoint without
+    ``--arch`` (the stored arch is kept), ``cli.generate`` from it, and the
+    fp32 card-vs-CPU parity of one accumulated step. Launches exact: K1 6 a
+    training micro-batch, 6 a validation batch and 6 a BLEU decode batch, K3
+    6 a decoder step of the BLEU decode. Returns the launches; prints
+    {"family_train": {...}}."""
+    import itertools
+
+    from chimera_st_tpu_torch.checkpoint.store import read_state
+    from chimera_st_tpu_torch.cli import generate, train, validate
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    data = family_train_fixture(fx)
+    task = setup_task({"_name": "translation", "data": str(data), "source_lang": "en",
+                       "target_lang": "de"})
+    task.load_dataset("train")
+    task.load_dataset("valid")
+    per_epoch = len(task.make_batch_iterator(task.dataset("train"), max_tokens=4096))
+    n_valid = len(task.make_batch_iterator(task.dataset("valid"), max_tokens=4096))
+    src_tokens = int(task.dataset("train").src_sizes.sum())
+    tgt_tokens = int(task.dataset("train").tgt_sizes.sum())
+    log(f"family_train: cli.train --arch transformer, bf16, {FAMILY_TRAIN_PAIRS} pairs "
+        f"({src_tokens} / {tgt_tokens} subwords) in {per_epoch} micro-batches of at most 4096 "
+        f"tokens an epoch, one an update; {n_valid} validation batch(es)")
+    if per_epoch <= FAMILY_TRAIN_UPDATES[1]:
+        raise AssertionError(f"family_train: {per_epoch} updates an epoch, the runs stay in one")
+    save_dir = fx["root"] / "family_train"
+    trace_dir = fx["root"] / "family_train_trace"
+    runs, counts, rec = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for label, max_update in zip("AB", FAMILY_TRAIN_UPDATES):
+        for fn in kernels:
+            fn.launches = 0
+        extra = ["--profile", str(trace_dir)] if label == "B" else []
+        t0 = time.perf_counter()
+        with counted_decoder_steps() as steps:
+            out = train.main(family_train_argv(data, save_dir, max_update, extra))
+        torch.cuda.synchronize()
+        counts[label] = {fn.__name__: fn.launches for fn in kernels}
+        t = out["times"]
+        updates = out["trainer"].num_updates - t["restored"]["step"]
+        implied = {"encoder_attention": 6 * updates + 12 * n_valid * len(t["valid_s"]),
+                   "conv_tail": 0, "decode_attention": 6 * steps[0], "logmel": 0}
+        log(f"  run {label}: {time.perf_counter() - t0:.1f} s, step {t['restored']['step']} -> "
+            f"{out['trainer'].num_updates}; epoch {[round(s, 2) for s in t['epoch_s']]} s; "
+            f"saves {[round(s, 2) for s in t['save_s']]} s, validations "
+            f"{[round(s, 2) for s in t['valid_s']]} s (BLEU {[round(v, 3) for v in t['valid']]}),"
+            f" load {t['load_s']:.2f} s; {steps[0]} decoder steps; launches {counts[label]}")
+        if counts[label] != implied or updates != max_update - t["restored"]["step"] \
+                or not steps[0]:
+            raise AssertionError(f"family_train run {label}: launches {counts[label]} (want "
+                                 f"{implied}), {updates} updates")
+        runs[label] = {"times": t, "updates": updates}
+        del out
+    a, b = runs["A"]["times"], runs["B"]["times"]
+    last = save_dir / "checkpoint_last.ckpt"
+    payload = read_state(str(last))
+    if (b["restored"]["step"] != FAMILY_TRAIN_UPDATES[0] or payload["step"]
+            != FAMILY_TRAIN_UPDATES[1] or payload["extra"]["model_cfg"]["arch"] != "transformer"
+            or payload["opt_state"] is None):
+        raise AssertionError(f"family_train: B restored at {b['restored']['step']}, saved step "
+                             f"{payload['step']}")
+    del payload
+    busy = trace_busy(trace_dir / "trace.json")
+    peak = torch.cuda.max_memory_allocated()
+    # the rates after run A's first update, from the seconds of each update
+    # (validations and saves excluded): run B's are under --profile
+    after_first = a["update_s"][1:]
+    rate = len(after_first) / sum(after_first)
+    rec.update(updates_per_s_after_first=rate,
+               source_tokens_per_s=src_tokens / per_epoch * rate,
+               target_tokens_per_s=tgt_tokens / per_epoch * rate,
+               update_s={"A": a["update_s"], "B": b["update_s"]},
+               epoch_s={"A": a["epoch_s"], "B": b["epoch_s"]}, updates_per_epoch=per_epoch,
+               save_s=a["save_s"] + b["save_s"], checkpoint_bytes=last.stat().st_size,
+               resume_load_s=b["load_s"], valid_s=a["valid_s"] + b["valid_s"],
+               valid_bleu=a["valid"] + b["valid"], peak_memory_gb=peak / 1e9,
+               profile_run_b=busy, launches=counts)
+    log(f"  run A: {rate:.3f} updates/s over its {len(after_first)} updates after the first "
+        f"(validations and saves excluded), {rec['source_tokens_per_s']:.0f} / "
+        f"{rec['target_tokens_per_s']:.0f} source / target tokens/s (the epoch's mean a "
+        f"batch); peak {peak / 1e9:.2f} GB; checkpoint {rec['checkpoint_bytes'] / 1e9:.3f} GB; "
+        f"run B under --profile: device busy {100 * busy['busy_share']:.1f} % of "
+        f"{busy['wall_ms'] / 1e3:.1f} s")
+
+    # cli.validate without --arch, cli.generate
+    for fn in kernels:
+        fn.launches = 0
+    vstats = validate.main([str(data), "--task", "translation", "-s", "en", "-t", "de",
+                            "--path", str(last), "--valid-subset", "valid", "--max-tokens", "4096",
+                            "--criterion", "label_smoothed_cross_entropy", "--label-smoothing",
+                            "0.1", "--dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    vcounts = {fn.__name__: fn.launches for fn in kernels}
+    if vcounts["encoder_attention"] != 6 * n_valid or not np.isfinite(vstats["loss"]):
+        raise AssertionError(f"family_train validate: {vstats}, launches {vcounts}")
+    for fn in kernels:
+        fn.launches = 0
+    out_dir = fx["root"] / "family_train_decode"
+    out_dir.mkdir()
+    with counted_decoder_steps() as steps:
+        gstats = generate.main([str(data), "--task", "translation", "-s", "en", "-t", "de",
+                                "--path", str(last), "--gen-subset", "valid", *FAMILY_DECODE,
+                                "--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "bfloat16",
+                                "--scoring", "bleu", "--results-path", str(out_dir)])
+        torch.cuda.synchronize()
+    gcounts = {fn.__name__: fn.launches for fn in kernels}
+    _, full, line = parse_protocol((out_dir / "generate-valid.txt").read_text())
+    if (len(full) != FAMILY_PARITY_PAIRS or gcounts["encoder_attention"] != 6
+            or gcounts["decode_attention"] != 6 * steps[0]):
+        raise AssertionError(f"family_train generate: {len(full)} samples, launches {gcounts}")
+    log(f"  cli.validate without --arch: {vstats}; cli.generate: {gstats['sentences']} "
+        f"sentences, {steps[0]} decoder steps, launches {gcounts}; {line}")
+    rec.update(validate=vstats, launches_validate=vcounts, launches_generate=gcounts)
+
+    # fp32 parity of one accumulated step at full width
+    micro = list(itertools.islice(task.make_batch_iterator(
+        task.dataset("train"), max_sentences=8).next_epoch_itr(shuffle=False), 2))
+    rec["parity"] = family_step_parity(
+        torch, "family_train", task, FAMILY_TRAIN_MODEL,
+        {"_name": "label_smoothed_cross_entropy", "label_smoothing": 0.1}, micro)
+    import shutil
+
+    for d in (save_dir, trace_dir, out_dir):
+        shutil.rmtree(d)
+    print(json.dumps({"family_train": rec}), flush=True)
+    return {"family_train": {k: counts["A"][k] + counts["B"][k] for k in counts["A"]},
+            "family_train_validate": vcounts, "family_train_generate": gcounts}
+
+
+LM_TRAIN_UPDATES = 10
+
+
+def phase_lm_train(torch, fx, kernels):
+    """``cli.train --task language_modeling --arch transformer_lm_gpt
+    --criterion lm_cross_entropy`` (12 x 768, 12 heads, GELU) on the seeded
+    stream, --tokens-per-sample 512, --max-tokens 4096 (8 blocks a
+    micro-batch), bf16, LM_TRAIN_UPDATES updates; then ``cli.eval_lm`` on
+    the result, and the fp32 card-vs-CPU parity of one accumulated step (2
+    micro-batches of one block). The forward is causal: no kernel launches,
+    which the phase asserts. Returns the launches; prints
+    {"lm_train": {...}}."""
+    import itertools
+    import shutil
+
+    from chimera_st_tpu_torch.cli import eval_lm, train
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    save_dir = fx["root"] / "lm_train"
+    argv = [str(fx["lm"]), "--task", "language_modeling", *model_flags(LM_TRAIN_MODEL),
+            "--criterion", "lm_cross_entropy", "--tokens-per-sample", str(LM_BLOCK),
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "5e-4",
+            "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4",
+            "--max-tokens", str(8 * LM_BLOCK),
+            "--dtype", "bfloat16", "--max-update", str(LM_TRAIN_UPDATES), "--train-subset",
+            "test", "--valid-subset", "valid", "--no-epoch-checkpoints", "--save-dir",
+            str(save_dir)]
+    log(f"lm_train: cli.train --arch transformer_lm_gpt --criterion lm_cross_entropy, bf16, "
+        f"{LM_TRAIN_UPDATES} updates of 8 blocks of {LM_BLOCK} tokens")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    t = out["times"]
+    peak = torch.cuda.max_memory_allocated()
+    n_updates = out["trainer"].num_updates
+    del out
+    # the rates after the first update, from the seconds of each update
+    after_first = t["update_s"][1:]
+    rate = len(after_first) / sum(after_first)
+    rec = {"updates_per_s_after_first": rate, "tokens_per_s": 8 * LM_BLOCK * rate,
+           "update_s": t["update_s"], "epoch_s": t["epoch_s"],
+           "save_s": t["save_s"], "valid_s": t["valid_s"], "valid_loss": t["valid"],
+           "peak_memory_gb": peak / 1e9, "launches": counts,
+           "wall_s": time.perf_counter() - t0}
+    log(f"  {n_updates} updates; after the first {rate:.3f} updates/s, "
+        f"{rec['tokens_per_s']:.0f} tokens/s; peak {peak / 1e9:.2f} GB; validation "
+        f"{t['valid']}; launches {counts}")
+    if any(counts.values()) or n_updates != LM_TRAIN_UPDATES \
+            or not all(np.isfinite(v) for v in t["valid"]):
+        raise AssertionError(f"lm_train: launches {counts}, {n_updates} updates")
+    ev = eval_lm.main([str(fx["lm"]), "--path", str(save_dir / "checkpoint_last.ckpt"),
+                       "--tokens-per-sample", str(LM_BLOCK), "--gen-subset", "valid",
+                       "--batch-size", "8", "--dtype", "bfloat16"])
+    if not np.isfinite(ev["loss_bits"]) or any(fn.launches for fn in kernels):
+        raise AssertionError(f"lm_train eval_lm: {ev}")
+    rec["eval_lm"] = ev
+    shutil.rmtree(save_dir)
+    task = setup_task({"_name": "language_modeling", "data": str(fx["lm"]),
+                       "tokens_per_sample": LM_BLOCK})
+    task.load_dataset("valid")
+    micro = list(itertools.islice(task.make_batch_iterator(
+        task.dataset("valid"), max_sentences=1).next_epoch_itr(shuffle=False), 2))
+    rec["parity"] = family_step_parity(torch, "lm_train", task, LM_TRAIN_MODEL,
+                                       {"_name": "lm_cross_entropy"}, micro)
+    if any(fn.launches for fn in kernels):
+        raise AssertionError("lm_train: the causal LM step launched a kernel")
+    print(json.dumps({"lm_train": rec}), flush=True)
+    return counts
+
+
+TTS_PAIRS = 8
+
+
+def phase_tts_update(torch, fx, kernels):
+    """``translation_tts``: TTS_PAIRS seeded text pairs over the CLI
+    fixture's 10,000-word dictionaries, each row with a seeded wav of 2-6 s
+    named by its index, binarized by the port's preprocess; one batch of
+    TTS_PAIRS (the triplet schema, audio padded to a multiple of 1280) as
+    one update of the train phase's flagship (triplet criterion, Adam,
+    bf16): finite, K2 6 and K1 0 (attention dropout 0.1)."""
+    from chimera_st_tpu_torch.cli import preprocess
+    from chimera_st_tpu_torch.data.audio import write_wav
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    root = fx["root"] / "tts"
+    raw, wavs = root / "raw", root / "wavs"
+    raw.mkdir(parents=True)
+    wavs.mkdir()
+    rng = np.random.default_rng(59)
+    words = [f"w{i}" for i in range(10000 - 4)]
+    for lang in ("en", "de"):
+        (raw / f"train.{lang}").write_text("".join(
+            " ".join(rng.choice(words, size=int(rng.integers(5, 25)))) + "\n"
+            for _ in range(TTS_PAIRS)))
+    for i in range(TTS_PAIRS):
+        n = int(rng.integers(2 * 16000, 6 * 16000))
+        write_wav(str(wavs / f"{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+    preprocess.main(["-s", "en", "-t", "de", "--srcdict", str(fx["root"] / "src_dict.txt"),
+                     "--tgtdict", str(fx["root"] / "dict.txt"), "--trainpref",
+                     str(raw / "train"), "--destdir", str(root / "bin")])
+    task = setup_task({"_name": "translation_tts", "data": str(root / "bin"),
+                       "source_lang": "en", "target_lang": "de", "audio_dirname": str(wavs)})
+    task.load_dataset("train")
+    batch = next(iter(task.make_batch_iterator(task.dataset("train"), max_sentences=TTS_PAIRS)
+                      .next_epoch_itr(shuffle=False)))
+    if "audio" not in batch or batch["audio"].shape[1] % 1280 or "src_text" not in batch:
+        raise AssertionError(f"translation_tts batch without the triplet schema: {list(batch)}")
+    model = train_model(torch, task, "cuda")
+    step = TrainStep(model, task.build_criterion(TRAIN_CRITERION),
+                     build_optimizer(TRAIN_ADAM, model.parameters()),
+                     build_lr_schedule({"_name": "inverse_sqrt", "lr": 1e-4,
+                                        "warmup_updates": 4}), compute_dtype=torch.bfloat16)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    m = step([batch])
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    implied = {"encoder_attention": 0, "conv_tail": 6, "decode_attention": 0, "logmel": 0}
+    log(f"tts_update: translation_tts batch of {TTS_PAIRS} ({batch['audio'].shape[1] / 16000:.2f}"
+        f" s padded), one flagship update in {time.perf_counter() - t0:.2f} s: loss "
+        f"{m['loss']:.2f} (st {m['st_loss']:.2f}, mt {m['mt_loss']:.2f}), gnorm "
+        f"{m['gnorm']:.4f}; launches {counts}")
+    if counts != implied or not np.isfinite(m["loss"]) or m["nonfinite_grad"]:
+        raise AssertionError(f"tts_update: launches {counts} (want {implied}), {m}")
+    del step, model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -3074,6 +3694,7 @@ def main() -> int:
                     help="only build the package of the tree under DIR, run phase 3's K3 and "
                          "K4 cases on it and print their records")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     tree = (args.kernels_of or ROOT).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3167,6 +3788,20 @@ def main() -> int:
                                     p["seed"], args.profile)
         del model
 
+    # 5a. the plain w2v2 + Transformer model (no memory bank), served as the
+    # flagship is, one batch more under torch.profiler
+    build_w2v2 = w2v2_st_builder(torch)
+    ops = (encoder_attention, conv_tail, decode_attention)
+    # the shapes this slice's phases launch (w2v2_st, w2v2_st_cli, tts_update,
+    # family_train), held against the plain versions after them
+    slice_seen = {"encoder_attention": [], "conv_tail": [], "decode_attention": []}
+    with recorded_shapes(*ops, slice_seen):
+        phase_parity(torch, "w2v2_st", build_w2v2, paths["flagship"]["parity"])
+        model = build_w2v2("cuda", torch.bfloat16)
+        counts["w2v2_st"] = phase_serve(torch, "w2v2_st", model, paths["flagship"]["serve"],
+                                        kernels, W2V2_ST_ON_PATH, 6, profile=True)
+        del model
+
     # 5b. the search surface on the flagship, and the fbank model on features
     build_second = seeded_builder(
         torch, lambda d: ChimeraInterlinguaModel(flagship_cfg, device=d), seed=1)
@@ -3190,11 +3825,13 @@ def main() -> int:
             W2V_CONV_FEATURE_LAYERS)
         task, loaded = phase_checkpoint(torch, fx)
         del loaded
-        with recorded_shapes(encoder_attention, conv_tail, decode_attention) as seen:
+        with recorded_shapes(*ops) as seen:
             phase_cli_parity(torch, fx, work)
             counts["cli"] = phase_cli_serve(torch, fx, work, kernels, args.profile)
             phase_interactive(torch, fx, work)
             counts["text"] = phase_text(torch, fx, task, kernels)
+        with recorded_shapes(*ops, slice_seen):
+            counts["w2v2_st_cli"] = phase_w2v2_ckpt(torch, fx, work, build_w2v2, kernels)
         counts["fbank_features"] = phase_fbank_features(torch, work / "fbank", kernels)
         # 7. training
         phase_train_kernels(torch, encoder_attention, conv_tail, records)
@@ -3204,6 +3841,8 @@ def main() -> int:
             torch, training, kernels, args.profile)
         counts["train_cli"], counts["train_cli_decode"] = phase_train_cli(
             torch, fx, work, kernels, train_rec)
+        with recorded_shapes(*ops, slice_seen):
+            counts["tts_update"] = phase_tts_update(torch, fx, kernels)
         # 8. the MT stage
         mt_fx = make_mt_fixture(work / "mt")
         phase_mt_parity(torch, mt_fx)
@@ -3211,14 +3850,37 @@ def main() -> int:
                                           conv_tail, decode_attention, args.profile)
         counts.update(mt_counts)
         # 9. the Transformer family
-        family_counts, family_seen = phase_family(torch, work, kernels, encoder_attention,
-                                                  conv_tail, decode_attention)
+        family_fx, family_counts, family_seen = phase_family(
+            torch, work, kernels, encoder_attention, conv_tail, decode_attention)
         counts.update(family_counts)
-    phase_cli_shapes(torch, encoder_attention, conv_tail, seen, records)
-    phase_mt_shapes(torch, encoder_attention, decode_attention, mt_seen, records)
-    phase_mt_shapes(torch, encoder_attention, decode_attention, family_seen, records, "family")
+        # 10. training the Transformer family
+        ensure_sacrebleu(work)
+        with recorded_shapes(*ops, slice_seen):
+            counts.update(phase_family_train(torch, family_fx, kernels))
+        counts["lm_train"] = phase_lm_train(torch, family_fx, kernels)
+    # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
+    # the shared encoder behind the subsampler, the text branch below one
+    # 64-key tile; and the conv tail
+    phase_shapes(torch, ops, seen, records, "cli", lambda sh: (
+        any(H == 12 and D == 64 for _, _, H, D in sh["encoder_attention"])
+        and any(T < 64 for _, T, _, _ in sh["encoder_attention"]) and bool(sh["conv_tail"])))
+    # text only: validation batches of the MT stage under --max-tokens 4096
+    # and its decode (batches of 32 at beam 5); the family served
+    for prefix, group in (("mt", mt_seen), ("family", family_seen)):
+        phase_shapes(torch, ops, group, records, prefix, lambda sh: (
+            bool(sh["encoder_attention"]) and bool(sh["decode_attention"])
+            and not sh["conv_tail"]))
+    # this slice: w2v2_st's trunk (H 12) and shared encoder (H 4), its
+    # decoder at beam 10 / H 4, the conv tail of its batches and of the TTS
+    # update; family_train's micro-batches and BLEU decode (H 8, beam 4).
+    # Accuracy only: they are many, and the kernels' times at such shapes
+    # are phase 3's and the groups' above
+    phase_shapes(torch, ops, slice_seen, records, "slice", lambda sh: (
+        {(12, 64), (4, 64), (8, 64)} <= {(H, D) for _, _, H, D in sh["encoder_attention"]}
+        and {(4, 10), (8, 4)} <= {(H, C) for _, H, _, _, C in sh["decode_attention"]}
+        and bool(sh["conv_tail"])), timed=False)
 
-    # 10. report
+    # 11. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3
@@ -3232,6 +3894,7 @@ def main() -> int:
                 per_batch = n / 64 * shape["steps_0_63_ms"]
                 log(f"K3 {label}: {n:.0f} launches a batch x the "
                     f"measured 64-step sweep = {per_batch:.3f} ms a batch, back to back")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start to the report")
     log(smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -212,6 +212,9 @@ CONFIG_CASES = {
     "flat_wins_over_nested": Namespace(encoder_embed_dim=32, w2v2_heads=2, w2v_args=W2V),
     "defaults": Namespace(),
     "released_w2v_args_defaults": Namespace(w2v_args=Namespace()),
+    "dropout_rates": Namespace(dropout=0.3, attention_dropout=0.2, activation_dropout=0.05),
+    "plain_w2v2_arch": Namespace(arch="s2t_transformer_w2v2_s", encoder_embed_dim=256,
+                                 encoder_attention_heads=4, decoder_attention_heads=4),
 }
 
 
@@ -226,6 +229,11 @@ def test_infer_interlingua_config_matches_jax(case):
         assert got.w2v2_heads == 12 and got.w2v2_embed_dim == 768
     if case == "flat_wins_over_nested":
         assert got.w2v2_heads == 2 and got.w2v2_embed_dim == 48
+    if case == "dropout_rates":
+        assert (got.dropout, got.attention_dropout, got.activation_dropout) == (0.3, 0.2, 0.05)
+    if case == "plain_w2v2_arch":
+        # neither importer reads args.arch: the memory bank stays on (ROADMAP C)
+        assert got.no_interlingua is False
     no_text = torch_import.infer_interlingua_config(ns, tgt_vocab=100, src_vocab=None)
     assert no_text.src_vocab_size is None
 

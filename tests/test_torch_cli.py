@@ -205,6 +205,21 @@ def test_generate_quiet_prints_only_the_score_line(fixture, tmp_path):
     assert len(lines) == 1 and lines[0].startswith("Generate test with beam=3: BLEU4 = ")
 
 
+def test_generate_profile_writes_a_trace(fixture, tmp_path):
+    """``--profile DIR`` on the generate CLI (as on interactive, validate
+    and eval_lm): the decode loop under torch.profiler, a Chrome trace in
+    ``DIR/trace.json``, and the same hypotheses as without it."""
+    import json
+
+    flags = ["--batch-size", "8", "--scoring", "bleu"]
+    plain = run_generate(generate, fixture, fixture / "ref.pt", flags, tmp_path / "plain", True)
+    traced = run_generate(generate, fixture, fixture / "ref.pt",
+                          flags + ["--profile", str(tmp_path / "trace")], tmp_path / "port", True)
+    assert traced == plain
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
 def test_generate_native_ckpt_matches_jax_cli(fixture, tmp_path):
     extra = ["--batch-size", "8", "--num-length-buckets", "1", "--nbest", "2"]
     want = run_generate(jax_generate, fixture, fixture / "native.ckpt", extra,
@@ -354,7 +369,6 @@ UNPORTED_FLAGS = {
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],
     "user_dir": ["--user-dir", "plugins"],
-    "profile": ["--profile", "trace"],
 }
 
 

@@ -290,10 +290,20 @@ def test_lm_saved_under_a_preset_keeps_its_architecture(lm_data, tmp_path):
         generate.load_language_model(str(mt_ckpt), task, torch.float32, "cpu")
 
 
-def test_training_the_family_raises(tmp_path):
-    for flags in (["--task", "language_modeling"], ["--arch", "transformer_lm_gpt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            train.main([str(tmp_path), "--device", "cpu", *flags])
+def test_training_the_family_raises(lm_data, tmp_path):
+    """The family trains (``tests/test_torch_family_train.py``); what its
+    presets need and the port lacks still raises at the train CLI: the
+    adaptive softmax of ``transformer_lm_wiki103`` and the character
+    embedder (A16), before any update is taken."""
+    base = [str(lm_data["bin"]), "--task", "language_modeling", "--criterion",
+            "lm_cross_entropy", "--tokens-per-sample", "12", "--batch-size", "4",
+            "--max-update", "1", "--save-dir", str(tmp_path), "--device", "cpu",
+            "--dtype", "float32", "--train-subset", "test", "--disable-validation"]
+    for flags in (["--arch", "transformer_lm_wiki103"],
+                  ["--arch", "transformer_lm_gpt", "--character-embeddings"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+            train.main(base + flags)
+    assert not list(tmp_path.glob("*.ckpt"))
 
 
 def test_interactive_refuses_lm_path(lm_data):

@@ -289,14 +289,15 @@ def test_decode_attention_matches_jax_crosscol(cache_index):
                                    atol=1e-5, rtol=1e-5)
 
 
-def _k3_split_mirror(q, k_new, v_new, k_cache, v_cache, anc, step, beam, tile=64):
+def _k3_split_mirror(q, k_new, v_new, k_cache, v_cache, anc, step, beam, tile=64, gpw=4):
     """numpy mirror of the K3 kernel's arithmetic (csrc/decode_attention.cu),
     one (column, head) at a time: the column's new rows go into the cache;
     time tiles of `tile` rows, the time-`step` row taken from k_new / v_new
     of anc[step]'s column and never from the cache; rows past `step` never
-    touched; warp w of 4 takes rows (4 i + w) * 4 + g of a tile and keeps its
-    own online softmax in the log2 domain; the four partial (max, sum,
-    accumulator) are merged at the end. Updates the caches in place."""
+    touched; warp w of 4 takes rows (4 i + w) * gpw + g of a tile (gpw row
+    groups a warp: 4 with 8 lanes a row, 8 with 4) and keeps its own online
+    softmax in the log2 domain; the four partial (max, sum, accumulator) are
+    merged at the end. Updates the caches in place."""
     N, H, D = q.shape
     log2e = np.float32(1.4426950408889634)
     scale = np.float32(D**-0.5) * log2e
@@ -311,7 +312,8 @@ def _k3_split_mirror(q, k_new, v_new, k_cache, v_cache, anc, step, beam, tile=64
             acc = np.zeros((4, D), np.float32)
             for t0 in range(0, step + 1, tile):
                 for w in range(4):
-                    rows = [(4 * i + w) * 4 + g for i in range(tile // 16) for g in range(4)]
+                    rows = [(4 * i + w) * gpw + g for i in range(tile // (4 * gpw))
+                            for g in range(gpw)]
                     ts = [t0 + r for r in rows if t0 + r <= step]
                     if not ts:
                         continue
@@ -359,6 +361,75 @@ def test_decode_attention_split_mirror_matches_plain(step, L, tile):
     np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(kc, kc_t.numpy())
     np.testing.assert_array_equal(vc, vc_t.numpy())
+
+
+def _k3_split(D, itemsize):
+    """(times per tile, row groups per warp) of the kernel's K3Split<T, D>:
+    a row is D * itemsize / 16 chunks, read by 8 lanes when they divide it,
+    else by 4; a tile is the largest power of two of rows within 512
+    chunks."""
+    ch = D * itemsize // 16
+    lpr = 8 if ch % 8 == 0 else 4
+    return 1 << (512 // ch).bit_length() - 1, 32 // lpr
+
+
+@pytest.mark.parametrize("D, itemsize, step, L", [
+    (96, 2, 0, 64), (96, 2, 31, 64), (96, 2, 63, 64), (96, 4, 40, 64),
+    (32, 2, 63, 64), (32, 2, 150, 200), (32, 4, 63, 64)])
+def test_decode_attention_split_mirror_at_head_dims_96_and_32(D, itemsize, step, L):
+    """The K3 split of D 96 (12 chunks a bf16 row, 4 lanes of 3 chunks,
+    32-row tiles; 24 fp32 chunks, 8 lanes of 3, 16-row tiles) and of D 32
+    (4 chunks a bf16 row, 4 lanes of 1, 128-row tiles; fp32 as D 64 bf16),
+    mirrored in numpy, vs the plain version: output within 1e-5, caches
+    equal, NaN past the step never read."""
+    tile, gpw = _k3_split(D, itemsize)
+    assert (tile, gpw) == {(96, 2): (32, 8), (96, 4): (16, 4), (32, 2): (128, 8),
+                           (32, 4): (64, 4)}[D, itemsize]
+    rng = np.random.default_rng(600 + step + D)
+    q, k_new, v_new, kc, vc, anc = _k3_inputs(rng, 2, 3, 2, L, D)
+    kc[:, :, step + 1:], vc[:, :, step + 1:] = np.nan, np.nan
+    kc_t, vc_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    ref = decode_attention.decode_attention_plain(
+        *map(torch.from_numpy, (q, k_new, v_new)), kc_t, vc_t, torch.from_numpy(anc), step, 3)
+    got = _k3_split_mirror(q, k_new, v_new, kc, vc, anc, step, 3, tile, gpw)
+    np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(kc, kc_t.numpy())
+    np.testing.assert_array_equal(vc, vc_t.numpy())
+
+
+@pytest.mark.parametrize("D", [96, 32])
+@pytest.mark.parametrize("anc_seed", [0, 1])
+@pytest.mark.parametrize("step", [0, 5, 11])
+def test_decode_attention_plain_at_head_dims_96_and_32_matches_pallas(D, anc_seed, step):
+    """decode_attention (the plain version on the CPU) at the head dims of
+    the megatron (96) and gbw (32) LM presets vs the Pallas kernel in
+    interpret mode, at two random ancestries and three steps; the caches
+    hold this step's rows afterwards."""
+    from chimera_st_tpu.ops.pallas_decode_attention import decode_step_attention
+
+    rng = np.random.default_rng(700 + D + step)
+    B, C, H, L = 2, 3, 2, 12
+    N = B * C
+    q, k_new, v_new = (rng.normal(size=(N, H, D)).astype(np.float32) for _ in range(3))
+    kc, vc = (rng.normal(size=(N, H, L, D)).astype(np.float32) for _ in range(2))
+    anc = np.random.default_rng(anc_seed).integers(0, C, size=(L + 1, N)).astype(np.int32)
+    k_cache, v_cache = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got = decode_attention.decode_attention(
+        *map(torch.from_numpy, (q, k_new, v_new)), k_cache, v_cache, torch.from_numpy(anc),
+        step, C).numpy()
+    kc[:, :, step], vc[:, :, step] = k_new, v_new
+    np.testing.assert_array_equal(k_cache.numpy(), kc)
+    np.testing.assert_array_equal(v_cache.numpy(), vc)
+
+    def pallas_layout(c):  # [N, H, L, D] -> [B, H, C*L, D], row c*L + l
+        return jnp.asarray(c.reshape(B, C, H, L, D).transpose(0, 2, 1, 3, 4)
+                           .reshape(B, H, C * L, D))
+
+    want = decode_step_attention(jnp.asarray(q.reshape(B, C, H, D)), pallas_layout(kc),
+                                 pallas_layout(vc), jnp.asarray(anc[:L]), jnp.asarray(step),
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want).reshape(N, H, D), atol=1e-5, rtol=1e-5)
+    assert D in decode_attention.HEAD_DIMS
 
 
 @pytest.mark.parametrize("cache_index, tile", [(0, 64), (31, 64), (32, 64), (63, 64), (40, 32)])

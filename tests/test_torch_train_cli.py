@@ -237,7 +237,7 @@ def test_resumed_run_equals_uninterrupted_run_with_dropout(runs, tmp_path):
 
 
 UNPORTED_TRAIN_FLAGS = {
-    "arch": ["--arch", "transformer_wmt_en_de_big"],
+    "arch": ["--arch", "s2t_transformer_s"],
     "task": ["--task", "speech_to_text"],
     "task_configs": ["--task-configs", "a.yaml"],
     "optimizer": ["--optimizer", "sgd"],

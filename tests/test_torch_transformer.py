@@ -326,3 +326,31 @@ def test_generate_cli_serves_a_jax_written_transformer_checkpoint(tmp_path, caps
     lines = [ln.split("\t")[2] for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("H-")]
     assert lines == [hyps[i] for i in range(len(ds))]
+
+
+def test_validate_keeps_a_transformer_checkpoints_stored_arch(tmp_path, capsys):
+    """``cli.validate`` on a ``transformer`` ``.ckpt`` without ``--arch``
+    rebuilds the stored arch and gives the loss of the JAX validate CLI
+    under ``--arch transformer`` (which fails without the flag: it replaces
+    the stored arch with ``--arch``'s default)."""
+    from chimera_st_tpu.cli import validate as jax_validate
+    from chimera_st_tpu_torch.cli import validate
+
+    data = _write_translation_dir(tmp_path)
+    _, params = jax_mt_model("sinusoid_post_norm", seed=4)
+    model_cfg = {"arch": "transformer", **{k: v for k, v in SMALL.items()
+                                           if not k.endswith("vocab_size")}}
+    ckpt = tmp_path / "mt.ckpt"
+    jax_save_state(str(ckpt), SimpleNamespace(step=0, params=params, opt_state=None),
+                   {"model_cfg": model_cfg}, save_optimizer=False)
+    common = [str(data), "--task", "translation", "-s", "en", "-t", "de", "--path", str(ckpt),
+              "--valid-subset", "test", "--batch-size", "3", "--dtype", "float32",
+              "--criterion", "label_smoothed_cross_entropy", "--label-smoothing", "0.1"]
+    got = validate.main(common + ["--device", "cpu"])
+    capsys.readouterr()
+    jax_validate.main(common + ["--arch", "transformer"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    want = dict((k, float(v)) for k, v in (kv.split() for kv in line.split(" | ")))
+    assert set(got) == set(want) == {"loss", "nll_loss"}
+    for k in want:
+        assert abs(got[k] - want[k]) < 1e-4, (k, got[k], want[k])
