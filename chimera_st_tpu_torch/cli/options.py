@@ -78,8 +78,7 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--optimizer", default="adam")
     p.add_argument("--adam-betas", default="(0.9, 0.999)")
     p.add_argument("--adam-eps", type=float, default=1e-8)
-    # knobs of the optimizers and schedules that are not ported: parsed, and
-    # read by nothing unless their optimizer / schedule is chosen (which raises)
+    # the other optimizers' and schedules' knobs (read where theirs is chosen)
     p.add_argument("--momentum", type=float, default=0.0)
     p.add_argument("--adagrad-eps", type=float, default=1e-10)
     p.add_argument("--adadelta-rho", type=float, default=0.9)
@@ -270,9 +269,8 @@ _COMMON_UNPORTED = (
 # the generation and validation CLIs add the generator's own list
 UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
 
-PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_modeling")
-PORTED_OPTIMIZERS = ("adam",)
-PORTED_SCHEDULES = ("inverse_sqrt", "fixed")
+PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_modeling",
+                      "joint_task", "joint_task_mtst")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
@@ -282,12 +280,8 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "--arch of the fbank s2t_transformer presets (the JAX train CLI cannot train this "
      "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
-     "--task other than triplet / translation / translation_tts / language_modeling", "A14"),
-    ("task_configs", bool, "--task-configs (joint training)", "A14"),
-    ("optimizer", lambda v: v not in PORTED_OPTIMIZERS,
-     "--optimizer other than adam (adamw: adam with --weight-decay)", "A14"),
-    ("lr_scheduler", lambda v: v not in PORTED_SCHEDULES,
-     "--lr-scheduler other than inverse_sqrt / fixed", "A14"),
+     "--task other than triplet / translation / translation_tts / language_modeling / "
+     "joint_task / joint_task_mtst", "A14"),
     ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
 )
 

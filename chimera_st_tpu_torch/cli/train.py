@@ -1,8 +1,14 @@
 """Training entry point (counterpart of chimera_st_tpu/cli/train.py, for
 ``--task triplet``, the ST fine-tune, ``--task translation`` /
 ``translation_tts``, the MT pre-training stage or a ``transformer*`` model,
-and ``--task language_modeling``, a ``transformer_lm*`` model): the same
-flags, loop, checkpoints and log lines.
+``--task language_modeling``, a ``transformer_lm*`` model (with
+``adaptive_loss`` for ``transformer_lm_wiki103``), and ``--task
+joint_task_mtst --task-configs st.json mt.json --main-task st``, the joint
+MT + ST fine-tune): the same flags, loop, checkpoints and log lines. Every
+``--optimizer`` (adam, adafactor, adagrad, adadelta, sgd, nag, adamax,
+lamb) and ``--lr-scheduler`` (fixed, inverse_sqrt, cosine,
+polynomial_decay, tri_stage, triangular, reduce_lr_on_plateau) of the JAX
+CLI, from the same flags with the same defaults.
 
     python -m chimera_st_tpu_torch.cli.train DATA_DIR --task triplet \\
         --arch s2t_transformer_w2v2_interlingua_base \\
@@ -29,6 +35,10 @@ flags, loop, checkpoints and log lines.
         --tokens-per-sample 512 --optimizer adam --lr 5e-4 \\
         --lr-scheduler inverse_sqrt --warmup-updates 4000 --max-tokens 4096
 
+    python -m chimera_st_tpu_torch.cli.train DATA_DIR --task joint_task_mtst \\
+        --task-configs st.json mt.json --main-task st \\
+        --arch s2t_transformer_w2v2_interlingua_base ... (the ST recipe's flags)
+
 In order: the task, the model (fp32 parameters in train mode), the
 schedule, the optimizer, the criterion, then the parameters (the seeded
 ``init_params_``, then ``--w2v2-model-path`` through
@@ -44,7 +54,12 @@ the JAX CLI), and the loop: ``--update-freq`` micro-batches an update, update
 logged at the next log, save, stop or epoch boundary), saves every
 ``--save-interval`` epochs and ``--save-interval-updates`` updates,
 validation (losses over the sample size in bits, BLEU with
-``--best-checkpoint-metric bleu``). ``--device cuda`` (the default) runs on
+``--best-checkpoint-metric bleu``; a joint task's over its main sub-task),
+``reduce_lr_on_plateau``'s ``step_val`` after each validation (its state
+saved under ``lr_scheduler``, skipped on restore by
+``--reset-lr-scheduler``). A joint task's batches come from its
+``make_joint_iterator`` behind ``StreamingEpochBatchIterator`` (a resume
+restarts the stored epoch, as in JAX). ``--device cuda`` (the default) runs on
 the card through the kernels; ``--device cpu`` / ``--cpu`` runs their plain
 versions. The compute dtype is ``--dtype`` (bf16 autocast over fp32
 parameters, or fp32). ``main`` returns the trainer, the checkpoint manager
@@ -65,7 +80,7 @@ logger = logging.getLogger("chimera_st_tpu_torch.train")
 
 def main(argv=None) -> dict:
     from . import options
-    from .options import parse_lr, parse_update_freq
+    from .options import parse_update_freq
 
     p = options.base_parser("chimera-train (PyTorch port)")
     options.add_train_args(p)
@@ -96,6 +111,11 @@ def main(argv=None) -> dict:
     task_cfg = {"_name": args.task, "data": args.data, "config_yaml": args.config_yaml,
                 "source_lang": args.source_lang, "target_lang": args.target_lang,
                 **model_overrides}  # unknown flags reach both task and model cfgs
+    if args.task_configs:
+        # joint training: one config (JSON or YAML file) a sub-task
+        task_cfg["task_configs"] = list(args.task_configs)
+        if args.main_task:
+            task_cfg["main_task"] = args.main_task
     task = setup_task(task_cfg)
     task.load_dataset(args.valid_subset) if not args.disable_validation else None
     task.load_dataset(args.train_subset)
@@ -110,11 +130,8 @@ def main(argv=None) -> dict:
 
     interlingua = model_kind(model) == "interlingua"
 
-    lr_schedule = build_lr_schedule({
-        "_name": args.lr_scheduler, "lr": parse_lr(args.lr),
-        "warmup_updates": args.warmup_updates, "warmup_init_lr": args.warmup_init_lr})
-    opt_cfg = {"_name": args.optimizer, "adam_betas": args.adam_betas,
-               "adam_eps": args.adam_eps, "weight_decay": args.weight_decay}
+    lr_schedule = build_lr_schedule(schedule_config(args))
+    opt_cfg = optimizer_config(args)
     crit_cfg = {
         "_name": args.criterion,
         "label_smoothing": args.label_smoothing,
@@ -145,7 +162,10 @@ def main(argv=None) -> dict:
     if fixes:
         logger.info(f"freezing {', '.join(fixes)} "
                     f"({frozen_fraction(model, fixes):.1%} of parameters)")
-    optimizer = build_optimizer(opt_cfg, trained, clip_norm=args.clip_norm, frozen=frozen)
+    from ..convert import checkpoint_axes
+
+    optimizer = build_optimizer(opt_cfg, trained, clip_norm=args.clip_norm, frozen=frozen,
+                                checkpoint_axes=checkpoint_axes(model))
     logger.info(f"device: {device}; params: "
                 f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
 
@@ -169,18 +189,43 @@ def main(argv=None) -> dict:
 
     # ----------------------------------------------------------- batch iters
     update_freq = parse_update_freq(args.update_freq)
-    train_itr = task.make_batch_iterator(
-        task.dataset(args.train_subset),
-        max_tokens=int(args.max_tokens) if args.max_tokens else None,
-        max_sentences=args.batch_size,
-        required_batch_size_multiple=args.required_batch_size_multiple,
-        seed=args.seed,
-        num_shards=args.num_shards,
-        shard_id=args.shard_id,
-        num_length_buckets=args.num_length_buckets,
-        buffer_size=args.data_buffer_size,
-        num_workers=args.num_workers,
-    )
+    if hasattr(task, "make_joint_iterator"):
+        # joint training: each sub-task's batches, interleaved by sample
+        # ratio and tagged with their task_name, behind the streaming iterator
+        from ..data.iterators import StreamingEpochBatchIterator
+
+        if args.num_shards > 1:
+            raise SystemExit("--num-shards > 1 is not supported for a joint task: "
+                             "its interleaved batches are not sharded")
+
+        class _JointEpochSource:
+            epoch = 1
+
+            def set_epoch(self, e):
+                self.epoch = e
+
+            def __iter__(self):
+                return task.make_joint_iterator(
+                    args.train_subset,
+                    max_tokens=int(args.max_tokens) if args.max_tokens else None,
+                    max_sentences=args.batch_size, seed=args.seed,
+                    num_length_buckets=args.num_length_buckets, epoch=self.epoch)
+
+        train_itr = StreamingEpochBatchIterator(_JointEpochSource(),
+                                                buffer_size=args.data_buffer_size)
+    else:
+        train_itr = task.make_batch_iterator(
+            task.dataset(args.train_subset),
+            max_tokens=int(args.max_tokens) if args.max_tokens else None,
+            max_sentences=args.batch_size,
+            required_batch_size_multiple=args.required_batch_size_multiple,
+            seed=args.seed,
+            num_shards=args.num_shards,
+            shard_id=args.shard_id,
+            num_length_buckets=args.num_length_buckets,
+            buffer_size=args.data_buffer_size,
+            num_workers=args.num_workers,
+        )
 
     # ----------------------------------------------------------- restore
     epoch = 1
@@ -221,7 +266,8 @@ def main(argv=None) -> dict:
                         "transformer stack")
             model.load_state_dict(reset_encoder_subtrees(model.state_dict(), fresh))
         trainer.load_extra_state(extra, None if args.reset_dataloader else train_itr,
-                                 load_meters=not args.reset_meters)
+                                 load_meters=not args.reset_meters,
+                                 load_lr_scheduler=not args.reset_lr_scheduler)
         # the best metric is restored only without --reset-optimizer and
         # --reset-meters: an MT -> ST warm start must not import MT's best
         if not args.reset_optimizer and not args.reset_meters:
@@ -246,6 +292,12 @@ def main(argv=None) -> dict:
         times["valid_s"].append(time.perf_counter() - t0)
         times["valid"].append(val)
         return val
+
+    def plateau(val):
+        # reduce_lr_on_plateau reads each validation (the step takes the
+        # next updates' lr from it)
+        if hasattr(lr_schedule, "step_val"):
+            lr_schedule.step_val(val)
 
     times["restored"] = {"step": trainer.num_updates, "epoch": epoch,
                          "train_iterator": train_itr.state_dict()}
@@ -301,6 +353,7 @@ def main(argv=None) -> dict:
                         val = None
                         if num_updates >= args.validate_after_updates:
                             val = validate()
+                        plateau(val)
                         save(val, end_of_epoch=False)
                     mark = time.perf_counter()
                     if args.max_update and num_updates >= args.max_update:
@@ -325,6 +378,7 @@ def main(argv=None) -> dict:
                     and trainer.num_updates >= args.validate_after_updates
                     and (epoch % args.validate_interval == 0 or stop)):
                 val = validate()
+                plateau(val)
                 if val is not None and args.patience > 0:
                     if ckpt_mgr.is_better(val):
                         patience_left = args.patience
@@ -344,6 +398,52 @@ def main(argv=None) -> dict:
     logger.info(f"done training in {time.time() - start:.1f}s "
                 f"({trainer.num_updates} updates)")
     return {"trainer": trainer, "checkpoints": ckpt_mgr, "times": times}
+
+
+def schedule_config(args) -> Dict:
+    """The ``--lr-scheduler`` config, from the flags and with the defaults
+    of the JAX train CLI (``chimera_st_tpu/cli/train.py:109-136``)."""
+    from .options import parse_lr
+
+    cfg = {
+        "_name": args.lr_scheduler,
+        "lr": parse_lr(args.lr),
+        "warmup_updates": args.warmup_updates,
+        "warmup_init_lr": args.warmup_init_lr,
+        "max_update": args.max_update,
+        "total_num_update": args.total_num_update or args.max_update,
+        "end_learning_rate": args.end_learning_rate,
+        "power": args.power,
+        "lr_shrink": args.lr_shrink,
+        "t_mult": args.t_mult,
+        "init_lr_scale": args.init_lr_scale,
+        "final_lr_scale": args.final_lr_scale,
+        "maximize_best_checkpoint_metric": args.maximize_best_checkpoint_metric,
+    }
+    for key in ("min_lr", "max_lr", "lr_period_updates"):
+        if getattr(args, key) is not None:
+            cfg[key] = getattr(args, key)
+    if args.phase_ratio:
+        import ast
+
+        cfg["phase_ratio"] = tuple(ast.literal_eval(args.phase_ratio))
+    return cfg
+
+
+def optimizer_config(args) -> Dict:
+    """The ``--optimizer`` config, as the JAX train CLI builds it
+    (``chimera_st_tpu/cli/train.py:137-149``)."""
+    cfg = {"_name": args.optimizer, "adam_betas": args.adam_betas, "adam_eps": args.adam_eps,
+           "weight_decay": args.weight_decay, "adagrad_eps": args.adagrad_eps,
+           "adadelta_rho": args.adadelta_rho, "adadelta_eps": args.adadelta_eps,
+           "adamax_eps": args.adamax_eps, "lamb_eps": args.lamb_eps}
+    if args.momentum:
+        cfg["momentum"] = args.momentum
+    if args.adamax_betas is not None:
+        cfg["adamax_betas"] = args.adamax_betas
+    if args.lamb_betas is not None:
+        cfg["lamb_betas"] = args.lamb_betas
+    return cfg
 
 
 def init_params(model, args, model_overrides: Dict) -> None:
@@ -383,9 +483,15 @@ def validate_and_metric(args, task, trainer) -> Optional[float]:
     ``--best-checkpoint-metric`` (else ``loss``)."""
     if args.disable_validation:
         return None
+    main_task_name = None
+    if hasattr(task, "sub_tasks"):
+        # joint training validates over its main sub-task
+        main_task_name, task = task.main_task_name, task.main_task
     totals: Dict[str, float] = {}
     for batch in validation_batches(args, task, args.max_tokens_valid or args.max_tokens,
                                     args.batch_size_valid or args.batch_size):
+        if main_task_name is not None:
+            batch = {**batch, "task_name": main_task_name}
         for k, v in trainer.valid_step(batch).items():
             totals[k] = totals.get(k, 0.0) + float(v)
     ss = max(totals.get("sample_size", 1.0), 1.0)

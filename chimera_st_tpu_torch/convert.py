@@ -15,29 +15,35 @@ port's state dict (``encoder.transformer_layers.3.fc1``) and its flax path
 ``bias`` keeps its name and layout. ``params_from_flax`` and
 ``params_to_flax`` read the same table in the two directions, so they
 cannot drift apart. The tables are ``interlingua``, ``s2t``, ``wav2vec2``,
-``transformer`` (the MT ``TransformerModel``) and ``transformer_lm``;
+``transformer`` (the MT ``TransformerModel``), ``transformer_lm`` (its
+adaptive softmax included) and ``transformer_lm_char`` (with the character
+embedder: ``symbols`` is its ``symbol_embeddings`` leaf);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
 
-``opt_state_to_optax`` / ``opt_state_from_optax`` map ``torch.optim.Adam``'s
-per-parameter state (``step``, ``exp_avg``, ``exp_avg_sq``) to the tree a
-JAX ``.ckpt`` of ``--optimizer adam`` holds, and back: optax's chain state
-``{"0": {"count", "mu": {"params": …}, "nu": {"params": …}}, "1": {"count"}}``
-(``scale_by_adam``, then the schedule's own count), with an empty ``{}`` for
-each state without fields: a decoupled weight decay (``adamw``: ``"1"`` is
-``{}`` and the schedule moves to ``"2"``), the global-norm clip that
-``--clip-norm`` puts first in a chain (``{"0": {}, "1": …}``), and, under a
-``--fix-*`` mask, ``optax.multi_transform``'s
+``optimizer_state_to_optax`` / ``optimizer_state_from_optax`` map an
+optimizer's state to the tree a JAX ``.ckpt`` of that ``--optimizer``
+holds, and back, through ``OPTAX_CHAINS``, a table keyed by the chain's
+layout. For ``adam`` the chain state is ``{"0": {"count", "mu": {"params":
+…}, "nu": {"params": …}}, "1": {"count"}}`` (``scale_by_adam``, then the
+schedule's own count), with an empty ``{}`` for each state without fields:
+a decoupled weight decay (``adamw``: ``"1"`` is ``{}`` and the schedule
+moves to ``"2"``), the L2 decay that ``--weight-decay`` puts before
+adagrad, adadelta, sgd, nag and adamax (``{"0": {}, "1": …}``), the
+global-norm clip that ``--clip-norm`` puts first in a chain (``{"0": {},
+"1": …}``), and, under a ``--fix-*`` mask, ``optax.multi_transform``'s
 ``{"inner_states": {"train": {"inner_state": …}, "freeze": {"inner_state": {}}}}``
-where each frozen leaf of ``mu`` / ``nu`` is ``{}``. These layouts were read
-from the trees the JAX trainer writes.
+where each frozen leaf of a state's trees is ``{}``. Adafactor's ``v_row``
+/ ``v_col`` / ``v`` hold a ``(1,)`` placeholder where a parameter is not
+factored (or is) and are kept in the flax layout (``checkpoint_axes``). These
+layouts were read from the trees the JAX trainer writes.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Collection, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +58,7 @@ _LEAVES = {
     "conv_opt_bias": (("weight", "kernel", True), ("bias", "bias", False)),
     "norm": (("weight", "scale", True), ("bias", "bias", True)),
     "embed": (("weight", "embedding", True),),
+    "symbols": (("symbol_embeddings", "symbol_embeddings", True),),
 }
 
 
@@ -127,6 +134,24 @@ def _encoder_stacks(*stacks: str) -> List[Tuple[str, str, str]]:
 
 _SUBSAMPLE = [("encoder.subsample.conv_layers.{i}", "subsample/conv_layers_{i}", "conv")]
 
+# the language model's adaptive softmax (JAX models/adaptive_softmax.py)
+_ADAPTIVE_SOFTMAX = [
+    ("adaptive_softmax.head", "adaptive_softmax/head", "dense_nobias"),
+    ("adaptive_softmax.tail_proj.{i}", "adaptive_softmax/tail_{i}_proj", "dense_nobias"),
+    ("adaptive_softmax.tail_out.{i}", "adaptive_softmax/tail_{i}_out", "dense_nobias"),
+]
+
+# the character embedder in place of the decoder's embedding table (JAX
+# models/character_embedder.py; its convolutions are named by width)
+_CHARACTER_EMBEDDER = [
+    ("decoder.embed_tokens", "decoder/embed_tokens", "symbols"),
+    ("decoder.embed_tokens.char_embeddings", "decoder/embed_tokens/char_embeddings", "embed"),
+    ("decoder.embed_tokens.convs.conv_w{i}", "decoder/embed_tokens/conv_w{i}", "conv"),
+    ("decoder.embed_tokens.highway.layers.{i}", "decoder/embed_tokens/highway/layer_{i}",
+     "dense"),
+    ("decoder.embed_tokens.projection", "decoder/embed_tokens/projection", "dense"),
+]
+
 # model -> (torch module template, flax module template, kind); ``{i}`` is a
 # layer index
 _RULES = {
@@ -150,7 +175,10 @@ _RULES = {
         ("encoder.layer_norm", "encoder_layer_norm", "norm"),
         *_decoder(), *_DECODER_OPTIONS,
     ],
-    "transformer_lm": [*_decoder(cross_attention=False), *_DECODER_OPTIONS],
+    "transformer_lm": [*_decoder(cross_attention=False), *_DECODER_OPTIONS,
+                       *_ADAPTIVE_SOFTMAX],
+    "transformer_lm_char": [*_CHARACTER_EMBEDDER, *_decoder(cross_attention=False)[1:],
+                            *_DECODER_OPTIONS, *_ADAPTIVE_SOFTMAX],
 }
 
 
@@ -235,13 +263,18 @@ def _flax_to_torch_names(table: _Table, leaves: Iterable[Path]) -> Dict[Path, Tu
     return out
 
 
-def _from_flax(model: str, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _from_flax(model: str, tree: Mapping[str, Any], raw: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """A flax tree -> {torch key: fp32 tensor}; ``raw`` keeps each leaf in
+    its flax layout (an optimizer state kept in that layout)."""
     flat = _flatten(_strip_variables(tree))
     names = _flax_to_torch_names(_TABLES[model], flat)
     out = {}
     for path, (key, kind) in names.items():
         a = np.asarray(flat[path], dtype=np.float32)
-        out[key] = torch.tensor(np.ascontiguousarray(_to_torch_layout(kind, path[-1], a)))
+        if not raw:
+            a = _to_torch_layout(kind, path[-1], a)
+        out[key] = torch.tensor(np.ascontiguousarray(a))
     return out
 
 
@@ -257,9 +290,10 @@ def torch_to_flax_path(model: str, key: str) -> Tuple[Path, str]:
     return tuple(fmod.split("/")) + (flax_leaf,), kind
 
 
-def _to_flax(model: str, state: Mapping[str, Any]) -> Dict[str, Any]:
+def _to_flax(model: str, state: Mapping[str, Any], raw: bool = False) -> Dict[str, Any]:
     """{torch key: tensor or None} -> the flax tree of numpy leaves (None
-    keeps its place as an empty ``{}``, what a masked leaf is in optax)."""
+    keeps its place as an empty ``{}``, what a masked leaf is in optax);
+    ``raw`` leaves are in the flax layout already."""
     flat = {}
     for key, value in state.items():
         path, kind = torch_to_flax_path(model, key)
@@ -267,8 +301,25 @@ def _to_flax(model: str, state: Mapping[str, Any]) -> Dict[str, Any]:
             flat[path] = {}
             continue
         a = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
-        flat[path] = np.ascontiguousarray(_to_flax_layout(kind, key.rpartition(".")[2], a))
+        if not raw:
+            a = _to_flax_layout(kind, key.rpartition(".")[2], a)
+        flat[path] = np.ascontiguousarray(a)
     return _unflatten(flat)
+
+
+def checkpoint_axes(model: torch.nn.Module) -> Dict[torch.nn.Parameter, Tuple[int, ...]]:
+    """Each parameter of a port model -> the permutation of its axes that
+    gives its flax layout (``tensor.permute(perm)``): reversed for a dense
+    or conv ``weight`` (``kernel [in, out]`` / ``[k, in/groups, out]``),
+    the identity otherwise. Adafactor factors its second moments over the
+    flax layout's axes."""
+    kind_of = model_kind(model)
+    out = {}
+    for name, p in model.named_parameters():
+        _, kind = torch_to_flax_path(kind_of, name)
+        rev = name.endswith(".weight") and kind.startswith(("dense", "conv"))
+        out[p] = tuple(range(p.dim()))[::-1] if rev else tuple(range(p.dim()))
+    return out
 
 
 def wav2vec2_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -286,7 +337,10 @@ def params_from_flax(tree: Mapping[str, Any], model: str = "interlingua"
 
 def model_kind(model: torch.nn.Module) -> str:
     """The table name of a port model: ``interlingua``, ``s2t``,
-    ``transformer`` or ``transformer_lm``."""
+    ``transformer``, ``transformer_lm`` or ``transformer_lm_char`` (a
+    language model with character embeddings)."""
+    if getattr(getattr(model, "cfg", None), "character_embeddings", False):
+        return "transformer_lm_char"
     return {"ChimeraInterlinguaModel": "interlingua", "S2TTransformerModel": "s2t",
             "TransformerModel": "transformer", "TransformerLM": "transformer_lm",
             "Wav2Vec2Encoder": "wav2vec2"}[type(model).__name__]
@@ -306,12 +360,36 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor], model: str = "interli
     return {"params": _to_flax(model, state_dict)}
 
 
-# ---------------------------------------------------------------- Adam state
+# ---------------------------------------------------------- optimizer state
 
-def _optax_wrap(adam: Dict[str, Any], schedule_count: np.ndarray, *, clip: bool,
-                decoupled: bool, masked: bool) -> Dict[str, Any]:
-    chain = {"0": adam, "1": {}, "2": {"count": schedule_count}} if decoupled \
-        else {"0": adam, "1": {"count": schedule_count}}
+# layout -> optax's chain below the global-norm clip and the L2 decay, one
+# entry a position: "schedule" (the schedule's own count), {} (a state
+# without fields), or the fields of the optimizer's state: "count" (its own
+# update count) and trees over the parameters. Read from the trees the JAX
+# trainer writes (flax ``serialization.to_state_dict`` of ``tx.init``).
+OPTAX_CHAINS: Dict[str, Tuple[Any, ...]] = {
+    "adam": (("count", "mu", "nu"), "schedule"),
+    "adamw": (("count", "mu", "nu"), {}, "schedule"),
+    # scale_by_factored_rms, clip_by_block_rms, the schedule,
+    # scale_by_param_block_rms, [add_decayed_weights,] scale(-1)
+    "adafactor": (("count", "v_row", "v_col", "v"), {}, "schedule", {}, {}),
+    "adafactor_decay": (("count", "v_row", "v_col", "v"), {}, "schedule", {}, {}, {}),
+    "adagrad": (("sum_of_squares",), "schedule"),
+    # optax.adadelta's own add_decayed_weights(0), then scale_by_adadelta
+    "adadelta": ({}, ("e_g", "e_x"), "schedule"),
+    "sgd": ({}, "schedule"),  # optax.sgd without momentum: identity
+    "momentum": (("trace",), "schedule"),  # sgd --momentum, nag
+    "adamax": (("count", "mu", "nu"), "schedule"),
+    "lamb": (("count", "mu", "nu"), {}, {}, "schedule"),
+}
+
+
+def _wrap_chain(chain: Dict[str, Any], *, clip: bool, l2: bool, masked: bool) -> Dict[str, Any]:
+    """The L2 decay (``_with_l2``: ``chain(add_decayed_weights, tx)``), the
+    clip (``chain(clip_by_global_norm, ...)``) and the ``--fix-*`` mask
+    (``multi_transform``) around a chain."""
+    if l2:
+        chain = {"0": {}, "1": chain}
     if clip:
         chain = {"0": {}, "1": chain}
     if masked:
@@ -320,34 +398,67 @@ def _optax_wrap(adam: Dict[str, Any], schedule_count: np.ndarray, *, clip: bool,
     return chain
 
 
-def opt_state_to_optax(state: Mapping[str, Optional[Mapping[str, torch.Tensor]]],
-                       shapes: Mapping[str, Tuple[int, ...]], schedule_count: int, *,
-                       model: str = "interlingua", clip: bool = False,
-                       decoupled: bool = False) -> Dict[str, Any]:
-    """torch Adam state by parameter name -> optax's tree. ``state[name]``
-    is the parameter's ``{"step", "exp_avg", "exp_avg_sq"}``, ``{}`` before
-    its first update (zero moments), or None for a frozen parameter (its
-    ``mu`` / ``nu`` leaves are ``{}``: the ``multi_transform`` layout).
-    ``shapes`` gives every parameter's shape; ``schedule_count`` is the
-    updates applied, the schedule's count."""
-    masked = any(s is None for s in state.values())
-    steps = {int(s["step"]) for s in state.values() if s}
-    if len(steps) > 1:
-        raise ValueError(f"parameters at different Adam steps {sorted(steps)}")
-    count = steps.pop() if steps else 0
-    mu, nu = {}, {}
-    for name, shape in shapes.items():
-        s = state[name]
-        if s is None:
-            mu[name] = nu[name] = None
-        elif not s:
-            mu[name] = nu[name] = np.zeros(shape, np.float32)
+def _unwrap_chain(tree: Mapping[str, Any], *, clip: bool, l2: bool, masked: bool):
+    chain = tree["inner_states"]["train"]["inner_state"] if masked else tree
+    if clip:
+        chain = chain["1"]
+    if l2:
+        chain = chain["1"]
+    return chain
+
+
+def optimizer_state_to_optax(layout: str, fields: Mapping[str, Optional[Mapping[str, Any]]],
+                             count: int, schedule_count: int, *, model: str = "interlingua",
+                             clip: bool = False, l2: bool = False, raw: bool = False
+                             ) -> Dict[str, Any]:
+    """An optimizer's state -> optax's tree of the chain ``layout``
+    (``OPTAX_CHAINS``). ``fields[name]`` is the parameter's state by field
+    (numpy or tensors in the port's layout, or with ``raw`` in the flax
+    layout already), or None for a frozen parameter (its leaves are ``{}``:
+    the ``multi_transform`` layout); ``count`` is the optimizer's own update
+    count, ``schedule_count`` the schedule's."""
+    masked = any(f is None for f in fields.values())
+    chain = {}
+    for i, entry in enumerate(OPTAX_CHAINS[layout]):
+        if entry == "schedule":
+            chain[str(i)] = {"count": np.asarray(schedule_count, np.int32)}
+        elif isinstance(entry, dict):
+            chain[str(i)] = {}
         else:
-            mu[name], nu[name] = s["exp_avg"], s["exp_avg_sq"]
-    adam = {"count": np.asarray(count, np.int32),
-            "mu": {"params": _to_flax(model, mu)}, "nu": {"params": _to_flax(model, nu)}}
-    return _optax_wrap(adam, np.asarray(schedule_count, np.int32), clip=clip,
-                       decoupled=decoupled, masked=masked)
+            chain[str(i)] = {
+                f: np.asarray(count, np.int32) if f == "count" else
+                {"params": _to_flax(model, {n: None if s is None else s[f]
+                                            for n, s in fields.items()}, raw=raw)}
+                for f in entry}
+    return _wrap_chain(chain, clip=clip, l2=l2, masked=masked)
+
+
+def optimizer_state_from_optax(tree: Mapping[str, Any], template: Mapping[str, Any],
+                               layout: str, *, model: str = "interlingua", clip: bool = False,
+                               l2: bool = False, masked: bool = False, raw: bool = False
+                               ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], int, int]:
+    """optax's tree -> ({field: {parameter name: tensor}}, the optimizer's
+    count, the schedule's count): the inverse of
+    ``optimizer_state_to_optax``. ``template`` is the tree of this
+    optimizer (``optimizer_state_to_optax`` of its own state): a tree of
+    another layout or shape raises ValueError, on which a caller keeps a
+    fresh state as the JAX package's ``load_state`` does. A frozen
+    parameter's ``{}`` leaves flatten away."""
+    _same_layout(tree, template)
+    chain = _unwrap_chain(tree, clip=clip, l2=l2, masked=masked)
+    fields: Dict[str, Dict[str, torch.Tensor]] = {}
+    count, schedule_count = 0, 0
+    for i, entry in enumerate(OPTAX_CHAINS[layout]):
+        node = chain[str(i)]
+        if entry == "schedule":
+            schedule_count = int(np.asarray(node["count"]))
+        elif not isinstance(entry, dict):
+            for f in entry:
+                if f == "count":
+                    count = int(np.asarray(node["count"]))
+                else:
+                    fields[f] = _from_flax(model, node[f]["params"], raw=raw)
+    return fields, count, schedule_count
 
 
 def _same_layout(got: Any, want: Any, path: str = "") -> None:
@@ -360,54 +471,3 @@ def _same_layout(got: Any, want: Any, path: str = "") -> None:
             _same_layout(got[k], want[k], f"{path}/{k}")
     elif np.shape(got) != np.shape(want):
         raise ValueError(f"optimizer state {path}: shape {np.shape(got)} vs {np.shape(want)}")
-
-
-def opt_state_from_optax(tree: Mapping[str, Any], frozen: Collection[str],
-                         shapes: Mapping[str, Tuple[int, ...]], *, model: str = "interlingua",
-                         clip: bool = False, decoupled: bool = False
-                         ) -> Tuple[Dict[str, Optional[Dict[str, torch.Tensor]]], int]:
-    """optax's tree -> (torch Adam state by parameter name, the schedule's
-    count); the inverse of ``opt_state_to_optax``. The tree must have the
-    layout of this optimizer (``clip``, ``decoupled``, the ``frozen``
-    names); otherwise ValueError, on which a caller keeps a fresh state as
-    the JAX package's ``load_state`` does."""
-    template = opt_state_to_optax({n: (None if n in frozen else {}) for n in shapes}, shapes, 0,
-                                  model=model, clip=clip, decoupled=decoupled)
-    _same_layout(tree, template)
-    chain = tree
-    if frozen:
-        chain = chain["inner_states"]["train"]["inner_state"]
-    if clip:
-        chain = chain["1"]
-    adam = chain["0"]
-    schedule_count = int(np.asarray(chain["2" if decoupled else "1"]["count"]))
-    count = int(np.asarray(adam["count"]))
-    # a masked leaf ({}) flattens away
-    mu, nu = _from_flax(model, adam["mu"]), _from_flax(model, adam["nu"])
-    out: Dict[str, Optional[Dict[str, torch.Tensor]]] = {}
-    for name in shapes:
-        if name in frozen:
-            out[name] = None
-        elif count == 0:
-            out[name] = {}
-        else:
-            out[name] = {"step": torch.tensor(float(count)), "exp_avg": mu[name],
-                         "exp_avg_sq": nu[name]}
-    return out, schedule_count
-
-
-def checkpoint_tensors(payload: Mapping[str, Any], shapes: Mapping[str, Tuple[int, ...]],
-                       model: str = "interlingua", frozen: Collection[str] = ()):
-    """A native checkpoint's payload (any clip or decoupled decay; the
-    ``frozen`` parameters masked out of Adam, as ``--fix-*`` or the
-    text-only trunk mask leave them) -> (the parameters as a state dict, the
-    Adam state by parameter name, the schedule's count): ``params_from_flax``
-    and ``opt_state_from_optax`` in one call."""
-    params = _from_flax(model, payload["params"])
-    tree = payload["opt_state"]
-    chain = tree["inner_states"]["train"]["inner_state"] if frozen else tree
-    clip = set(chain) == {"0", "1"} and chain["0"] == {}
-    chain = chain["1"] if clip else chain
-    state, count = opt_state_from_optax(tree, frozen, shapes, model=model, clip=clip,
-                                        decoupled="2" in chain)
-    return params, state, count

@@ -7,8 +7,10 @@ with fill, and a checkpointable ``state_dict`` with ``iterations_in_epoch``
 for mid-epoch resume (O(1): the consumed batches are dropped before
 collation); a background thread, or with ``num_workers`` > 1 a pool of
 threads, collates the next batches while the device works.
-``GroupedIterator`` groups ``update_freq`` micro-batches into an update. The
-streaming iterator of the joint tasks waits with them (ROADMAP A14)."""
+``GroupedIterator`` groups ``update_freq`` micro-batches into an update.
+``StreamingEpochBatchIterator`` iterates a source that yields ready batches
+each epoch (the joint tasks' interleaved batches), with an epoch-granular
+``state_dict``."""
 
 from __future__ import annotations
 
@@ -386,3 +388,53 @@ class _SizedGenerator:
 
     def __iter__(self):
         return iter(self._gen)
+
+
+class StreamingEpochBatchIterator:
+    """Epoch iterator over a source that yields ready batches (counterpart
+    of the JAX ``StreamingEpochBatchIterator``): ``set_epoch`` is forwarded
+    to the source, a background thread prefetches ``buffer_size`` batches,
+    and the state is the epoch alone (a resume starts the stored epoch from
+    its beginning, as in JAX)."""
+
+    def __init__(self, dataset, buffer_size: int = 0):
+        self.dataset = dataset
+        self.epoch = 1
+        self.buffer_size = int(buffer_size)
+        self._cur: Optional[CountingIterator] = None
+
+    @property
+    def next_epoch_idx(self) -> int:
+        if self._cur is not None and self.end_of_epoch():
+            return self.epoch + 1
+        return self.epoch
+
+    def next_epoch_itr(self, shuffle: bool = True, offset: int = 0):
+        self.epoch = self.next_epoch_idx
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self.epoch)
+        source: Any = self.dataset
+        if self.buffer_size > 0:
+            source = BackgroundPrefetcher(source, self.buffer_size)
+        self._cur = CountingIterator(source, total=None)
+        return self._cur
+
+    def end_of_epoch(self) -> bool:
+        return self._cur is None or not self._cur.has_next()
+
+    def next_epoch(self):
+        """After an exhausted epoch: the next one (and the exhausted
+        iterator cleared, so that ``next_epoch_itr`` does not advance
+        again)."""
+        self.epoch = self.next_epoch_idx
+        self._cur = None
+
+    @property
+    def iterations_in_epoch(self) -> int:
+        return self._cur.n if self._cur is not None else 0
+
+    def state_dict(self):
+        return {"epoch": self.epoch}
+
+    def load_state_dict(self, state):
+        self.epoch = state.get("epoch", 1)

@@ -3,7 +3,12 @@
 fairseq/sequence_generator.py EnsembleModel and fairseq_cli/generate.py
 ``--lm-path``): each step emits log(mean_i p_i), the probability-space
 average of the models' tempered distributions, plus ``lm_weight`` times the
-language model's log_softmax (the LM untempered, as in the JAX package).
+language model's normalized log-probabilities (the LM untempered, as in the
+JAX package): the log_softmax of its output layer, or, for an LM with an
+adaptive softmax (``transformer_lm_wiki103``), the adaptive softmax's
+(``TransformerLM.step_log_probs``). Here the port diverges from the JAX
+package, whose fusion log-softmaxes the decoder's tied full-vocabulary
+projection and so ignores a trained adaptive softmax (ROADMAP C).
 
 Each model, and the language model, keeps its own self-attention caches in
 the lazy-reorder layout of ``SequenceGenerator``, with one ancestry map for
@@ -67,10 +72,9 @@ class EnsembleSequenceGenerator:
             decoder = model.decoder
             per_model.append((decoder, decoder.precompute_encoder_kv(enc), enc_mask,
                               decoder.init_cache(B * K, L)))
-        lm_decoder = lm_caches = None
+        lm_caches = None
         if self.lm is not None:
-            lm_decoder = self.lm[0].decoder
-            lm_caches = lm_decoder.init_cache(B * K, L)
+            lm_caches = self.lm[0].decoder.init_cache(B * K, L)
         ancestry, reorder_fn = lazy_reorder(B, K, L, device)
         log_n = math.log(float(len(self.models)))
 
@@ -85,9 +89,9 @@ class EnsembleSequenceGenerator:
                 avg = lps[0]
             else:
                 avg = torch.logsumexp(torch.stack(lps), dim=0) - log_n
-            if lm_decoder is not None:
-                lm_logits = lm_decoder.step(tokens, index, lm_caches, None, None, anc, K)
-                avg = avg + self.lm[1] * torch.log_softmax(lm_logits.float(), dim=-1)
+            if lm_caches is not None:
+                lm, weight = self.lm
+                avg = avg + weight * lm.step_log_probs(tokens, index, lm_caches, anc, K)
             return avg, anc
 
         return beam_search(

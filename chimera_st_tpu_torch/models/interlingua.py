@@ -247,4 +247,7 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 continue
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+        for m in model.modules():  # a module's own initialisers beside these
+            if hasattr(m, "init_extra_"):
+                m.init_extra_(generator)
     return model

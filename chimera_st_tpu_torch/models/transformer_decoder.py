@@ -12,7 +12,10 @@ The options of the Transformer family (JAX ``transformer_decoder.py:50-52``,
 + t`` over the non-pad steps), a LayerNorm over the scaled embeddings
 (``layernorm_embedding``), an untied ``output_projection``, and the
 decoder-only form of the language model (``cross_attention=False``: layers
-without cross-attention, no encoder input in ``forward`` or ``step``)."""
+without cross-attention, no encoder input in ``forward`` or ``step``), and
+a given token embedder (``embed_tokens``: the character embedder, which
+forces the untied projection), and no output layer (``output_layer``
+False: a language model's adaptive softmax reads the features)."""
 
 from __future__ import annotations
 
@@ -53,12 +56,16 @@ class TransformerDecoder(nn.Module):
                  dropout: float = 0.0, attention_dropout: float = 0.0,
                  activation_dropout: float = 0.0, learned_pos: bool = False,
                  layernorm_embedding: bool = False, share_input_output_embed: bool = True,
-                 cross_attention: bool = True, device="cuda"):
+                 cross_attention: bool = True, embed_tokens: Optional[nn.Module] = None,
+                 output_layer: bool = True, device="cuda"):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.padding_idx = padding_idx
         self.dropout = dropout
-        self.embed_tokens = Embed(vocab_size, embed_dim, padding_idx=padding_idx, device=device)
+        # a given embedder (the character embedder) has no table to tie
+        self.embed_tokens = embed_tokens if embed_tokens is not None else Embed(
+            vocab_size, embed_dim, padding_idx=padding_idx, device=device)
+        share_input_output_embed = share_input_output_embed and embed_tokens is None
         if learned_pos:
             self.embed_positions = Embed(max_target_positions + padding_idx + 1, embed_dim,
                                          padding_idx=padding_idx, device=device)
@@ -71,7 +78,7 @@ class TransformerDecoder(nn.Module):
             for _ in range(num_layers)
         ])
         self.layer_norm = LayerNorm(embed_dim, device=device) if normalize_before else None
-        if not share_input_output_embed:
+        if output_layer and not share_input_output_embed:
             self.output_projection = linear(embed_dim, vocab_size, bias=False, device=device)
         self.embed_scale = 1.0 if no_scale_embedding else math.sqrt(embed_dim)
         self.register_buffer(
@@ -135,7 +142,8 @@ class TransformerDecoder(nn.Module):
         """Zeroed self-attention caches, one per layer: (k, v) [columns, H,
         max_len, D] in the compute dtype, or with ``int8`` (k, v) in int8
         and their fp32 scales (k_scale, v_scale) [columns, max_len]."""
-        w = self.embed_tokens.weight
+        # the compute dtype: a projection's weight
+        w = self.layers[0].self_attn.q_proj.weight
         shape = (columns, self.num_heads, max_len, self.embed_dim // self.num_heads)
         if int8:
             return [(torch.zeros(shape, dtype=torch.int8, device=w.device),
@@ -151,14 +159,17 @@ class TransformerDecoder(nn.Module):
              encoder_kv, encoder_padding_mask: Optional[torch.Tensor],
              ancestry: torch.Tensor, groups: int,
              generator: Optional[torch.Generator] = None,
-             cross_attention_dropout: bool = False) -> torch.Tensor:
+             cross_attention_dropout: bool = False, features_only: bool = False
+             ) -> torch.Tensor:
         """One decode step: tokens [N, 1] -> fp32 logits [N, V]. ``caches``
         are written in place at ``step_index``; ``ancestry`` [>L, N] int32 is
         the lazy-reorder map, ``groups`` the beam size; ``encoder_kv`` None
         for the language model. In training mode
         (``--retain-dropout``) the embedding and each layer's residual and
         activation dropouts draw their masks from ``generator``, and with
-        ``cross_attention_dropout`` the cross-attention probabilities too."""
+        ``cross_attention_dropout`` the cross-attention probabilities too.
+        ``features_only`` -> the final states [N, C] (what a language
+        model's adaptive softmax reads)."""
         x = self._embed(tokens, None, step_index)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
         if encoder_kv is None:  # the language model
@@ -166,6 +177,8 @@ class TransformerDecoder(nn.Module):
         for layer, cache, ekv in zip(self.layers, caches, encoder_kv):
             x = layer.step(x, ekv, encoder_padding_mask, cache, ancestry, step_index, groups,
                            generator, cross_attention_dropout)
+        if features_only:
+            return self._features(x)[:, 0, :]
         return self._output(x)[:, 0, :]
 
     def cross_attention_weights(self, prev_output_tokens: torch.Tensor,

@@ -13,10 +13,18 @@ Module names follow the fairseq state dict: ``encoder.embed_tokens``,
 ``encoder.embed_positions``, ``encoder.layernorm_embedding``,
 ``encoder.layers.{i}``, ``encoder.layer_norm``, ``decoder.*``.
 
+The language model's ``adaptive_softmax_cutoffs`` put an
+``AdaptiveSoftmax`` on its features (``transformer_lm_wiki103``): its
+forward then returns normalized log-probabilities, ``adaptive_nll`` the
+clustered NLL of ``adaptive_loss``, and ``step_log_probs`` the beam step's
+log-probabilities either way. ``character_embeddings`` builds the decoder's
+input embedding from characters (``CharacterTokenEmbedder``, its spelling
+table ``word_to_char`` injected by the task, never saved) with an untied
+output projection.
+
 A field the port cannot honour raises instead of being dropped:
-``adaptive_softmax_cutoffs`` and ``character_embeddings`` (separate
-modules, ROADMAP A16), ``pipeline_stages`` above 1 (A12) and
-``decoder_causal`` False (the CMLM decoder of the NAT family, A17).
+``pipeline_stages`` above 1 (ROADMAP A12) and ``decoder_causal`` False (the
+CMLM decoder of the NAT family, A17).
 ``share_all_embeddings`` is declared and not honoured, in the JAX package
 as here: the source and target embeddings stay two tables (ROADMAP C).
 """
@@ -97,14 +105,7 @@ class TransformerLMConfig:
 
 
 def _refuse(cfg) -> None:
-    """Raises for a field whose module or mode the port lacks."""
-    if getattr(cfg, "adaptive_softmax_cutoffs", None):
-        raise NotImplementedError("adaptive_softmax_cutoffs: AdaptiveSoftmax "
-                                  "(models/adaptive_softmax.py) is not ported yet (ROADMAP A16)")
-    if getattr(cfg, "character_embeddings", False):
-        raise NotImplementedError("character_embeddings: the character embedder "
-                                  "(models/character_embedder.py) is not ported yet "
-                                  "(ROADMAP A16)")
+    """Raises for a field whose mode the port lacks."""
     if cfg.pipeline_stages > 1:
         raise NotImplementedError("pipeline_stages above 1 is not ported yet (ROADMAP A12)")
     if not getattr(cfg, "decoder_causal", True):
@@ -200,24 +201,69 @@ class TransformerModel(nn.Module):
 
 class TransformerLM(nn.Module):
     """Decoder-only language model: the shared decoder without
-    cross-attention. ``forward`` is causal (no kernel); ``decoder.step``
-    with ``encoder_kv`` None is the cached beam step of shallow fusion (K3
-    once a layer)."""
+    cross-attention. ``forward`` is causal (no kernel); ``step_log_probs``
+    is the cached beam step of shallow fusion (K3 once a layer)."""
 
-    def __init__(self, cfg: TransformerLMConfig, device="cuda"):
+    def __init__(self, cfg: TransformerLMConfig, device="cuda", word_to_char=None):
         super().__init__()
         _refuse(cfg)
         self.cfg = c = cfg
+        embed_tokens = None
+        if c.character_embeddings:
+            from .character_embedder import DEFAULT_FILTERS, CharacterTokenEmbedder
+
+            if word_to_char is None:
+                raise ValueError("character_embeddings needs a task with a target dictionary "
+                                 "(the word -> char table is built from it)")
+            embed_tokens = CharacterTokenEmbedder(
+                word_to_char, c.embed_dim, c.character_embedding_dim,
+                tuple(c.character_filters or DEFAULT_FILTERS), c.char_embedder_highway_layers,
+                pad_idx=c.padding_idx, device=device)
         self.decoder = TransformerDecoder(
             c.vocab_size, c.embed_dim, c.ffn_dim, c.layers, c.heads, c.activation,
             c.normalize_before, c.padding_idx, False, c.max_target_positions, c.dropout,
-            c.attention_dropout, c.activation_dropout, cross_attention=False, device=device,
+            c.attention_dropout, c.activation_dropout, cross_attention=False,
+            embed_tokens=embed_tokens, output_layer=not c.adaptive_softmax_cutoffs,
+            device=device,
         )
+        if c.adaptive_softmax_cutoffs:
+            from .adaptive_softmax import AdaptiveSoftmax
+
+            self.adaptive_softmax = AdaptiveSoftmax(c.vocab_size, c.embed_dim,
+                                                    tuple(c.adaptive_softmax_cutoffs),
+                                                    device=device)
+        else:
+            self.adaptive_softmax = None
 
     def forward(self, tokens: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, T] tokens -> fp32 logits [B, T, V] (causal)."""
+        """[B, T] tokens -> fp32 logits [B, T, V] (causal); with an adaptive
+        softmax its log-probabilities."""
+        if self.adaptive_softmax is not None:
+            return self.adaptive_softmax.log_prob(
+                self.decoder(tokens, None, None, generator, features_only=True))
         return self.decoder(tokens, None, None, generator)
+
+    def adaptive_nll(self, tokens: torch.Tensor, target: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The per-position clustered NLL [B, T] (``adaptive_loss``)."""
+        if self.adaptive_softmax is None:
+            raise ValueError("adaptive_loss needs a language model with "
+                             "adaptive_softmax_cutoffs")
+        return self.adaptive_softmax.nll(
+            self.decoder(tokens, None, None, generator, features_only=True), target)
+
+    def step_log_probs(self, tokens: torch.Tensor, step_index: int, caches,
+                       ancestry: torch.Tensor, groups: int) -> torch.Tensor:
+        """One cached decode step of shallow fusion: tokens [N, 1] -> the
+        normalized fp32 log-probabilities [N, V]: the adaptive softmax's
+        where the model has one, else the log-softmax of the output layer."""
+        if self.adaptive_softmax is not None:
+            feats = self.decoder.step(tokens, step_index, caches, None, None, ancestry, groups,
+                                      features_only=True)
+            return self.adaptive_softmax.log_prob(feats)
+        logits = self.decoder.step(tokens, step_index, caches, None, None, ancestry, groups)
+        return torch.log_softmax(logits.float(), dim=-1)
 
 
 def _config(config_cls, cfg_dict: Dict):
@@ -232,7 +278,9 @@ def build_transformer(cfg_dict: Dict, device="cuda") -> TransformerModel:
 def build_transformer_lm(cfg_dict: Dict, device="cuda") -> TransformerLM:
     d = dict(cfg_dict)
     d.setdefault("vocab_size", d.pop("tgt_vocab_size", 8))
-    return TransformerLM(_config(TransformerLMConfig, d), device=device)
+    word_to_char = d.pop("word_to_char", None)  # injected by the task, never saved
+    return TransformerLM(_config(TransformerLMConfig, d), device=device,
+                         word_to_char=word_to_char)
 
 
 # ---- presets (JAX transformer_mt.py:392-566; reference fairseq

@@ -99,6 +99,13 @@ class ChimeraTask:
             "src_vocab_size",
             len(self.source_dictionary) if self.source_dictionary else None,
         )
+        if cfg.get("character_embeddings") and self.target_dictionary is not None:
+            # the character embedder's word -> byte spelling table, built
+            # from the dictionary at every build (never saved)
+            from ..models.character_embedder import build_word_to_char
+
+            cfg.setdefault("word_to_char", build_word_to_char(
+                self.target_dictionary, int(cfg.get("max_char_len", 50))))
         return cfg
 
     def build_generator(self, model, gen_cfg, strategy=None):

@@ -23,6 +23,10 @@ train_step.py): the same semantics, run eagerly.
   from its optimizer's count, so they need no host read.
 - ``valid_step``: the criterion in eval mode without gradients.
 
+A joint task's micro-batch carries its ``task_name``, which reaches the
+criterion with the batch (its dispatch); one update may mix sub-tasks,
+whose sample sizes add and whose logged keys are the union of theirs.
+
 The learning rate of an update is the schedule at the number of updates
 applied before it (optax evaluates it at its count before incrementing),
 in fp32 as optax's schedule gives it.
@@ -45,9 +49,9 @@ _TOKEN_KEYS = ("prev_output_tokens", "target", "src_text", "src_tokens", "net_to
 
 def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """Arrays of a collated batch -> tensors on ``device`` (token ids as
-    int64); other entries (``ntokens``, ``nsentences``) pass through. A
-    copy to the card goes from pinned memory without waiting for the
-    card's queue."""
+    int64); other entries (``ntokens``, ``nsentences``, a joint task's
+    ``task_name``) pass through. A copy to the card goes from pinned memory
+    without waiting for the card's queue."""
     device = torch.device(device)
     out = {}
     for key, value in batch.items():

@@ -20,15 +20,17 @@ of chimera_st_tpu/train/trainer.py).
   (``--seed`` + ``num_updates``, as the JAX CLI passes it): with dropout
   on, the updates queued behind a skipped one draw the masks of the next
   count until a drain, in both packages.
-- ``valid_step(batch)``: the criterion's logging in eval mode.
-- ``extra_state`` / ``load_extra_state``: the meters, the training time and
-  the iterator position, restored as three independent concerns
-  (``--reset-meters``, ``--reset-dataloader``; the lr schedules ported keep
-  no state).
+- ``valid_step(batch)``: the criterion's logging in eval mode (a joint
+  task's batch carries its ``task_name`` to the criterion).
+- ``extra_state`` / ``load_extra_state``: the meters, the training time,
+  ``reduce_lr_on_plateau``'s state (``lr_scheduler``) and the iterator
+  position, restored as independent concerns (``--reset-meters``,
+  ``--reset-lr-scheduler``, ``--reset-dataloader``).
 - ``host_state`` / ``load_params`` / ``load_opt_state``: the model's
-  parameters and Adam state as the JAX checkpoint's trees, through the
-  converter table of its type (``convert.model_kind``: the interlingua
-  model, ``transformer`` or ``transformer_lm``).
+  parameters and optimizer state as the JAX checkpoint's trees, through
+  the converter table of its type (``convert.model_kind``: the interlingua
+  model, ``transformer``, ``transformer_lm`` or ``transformer_lm_char``) and
+  the optimizer's optax layout (``convert.OPTAX_CHAINS``).
 """
 
 from __future__ import annotations
@@ -150,7 +152,7 @@ class Trainer:
     # ----------------------------------------------------------- persistence
 
     def host_state(self, save_optimizer: bool = True) -> TrainState:
-        """Parameters and (unless not wanted) Adam state as the JAX
+        """Parameters and (unless not wanted) optimizer state as the JAX
         checkpoint's trees, copied to the host once."""
         from ..convert import model_kind, params_to_flax
 
@@ -176,13 +178,17 @@ class Trainer:
         }
         if epoch_itr is not None:
             ex["train_iterator"] = epoch_itr.state_dict()
+        if hasattr(self.lr_schedule, "state_dict"):
+            # reduce_lr_on_plateau's scale, best metric and bad count
+            ex["lr_scheduler"] = self.lr_schedule.state_dict()
         return ex
 
     def load_extra_state(self, extra: Dict[str, Any], epoch_itr=None,
-                         load_meters: bool = True) -> None:
+                         load_meters: bool = True, load_lr_scheduler: bool = True) -> None:
         """Restores the meters and the training time (unless
-        ``--reset-meters``) and the iterator position (given ``epoch_itr``,
-        i.e. unless ``--reset-dataloader``)."""
+        ``--reset-meters``), a stateful schedule's state (unless
+        ``--reset-lr-scheduler``) and the iterator position (given
+        ``epoch_itr``, i.e. unless ``--reset-dataloader``)."""
         if load_meters and "metrics" in extra:
             try:
                 metrics_mod.load_state_dict(extra["metrics"])
@@ -190,5 +196,8 @@ class Trainer:
                 logger.warning("could not restore metrics state")
         if load_meters:
             self.cumulative_training_time = extra.get("previous_training_time", 0.0)
+        if (load_lr_scheduler and "lr_scheduler" in extra
+                and hasattr(self.lr_schedule, "load_state_dict")):
+            self.lr_schedule.load_state_dict(extra["lr_scheduler"])
         if epoch_itr is not None and "train_iterator" in extra:
             epoch_itr.load_state_dict(extra["train_iterator"])

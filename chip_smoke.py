@@ -8,7 +8,8 @@ wav -> wav2vec2 trunk -> ... -> beam 10) and the fbank speech-to-text
 transformer ``s2t_transformer_s`` with ``compute_fbank`` (raw wav -> log-mel
 -> subsampler -> encoder -> beam 5); then the training recipe, and the
 fairseq Transformer family (MT serving, an LM fused into the decode, LM
-perplexity).
+perplexity), Chimera's joint MT + ST training, every optimizer and schedule
+of the train CLI, and the adaptive-softmax and character-input LMs.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -32,8 +33,9 @@ Phases (any failure raises and the script exits non-zero):
              1.5 s inputs; K3 (beam-step decode attention) at beam 10 /
              8 heads and beam 5 / 4 heads, each at steps 0, 31 and 63 of a
              64-long cache and, with 2 sentences, at step 150 of a 200-long
-             one, and at head dim 128 (32 sentences x beam 5, 4 heads; beside
-             it SDPA over the gathered rows), k3_wide: at head dims 96 (32
+             one, and at head dim 128 (32 sentences x beam 5, 4 heads, and x
+             beam 4, 8 heads: the wiki103 LM's; beside each SDPA over the
+             gathered rows), k3_wide: at head dims 96 (32
              heads: the megatron LM presets) and 32 (16 heads: the gbw
              ones), 32 sentences x beam 4, steps 0, 31 and 63, the ancestry row of the step
              drawn at random, cache rows
@@ -97,7 +99,7 @@ Phases (any failure raises and the script exits non-zero):
              clones of its inputs at the ancestry the mode built (1e-4, the
              rows written bit-equal; sampling's ancestry must stay the
              identity). Then each mode in bf16 on the card between CUDA
-             events, 3 rounds of the modes in turn (median, min, max),
+             events, 2 rounds of the modes in turn (median, min, max),
              counts zeroed before and exact after each run (a batch: K1 24,
              K2 6, K3 6 a decoder step, 6 + 12 with the LM; the ensemble and
              the alignment pass encode twice; int8 and reference scoring
@@ -165,9 +167,10 @@ Phases (any failure raises and the script exits non-zero):
              B's checkpoint_best (beam 10, bf16). Exact launches (a
              training micro-batch K2 6, K1 0; a validation batch, eval
              mode, K1 36, K2 6; the decode K1 24 and K2 6 a batch, K3 6 a
-             step); A's checkpoint_last read back equals the trainer's
-             parameters and Adam state bit for bit, and so does the same
-             file restored into it by load_state; B starts at step 2 at
+             step); A's checkpoint_last: its optimizer tree read back
+             equals the trainer's Adam state bit for bit, and the file
+             restored by load_state into the trainer, zeroed first, gives
+             back its parameters and Adam state; B starts at step 2 at
              the stored iterator position and ends at step 4 with the
              iterator and best metric of the JAX rules; the decode prints
              one hypothesis per utterance. Prints {"train_cli": {...}}
@@ -216,7 +219,7 @@ Phases (any failure raises and the script exits non-zero):
              step, K2 and K4 0). Prints {"fbank_features": {...}}.
 9. family  - the fairseq Transformer family on seeded text over one joined
              dictionary of 32,768 subwords (binarized by the port's
-             preprocess: 128 test and 8 parity pairs of 4-120 Zipf-drawn
+             preprocess: 64 test and 4 parity pairs of 4-120 Zipf-drawn
              subwords; a 200,000-token monolingual stream), each model
              seeded and written as a native .ckpt by the port's writer in
              the JAX layout. mt_big: transformer_wmt_en_de_big (6 + 6 x 1024,
@@ -276,10 +279,48 @@ Phases (any failure raises and the script exits non-zero):
              cache writes bit-equal), accuracy only; the phase demands the
              trunk (H 12), the shared encoder (H 4) and the family (H 8) in
              K1, beams 10 / H 4 and 4 / H 8 in K3, and K2.
+7a. joint  - joint_train (run after tts_update, on the CLI fixture): Chimera's
+             joint MT + ST fine-tune through cli.train --task joint_task_mtst
+             --task-configs (JSON: the 24 wavs as the ST sub-task's train and
+             valid splits, 48 seeded MT pairs over the same dictionaries at
+             sample ratio 0.5 and weight 0.5) --main-task st, the flagship at
+             full width with train_cli's recipe flags, bf16, micro-batches of
+             8, 2 an update: run A to 6 updates, run B resumed to 10 under
+             --profile, each validating the ST sub-task and saving at its
+             end; cli.generate --task triplet of the checkpoint; one fp32
+             update of an ST and an MT micro-batch card vs CPU (train_parity's
+             gates). Exact launches: K2 6 on each ST micro-batch and 0 on an
+             MT one, K1 0 in training, 36 (and K2 6) a validation batch; the
+             decode K1 24 / K2 6 a batch, K3 6 a step. Prints
+             {"joint_train": {...}} (updates/s, audio s/s and target tokens/s
+             after run A's first update, peak memory, busy share of run B).
+10a. optimizers and the adaptive LM - optim_sweep: cli.train --arch
+             transformer on family_train's data for each of the eight
+             optimizers and, under adam, each of the five other schedules
+             (6 updates, warm-up 2; clip 0.1 but for adafactor;
+             reduce_lr_on_plateau validating every 2 updates): the written
+             optax tree restores into a fresh optimizer equal to the
+             trainer's, one fp32 update card vs CPU (loss, gnorm, every
+             gradient; Adam's bound, or each tensor's update within 1e-2 in
+             L2), K1 6 a micro-batch; prints {"optim_sweep": {...}}.
+             lm_adaptive: transformer_lm_wiki103 at full width (16 x 1024,
+             adaptive softmax 20,000 / 60,000) with adaptive_loss over a
+             seeded 267,744-word dictionary, 3072-token blocks, nag + cosine
+             (the wiki103 recipe, warm-up and period cut), bf16, 5 updates,
+             eval_lm, an fp32 step on one 512-token block; one update of
+             transformer_lm_gbw --character-embeddings; no kernel launched;
+             prints {"lm_adaptive": {...}}. lm_fusion_adaptive (in the family
+             phases): mt_big with --lm-path of a full-width wiki103 LM over
+             the family's 32,768-subword dictionary (cutoffs 8,000 / 20,000),
+             served as lm_fusion (K3 6 + 16 a step at D 64 / 128).
+             joint_shapes (timed) and optim_shapes (accuracy only): every K1,
+             K2 and K3 shape these phases launched against the plain
+             versions.
 11. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
-             decode, tts_update, mt_cli's and the family's; K3's record holds its times at the search
+             decode, tts_update, mt_cli's and the family's, joint_train's
+             and optim_sweep's; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -783,29 +824,32 @@ def phase_kernels(torch, ops):
         records.append(dict(rec, launches_of=fn, launch_floor_ms=floor_ms))
     next(r for r in records if r["name"] == "decode_attention")["shapes"] = {
         "d128_S32_C5_H4": k3_d128_case(torch, dec_attn, tensor),
+        "d128_S32_C4_H8": k3_d128_case(torch, dec_attn, tensor, "d128_wiki103", 4, 8),
         **k3_wide_cases(torch, dec_attn, tensor)}
     k3_misaligned_raises(torch, dec_attn, tensor, np.random.default_rng(2))
     return records
 
 
-def k3_d128_case(torch, dec_attn, tensor):
-    """K3 at head dim 128, the MT decode's shape of transformer_iwslt_de_en
-    (32 sentences x beam 5, 4 heads, a 64-step cache) at steps 63, 31 and 0,
-    as phase 3 holds it; beside it SDPA over the rows the ancestry selects,
-    gathered beforehand (not the same function: K3 also gathers and writes
-    the cache, so its library_ms stays null)."""
+def k3_d128_case(torch, dec_attn, tensor, label="d128", C=5, H=4):
+    """K3 at head dim 128, by default the MT decode's shape of
+    transformer_iwslt_de_en (32 sentences x beam 5, 4 heads, a 64-step
+    cache; with C 4 and H 8 the transformer_lm_wiki103 LM's in the fused
+    decode of lm_fusion_adaptive) at steps 63, 31 and 0, as phase 3 holds
+    it; beside it SDPA over the rows the ancestry selects, gathered
+    beforehand (not the same function: K3 also gathers and writes the
+    cache, so its library_ms stays null)."""
     import torch.nn.functional as F
 
-    log("K3 decode_attention at head dim 128")
-    inputs = k3_inputs(torch, tensor, np.random.default_rng(3), 32, 5, 4, 64, D=128)
-    steps = {idx: k3_step(torch, dec_attn, inputs, "d128", 5, idx) for idx in (63, 31, 0)}
+    log(f"K3 decode_attention at head dim 128, beam {C}, {H} heads")
+    inputs = k3_inputs(torch, tensor, np.random.default_rng(3), 32, C, H, 64, D=128)
+    steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx) for idx in (63, 31, 0)}
     q, _, _, kc, vc, anc, _ = inputs
     N = q.shape[0]
-    src = (torch.arange(N, device="cuda") // 5 * 5)[None, :] + anc[:64].long()
+    src = (torch.arange(N, device="cuda") // C * C)[None, :] + anc[:64].long()
     t = torch.arange(64, device="cuda")[:, None]
     kg, vg = (c[src, :, t].permute(1, 2, 0, 3).contiguous() for c in (kc, vc))  # [N, H, 64, D]
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg), reps=50)
-    log(f"  d128 step 63: SDPA over the 64 gathered rows (no gather, no cache write) "
+    log(f"  {label} step 63: SDPA over the 64 gathered rows (no gather, no cache write) "
         f"{sdpa_ms:.4f} ms beside the kernel's {steps[63]['ms']:.4f} ms")
     return dict(steps[63], steps={"0": steps[0], "31": steps[31]},
                 sdpa_on_gathered_rows_ms=sdpa_ms)
@@ -1343,23 +1387,16 @@ def train_model(torch, task, device, **overrides):
     return init_params_(model, torch.Generator().manual_seed(11)).to(device)
 
 
-def compare_step(torch, label, cuda, cpu, before, keys=("loss", "nll_loss"), names=None):
-    """The gates of one fp32 update, card vs CPU from the same weights.
-    ``cuda`` / ``cpu`` are (metrics, gradients, parameters after), ``before``
-    the parameters before, ``names`` the trained tensors (default all). The
-    metrics in ``keys`` within 1e-5 and gnorm within 1e-3 (relative); every
-    gradient within 1e-2 (L2 per tensor: fp32 round-off grows through the
-    ReLU kinks and cuDNN's conv backward, a wrong backward would be O(1); a
-    key projection's bias, whose exact gradient is 0 since a softmax row
-    shifted by a constant does not change, against its weight's); the
-    parameters after one Adam update at lr 1e-4: where the two gradients
-    differ by d, Adam's first update may differ by up to lr * min(2, d /
-    eps), the bound each parameter is held to (plus 4 fp32 roundings of the
-    parameter and 1e-6 lr for the two optimizers' own rounding). Every
-    tensor whose gradient is not 0 on both devices must move. Returns the
-    relative loss, gnorm and largest gradient differences."""
-    (mg, gg, pg), (mc, gc, pc) = cuda, cpu
-    names = list(gc) if names is None else names
+def gradient_gates(torch, label, mg, mc, gg, gc, keys, names):
+    """The gradient gates of one fp32 update, card vs CPU from the same
+    weights: the metrics ``mg`` / ``mc`` in ``keys`` within 1e-5 and gnorm
+    within 1e-3 (relative); every gradient of ``names`` (``gg`` / ``gc``)
+    within 1e-2 (L2 per tensor: fp32 round-off grows through the ReLU kinks
+    and cuDNN's conv backward, a wrong backward would be O(1); a key
+    projection's bias, whose exact gradient is 0 since a softmax row
+    shifted by a constant does not change, against its weight's). Returns
+    the relative loss, gnorm and largest gradient differences, and the
+    tensors whose gradient is not 0 on both devices."""
     for key in keys:
         check(f"{label} {key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]),
               1e-5)
@@ -1372,7 +1409,27 @@ def compare_step(torch, label, cuda, cpu, before, keys=("loss", "nll_loss"), nam
         + ", ".join(f"{k} {e:.2e}" for e, k in rel[:4]))
     check(f"{label} every gradient ({len(rel)} tensors) card vs CPU, |d| / |g| per tensor",
           rel[0][0], 1e-2)
-    lr, eps = 1e-4, 1e-8
+    return {"loss_rel": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+            "gnorm_rel": abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"],
+            "grad_rel_max": rel[0][0]}, live
+
+
+def compare_step(torch, label, cuda, cpu, before, keys=("loss", "nll_loss"), names=None,
+                 lr=1e-4):
+    """The gates of one fp32 Adam update, card vs CPU from the same
+    weights. ``cuda`` / ``cpu`` are (metrics, gradients, parameters after),
+    ``before`` the parameters before, ``names`` the trained tensors (default
+    all), ``lr`` the update's learning rate. gradient_gates, then the
+    parameters after the update: where the two gradients differ by d,
+    Adam's first update may differ by up to lr * min(2, d / eps), the bound
+    each parameter is held to (plus 4 fp32 roundings of the parameter and
+    1e-6 lr for the two optimizers' own rounding). Every tensor whose
+    gradient is not 0 on both devices must move. Returns gradient_gates'
+    record."""
+    (mg, gg, pg), (mc, gc, pc) = cuda, cpu
+    names = list(gc) if names is None else names
+    out, live = gradient_gates(torch, label, mg, mc, gg, gc, keys, names)
+    eps = 1e-8
     excess, moved = 0.0, 0
     for k in names:
         allowed = lr * torch.clamp((gg[k] - gc[k]).abs() / eps, max=2.0) \
@@ -1385,42 +1442,47 @@ def compare_step(torch, label, cuda, cpu, before, keys=("loss", "nll_loss"), nam
     if excess > 0 or moved != len(live):
         raise AssertionError(f"{label} parity: {excess} beyond the bound, {moved} of "
                              f"{len(live)} tensors moved")
-    return {"loss_rel": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
-            "gnorm_rel": abs(mg["gnorm"] - mc["gnorm"]) / mc["gnorm"], "grad_rel_max": rel[0][0]}
+    return out
 
 
 def phase_train_parity(torch, task):
     """One flagship step at full width in fp32 (TF32 off), every dropout 0,
-    a batch of 2 from the fixture: on the card (K1, K2 through their
-    Functions) and on the CPU (plain versions), held by compare_step (the
-    loss terms, gnorm, every gradient, one Adam update at lr 1e-4 on a fixed
-    schedule)."""
-    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
-    from chimera_st_tpu_torch.train import TrainStep
-
+    a batch of 2 from the fixture (flagship_step_parity)."""
     batch = next(iter(task.make_batch_iterator(task.dataset("train_wave"), max_sentences=2)
                       .next_epoch_itr(shuffle=False)))
     log(f"train_parity: fp32, every dropout 0, batch 2 ({batch['audio'].shape[1] / 16000:.2f} s "
         "padded), card (kernels) vs CPU (plain versions), one Adam update at lr 1e-4")
+    flagship_step_parity(torch, "train", task, TRAIN_CRITERION, [batch],
+                         ("loss", "st_loss", "mt_loss", "contrastive_loss"))
+
+
+def flagship_step_parity(torch, label, task, crit_cfg, micro, keys):
+    """One accumulated update of the recipe's model over ``micro`` at full
+    width in fp32 (TF32 off), every dropout 0: on the card (K1, K2 through
+    their Functions) and on the CPU (plain versions), held by compare_step
+    (the metrics ``keys``, gnorm, every gradient, one Adam update at lr
+    1e-4 on a fixed schedule)."""
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.train import TrainStep
+
     out = {}
     for device in ("cuda", "cpu"):
         model = train_model(torch, task, device, **NO_DROPOUT)
-        step = TrainStep(model, task.build_criterion(TRAIN_CRITERION),
+        step = TrainStep(model, task.build_criterion(crit_cfg),
                          build_optimizer(TRAIN_ADAM, model.parameters()),
                          build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
                          compute_dtype=torch.float32)
         before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
         t0 = time.perf_counter()
-        metrics = step([batch])
-        log(f"  {device}: {time.perf_counter() - t0:.2f} s, loss {metrics['loss']:.4f}, "
+        metrics = step(micro)
+        log(f"  {label} {device}: {time.perf_counter() - t0:.2f} s, loss {metrics['loss']:.4f}, "
             f"gnorm {metrics['gnorm']:.4f}")
         out[device] = (metrics, before, {k: p.grad.cpu() for k, p in model.named_parameters()},
                        {k: p.detach().cpu() for k, p in model.named_parameters()})
         del model, step
     (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
-    compare_step(torch, "train", (mg, gg, pg), (mc, gc, pc), before,
-                 keys=("loss", "st_loss", "mt_loss", "contrastive_loss"))
     torch.cuda.empty_cache()
+    return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, keys=keys)
 
 
 def train_profile(torch, step, micro):
@@ -1623,18 +1685,18 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
     shared-encoder layers) = 36, and K2 6; no decoding. The decode of the
     checkpoint: K1 24 and K2 6 a batch, K3 6 a decode step that ran.
 
-    Checks: the counts; run A's checkpoint_last read back
-    (``convert.checkpoint_tensors``) equals the trainer's parameters and Adam
-    state bit for bit; the same file restored by the CLI's ``load_state`` into A's
-    trainer on the card equals it bit for bit; run B starts at step 2 with
-    the stored iterator state, ends at step 4 with the iterator and best
+    Checks: the counts; run A's checkpoint_last: its optimizer tree read
+    back (``Optimizer.read_optax``) equals the trainer's Adam state bit for
+    bit; the file restored by the CLI's ``load_state`` into A's trainer on
+    the card, its parameters zeroed and its Adam state cleared first, gives
+    back the parameters and the Adam state bit for bit; run B starts at step
+    2 with the stored iterator state, ends at step 4 with the iterator and best
     metric the JAX rules give; the decode prints one hypothesis per
     utterance. Prints {"train_cli": {...}}; deletes its files."""
     import shutil
 
     from chimera_st_tpu_torch.checkpoint.store import load_state, read_state
     from chimera_st_tpu_torch.cli import train
-    from chimera_st_tpu_torch.convert import checkpoint_tensors
 
     base = work / "train_cli"
     base.mkdir()
@@ -1673,31 +1735,36 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
             trainer = out["trainer"]
             last = save_dir / "checkpoint_last.ckpt"
             size = last.stat().st_size
-            held = trainer.model.state_dict()
+            held = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
             payload = read_state(str(last))
             named = dict(trainer.model.named_parameters())
-            params, state, count = checkpoint_tensors(
-                payload, {n: tuple(p.shape) for n, p in named.items()})
+            fields, adam_count, count = trainer.optimizer.read_optax(payload["opt_state"],
+                                                                     trainer.model)
+            state = {"exp_avg": fields["mu"], "exp_avg_sq": fields["nu"]}
             adam = trainer.optimizer.optimizer.state
-            same = (sorted(params) == sorted(held)
-                    and all(torch.equal(params[k], held[k].cpu()) for k in held)
-                    and count == payload["step"] == trainer.num_updates == 2
-                    and all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
-                            for k in ("exp_avg", "exp_avg_sq"))
+            same = (adam_count == count == payload["step"] == trainer.num_updates == 2
+                    and all(torch.equal(state[k][n], adam[p][k].cpu()) for n, p in named.items()
+                            for k in state)
                     and all(int(adam[p]["step"]) == 2 for p in named.values()))
-            # the CLI's restore into the same trainer: a fresh Adam state first
+            # the CLI's restore into the same trainer: zeroed parameters and
+            # a fresh Adam state first
             adam.clear()
+            with torch.no_grad():
+                for p in named.values():
+                    p.zero_()
             load_state(payload, trainer)
-            restored = all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
-                           for k in ("exp_avg", "exp_avg_sq")) and trainer.num_updates == 2
-            log(f"  checkpoint_last: {size / 1e9:.3f} GB; read back = the trainer's parameters "
-                f"and Adam state bit for bit: {same}; restored through load_state on the card "
-                f"bit for bit: {restored}")
+            restored = (all(torch.equal(v, held[k]) for k, v in trainer.model.state_dict().items())
+                        and all(torch.equal(state[k][n], adam[p][k].cpu())
+                                for n, p in named.items() for k in state)
+                        and trainer.num_updates == 2)
+            log(f"  checkpoint_last: {size / 1e9:.3f} GB; its optimizer tree read back = the "
+                f"trainer's Adam state bit for bit: {same}; parameters and Adam state restored "
+                f"through load_state on the card bit for bit: {restored}")
             if not (same and restored):
                 raise AssertionError("train_cli: the written checkpoint is not the trainer's state")
             stored_iterator = payload["extra"]["train_iterator"]
             best_a = payload["extra"]["best"]
-            del trainer, held, params, payload, state, adam, named, out
+            del trainer, held, payload, state, adam, named, out
             runs["A"].pop("trainer")
             torch.cuda.empty_cache()
     b = runs["B"]
@@ -1829,12 +1896,11 @@ def phase_mt_parity(torch, fx):
     trained gradient 1e-2 (L2 per tensor), the Adam update within lr *
     min(2, |dg| / eps). The trunk bit-identical to its start on both
     devices and without Adam state; the optimizer tree, pickled and read
-    back, has the JAX trainer's masked layout (``opt_state_from_optax``
+    back, has the JAX trainer's masked layout (``Optimizer.read_optax``
     checks structure and shapes)."""
     import itertools
     import pickle
 
-    from chimera_st_tpu_torch.convert import opt_state_from_optax
     from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.optim.freeze import auto_text_only_fixes, wrap_freeze
@@ -1867,9 +1933,8 @@ def phase_mt_parity(torch, fx):
             f"({sum(before[n].numel() for n in frozen_names) / 1e6:.1f} M parameters) masked")
         no_state = all(p not in opt.optimizer.state for p in frozen) and all(
             p in opt.optimizer.state for p in trained)
-        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
         tree = pickle.loads(pickle.dumps(opt.state_to_optax(model, step.num_updates)))
-        opt_state_from_optax(tree, frozen_names, shapes)  # raises on another layout
+        opt.read_optax(tree, model)  # raises on another layout
         mu = tree["inner_states"]["train"]["inner_state"]["0"]["mu"]["params"]
         if fixes != ("fix_audio_trunk",) or not no_state or mu["wav2vec_model"] \
                 ["post_extract_proj"]["kernel"] != {} or tree["inner_states"]["freeze"] != \
@@ -1920,9 +1985,10 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
     mode, K1 12 (the 12 shared-encoder layers on text); the decode K1 12 a
     batch and K3 6 a decoder step that ran (64 a batch unless every
     hypothesis of the batch ended before: beam search stops there). Checks: the counts; A's
-    checkpoint_last read back equals the trainer's parameters and Adam
-    state bit for bit (the trunk without moments), and so does the same
-    file restored by the CLI's load_state; B starts at A's step and
+    checkpoint_last's optimizer tree read back equals the trainer's Adam
+    state bit for bit (the trunk without moments), and the file restored by
+    the CLI's load_state into the trainer, zeroed first, gives back its
+    parameters and Adam state; B starts at A's step and
     iterator and ends an epoch later with the iterator and best metric of
     the JAX rules; the averaged parameters are the fp64 mean of the three
     files cast to fp32; the decode prints one hypothesis a test pair.
@@ -1934,7 +2000,6 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
 
     from chimera_st_tpu_torch.checkpoint.store import load_state, read_state
     from chimera_st_tpu_torch.cli import generate, train
-    from chimera_st_tpu_torch.convert import checkpoint_tensors
     from chimera_st_tpu_torch.tools import average_checkpoints
 
     task = mt_task(fx)
@@ -1986,35 +2051,40 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
                 named = dict(trainer.model.named_parameters())
                 frozen = {n for n, p in named.items()
                           if any(p is f for f in trainer.optimizer.frozen)}
-                shapes = {n: tuple(p.shape) for n, p in named.items()}
-                params, state, count = checkpoint_tensors(payload, shapes, frozen=frozen)
+                held = {n: p.detach().clone() for n, p in named.items()}
+                fields, adam_count, count = trainer.optimizer.read_optax(payload["opt_state"],
+                                                                         trainer.model)
+                state = {"exp_avg": fields["mu"], "exp_avg_sq": fields["nu"]}
                 adam = trainer.optimizer.optimizer.state
-                same = (sorted(params) == sorted(named)
-                        and all(torch.equal(params[n], p.detach().cpu()) for n, p in named.items())
-                        and count == payload["step"] == trainer.num_updates == 2 * per_epoch
-                        and all((state[n] is None) == (n in frozen) for n in named)
-                        and all(torch.equal(state[n][k], adam[p][k].cpu()) for n, p in
-                                named.items() if n not in frozen
-                                for k in ("exp_avg", "exp_avg_sq")))
+                same = (adam_count == count == payload["step"] == trainer.num_updates
+                        == 2 * per_epoch
+                        and all(set(state[k]) == set(named) - frozen for k in state)
+                        and all(torch.equal(state[k][n], adam[p][k].cpu()) for n, p in
+                                named.items() if n not in frozen for k in state))
                 adam.clear()
+                with torch.no_grad():
+                    for p in named.values():
+                        p.zero_()
                 load_state(payload, trainer)
                 restored = trainer.num_updates == 2 * per_epoch and all(
-                    torch.equal(state[n][k], adam[p][k].cpu()) for n, p in named.items()
-                    if n not in frozen for k in ("exp_avg", "exp_avg_sq")) and not any(
+                    torch.equal(p, held[n]) for n, p in named.items()) and all(
+                    torch.equal(state[k][n], adam[p][k].cpu()) for n, p in named.items()
+                    if n not in frozen for k in state) and not any(
                     p in adam for n, p in named.items() if n in frozen)
                 n_all = sum(p.numel() for p in named.values())
                 n_trained = sum(p.numel() for n, p in named.items() if n not in frozen)
                 log(f"  checkpoint_last: {size / 1e9:.3f} GB ({n_all / 1e6:.1f} M parameters, "
                     f"{n_trained / 1e6:.1f} M of them with Adam moments; the same tree unmasked "
                     f"would hold {12 * n_all / 1e9:.3f} GB of fp32 leaves, masked "
-                    f"{(4 * n_all + 8 * n_trained) / 1e9:.3f} GB); read back = the trainer's "
-                    f"state bit for bit: {same}; restored through load_state: {restored}")
+                    f"{(4 * n_all + 8 * n_trained) / 1e9:.3f} GB); its optimizer tree read back "
+                    f"= the trainer's Adam state bit for bit: {same}; parameters and Adam state "
+                    f"restored through load_state into zeroed parameters: {restored}")
                 if not (same and restored):
                     raise AssertionError("mt_cli: the written checkpoint is not the trainer's "
                                          "state")
                 stored_iterator = payload["extra"]["train_iterator"]
                 best_a = payload["extra"]["best"]
-                del trainer, params, payload, state, adam, named, out
+                del trainer, held, payload, state, adam, named, out
                 runs["A"].pop("trainer")
                 torch.cuda.empty_cache()
         b = runs["B"]
@@ -2122,13 +2192,13 @@ def phase_mt_cli(torch, fx, work: Path, kernels, enc_attn, conv_tail, dec_attn,
     return {"mt_cli": train_counts, "mt_cli_decode": counts["decode"]}, seen
 
 
-def phase_shapes(torch, ops, seen, records, prefix, expect, timed=True):
+def phase_shapes(torch, ops, seen, records, prefix, expect, timed=()):
     """Every shape at which a group of phases launched K1, K2 and K3 (``seen``
     from recorded_shapes), held against the plain version as phase 3 holds
     them: K1 and K2 in bf16 and fp32, K3 at the first, middle and last step
     of the shape's cache (0, 31 and 63 of 64) in bf16 and fp32 with the
-    cache writes bit-equal; times
-    and bounds too where ``timed``. ``expect(shapes)`` says what the phases
+    cache writes bit-equal; times and bounds too of the kernels named in
+    ``timed``. ``expect(shapes)`` says what the phases
     must have launched. The records go into each kernel's ``shapes``, K3's
     main numbers those of its last step."""
     t0 = time.perf_counter()
@@ -2148,16 +2218,18 @@ def phase_shapes(torch, ops, seen, records, prefix, expect, timed=True):
     for B, T, H, D in shapes["encoder_attention"]:
         label = f"{prefix}_B{B}_T{T}_H{H}_D{D}"
         rec["encoder_attention"]["shapes"][label] = k1_case(torch, enc_attn, tensor, label, B, T,
-                                                            H, D, timed=timed)
+                                                            H, D,
+                                                            timed="encoder_attention" in timed)
     for B, T1, _ in shapes["conv_tail"]:
         rec["conv_tail"]["shapes"][f"{prefix}_B{B}_T1_{T1}"] = k2_case(
-            torch, conv_tail, tensor, B, T1, timed=timed)
+            torch, conv_tail, tensor, B, T1, timed="conv_tail" in timed)
     rng = np.random.default_rng(7)
     for N, H, L, D, C in shapes["decode_attention"]:
         label = f"{prefix}_S{N // C}_C{C}_H{H}_D{D}"
         inputs = k3_inputs(torch, tensor, rng, N // C, C, H, L, D)
         last, mid = L - 1, L // 2 - 1  # 63 and 31 of a 64-step cache
-        steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx, timed=timed)
+        steps = {idx: k3_step(torch, dec_attn, inputs, label, C, idx,
+                              timed="decode_attention" in timed)
                  for idx in (last, mid, 0)}
         rec["decode_attention"].setdefault("shapes", {})[f"{label}_L{L}"] = dict(
             steps[last], steps={"0": steps[0], str(mid): steps[mid]})
@@ -2395,7 +2467,8 @@ def phase_text(torch, fx, task, kernels):
 # then each mode timed in bf16 with exact launch counts
 
 SEARCH_BATCH = 8
-SEARCH_REPS = 3  # bf16 timing rounds, the modes in turn
+SEARCH_REPS = 2  # bf16 timing rounds, the modes in turn (2 keep retained dropout's
+# same-seed check)
 # per sentence, two target phrases of seeded random tokens (ids 4..9999)
 SEARCH_PHRASE_SEED = 21
 
@@ -2892,8 +2965,8 @@ def phase_fbank_features(torch, root: Path, kernels):
 # transformer_lm of GPT widths fused in with --lm-path, and eval_lm
 
 FAMILY_VOCAB = 32768  # one joined dictionary: the size fairseq's WMT'16 en-de big dictionary is near
-FAMILY_TEST_PAIRS = 128
-FAMILY_PARITY_PAIRS = 8
+FAMILY_TEST_PAIRS = 64
+FAMILY_PARITY_PAIRS = 4
 FAMILY_BATCH = 32
 FAMILY_DECODE = ["--beam", "4", "--lenpen", "0.6", "--max-decode-len", "64"]  # WMT'16 en-de big
 LM_STREAM_TOKENS = 200_000
@@ -3120,7 +3193,8 @@ def phase_eval_lm(torch, fx, ckpt: Path, kernels):
 
 
 def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
-    """mt_big, lm_fusion, eval_lm, iwslt and lm_fusion_wide on one fixture.
+    """mt_big, lm_fusion, eval_lm, iwslt, lm_fusion_wide and
+    lm_fusion_adaptive on one fixture.
     Returns (the fixture, {phase: launches}, the K1 / K3 shapes seen)."""
     fx = make_family_fixture(work / "family")
     ckpts = {name: family_checkpoint(torch, fx, name, cfg, seed)
@@ -3135,6 +3209,7 @@ def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
         counts["eval_lm"] = phase_eval_lm(torch, fx, ckpts["lm"], kernels)
         counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6)
         counts.update(phase_lm_fusion_wide(torch, fx, ckpts["mt_big"], kernels))
+        counts.update(phase_lm_fusion_adaptive(torch, fx, ckpts["mt_big"], kernels))
     if not any(s[3] == 128 for s, _ in seen["encoder_attention"]) or \
             not all(any(s[3] == d for s, _ in seen["decode_attention"]) for d in (32, 96, 128)):
         raise AssertionError(f"the family phases launched no head-dim-128 K1, or no K3 at one of "
@@ -3324,23 +3399,29 @@ def corpus_bleu(hyps, refs, tokenize="13a", lowercase=False, **_):
         "(13a tokenization, corpus BLEU-4 without smoothing)")
 
 
-def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro):
+def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=None, lr=1e-4,
+                       clip=0.0):
     """One accumulated update of a family model at full width in fp32 (TF32
     off), every dropout 0, on the card (kernels) and on the CPU (plain
-    versions), from the same seeded weights, held by compare_step."""
+    versions), from the same seeded weights: the optimizer ``opt_cfg``
+    (Adam (0.9, 0.98) by default) at a fixed ``lr``, ``clip`` the global
+    norm. Adam's update is held by compare_step, another optimizer's by
+    gradient_gates and optimizer_step_parity."""
+    from chimera_st_tpu_torch.convert import checkpoint_axes
     from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.train import TrainStep
 
+    opt_cfg = opt_cfg or {"_name": "adam", "adam_betas": "(0.9, 0.98)"}
     out = {}
     for device in ("cuda", "cpu"):
         model = task.build_model(dict(model_cfg, dropout=0.0, attention_dropout=0.0,
                                       activation_dropout=0.0), device="cpu", train=True)
         init_params_(model, torch.Generator().manual_seed(19)).to(device)
         step = TrainStep(model, task.build_criterion(crit_cfg),
-                         build_optimizer({"_name": "adam", "adam_betas": "(0.9, 0.98)"},
-                                         list(model.parameters())),
-                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         build_optimizer(opt_cfg, list(model.parameters()), clip_norm=clip,
+                                         checkpoint_axes=checkpoint_axes(model)),
+                         build_lr_schedule({"_name": "fixed", "lr": lr}),
                          compute_dtype=torch.float32)
         before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
         t0 = time.perf_counter()
@@ -3352,7 +3433,11 @@ def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro):
         del model, step
     (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
     torch.cuda.empty_cache()
-    return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before)
+    if opt_cfg["_name"] == "adam":
+        return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, lr=lr)
+    rec, _ = gradient_gates(torch, label, mg, mc, gg, gc, ("loss", "nll_loss"), list(gc))
+    rec.update(optimizer_step_parity(label, before, pg, pc, gg, gc))
+    return rec
 
 
 FAMILY_TRAIN_PAIRS = 1600  # about 30 updates an epoch at --max-tokens 4096
@@ -3680,6 +3765,585 @@ def phase_tts_update(torch, fx, kernels):
     return counts
 
 
+# ---- joint MT + ST training, the other optimizers and
+# schedules, the adaptive-softmax and character-input LMs, fusing an
+# adaptive LM
+
+JOINT_MT_PAIRS = 48  # 6 MT batches of 8 at sample ratio 0.5: 3 an epoch beside 3 ST ones
+JOINT_UPDATES = (6, 10)  # run A to 6 (two epochs of 3 updates), run B resumed to 10
+JOINT_KEYS = ("loss", "st_loss", "mt_loss", "contrastive_loss", "nll_loss")
+
+
+def joint_fixture(fx) -> dict:
+    """The CLI fixture's 24 wavs as the ST sub-task's ``train`` and ``valid``
+    splits, JOINT_MT_PAIRS seeded MT pairs (and 8 valid ones) over its two
+    10,000-word dictionaries binarized by the port's preprocess (source on
+    src_dict.txt, target on dict.txt: the joint target vocabulary), and the
+    two sub-task configs as JSON: ST (triplet, its criterion the recipe's),
+    MT (translation, label-smoothed CE 0.1) at sample ratio 0.5 and weight
+    0.5, as tests/test_joint_task.py configures them."""
+    from chimera_st_tpu_torch.cli import preprocess
+
+    root = fx["root"]
+    for split in ("train", "valid"):
+        (root / f"{split}.tsv").write_text((root / "tst_wave.tsv").read_text())
+    raw = root / "joint_raw"
+    raw.mkdir()
+    rng = np.random.default_rng(61)
+    words = [f"w{i}" for i in range(10000 - 4)]
+    for split, n in (("train", JOINT_MT_PAIRS), ("valid", 8)):
+        for lang in ("en", "de"):
+            (raw / f"{split}.{lang}").write_text("".join(
+                " ".join(rng.choice(words, size=int(rng.integers(5, 25)))) + "\n"
+                for _ in range(n)))
+    preprocess.main(["-s", "en", "-t", "de", "--srcdict", str(root / "src_dict.txt"),
+                     "--tgtdict", str(root / "dict.txt"), "--trainpref", str(raw / "train"),
+                     "--validpref", str(raw / "valid"), "--destdir", str(root / "joint_mt")])
+    configs = []
+    for cfg in ({"task_name": "st", "sample_ratio": 1.0, "weight": 1.0,
+                 "task": {"_name": "triplet", "data": str(root),
+                          "config_yaml": "config_wave.yaml"},
+                 "criterion": dict(TRAIN_CRITERION, loss_ratio=[1.0, 1.0, 1.0])},
+                {"task_name": "mt", "sample_ratio": 0.5, "weight": 0.5,
+                 "task": {"_name": "translation", "data": str(root / "joint_mt"),
+                          "source_lang": "en", "target_lang": "de"},
+                 "criterion": {"_name": "label_smoothed_cross_entropy",
+                               "label_smoothing": 0.1}}):
+        path = root / f"joint_{cfg['task_name']}.json"
+        path.write_text(json.dumps(cfg))
+        configs.append(str(path))
+    return dict(configs=configs, task_cfg={"_name": "joint_task_mtst", "main_task": "st",
+                                           "task_configs": configs})
+
+
+def joint_argv(fx, jfx, w2v2: Path, save_dir: Path, max_update: int, extra=()):
+    """train_cli's recipe flags and cuts (recipes/train-en2any-ST.sh) with the
+    joint task: both sub-tasks' configs, the ST one the main task,
+    micro-batches of 8, 2 an update (so that updates mix ST and MT), the
+    validation and the saves at the end of a run."""
+    argv = train_cli_argv(fx, w2v2, save_dir, max_update)
+    values = {"--task": "joint_task_mtst", "--update-freq": "2", "--train-subset": "train",
+              "--valid-subset": "valid"}
+    for flag, value in values.items():
+        argv[argv.index(flag) + 1] = value
+    return argv + ["--task-configs", *jfx["configs"], "--main-task", "st",
+                   "--validate-interval", "100", "--save-interval", "100", *extra]
+
+
+def joint_schedule(jfx, epochs):
+    """The joint iterator's micro-batches of ``epochs`` as the train CLI
+    draws them (--seed 1, --batch-size 8, --max-tokens 2000000): [(epoch,
+    task_name, audio seconds, target tokens)]."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task(dict(jfx["task_cfg"]))
+    task.load_dataset("train")
+    out = []
+    for epoch in epochs:
+        for b in task.make_joint_iterator("train", max_tokens=2000000, max_sentences=8, seed=1,
+                                          epoch=epoch):
+            audio = float((~b["audio_padding_mask"]).sum()) / 16000 if "audio" in b else 0.0
+            out.append((epoch, b["task_name"], audio, float(b["ntokens"])))
+    return out
+
+
+OPTIM_HELD_SHARE = 0.9  # the least share of elements optimizer_step_parity holds
+
+
+def optimizer_step_parity(label, before, pg, pc, gg, gc, rel=1e-2):
+    """The update of a non-Adam optimizer, card vs CPU: every tensor's update
+    u (after - before) within ``rel`` of the CPU's in L2, plus 4 fp32
+    roundings of the parameter (an update below the parameter's last place
+    is rounding: compare_step allows Adam the same), over the elements
+    whose gradient is the same on both devices (a row of an embedding that
+    the batch does not use: 0 on both) or stands clear of the two devices'
+    difference (|g| > 4 |dg|). Where it does not, a normalized first update
+    (adafactor's g / sqrt(g^2), adamax's and lamb's g / (|g| + eps)) may
+    take either sign on either device, as compare_step's Adam bound allows
+    up to 2 lr there. The held elements must be at least OPTIM_HELD_SHARE
+    of all. A key projection's bias is held against its weight's update, as
+    compare_step holds gradients. Returns the largest |d| / |u| and the
+    share of elements held."""
+    import torch
+
+    eps32 = torch.finfo(torch.float32).eps
+    worst, worst_at, excess, clear, total = 0.0, "", [], 0, 0
+    for k in pc:
+        dg, dc = pg[k] - before[k], pc[k] - before[k]
+        keep = (gg[k] == gc[k]) | (gc[k].abs() > 4 * (gg[k] - gc[k]).abs())
+        clear, total = clear + int(keep.sum()), total + keep.numel()
+        ref = pc[k[:-4] + "weight"] - before[k[:-4] + "weight"] if k.endswith("k_proj.bias") \
+            else dc
+        diff, scale = float(((dg - dc) * keep).norm()), float(ref.norm())
+        if diff / max(scale, 1e-30) > worst:
+            worst = diff / max(scale, 1e-30)
+            worst_at = f"{k} (|u| {scale:.3e}, |p| {float(pc[k].norm()):.3e})"
+        if diff > rel * scale + 4 * eps32 * float(pc[k].norm()):
+            excess.append(f"{k} {diff:.3e} (|u| {scale:.3e}, |p| {float(pc[k].norm()):.3e})")
+    log(f"  {label} every tensor's update card vs CPU over the {100 * clear / total:.4f} % of "
+        f"elements whose dg = 0 or |g| > 4 |dg|: largest |d| / |u| {worst:.3e} at {worst_at}; "
+        f"bound {rel:g} |u| + 4 fp32 roundings of |p|: {len(excess)} beyond")
+    if excess:
+        raise AssertionError(f"{label}: updates beyond the bound: {excess[:4]}")
+    if clear / total < OPTIM_HELD_SHARE:
+        raise AssertionError(f"{label}: the update held over {clear / total:.4f} of the "
+                             f"elements, fewer than {OPTIM_HELD_SHARE}")
+    return {"update_rel_max": worst, "elements_held": clear / total}
+
+
+def phase_joint_train(torch, fx, work: Path, kernels):
+    """Chimera's joint MT + ST fine-tune through the train CLI in-process:
+    ``--task joint_task_mtst --task-configs st.json mt.json --main-task st``
+    on the flagship at full width with train_cli's recipe flags and cuts,
+    bf16, micro-batches of 8, 2 an update: run A from a fresh start to
+    update 6 (two epochs of 3 ST and 3 MT micro-batches), run B resumed from
+    A's checkpoint_last to 10 under --profile, each validating the ST
+    sub-task and saving at its end; then cli.generate --task triplet of B's
+    checkpoint_best, and the fp32 card-vs-CPU parity of one update mixing an
+    ST and an MT micro-batch. Launches exact (zeroed before each run, read
+    after): K2 6 on each ST micro-batch and none on an MT one, K1 none in
+    training (attention dropout 0.1), a validation batch K1 36 and K2 6; the
+    decode K1 24 and K2 6 a batch, K3 6 a step. Prints {"joint_train":
+    {...}}; returns the launches of the runs and of the decode."""
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import read_state
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    base = work / "joint_train"
+    base.mkdir()
+    jfx = joint_fixture(fx)
+    w2v2 = w2v2_checkpoint(torch, fx, base / "wav2vec2_seeded.pt")
+    save_dir = base / "checkpoints"
+    sched = joint_schedule(jfx, range(1, 5))
+    per_epoch = sum(1 for e, *_ in sched if e == 1)
+    if per_epoch != 6 or {t for _, t, *_ in sched} != {"st", "mt"}:
+        raise AssertionError(f"joint_train: {per_epoch} micro-batches an epoch, {sched}")
+    updates = [sched[i:i + 2] for i in range(0, len(sched), 2)]
+    mixed = sum(1 for u in updates[:JOINT_UPDATES[1]] if {m[1] for m in u} == {"st", "mt"})
+    log(f"joint_train: cli.train --task joint_task_mtst (ST triplets + MT pairs at ratio 0.5, "
+        f"weight 0.5), the flagship at full width, bf16; {per_epoch} micro-batches of 8 an "
+        f"epoch, 2 an update; {mixed} of the {JOINT_UPDATES[1]} updates mix ST and MT")
+    if not mixed:
+        raise AssertionError("joint_train: no update mixes an ST and an MT micro-batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, counts = {}, {}
+    trace_dir = base / "trace"
+    for label, max_update in zip("AB", JOINT_UPDATES):
+        for fn in kernels:
+            fn.launches = 0
+        extra = ["--profile", str(trace_dir)] if label == "B" else []
+        t0 = time.perf_counter()
+        out = train.main(joint_argv(fx, jfx, w2v2, save_dir, max_update, extra))
+        torch.cuda.synchronize()
+        counts[label] = {fn.__name__: fn.launches for fn in kernels}
+        t = out["times"]
+        ran = updates[t["restored"]["step"]:out["trainer"].num_updates]
+        st_micro = sum(1 for u in ran for m in u if m[1] == "st")
+        valid = 3 * len(t["valid_s"])
+        implied = {"encoder_attention": 36 * valid, "conv_tail": 6 * st_micro + 6 * valid,
+                   "decode_attention": 0, "logmel": 0}
+        log(f"  run {label}: {time.perf_counter() - t0:.1f} s, step {t['restored']['step']} -> "
+            f"{out['trainer'].num_updates}, {st_micro} ST and {2 * len(ran) - st_micro} MT "
+            f"micro-batches, {valid} validation batches; updates "
+            f"{[round(s, 3) for s in t['update_s']]} s, saves {[round(s, 2) for s in t['save_s']]}"
+            f" s, validations {[round(s, 2) for s in t['valid_s']]} s (st_loss "
+            f"{[round(v, 3) for v in t['valid']]}), load {t['load_s']:.2f} s; launches "
+            f"{counts[label]}")
+        if counts[label] != implied or out["trainer"].num_updates != max_update \
+                or not all(np.isfinite(v) for v in t["valid"]):
+            raise AssertionError(f"joint_train run {label}: launches {counts[label]} (want "
+                                 f"{implied}), {out['trainer'].num_updates} updates")
+        runs[label] = {"times": t, "ran": ran}
+        del out
+        torch.cuda.empty_cache()
+    a, b = runs["A"], runs["B"]
+    payload = read_state(str(save_dir / "checkpoint_last.ckpt"))
+    if (b["times"]["restored"]["step"] != JOINT_UPDATES[0] or payload["step"] != JOINT_UPDATES[1]
+            or b["times"]["restored"]["train_iterator"] != {"epoch": 3}
+            or payload["extra"]["task_cfg"]["_name"] != "joint_task_mtst"):
+        raise AssertionError(f"joint_train: B restored at {b['times']['restored']}, saved step "
+                             f"{payload['step']}")
+    size = (save_dir / "checkpoint_last.ckpt").stat().st_size
+    del payload
+    peak = torch.cuda.max_memory_allocated()
+    busy = trace_busy(trace_dir / "trace.json")
+    # the rates after run A's first update, from each update's seconds
+    # (validations and saves excluded)
+    timed, secs = a["ran"][1:], a["times"]["update_s"][1:]
+    rate = len(timed) / sum(secs)
+    audio_s = sum(m[2] for u in timed for m in u) / sum(secs)
+    tokens_s = sum(m[3] for u in timed for m in u) / sum(secs)
+    rec = {"updates_per_s_after_first": rate, "audio_s_per_s": audio_s,
+           "target_tokens_per_s": tokens_s, "mixed_updates": mixed,
+           "update_s": {"A": a["times"]["update_s"], "B": b["times"]["update_s"]},
+           "save_s": a["times"]["save_s"] + b["times"]["save_s"], "checkpoint_bytes": size,
+           "resume_load_s": b["times"]["load_s"],
+           "valid_s": a["times"]["valid_s"] + b["times"]["valid_s"],
+           "valid_st_loss": a["times"]["valid"] + b["times"]["valid"],
+           "peak_memory_gb": peak / 1e9, "profile_run_b": busy, "launches": counts}
+    log(f"  run A after its first update: {rate:.3f} updates/s, {audio_s:.1f} audio s/s, "
+        f"{tokens_s:.0f} target tokens/s (ST and MT); peak {peak / 1e9:.2f} GB; checkpoint "
+        f"{size / 1e9:.2f} GB; run B under --profile: device busy "
+        f"{100 * busy['busy_share']:.1f} % of {busy['wall_ms'] / 1e3:.1f} s")
+
+    # the written checkpoint decodes as an ST model
+    for fn in kernels:
+        fn.launches = 0
+    with counted_decoder_steps() as steps:
+        text, stats, wall = cli_generate(fx, base / "decode", "tst_wave",
+                                         ["--batch-size", str(CLI_BATCH), "--dtype", "bfloat16"],
+                                         path=save_dir / "checkpoint_best.ckpt")
+        torch.cuda.synchronize()
+    counts["decode"] = {fn.__name__: fn.launches for fn in kernels}
+    hyps, full, last_line = parse_protocol(text)
+    batches = -(-CLI_WAVS // CLI_BATCH)
+    implied = {"encoder_attention": 24 * batches, "conv_tail": 6 * batches,
+               "decode_attention": 6 * steps[0], "logmel": 0}
+    log(f"  cli.generate --task triplet of checkpoint_best.ckpt: {stats['sentences']} sentences "
+        f"in {wall:.1f} s, {steps[0]} decode steps; launches {counts['decode']}; {last_line}")
+    if (len(full) != CLI_WAVS or counts["decode"] != implied or steps[0] == 0
+            or any(not np.isfinite(h[0][0]) for h in hyps.values())):
+        raise AssertionError(f"joint_train decode: {len(full)} samples, launches "
+                             f"{counts['decode']} (want {implied})")
+    rec["decode_s"] = stats["decode_s"]
+    shutil.rmtree(base)
+
+    # fp32 parity of one update mixing an ST and an MT micro-batch
+    task = setup_task(dict(jfx["task_cfg"]))
+    task.load_dataset("train")
+    micro = {}
+    for batch in task.make_joint_iterator("train", max_sentences=2, seed=1):
+        micro.setdefault(batch["task_name"], batch)
+    rec["parity"] = flagship_step_parity(
+        torch, "joint_train", task, {"_name": "label_smoothed_cross_entropy"},
+        [micro["st"], micro["mt"]], JOINT_KEYS)
+    print(json.dumps({"joint_train": rec}), flush=True)
+    return ({k: counts["A"][k] + counts["B"][k] for k in counts["A"]}, counts["decode"])
+
+
+# optimizer or schedule -> its flags (the lr each takes at this scale); the
+# schedules run under adam, as the recipes do; adafactor without --clip-norm
+OPTIM_SWEEP = {
+    "adam": ["--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "5e-4"],
+    "adafactor": ["--optimizer", "adafactor", "--lr", "1e-3"],
+    "adagrad": ["--optimizer", "adagrad", "--lr", "1e-2"],
+    "adadelta": ["--optimizer", "adadelta", "--lr", "1.0"],
+    "sgd": ["--optimizer", "sgd", "--momentum", "0.9", "--lr", "1e-2"],
+    "nag": ["--optimizer", "nag", "--lr", "1e-2"],
+    "adamax": ["--optimizer", "adamax", "--lr", "2e-3"],
+    "lamb": ["--optimizer", "lamb", "--lr", "1e-3", "--weight-decay", "0.01"],
+    "cosine": ["--lr-scheduler", "cosine", "--lr", "1e-5", "--max-lr", "5e-4",
+               "--lr-period-updates", "3"],
+    "polynomial_decay": ["--lr-scheduler", "polynomial_decay", "--lr", "5e-4",
+                         "--total-num-update", "6", "--end-learning-rate", "1e-5"],
+    "tri_stage": ["--lr-scheduler", "tri_stage", "--lr", "5e-4", "--phase-ratio",
+                  "(0.3, 0.3, 0.4)"],
+    "triangular": ["--lr-scheduler", "triangular", "--lr", "1e-5", "--max-lr", "5e-4",
+                   "--lr-period-updates", "4"],
+    "reduce_lr_on_plateau": ["--lr-scheduler", "reduce_lr_on_plateau", "--lr", "5e-4",
+                             "--save-interval-updates", "2"],
+}
+OPTIM_UPDATES = 6
+
+
+def optim_argv(data: Path, save_dir: Path, name: str):
+    flags = list(OPTIM_SWEEP[name])
+    if "--optimizer" not in flags:
+        flags = OPTIM_SWEEP["adam"][:4] + flags
+    if "--lr-scheduler" not in flags:
+        flags += ["--lr-scheduler", "inverse_sqrt"]
+    if name != "adafactor":
+        flags += ["--clip-norm", "0.1"]
+    return [str(data), "--task", "translation", "-s", "en", "-t", "de",
+            *model_flags(FAMILY_TRAIN_MODEL), "--criterion", "label_smoothed_cross_entropy",
+            "--label-smoothing", "0.1", "--warmup-updates", "2", "--max-tokens", "4096",
+            "--dtype", "bfloat16", "--max-update", str(OPTIM_UPDATES), "--no-epoch-checkpoints",
+            "--save-dir", str(save_dir), *flags]
+
+
+def phase_optim_sweep(torch, fx, data: Path, kernels):
+    """``cli.train --task translation --arch transformer`` (family_train's
+    model and data, bf16) for each optimizer and each schedule of
+    OPTIM_SWEEP: OPTIM_UPDATES updates with the warm-up cut to 2, the
+    validation and the save at the end (reduce_lr_on_plateau also every 2
+    updates, so that its step_val runs); the written optimizer state loads
+    back into a fresh optimizer of the same flags (the layout of the JAX
+    chain, convert.OPTAX_CHAINS) equal to the trainer's bit for bit, at
+    update count 6; for each optimizer one fp32 update card vs CPU on a
+    micro-batch of 4 pairs (family_step_parity; adamax and lamb at eps
+    1e-3), for each schedule its lr from the count on the card against the
+    host's (it changes an update by its lr alone). K1 6 a
+    training micro-batch and 6 a validation batch, exactly. Prints
+    {"optim_sweep": {...}} (updates/s after the first update beside
+    adam's); returns the launches."""
+    import itertools
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import read_state
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.cli.train import optimizer_config
+    from chimera_st_tpu_torch.cli.options import add_train_args, base_parser
+    from chimera_st_tpu_torch.convert import checkpoint_axes
+    from chimera_st_tpu_torch.optim import build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "translation", "data": str(data), "source_lang": "en",
+                       "target_lang": "de"})
+    task.load_dataset("train")
+    task.load_dataset("valid")
+    n_valid = len(task.make_batch_iterator(task.dataset("valid"), max_tokens=4096))
+    micro = list(itertools.islice(task.make_batch_iterator(
+        task.dataset("train"), max_sentences=4).next_epoch_itr(shuffle=False), 1))
+    parser = add_train_args(base_parser("sweep"))
+    rec, total = {}, None
+    log(f"optim_sweep: cli.train --arch transformer, bf16, {OPTIM_UPDATES} updates each: "
+        f"{', '.join(OPTIM_SWEEP)}")
+    for name in OPTIM_SWEEP:
+        save_dir = fx["root"] / f"optim_{name}"
+        argv = optim_argv(data, save_dir, name)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        t = out["times"]
+        trainer = out["trainer"]
+        implied = {"encoder_attention": 6 * OPTIM_UPDATES + 6 * n_valid * len(t["valid_s"]),
+                   "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+        after_first = t["update_s"][1:]
+        rate = len(after_first) / sum(after_first)
+        # the save: the written optimizer state into a fresh optimizer
+        args, _ = parser.parse_known_args(argv)
+        payload = read_state(str(save_dir / "checkpoint_last.ckpt"))
+        fresh = build_optimizer(optimizer_config(args), list(trainer.model.parameters()),
+                                clip_norm=args.clip_norm, checkpoint_axes=checkpoint_axes(trainer.model))
+        held = trainer.optimizer.state_to_optax(trainer.model, trainer.num_updates)
+        count = fresh.load_optax(payload["opt_state"], trainer.model)
+        back = fresh.state_to_optax(trainer.model, count)
+        same = count == trainer.num_updates == OPTIM_UPDATES and all(
+            np.array_equal(x, y) for x, y in zip(_leaves(back), _leaves(held)))
+        lrs = [float(trainer.lr_schedule(s)) for s in range(OPTIM_UPDATES)]
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s, {rate:.2f} updates/s after the first, "
+            f"lr {[f'{x:.3g}' for x in lrs]}, validations {len(t['valid_s'])} "
+            f"{[round(v, 3) for v in t['valid']]}; the optax tree ({trainer.optimizer.layout}) "
+            f"restores equal: {same}; launches {counts}")
+        if counts != implied or not same or not all(np.isfinite(v) for v in t["valid"]):
+            raise AssertionError(f"optim_sweep {name}: launches {counts} (want {implied}), "
+                                 f"restored {same}")
+        if name == "reduce_lr_on_plateau" and (len(t["valid_s"]) < 3 or
+                                               "lr_scheduler" not in payload["extra"]):
+            raise AssertionError("optim_sweep reduce_lr_on_plateau: no step_val")
+        if "--lr-scheduler" in OPTIM_SWEEP[name]:
+            # a schedule changes an update by its lr alone (adam's step is held
+            # below): its value from the count on the card against the host's
+            sched = trainer.lr_schedule
+            on_card = sched(torch.arange(OPTIM_UPDATES, device="cuda")).cpu().numpy()
+            check(f"optim_sweep {name}: the schedule at counts 0..{OPTIM_UPDATES - 1} on the "
+                  "card vs the host's (relative)",
+                  float(np.max(np.abs(on_card - np.asarray(lrs)) / np.maximum(lrs, 1e-30))),
+                  1e-12)
+            parity = None
+        else:
+            opt_cfg = optimizer_config(args)
+            if name in ("adamax", "lamb"):
+                # eps 1e-3 bounds the slope of their first update in g (an Adam-like
+                # g / (|g| + eps), as tests/test_torch_train.py raises adam_eps)
+                opt_cfg[f"{name}_eps"] = 1e-3
+            parity = family_step_parity(
+                torch, f"optim_sweep {name}", task, FAMILY_TRAIN_MODEL,
+                {"_name": "label_smoothed_cross_entropy", "label_smoothing": 0.1}, micro,
+                opt_cfg, lrs[-1], args.clip_norm)
+        rec[name] = {"updates_per_s_after_first": rate, "update_s": t["update_s"],
+                     "lr": lrs, "layout": trainer.optimizer.layout,
+                     "valid_loss": t["valid"], "parity": parity, "launches": counts}
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        del out, trainer, payload, fresh
+        shutil.rmtree(save_dir)
+        torch.cuda.empty_cache()
+    adam = rec["adam"]["updates_per_s_after_first"]
+    log("  updates/s beside adam's: " + ", ".join(
+        f"{k} {v['updates_per_s_after_first'] / adam:.2f}" for k, v in rec.items()))
+    print(json.dumps({"optim_sweep": rec}), flush=True)
+    return total
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _leaves(tree[k], path + (k,))
+        return out
+    return [np.asarray(tree)]
+
+
+# fairseq's wikitext-103 vocabulary size (its adaptive-input LM's dictionary)
+WIKI103_VOCAB = 267744
+WIKI103_BLOCK = 3072  # the recipe's --tokens-per-sample
+WIKI103_STREAM = 6 * WIKI103_BLOCK + 2000
+WIKI103_UPDATES = 5
+WIKI103_MODEL = {"arch": "transformer_lm_wiki103"}  # 16 x 1024, 8 heads, cutoffs 20000 / 60000
+CHAR_LM_MODEL = {"arch": "transformer_lm_gbw", "character_embeddings": True}
+# fairseq's wiki103 recipe: nag, lr 1e-4, clip 0.1, cosine to max_lr 1 with
+# t_mult 2; the warm-up (16,000) and the period (270,000) cut to this run
+WIKI103_OPT = ["--optimizer", "nag", "--lr", "1e-4", "--clip-norm", "0.1",
+               "--lr-scheduler", "cosine", "--max-lr", "1.0", "--t-mult", "2",
+               "--lr-period-updates", "4", "--warmup-updates", "2", "--warmup-init-lr", "1e-7"]
+
+
+def make_wiki103_fixture(root: Path, seed: int = 67) -> dict:
+    """A dictionary of WIKI103_VOCAB words (Zipf counts) and a seeded Zipf
+    stream of WIKI103_STREAM tokens (``test``; its first 2 blocks also as
+    ``valid``), binarized by the port's preprocess --only-source."""
+    from chimera_st_tpu_torch.cli import preprocess
+
+    rng = np.random.default_rng(seed)
+    n_words = WIKI103_VOCAB - 4
+    words = np.asarray([f"v{i}" for i in range(n_words)])
+    p = 1.0 / np.arange(1, n_words + 1) ** 1.1
+    p /= p.sum()
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    rows, n = [], 0
+    while n < WIKI103_STREAM:
+        r, ids = zipf_rows(rng, words, p, 64)
+        rows += r
+        n += len(ids) + 64
+    head, n_head = [], 0
+    for row in rows:
+        if n_head >= 2 * WIKI103_BLOCK:
+            break
+        head.append(row)
+        n_head += len(row.split()) + 1
+    (raw / "lm.txt").write_text("\n".join(rows) + "\n")
+    (raw / "lm_head.txt").write_text("\n".join(head) + "\n")
+    dict_file = root / "dict.txt"
+    dict_file.write_text("".join(f"{w} {int(1e9 * q) + 1}\n" for w, q in zip(words, p)))
+    preprocess.main(["--only-source", "--srcdict", str(dict_file), "--testpref",
+                     str(raw / "lm.txt"), "--validpref", str(raw / "lm_head.txt"),
+                     "--destdir", str(root / "bin")])
+    return dict(root=root, bin=root / "bin", tokens=n)
+
+
+def lm_step_parity(torch, label, data: Path, model_cfg, crit_cfg):
+    """family_step_parity on one block of 512 tokens of the stream."""
+    import itertools
+
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "language_modeling", "data": str(data),
+                       "tokens_per_sample": 512})
+    task.load_dataset("valid")
+    micro = list(itertools.islice(task.make_batch_iterator(
+        task.dataset("valid"), max_sentences=1).next_epoch_itr(shuffle=False), 1))
+    return family_step_parity(torch, label, task, model_cfg, crit_cfg, micro)
+
+
+def phase_lm_adaptive(torch, work: Path, kernels):
+    """``cli.train --task language_modeling --arch transformer_lm_wiki103
+    --criterion adaptive_loss`` at the preset's full width (16 x 1024, 8
+    heads, FFN 4096, adaptive softmax cutoffs 20,000 / 60,000) over a
+    dictionary of fairseq's wikitext-103 size, --tokens-per-sample 3072, one
+    block a micro-batch, the recipe's optimizer and schedule (WIKI103_OPT),
+    bf16, WIKI103_UPDATES updates; then cli.eval_lm of the result (bf16,
+    3072-token blocks), the fp32 card-vs-CPU step on one block of 512, and
+    one update of ``transformer_lm_gbw --character-embeddings`` (the full
+    preset: 12 x 512, 16 heads, FFN 4096, characters to a 512-wide
+    embedding) with its own fp32 parity step. No kernel launches: the LM is
+    causal. Prints {"lm_adaptive": {...}}; returns the launches."""
+    import shutil
+
+    from chimera_st_tpu_torch.cli import eval_lm, train
+
+    fx = make_wiki103_fixture(work / "wiki103")
+    rec = {}
+    for label, model, crit, extra, n_up in (
+            ("wiki103", WIKI103_MODEL, "adaptive_loss", WIKI103_OPT, WIKI103_UPDATES),
+            ("char_gbw", CHAR_LM_MODEL, "lm_cross_entropy", OPTIM_SWEEP["adam"], 1)):
+        save_dir = fx["root"] / f"{label}_ckpt"
+        argv = [str(fx["bin"]), "--task", "language_modeling", *model_flags(model),
+                "--criterion", crit, "--tokens-per-sample", str(WIKI103_BLOCK),
+                "--max-tokens", str(WIKI103_BLOCK), *extra, "--dtype", "bfloat16",
+                "--max-update", str(n_up), "--train-subset", "test", "--valid-subset", "valid",
+                "--no-epoch-checkpoints", "--no-save-optimizer-state", "--save-dir",
+                str(save_dir)]
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        t = out["times"]
+        n_params = sum(p.numel() for p in out["trainer"].model.parameters())
+        n_updates = out["trainer"].num_updates
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        torch.cuda.empty_cache()
+        # the rate after the first update (of a one-update run: of that update)
+        after_first = t["update_s"][1:] or t["update_s"]
+        rate = len(after_first) / sum(after_first)
+        which = "after the first" if n_updates > 1 else "its one update"
+        r = {"parameters": n_params, "updates_per_s_after_first": rate,
+             "tokens_per_s": WIKI103_BLOCK * rate, "update_s": t["update_s"],
+             "valid_loss": t["valid"], "save_s": t["save_s"], "peak_memory_gb": peak / 1e9,
+             "wall_s": wall, "launches": counts}
+        log(f"lm_adaptive {label}: {model}, {n_params / 1e6:.1f} M parameters, {n_updates} "
+            f"updates of {WIKI103_BLOCK} tokens in {wall:.1f} s; {rate:.2f} updates/s "
+            f"({r['tokens_per_s']:.0f} tokens/s) {which}; validation {t['valid']}; "
+            f"peak {peak / 1e9:.2f} GB; launches {counts}")
+        if any(counts.values()) or n_updates != n_up or not all(np.isfinite(v)
+                                                                for v in t["valid"]):
+            raise AssertionError(f"lm_adaptive {label}: launches {counts}, {n_updates} updates")
+        if label == "wiki103":
+            t0 = time.perf_counter()
+            ev = eval_lm.main([str(fx["bin"]), "--path", str(save_dir / "checkpoint_last.ckpt"),
+                               "--tokens-per-sample", str(WIKI103_BLOCK), "--gen-subset", "test",
+                               "--batch-size", "1", "--dtype", "bfloat16"])
+            torch.cuda.synchronize()
+            if not np.isfinite(ev["loss_bits"]) or any(fn.launches for fn in kernels):
+                raise AssertionError(f"lm_adaptive eval_lm: {ev}")
+            r["eval_lm"] = dict(ev, tokens_per_s=ev["tokens"] / ev["eval_s"],
+                                wall_s=time.perf_counter() - t0)
+            log(f"  eval_lm: {ev['tokens']} tokens in {ev['eval_s']:.2f} s "
+                f"({r['eval_lm']['tokens_per_s']:.0f} tokens/s), {ev['loss_bits']:.4f} "
+                f"bits/token")
+        shutil.rmtree(save_dir)
+        r["parity"] = lm_step_parity(torch, f"lm_adaptive {label}", fx["bin"], model,
+                                     {"_name": crit})
+        if any(fn.launches for fn in kernels):
+            raise AssertionError(f"lm_adaptive {label}: the causal LM launched a kernel")
+        rec[label] = r
+    shutil.rmtree(fx["root"])
+    print(json.dumps({"lm_adaptive": rec}), flush=True)
+    return {fn.__name__: 0 for fn in kernels}
+
+
+# the wiki103 LM over the family's 32,768-subword dictionary: its cutoffs
+# (20,000 / 60,000 for a 267,744-word vocabulary) set to fit it
+LM_ADAPTIVE_FUSION = {"arch": "transformer_lm_wiki103", "adaptive_softmax_cutoffs": (8000, 20000)}
+
+
+def phase_lm_fusion_adaptive(torch, fx, mt_ckpt: Path, kernels):
+    """``--lm-path`` of a transformer_lm_wiki103 LM at full width (16 x
+    1024, 8 heads of 128) with an adaptive softmax, fused into
+    transformer_wmt_en_de_big as phase_family_serve runs it: the fused
+    scores add the adaptive softmax's normalized log-probabilities; fp32
+    card vs CPU token-identical, bf16 with K3 6 + 16 a decoder step (the
+    LM's at head dim 128). Returns the launches."""
+    ckpt = family_checkpoint(torch, fx, "lm_fusion_adaptive", LM_ADAPTIVE_FUSION, 71)
+    counts = phase_family_serve(torch, fx, "lm_fusion_adaptive", mt_ckpt, kernels,
+                                6 + lm_layers(LM_ADAPTIVE_FUSION),
+                                ["--lm-path", str(ckpt), "--lm-weight", "0.3"])
+    ckpt.unlink()
+    return {"lm_fusion_adaptive": counts}
+
+
 def main() -> int:
     import argparse
 
@@ -3724,6 +4388,9 @@ def main() -> int:
         _build.build()
         print(json.dumps({"kernels": phase_k3_k4(torch, decode_attention, logmel)}), flush=True)
         return 0
+
+    def mark(label):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {label}")
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3776,6 +4443,7 @@ def main() -> int:
             on_path={"encoder_attention": 12, "decode_attention": 384, "logmel": 1}, seed=3),
     }
 
+    mark("kernels done")
     # 4. slice parity
     for label, p in paths.items():
         phase_parity(torch, label, p["build"], p["parity"])
@@ -3788,6 +4456,7 @@ def main() -> int:
                                     p["seed"], args.profile)
         del model
 
+    mark("parity and serve done")
     # 5a. the plain w2v2 + Transformer model (no memory bank), served as the
     # flagship is, one batch more under torch.profiler
     build_w2v2 = w2v2_st_builder(torch)
@@ -3813,6 +4482,7 @@ def main() -> int:
                                             build_lm, kernels, decode_attention)
     counts.update({f"search_{name}": c for name, c in search_counts.items()})
 
+    mark("w2v2_st and search done")
     # 6. the CLI phases, on a fixture under a temporary directory
     import tempfile
 
@@ -3833,6 +4503,7 @@ def main() -> int:
         with recorded_shapes(*ops, slice_seen):
             counts["w2v2_st_cli"] = phase_w2v2_ckpt(torch, fx, work, build_w2v2, kernels)
         counts["fbank_features"] = phase_fbank_features(torch, work / "fbank", kernels)
+        mark("CLI phases done")
         # 7. training
         phase_train_kernels(torch, encoder_attention, conv_tail, records)
         training = train_task(fx)
@@ -3843,21 +4514,39 @@ def main() -> int:
             torch, fx, work, kernels, train_rec)
         with recorded_shapes(*ops, slice_seen):
             counts["tts_update"] = phase_tts_update(torch, fx, kernels)
+        mark("training phases done")
+        # 7a. joint MT + ST training (this slice's main path), its shapes
+        # held against the plain versions below
+        with recorded_shapes(*ops) as joint_seen:
+            counts["joint_train"], counts["joint_train_decode"] = phase_joint_train(
+                torch, fx, work, kernels)
+        mark("joint_train done")
         # 8. the MT stage
         mt_fx = make_mt_fixture(work / "mt")
         phase_mt_parity(torch, mt_fx)
         mt_counts, mt_seen = phase_mt_cli(torch, mt_fx, work, kernels, encoder_attention,
                                           conv_tail, decode_attention, args.profile)
         counts.update(mt_counts)
+        mark("MT stage done")
         # 9. the Transformer family
         family_fx, family_counts, family_seen = phase_family(
             torch, work, kernels, encoder_attention, conv_tail, decode_attention)
         counts.update(family_counts)
+        mark("family done")
         # 10. training the Transformer family
         ensure_sacrebleu(work)
         with recorded_shapes(*ops, slice_seen):
             counts.update(phase_family_train(torch, family_fx, kernels))
         counts["lm_train"] = phase_lm_train(torch, family_fx, kernels)
+        mark("family training done")
+        # 10a. the other optimizers and schedules; the adaptive-softmax and
+        # character-input LMs
+        with recorded_shapes(*ops) as optim_seen:
+            counts["optim_sweep"] = phase_optim_sweep(torch, family_fx,
+                                                      family_fx["root"] / "mt_train", kernels)
+        mark("optim_sweep done")
+        counts["lm_adaptive"] = phase_lm_adaptive(torch, work, kernels)
+        mark("lm_adaptive done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -3878,8 +4567,22 @@ def main() -> int:
     phase_shapes(torch, ops, slice_seen, records, "slice", lambda sh: (
         {(12, 64), (4, 64), (8, 64)} <= {(H, D) for _, _, H, D in sh["encoder_attention"]}
         and {(4, 10), (8, 4)} <= {(H, C) for _, H, _, _, C in sh["decode_attention"]}
-        and bool(sh["conv_tail"])), timed=False)
+        and bool(sh["conv_tail"])))
 
+    # this slice's: joint_train's training (K2 at its ST micro-batches, timed),
+    # its validation (K1 at H 12 and 8) and decode (K3 at beam 10, H 8); the
+    # optimizer sweep's micro-batches (K1 at H 8). Every shape group holds
+    # accuracy; the earlier groups' times are in PERF.md §6, left out of
+    # this run to keep the script in its time limit
+    phase_shapes(torch, ops, joint_seen, records, "joint", lambda sh: (
+        {(12, 64), (8, 64)} <= {(H, D) for _, _, H, D in sh["encoder_attention"]}
+        and (8, 10) in {(H, C) for _, H, _, _, C in sh["decode_attention"]}
+        and bool(sh["conv_tail"])), timed=("conv_tail",))
+    phase_shapes(torch, ops, optim_seen, records, "optim", lambda sh: (
+        {(H, D) for _, _, H, D in sh["encoder_attention"]} == {(8, 64)}
+        and not sh["conv_tail"] and not sh["decode_attention"]))
+
+    mark("shapes done")
     # 11. report
     for r in records:
         if r["name"] == "decode_attention":

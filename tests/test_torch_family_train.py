@@ -38,7 +38,7 @@ from chimera_st_tpu.tasks import setup_task as jax_setup_task
 from chimera_st_tpu.train import make_train_step
 from chimera_st_tpu.train.train_step import create_train_state
 from chimera_st_tpu_torch.cli import preprocess, train
-from chimera_st_tpu_torch.convert import opt_state_from_optax, params_from_flax
+from chimera_st_tpu_torch.convert import params_from_flax
 from chimera_st_tpu_torch.models import transformer_mt
 from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
 from chimera_st_tpu_torch.tasks import setup_task
@@ -218,18 +218,19 @@ def test_jax_family_checkpoint_resumes_in_the_port_to_jax_parameters(runs, famil
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=1e-4 * LR, rtol=2.0 ** -22,
                                    err_msg=k)
         assert torch.equal(got[k], held[k]), k
-    shapes = {k: tuple(v.shape) for k, v in held.items()}
-    (w_state, w_count), (g_state, g_count) = (
-        opt_state_from_optax(p["opt_state"], (), shapes, model=family)
+    trainer = r["out"]["trainer"]
+    (w_state, w_count, w_sched), (g_state, g_count, g_sched) = (
+        trainer.optimizer.read_optax(p["opt_state"], trainer.model)
         for p in (want_payload, got_payload))
-    assert w_count == g_count == 4
-    for name, w in w_state.items():
-        # a key projection's bias has an exact gradient of 0: its moments
-        # are round-off, held against its weight's
-        scale = w_state[name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
-        for key in ("exp_avg", "exp_avg_sq"):
-            tol = 1e-4 * float(scale[key].abs().max()) + 1e-30
-            np.testing.assert_allclose(g_state[name][key].numpy(), w[key].numpy(), atol=tol,
+    assert w_count == g_count == w_sched == g_sched == 4
+    for key in ("mu", "nu"):
+        assert set(w_state[key]) == set(g_state[key]) == set(held)
+        for name, w in w_state[key].items():
+            # a key projection's bias has an exact gradient of 0: its
+            # moments are round-off, held against its weight's
+            scale = w_state[key][name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
+            tol = 1e-4 * float(scale.abs().max()) + 1e-30
+            np.testing.assert_allclose(g_state[key][name].numpy(), w.numpy(), atol=tol,
                                        rtol=0, err_msg=f"{name} {key}")
 
 
@@ -259,13 +260,12 @@ def test_port_family_checkpoint_restores_in_jax_without_reset(runs, family, capl
     for k, v in params_from_flax(numpy_tree(state.params), family).items():
         assert torch.equal(v, held[k]), k
     saved = jax.tree_util.tree_map(np.asarray, jax_serialized(state.opt_state))
-    shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
-    restored, count = opt_state_from_optax(saved, (), shapes, model=family)
-    assert count == 4
+    restored, count, schedule_count = trainer.optimizer.read_optax(saved, trainer.model)
+    assert count == schedule_count == 4
     for name, p in trainer.model.named_parameters():
         s = trainer.optimizer.optimizer.state[p]
-        assert torch.equal(restored[name]["exp_avg"], s["exp_avg"]), name
-        assert torch.equal(restored[name]["exp_avg_sq"], s["exp_avg_sq"]), name
+        assert torch.equal(restored["mu"][name], s["exp_avg"]), name
+        assert torch.equal(restored["nu"][name], s["exp_avg_sq"]), name
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

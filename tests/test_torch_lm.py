@@ -5,8 +5,8 @@ the CPU: ``TransformerLM``'s causal logits, shallow fusion in
 binarized data and JAX-written checkpoint, the language-modeling data
 (``TokenBlockDataset``, ``MonolingualDataset``, ``ShortenedDataset``),
 ``--lm-path`` in the generate CLI, and the rows that refuse: an LM saved
-under a preset name (the JAX CLI's arch override), training the family,
-``interactive --lm-path``.
+under a preset name (the JAX CLI's arch override), ``interactive
+--lm-path``.
 
 Widths: 2 layers, 32 wide, 4 heads; weights are seeded numpy draws over a
 flax init's tree (``tests/test_torch_transformer.py`` ``seeded_tree``).
@@ -33,7 +33,7 @@ from chimera_st_tpu.models.interlingua import ChimeraInterlinguaModel as JaxMode
 from chimera_st_tpu.tasks import language_modeling as jax_lm_task
 from chimera_st_tpu.tasks import setup_task as jax_setup_task
 from chimera_st_tpu_torch import convert
-from chimera_st_tpu_torch.cli import eval_lm, generate, interactive, preprocess, train
+from chimera_st_tpu_torch.cli import eval_lm, generate, interactive, preprocess
 from chimera_st_tpu_torch.data.token_block_dataset import TokenBlockDataset
 from chimera_st_tpu_torch.generation.ensemble import EnsembleSequenceGenerator
 from chimera_st_tpu_torch.generation.generator import GeneratorSettings
@@ -288,22 +288,6 @@ def test_lm_saved_under_a_preset_keeps_its_architecture(lm_data, tmp_path):
         jax_save_state(str(mt_ckpt), SimpleNamespace(step=0, params=params, opt_state=None),
                        {"model_cfg": {"arch": "transformer"}}, save_optimizer=False)
         generate.load_language_model(str(mt_ckpt), task, torch.float32, "cpu")
-
-
-def test_training_the_family_raises(lm_data, tmp_path):
-    """The family trains (``tests/test_torch_family_train.py``); what its
-    presets need and the port lacks still raises at the train CLI: the
-    adaptive softmax of ``transformer_lm_wiki103`` and the character
-    embedder (A16), before any update is taken."""
-    base = [str(lm_data["bin"]), "--task", "language_modeling", "--criterion",
-            "lm_cross_entropy", "--tokens-per-sample", "12", "--batch-size", "4",
-            "--max-update", "1", "--save-dir", str(tmp_path), "--device", "cpu",
-            "--dtype", "float32", "--train-subset", "test", "--disable-validation"]
-    for flags in (["--arch", "transformer_lm_wiki103"],
-                  ["--arch", "transformer_lm_gpt", "--character-embeddings"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            train.main(base + flags)
-    assert not list(tmp_path.glob("*.ckpt"))
 
 
 def test_interactive_refuses_lm_path(lm_data):

@@ -50,7 +50,7 @@ from chimera_st_tpu.tools import average_checkpoints as jax_average
 from chimera_st_tpu.train import make_train_step
 from chimera_st_tpu.train.train_step import create_train_state
 from chimera_st_tpu_torch.cli import generate, preprocess, train, validate
-from chimera_st_tpu_torch.convert import opt_state_from_optax, params_from_flax, params_to_flax
+from chimera_st_tpu_torch.convert import params_from_flax, params_to_flax
 from chimera_st_tpu_torch.data import indexed_dataset
 from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer, freeze
 from chimera_st_tpu_torch.tasks import setup_task
@@ -411,17 +411,17 @@ def test_jax_mt_checkpoint_resumes_in_the_port_to_jax_parameters(runs):
     frozen = {n for n, lab in freeze.freeze_labels(runs["out"]["trainer"].model,
                                                    ("fix_audio_trunk",)).items()
               if lab == "freeze"}
-    (w_state, w_count), (g_state, g_count) = (
-        opt_state_from_optax(p["opt_state"], frozen, shapes) for p in (want_payload, got_payload))
-    assert w_count == g_count == 6
-    for name, w in w_state.items():
-        if name in frozen:
-            assert w is None and g_state[name] is None
-            continue
-        scale = w_state[name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
-        for key in ("exp_avg", "exp_avg_sq"):
-            tol = 1e-4 * float(scale[key].abs().max()) + 1e-30
-            np.testing.assert_allclose(g_state[name][key].numpy(), w[key].numpy(), atol=tol,
+    trainer = runs["out"]["trainer"]
+    (w_state, w_count, w_sched), (g_state, g_count, g_sched) = (
+        trainer.optimizer.read_optax(p["opt_state"], trainer.model)
+        for p in (want_payload, got_payload))
+    assert w_count == g_count == w_sched == g_sched == 6
+    for key in ("mu", "nu"):
+        assert set(w_state[key]) == set(g_state[key]) == set(shapes) - frozen
+        for name, w in w_state[key].items():
+            scale = w_state[key][name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
+            tol = 1e-4 * float(scale.abs().max()) + 1e-30
+            np.testing.assert_allclose(g_state[key][name].numpy(), w.numpy(), atol=tol,
                                        rtol=0, err_msg=f"{name} {key}")
 
 
@@ -482,15 +482,16 @@ def test_port_mt_checkpoint_restores_in_jax_without_reset(runs, caplog):
     shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
     frozen = {n for n, p in trainer.model.named_parameters()
               if any(p is f for f in trainer.optimizer.frozen)}
-    restored, count = opt_state_from_optax(saved, frozen, shapes)
-    assert count == 6
+    restored, count, schedule_count = trainer.optimizer.read_optax(saved, trainer.model)
+    assert count == schedule_count == 6
+    assert set(restored["mu"]) == set(shapes) - frozen
     for name, p in trainer.model.named_parameters():
         if name in frozen:
-            assert restored[name] is None and p not in trainer.optimizer.optimizer.state
+            assert p not in trainer.optimizer.optimizer.state
             continue
         s = trainer.optimizer.optimizer.state[p]
-        assert torch.equal(restored[name]["exp_avg"], s["exp_avg"])
-        assert torch.equal(restored[name]["exp_avg_sq"], s["exp_avg_sq"])
+        assert torch.equal(restored["mu"][name], s["exp_avg"])
+        assert torch.equal(restored["nu"][name], s["exp_avg_sq"])
 
 
 def _hypotheses(text):

@@ -35,7 +35,7 @@ import torch
 
 from chimera_st_tpu.cli import train as jax_train
 from chimera_st_tpu_torch.cli import train, validate
-from chimera_st_tpu_torch.convert import opt_state_from_optax, params_from_flax
+from chimera_st_tpu_torch.convert import params_from_flax
 from tests.synthetic_data import TINY_ARCH_FLAGS, make_triplet_dir
 
 REPO = Path(__file__).resolve().parents[1]
@@ -121,20 +121,20 @@ def test_resumed_parameters_match_jax(runs):
 def test_resumed_adam_state_matches_jax(runs):
     want, got = (_load(d / "checkpoint_last.ckpt")["opt_state"]
                  for d in (runs["jax_dir"], runs["port_dir"]))
-    shapes = {k: tuple(v.shape) for k, v in runs["out"]["trainer"].model.state_dict().items()}
-    (w_state, w_count), (g_state, g_count) = (opt_state_from_optax(t, (), shapes)
-                                              for t in (want, got))
-    assert w_count == g_count == 5
-    for name, w in w_state.items():
-        g = g_state[name]
-        assert int(g["step"]) == int(w["step"]) == 5
-        # a key projection's bias has an exact gradient of 0 (a softmax row
-        # shifted by a constant): its moments are round-off, held against
-        # its weight's
-        scale = w_state[name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
-        for key in ("exp_avg", "exp_avg_sq"):
-            tol = 1e-4 * float(scale[key].abs().max()) + 1e-30
-            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(), atol=tol, rtol=0,
+    trainer = runs["out"]["trainer"]
+    (w_state, w_count, w_sched), (g_state, g_count, g_sched) = (
+        trainer.optimizer.read_optax(t, trainer.model) for t in (want, got))
+    assert w_count == g_count == w_sched == g_sched == 5
+    names = {n for n, _ in trainer.model.named_parameters()}
+    for key in ("mu", "nu"):
+        assert set(w_state[key]) == set(g_state[key]) == names
+        for name, w in w_state[key].items():
+            # a key projection's bias has an exact gradient of 0 (a softmax
+            # row shifted by a constant): its moments are round-off, held
+            # against its weight's
+            scale = w_state[key][name[:-4] + "weight"] if name.endswith("k_proj.bias") else w
+            tol = 1e-4 * float(scale.abs().max()) + 1e-30
+            np.testing.assert_allclose(g_state[key][name].numpy(), w.numpy(), atol=tol, rtol=0,
                                        err_msg=f"{name} {key}")
 
 
@@ -239,9 +239,6 @@ def test_resumed_run_equals_uninterrupted_run_with_dropout(runs, tmp_path):
 UNPORTED_TRAIN_FLAGS = {
     "arch": ["--arch", "s2t_transformer_s"],
     "task": ["--task", "speech_to_text"],
-    "task_configs": ["--task-configs", "a.yaml"],
-    "optimizer": ["--optimizer", "sgd"],
-    "lr_scheduler": ["--lr-scheduler", "cosine"],
     "best_checkpoint_metric": ["--best-checkpoint-metric", "wer"],
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],

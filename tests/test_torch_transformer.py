@@ -183,15 +183,11 @@ def test_round_trip_bit_for_bit_and_unknown_leaf_raises():
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("adaptive_softmax_cutoffs", (10, 20), "A16"),
-    ("character_embeddings", True, "A16"),
     ("pipeline_stages", 2, "A12"),
     ("decoder_causal", False, "A17"),
 ])
 def test_unported_field_raises(field, value, item):
-    builder = (transformer_mt.build_transformer_lm
-               if field in ("adaptive_softmax_cutoffs", "character_embeddings")
-               else transformer_mt.build_transformer)
+    builder = transformer_mt.build_transformer
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         builder({field: value, "encoder_embed_dim": 32, "decoder_embed_dim": 32,
                  "embed_dim": 32}, device="cpu")
