@@ -6,6 +6,9 @@ chimera_st_tpu/cli/generate.py: the same output protocol, S-/T-/H-/D-/P-
         --path model.pt --gen-subset tst-COMMON_wave --beam 10 --lenpen 1.5
     python -m chimera_st_tpu_torch.cli.generate DATA_BIN --task translation \\
         --path checkpoint_best.ckpt --gen-subset test --beam 5
+    python -m chimera_st_tpu_torch.cli.generate DATA_BIN --task translation_lev \\
+        --path levt.ckpt --gen-subset test --iter-decode-max-iter 9 \\
+        --iter-decode-eos-penalty 0 --print-step --max-decode-len 64
 
 A batch with audio decodes through ``generate_audio``; a text batch
 (``src_tokens``, the translation task) through ``generate_text``, its S-
@@ -23,11 +26,22 @@ decode (shallow fusion, ``generation/ensemble.py``): each step's
 distribution is log(mean_i p_i) + W * log_softmax(LM), with one model or
 several, speech or text.
 
+Under ``--task translation_lev`` / ``translation_ins`` a non-autoregressive
+model (CMLM, vanilla / iterative NAT, NAT-CRF, Levenshtein, insertion)
+decodes by refinement (``generation/nat_generator.py``, the
+``--iter-decode-*`` flags; ``--print-step`` adds an I- line of the step
+count, ``--retain-iter-history`` E-{id}_{round} lines of the canvases);
+``--path a.ckpt:b.ckpt`` of Levenshtein models is their ensemble
+(``generation/nat_ensemble.py``), and with
+``--iter-decode-with-external-reranker`` the last ``--path`` is an
+autoregressive ``transformer`` that scores the length-beam candidates.
+
 The model runs on ``--device`` (default ``cuda``: the hand-written kernels;
 ``cpu``: their plain PyTorch versions). ``--path`` takes a fairseq ``.pt`` of
 the interlingua model or a native ``.ckpt`` the JAX trainer wrote (the
-interlingua model, ``s2t_transformer*``, and under ``--task translation``
-the ``transformer*`` MT presets). Options whose feature is not ported yet
+interlingua model, ``s2t_transformer*``, under ``--task translation`` the
+``transformer*`` MT presets, under ``translation_lev`` / ``_ins`` the NAT
+models). Options whose feature is not ported yet
 raise ``NotImplementedError`` (``options.require_ported``)."""
 
 from __future__ import annotations
@@ -154,6 +168,14 @@ class GenCfg:
         self.seed = args.seed
         self.kv_cache_int8 = args.kv_cache_int8
         self.retain_dropout = args.retain_dropout
+        # the non-autoregressive models' refinement (generation/nat_generator.py)
+        self.iter_decode_max_iter = args.iter_decode_max_iter
+        self.iter_decode_force_max_iter = args.iter_decode_force_max_iter
+        self.iter_decode_eos_penalty = args.iter_decode_eos_penalty
+        self.iter_decode_with_beam = args.iter_decode_with_beam
+        self.iter_decode_with_external_reranker = args.iter_decode_with_external_reranker
+        self.retain_iter_history = args.retain_iter_history
+        self.print_step = args.print_step
 
 
 def run_score_reference(args, task, model, itr, out, on_device, strip) -> int:
@@ -225,6 +247,24 @@ def unk_replaced(task, src_tokens, hyp_ids, alignment, align_dict, remove_bpe, s
     return post_process(" ".join(kept), remove_bpe)
 
 
+def print_refinement(args, generator, b: int, sid: int, tgt_dict, strip, out) -> None:
+    """A NAT hypothesis's refinement lines, as the JAX CLI prints them:
+    ``I-{id}`` its step count under ``--print-step``, ``E-{id}_{round}`` the
+    canvas of each round up to one past its last step under
+    ``--retain-iter-history``."""
+    steps = getattr(generator, "last_steps", None)
+    if args.print_step and steps is not None:
+        print(f"I-{sid}\t{int(steps[b])}", file=out)
+    hist = getattr(generator, "last_history", None)
+    if args.retain_iter_history and hist is not None:
+        rounds = hist.shape[0]
+        upto = rounds if steps is None else min(int(steps[b]) + 1, rounds)
+        for j in range(upto):
+            ids = [int(t) for t in hist[j, b] if int(t) != tgt_dict.pad()]
+            text = tgt_dict.string(ids, bpe_symbol=args.remove_bpe, extra_symbols_to_ignore=strip)
+            print(f"E-{sid}_{j}\t{text}", file=out)
+
+
 def main(argv=None) -> dict:
     """Runs the evaluation and returns its counts and host-clock times
     (``sentences``, ``tokens``, ``load_s``, ``decode_s``)."""
@@ -253,10 +293,27 @@ def main(argv=None) -> dict:
 
     t_load = time.time()
     paths = args.path.split(":")
+    reranker = None
+    if args.iter_decode_with_external_reranker:
+        # the last --path is the autoregressive reranker, the rest decode
+        if len(paths) < 2:
+            raise ValueError("--iter-decode-with-external-reranker: give at least two --path "
+                             "checkpoints; the last one is the AR reranker")
+        reranker = load_model_and_params(paths[-1], task, torch_dtype(args.dtype), device,
+                                         model_overrides)
+        paths = paths[:-1]
+        if len(paths) > 1:
+            raise NotImplementedError("external reranking over a NAT *ensemble* is not "
+                                      "supported; use one decoding checkpoint + one reranker")
     models = [load_model_and_params(path, task, torch_dtype(args.dtype), device,
                                     model_overrides) for path in paths]
     model = models[0]
     load_s = time.time() - t_load
+    from ..generation.nat_generator import is_nat
+
+    if is_nat(model) and (args.score_reference or args.print_alignment or args.replace_unk):
+        raise NotImplementedError("--score-reference / --print-alignment / --replace-unk need "
+                                  "an autoregressive decoder; the NAT models decode by refinement")
     logger.info(f"loaded {args.path} on {device} in {load_s:.1f}s")
 
     itr = task.make_batch_iterator(
@@ -280,11 +337,22 @@ def main(argv=None) -> dict:
                 "decode_s": time.time() - t0}
 
     gen_cfg = GenCfg(args)
+    from ..generation.nat_ensemble import build_nat_ensemble_generator
+
+    nat_ensemble = None
     if len(models) > 1 or args.lm_path:
+        nat_ensemble = build_nat_ensemble_generator(models, gen_cfg, tgt_dict)
+    if nat_ensemble is not None:
+        # the Levenshtein ensemble's refinement (EnsembleLevT)
+        if args.lm_path:
+            raise NotImplementedError("--lm-path is not supported for NAT decoding")
+        generator = nat_ensemble
+    elif len(models) > 1 or args.lm_path:
         # plain beam search; the single-model options raise there
         from ..generation.ensemble import EnsembleSequenceGenerator
-        from ..generation.generator import settings_from_cfg
+        from ..generation.generator import refuse_nat_settings, settings_from_cfg
 
+        refuse_nat_settings(gen_cfg)
         lm = None
         if args.lm_path:
             lm = (load_language_model(args.lm_path, task, torch_dtype(args.dtype), device),
@@ -292,8 +360,11 @@ def main(argv=None) -> dict:
         generator = EnsembleSequenceGenerator(models, settings_from_cfg(gen_cfg),
                                               pad=tgt_dict.pad(), eos=tgt_dict.eos(),
                                               unk=tgt_dict.unk(), lm=lm)
+    elif reranker is not None:
+        generator = task.build_generator(model, gen_cfg, reranker=reranker)
     else:
         generator = task.build_generator(model, gen_cfg)
+
     scorer = build_scorer({"_name": args.scoring}, tgt_dict)
     align_dict = None
     if args.replace_unk:
@@ -369,6 +440,8 @@ def main(argv=None) -> dict:
                         print(f"H-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
                         print(f"D-{sid}\t{scores[b, k]:.4f}\t{hyp_str}", file=out)
                         print(f"P-{sid}\t{scores[b, k]:.4f}", file=out)
+                        if k == 0:
+                            print_refinement(args, generator, b, sid, tgt_dict, strip, out)
                         if alignments is not None and k == 0 and args.print_alignment:
                             pairs = " ".join(f"{int(alignments[b, t])}-{t}" for t in range(L))
                             print(f"A-{sid}\t{pairs}", file=out)

@@ -270,7 +270,7 @@ _COMMON_UNPORTED = (
 UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
 
 PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_modeling",
-                      "joint_task", "joint_task_mtst")
+                      "joint_task", "joint_task_mtst", "translation_lev", "translation_ins")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
@@ -281,7 +281,7 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
      "--task other than triplet / translation / translation_tts / language_modeling / "
-     "joint_task / joint_task_mtst", "A14"),
+     "joint_task / joint_task_mtst / translation_lev / translation_ins", "A14"),
     ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
 )
 

@@ -4,7 +4,12 @@
 ``--task language_modeling``, a ``transformer_lm*`` model (with
 ``adaptive_loss`` for ``transformer_lm_wiki103``), and ``--task
 joint_task_mtst --task-configs st.json mt.json --main-task st``, the joint
-MT + ST fine-tune): the same flags, loop, checkpoints and log lines. Every
+MT + ST fine-tune, and ``--task translation_lev`` / ``translation_ins``, the
+non-autoregressive models under ``--noise levenshtein | random_mask |
+full_mask`` (an undeclared flag, as ``--random-delete-max`` and
+``--random-insert-max``, reaching the task and the model as in JAX) with
+``levenshtein_loss``, ``nat_loss``, ``nacrf_loss`` or ``insertion_loss``):
+the same flags, loop, checkpoints and log lines. Every
 ``--optimizer`` (adam, adafactor, adagrad, adadelta, sgd, nag, adamax,
 lamb) and ``--lr-scheduler`` (fixed, inverse_sqrt, cosine,
 polynomial_decay, tri_stage, triangular, reduce_lr_on_plateau) of the JAX
@@ -38,6 +43,12 @@ CLI, from the same flags with the same defaults.
     python -m chimera_st_tpu_torch.cli.train DATA_DIR --task joint_task_mtst \\
         --task-configs st.json mt.json --main-task st \\
         --arch s2t_transformer_w2v2_interlingua_base ... (the ST recipe's flags)
+
+    python -m chimera_st_tpu_torch.cli.train DATA_BIN --task translation_lev \\
+        --noise levenshtein --arch levenshtein_transformer_wmt_en_de \\
+        --criterion levenshtein_loss --label-smoothing 0.1 --optimizer adam \\
+        --adam-betas '(0.9, 0.98)' --lr 5e-4 --lr-scheduler inverse_sqrt \\
+        --warmup-updates 10000 --dropout 0.3 --max-tokens 8000
 
 In order: the task, the model (fp32 parameters in train mode), the
 schedule, the optimizer, the criterion, then the parameters (the seeded

@@ -16,8 +16,10 @@ port's state dict (``encoder.transformer_layers.3.fc1``) and its flax path
 ``params_to_flax`` read the same table in the two directions, so they
 cannot drift apart. The tables are ``interlingua``, ``s2t``, ``wav2vec2``,
 ``transformer`` (the MT ``TransformerModel``), ``transformer_lm`` (its
-adaptive softmax included) and ``transformer_lm_char`` (with the character
-embedder: ``symbols`` is its ``symbol_embeddings`` leaf);
+adaptive softmax included), ``transformer_lm_char`` (with the character
+embedder: ``symbols`` is its ``symbol_embeddings`` leaf) and one for each
+non-autoregressive model (the ``transformer`` table under ``backbone/``
+plus its heads; ``crf`` is the NAT-CRF's ``E1`` / ``E2``);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
@@ -59,6 +61,7 @@ _LEAVES = {
     "norm": (("weight", "scale", True), ("bias", "bias", True)),
     "embed": (("weight", "embedding", True),),
     "symbols": (("symbol_embeddings", "symbol_embeddings", True),),
+    "crf": (("E1", "E1", True), ("E2", "E2", True)),
 }
 
 
@@ -180,6 +183,20 @@ _RULES = {
     "transformer_lm_char": [*_CHARACTER_EMBEDDER, *_decoder(cross_attention=False)[1:],
                             *_DECODER_OPTIONS, *_ADAPTIVE_SOFTMAX],
 }
+
+# the non-autoregressive models: the ``transformer`` table under
+# ``backbone``, and each model's heads
+_BACKBONE = [(f"backbone.{t}", f"backbone/{f}", kind) for t, f, kind in _RULES["transformer"]]
+_LENGTH_HEAD = [("length_head", "length_head", "dense")]
+_RULES.update({
+    "cmlm_transformer": [*_BACKBONE, *_LENGTH_HEAD],
+    "nonautoregressive_transformer": [*_BACKBONE, *_LENGTH_HEAD],
+    "iterative_nonautoregressive_transformer": [*_BACKBONE, *_LENGTH_HEAD],
+    "nacrf_transformer": [*_BACKBONE, *_LENGTH_HEAD, ("crf", "crf", "crf")],
+    "levenshtein_transformer": [*_BACKBONE, ("mask_ins_head", "mask_ins_head", "dense"),
+                                ("word_del_head", "word_del_head", "dense")],
+    "insertion_transformer": [*_BACKBONE, ("slot_proj", "slot_proj", "dense")],
+})
 
 
 def _pattern(template: str) -> "re.Pattern[str]":
@@ -337,13 +354,24 @@ def params_from_flax(tree: Mapping[str, Any], model: str = "interlingua"
 
 def model_kind(model: torch.nn.Module) -> str:
     """The table name of a port model: ``interlingua``, ``s2t``,
-    ``transformer``, ``transformer_lm`` or ``transformer_lm_char`` (a
-    language model with character embeddings)."""
-    if getattr(getattr(model, "cfg", None), "character_embeddings", False):
+    ``transformer``, ``transformer_lm``, ``transformer_lm_char`` (a
+    language model with character embeddings) or a non-autoregressive
+    model's name (``cmlm_transformer``, ``nonautoregressive_transformer``,
+    ``iterative_nonautoregressive_transformer``, ``nacrf_transformer``,
+    ``levenshtein_transformer``, ``insertion_transformer``)."""
+    cfg = getattr(model, "cfg", None)
+    if getattr(cfg, "character_embeddings", False):
         return "transformer_lm_char"
+    if type(model).__name__ == "NATransformer":
+        if cfg.crf_lowrank > 0:
+            return "nacrf_transformer"
+        return ("iterative_nonautoregressive_transformer" if cfg.train_steps > 1
+                else "nonautoregressive_transformer")
     return {"ChimeraInterlinguaModel": "interlingua", "S2TTransformerModel": "s2t",
             "TransformerModel": "transformer", "TransformerLM": "transformer_lm",
-            "Wav2Vec2Encoder": "wav2vec2"}[type(model).__name__]
+            "Wav2Vec2Encoder": "wav2vec2", "CMLMTransformer": "cmlm_transformer",
+            "LevenshteinTransformer": "levenshtein_transformer",
+            "InsertionTransformer": "insertion_transformer"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

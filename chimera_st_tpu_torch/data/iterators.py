@@ -14,6 +14,8 @@ each epoch (the joint tasks' interleaved batches), with an epoch-granular
 
 from __future__ import annotations
 
+import functools
+import inspect
 import itertools
 import queue
 import threading
@@ -267,6 +269,9 @@ class EpochBatchIterator:
         """``num_workers > 1`` collates batches on a thread pool
         (ParallelPrefetcher)."""
         self.collate = dataset_collate
+        # a collate that takes the epoch (a task whose noise re-rolls each
+        # epoch, translation_lev) is given it
+        self._collate_takes_epoch = "epoch" in inspect.signature(dataset_collate).parameters
         if callable(batches):
             self._batches_fn, self._batches_cache = batches, (None, None)
         else:
@@ -335,6 +340,8 @@ class EpochBatchIterator:
                 # before collation; the counter still starts at `offset`
                 batches = batches[offset:]
             work = self.collate
+            if self._collate_takes_epoch:
+                work = functools.partial(self.collate, epoch=self.epoch)
             if self.num_workers > 1 and self.buffer_size > 0:
                 source: Any = ParallelPrefetcher(
                     batches, work, num_workers=self.num_workers,

@@ -65,19 +65,31 @@ class GeneratorSettings:
 
 # generator settings whose feature is not ported yet, under the names the
 # task's ``build_generator`` reads them by (the CLI's argument names):
-# (attribute, test on its value, flag, ROADMAP item). Each needs a model the
-# port does not have (the CTC and non-autoregressive models).
+# (attribute, test on its value, flag, ROADMAP item). The CTC model is not
+# ported yet.
 UNPORTED = (
     ("ctc_lm_path", bool, "--ctc-lm-path", "A14"),
-    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter", "A14"),
-    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter", "A14"),
-    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty", "A14"),
-    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam", "A14"),
-    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker",
-     "A14"),
-    ("retain_iter_history", bool, "--retain-iter-history", "A14"),
-    ("print_step", bool, "--print-step", "A14"),
 )
+
+# the non-autoregressive models' settings (``generation/nat_generator.py``):
+# an autoregressive model's generator refuses them instead of ignoring them
+NAT_ONLY = (
+    ("iter_decode_max_iter", lambda v: v is not None, "--iter-decode-max-iter"),
+    ("iter_decode_force_max_iter", bool, "--iter-decode-force-max-iter"),
+    ("iter_decode_eos_penalty", lambda v: v != 0.0, "--iter-decode-eos-penalty"),
+    ("iter_decode_with_beam", lambda v: v != 1, "--iter-decode-with-beam"),
+    ("iter_decode_with_external_reranker", bool, "--iter-decode-with-external-reranker"),
+    ("retain_iter_history", bool, "--retain-iter-history"),
+    ("print_step", bool, "--print-step"),
+)
+
+
+def refuse_nat_settings(cfg) -> None:
+    """Raises ValueError for the first NAT-only setting ``cfg`` sets."""
+    for attr, is_set, flag in NAT_ONLY:
+        if hasattr(cfg, attr) and is_set(getattr(cfg, attr)):
+            raise ValueError(f"{flag} applies to the non-autoregressive models "
+                             "(--task translation_lev / translation_ins)")
 
 
 def require_ported(cfg, table=UNPORTED) -> None:

@@ -1,8 +1,11 @@
 """Model modules of the serving path and of the triplet fine-tune, and the
 registry of the architectures that are ported: ``s2t_transformer_w2v2_interlingua_base``,
 the plain w2v2 + Transformer ST model ``s2t_transformer_w2v2`` (the
-interlingua model without its memory bank) with its five presets, the seven fbank ``s2t_transformer*`` presets and the 23 presets of the
-Transformer family (``transformer*``, ``transformer_lm*``; counterpart of the
+interlingua model without its memory bank) with its five presets, the seven fbank ``s2t_transformer*`` presets, the 23 presets of the
+Transformer family (``transformer*``, ``transformer_lm*``) and the six
+non-autoregressive models with their 12 presets (``cmlm_transformer*``,
+``*nonautoregressive_transformer*``, ``nacrf_transformer``,
+``levenshtein_transformer*``, ``insertion_transformer``; counterpart of the
 registrations in chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
@@ -15,6 +18,10 @@ import dataclasses
 from typing import Dict
 
 from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
+from . import nat_cmlm as _cmlm
+from . import nat_insertion as _ins
+from . import nat_levenshtein as _lev
+from . import nat_vanilla as _nat
 from . import s2t_transformer as _s2t
 from . import transformer_mt as _mt
 from .interlingua import ChimeraInterlinguaModel, InterlinguaConfig
@@ -94,9 +101,20 @@ def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
 for _arch, _preset in _s2t.ARCHITECTURES.items():
     register_model_architecture("s2t_transformer", _arch)(_preset)
 
-for _name, _build in _mt.MODEL_BUILDERS.items():
+# the Transformer family and the non-autoregressive family
+NAT_MODEL_BUILDERS = {
+    "cmlm_transformer": _cmlm.build_cmlm,
+    "nonautoregressive_transformer": _nat.build_nat,
+    "iterative_nonautoregressive_transformer": _nat.build_inat,
+    "nacrf_transformer": _nat.build_nacrf,
+    "levenshtein_transformer": _lev.build_levenshtein,
+    "insertion_transformer": _ins.build_insertion,
+}
+NAT_ARCHITECTURES = {**_cmlm.ARCHITECTURES, **_nat.ARCHITECTURES, **_lev.ARCHITECTURES,
+                     **_ins.ARCHITECTURES}
+for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS}.items():
     register_model(_name)(_build)
-for _arch, (_model, _preset) in _mt.ARCHITECTURES.items():
+for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

@@ -320,18 +320,22 @@ class TransformerEncoderLayer(_Sublayers):
 
 
 class TransformerDecoderLayer(_Sublayers):
-    """Pre/post-LN causal decoder layer: teacher-forced ``forward`` and the
+    """Pre/post-LN decoder layer: teacher-forced ``forward`` and the
     lazy-reorder beam ``step``. With ``cross_attention=False`` (the
     decoder-only language model) it has no ``encoder_attn`` and no
     ``encoder_attn_layer_norm``, as a flax tree of that model has none: flax
     creates them only when they are called, and a call without encoder input
-    skips them (JAX ``layers.py:729``)."""
+    skips them (JAX ``layers.py:729``). With ``causal=False`` (the
+    non-autoregressive models' decoder, JAX ``layers.py:651-657``) the
+    self-attention is bidirectional over the canvas with its pad keys
+    masked, which K1 serves where it applies; such a layer has no ``step``."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, activation: str = "relu",
                  normalize_before: bool = True, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 cross_attention: bool = True, device="cuda"):
+                 cross_attention: bool = True, causal: bool = True, device="cuda"):
         super().__init__()
+        self.causal = causal
         self.normalize_before = normalize_before
         self.dropout, self.activation_dropout = dropout, activation_dropout
         self.self_attn = MultiheadAttention(embed_dim, num_heads, attention_dropout,
@@ -352,7 +356,7 @@ class TransformerDecoderLayer(_Sublayers):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``encoder_out`` None: no cross-attention (the language model)."""
         x = self._sublayer(x, self.self_attn_layer_norm, lambda h: self.self_attn(
-            h, key_padding_mask=self_attn_padding_mask, causal=True, generator=generator),
+            h, key_padding_mask=self_attn_padding_mask, causal=self.causal, generator=generator),
             generator)
         if encoder_out is not None:
             x = self._sublayer(x, self.encoder_attn_layer_norm, lambda h: self.encoder_attn(
@@ -391,7 +395,8 @@ class TransformerDecoderLayer(_Sublayers):
         residual = x
         if self.normalize_before:
             x = self.self_attn_layer_norm(x)
-        x = residual + self.self_attn(x, key_padding_mask=self_attn_padding_mask, causal=True)
+        x = residual + self.self_attn(x, key_padding_mask=self_attn_padding_mask,
+                                      causal=self.causal)
         if not self.normalize_before:
             x = self.self_attn_layer_norm(x)
         q = self.encoder_attn_layer_norm(x) if self.normalize_before else x

@@ -14,8 +14,11 @@ The options of the Transformer family (JAX ``transformer_decoder.py:50-52``,
 decoder-only form of the language model (``cross_attention=False``: layers
 without cross-attention, no encoder input in ``forward`` or ``step``), and
 a given token embedder (``embed_tokens``: the character embedder, which
-forces the untied projection), and no output layer (``output_layer``
-False: a language model's adaptive softmax reads the features)."""
+forces the untied projection), no output layer (``output_layer``
+False: a language model's adaptive softmax reads the features), and a
+bidirectional self-attention (``causal`` False: the non-autoregressive
+models' decoder over a canvas, JAX ``transformer_decoder.py:50``; no
+``step``)."""
 
 from __future__ import annotations
 
@@ -57,8 +60,9 @@ class TransformerDecoder(nn.Module):
                  activation_dropout: float = 0.0, learned_pos: bool = False,
                  layernorm_embedding: bool = False, share_input_output_embed: bool = True,
                  cross_attention: bool = True, embed_tokens: Optional[nn.Module] = None,
-                 output_layer: bool = True, device="cuda"):
+                 output_layer: bool = True, causal: bool = True, device="cuda"):
         super().__init__()
+        self.causal = causal
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.padding_idx = padding_idx
         self.dropout = dropout
@@ -74,7 +78,7 @@ class TransformerDecoder(nn.Module):
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
                                     dropout, attention_dropout, activation_dropout,
-                                    cross_attention, device=device)
+                                    cross_attention, causal, device=device)
             for _ in range(num_layers)
         ])
         self.layer_norm = LayerNorm(embed_dim, device=device) if normalize_before else None
@@ -169,7 +173,11 @@ class TransformerDecoder(nn.Module):
         activation dropouts draw their masks from ``generator``, and with
         ``cross_attention_dropout`` the cross-attention probabilities too.
         ``features_only`` -> the final states [N, C] (what a language
-        model's adaptive softmax reads)."""
+        model's adaptive softmax reads). A bidirectional decoder
+        (``causal`` False) has no incremental step and raises."""
+        if not self.causal:
+            raise ValueError("a bidirectional decoder (decoder_causal=False) has no "
+                             "incremental decode step")
         x = self._embed(tokens, None, step_index)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
         if encoder_kv is None:  # the language model

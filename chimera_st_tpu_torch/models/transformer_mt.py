@@ -7,7 +7,10 @@ Both reuse the shared layers. The MT encoder's self-attention is
 bidirectional, so on the card it runs K1; the MT decoder's and the LM's
 cached self-attention in the beam search run K3. The LM's full forward is
 causal and runs no kernel (K1 covers bidirectional attention only, as the
-Pallas kernel's gate ``flash_attention_applicable``).
+Pallas kernel's gate ``flash_attention_applicable``). With
+``decoder_causal`` False (the backbone of the non-autoregressive models,
+``models/nat_*.py``) the decoder's self-attention is bidirectional over
+the canvas and runs K1 too; such a decoder has no incremental step.
 
 Module names follow the fairseq state dict: ``encoder.embed_tokens``,
 ``encoder.embed_positions``, ``encoder.layernorm_embedding``,
@@ -23,8 +26,7 @@ table ``word_to_char`` injected by the task, never saved) with an untied
 output projection.
 
 A field the port cannot honour raises instead of being dropped:
-``pipeline_stages`` above 1 (ROADMAP A12) and ``decoder_causal`` False (the
-CMLM decoder of the NAT family, A17).
+``pipeline_stages`` above 1 (ROADMAP A12).
 ``share_all_embeddings`` is declared and not honoured, in the JAX package
 as here: the source and target embeddings stay two tables (ROADMAP C).
 """
@@ -108,9 +110,6 @@ def _refuse(cfg) -> None:
     """Raises for a field whose mode the port lacks."""
     if cfg.pipeline_stages > 1:
         raise NotImplementedError("pipeline_stages above 1 is not ported yet (ROADMAP A12)")
-    if not getattr(cfg, "decoder_causal", True):
-        raise NotImplementedError("decoder_causal=False (the CMLM decoder of the NAT family) "
-                                  "is not ported yet (ROADMAP A17)")
 
 
 class _Encoder(nn.Module):
@@ -152,7 +151,8 @@ class TransformerModel(nn.Module):
             c.no_scale_embedding, c.max_target_positions, c.dropout, c.attention_dropout,
             c.activation_dropout, learned_pos=c.learned_pos,
             layernorm_embedding=c.layernorm_embedding,
-            share_input_output_embed=c.share_decoder_input_output_embed, device=device,
+            share_input_output_embed=c.share_decoder_input_output_embed, causal=c.decoder_causal,
+            device=device,
         )
         self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
 

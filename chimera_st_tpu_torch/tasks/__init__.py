@@ -1,7 +1,8 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
 from . import (  # noqa: F401 — registration
-    joint_task, language_modeling, speech_to_text, translation, translation_tts, triplet)
+    joint_task, language_modeling, speech_to_text, translation, translation_lev, translation_tts,
+    triplet)
 
 
 def setup_task(cfg: dict, **kwargs) -> ChimeraTask:

@@ -13,6 +13,7 @@ tasks) waits with those tasks (ROADMAP A14).
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import Any, Dict, Optional
 
@@ -109,9 +110,15 @@ class ChimeraTask:
         return cfg
 
     def build_generator(self, model, gen_cfg, strategy=None):
-        from ..generation.generator import SequenceGenerator, require_ported, settings_from_cfg
+        from ..generation.generator import (
+            SequenceGenerator,
+            refuse_nat_settings,
+            require_ported,
+            settings_from_cfg,
+        )
 
         require_ported(gen_cfg)  # a setting whose feature is not ported raises
+        refuse_nat_settings(gen_cfg)
         d = self.target_dictionary
         return SequenceGenerator(model, settings_from_cfg(gen_cfg), pad=d.pad(), eos=d.eos(),
                                  unk=d.unk(), strategy=strategy)
@@ -166,9 +173,14 @@ class ChimeraTask:
                 required_batch_size_multiple=required_batch_size_multiple,
             )
 
-        def collate(idx: np.ndarray):
+        # a task whose noise re-rolls each epoch (translation_lev) takes the
+        # epoch, as the JAX base task gives it
+        takes_epoch = "epoch" in inspect.signature(self.collate_indices).parameters
+
+        def collate(idx: np.ndarray, epoch: int = 1):
             batch_max = max(dataset.num_tokens(int(i)) for i in idx)
-            return self.collate_indices(dataset, idx, pad_to_bucket(batch_max, edges))
+            extra = {"epoch": epoch} if takes_epoch else {}
+            return self.collate_indices(dataset, idx, pad_to_bucket(batch_max, edges), **extra)
 
         return EpochBatchIterator(
             collate,

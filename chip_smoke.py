@@ -9,7 +9,9 @@ transformer ``s2t_transformer_s`` with ``compute_fbank`` (raw wav -> log-mel
 -> subsampler -> encoder -> beam 5); then the training recipe, and the
 fairseq Transformer family (MT serving, an LM fused into the decode, LM
 perplexity), Chimera's joint MT + ST training, every optimizer and schedule
-of the train CLI, and the adaptive-softmax and character-input LMs.
+of the train CLI, the adaptive-softmax and character-input LMs, and the
+non-autoregressive family (CMLM, vanilla / iterative NAT, NAT-CRF,
+Levenshtein, insertion), served and trained.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -78,7 +80,7 @@ Phases (any failure raises and the script exits non-zero):
              (w2v2_st_cli) the same weights as a native .ckpt in the JAX
              trainer's layout go through cli.generate in bf16 on the 24
              wavs (K1 24 and K2 6 a batch, K3 6 a decoder step).
-5b. search - the flagship's generation surface on one seeded batch of 8
+5b. search - the flagship's generation surface on one seeded batch of 2
              utterances of 2-6 s, beam 10, max_decode_len 64 (a second model
              from another seed for the ensemble): plain beam, diverse groups
              (2, strength 0.5), diverse siblings (rate 0.5), ordered and
@@ -227,7 +229,7 @@ Phases (any failure raises and the script exits non-zero):
              target embeddings) through cli.generate --task translation
              --beam 4 --lenpen 0.6 --max-decode-len 64 (fairseq's WMT'16
              en-de big evaluation): fp32 card vs --device cpu identical on
-             one batch of 8, then bf16 in batches of 32 with exact launches
+             one batch of 2, then bf16 on one batch of 32 with exact launches
              (K1 6 a batch, K3 6 a decoder step, K2 and K4 0); prints
              {"mt_big": {...}} (sentences/s, load_s, peak memory).
              lm_fusion: the same with --lm-path of a transformer_lm saved
@@ -239,12 +241,12 @@ Phases (any failure raises and the script exits non-zero):
              the whole stream in bf16 (tokens/s), no kernel launched (the
              forward is causal). iwslt: transformer_iwslt_de_en (6 + 6 x
              512, 4 heads of 128) served as mt_big, K1 and K3 at head dim
-             128. lm_fusion_gbw / lm_fusion_megatron: mt_big with
-             --lm-path of a transformer_lm_gbw LM (the full preset: 12 x
-             512, 16 heads of 32) and of a transformer_lm_megatron LM at
-             full width (3072, 32 heads of 96) with 2 of its 72 layers, as
-             lm_fusion (K3 6 + 12 and 6 + 2 a step, at head dims 32 and
-             96). Each family serve phase then runs one more batch under
+             128. lm_fusion_gbw / lm_fusion_megatron: iwslt with
+             --lm-path of a transformer_lm_gbw LM at full width (512, 16
+             heads of 32) with 4 of its 12 layers and of a
+             transformer_lm_megatron LM at full width (3072, 32 heads of
+             96) with 2 of its 72 layers, as lm_fusion (K3 6 + 4 and 6 + 2
+             a step, at head dims 32 and 96). Each family serve phase then runs one more batch under
              the CLI's --profile and reads the device's busy share from
              its trace. family_shapes (after mt_shapes): K1 and K3 against
              their plain versions at every shape these phases launched, as
@@ -295,32 +297,72 @@ Phases (any failure raises and the script exits non-zero):
              {"joint_train": {...}} (updates/s, audio s/s and target tokens/s
              after run A's first update, peak memory, busy share of run B).
 10a. optimizers and the adaptive LM - optim_sweep: cli.train --arch
-             transformer on family_train's data for each of the eight
+             transformer (2 + 2 layers) on family_train's data for each of the eight
              optimizers and, under adam, each of the five other schedules
              (6 updates, warm-up 2; clip 0.1 but for adafactor;
              reduce_lr_on_plateau validating every 2 updates): the written
              optax tree restores into a fresh optimizer equal to the
              trainer's, one fp32 update card vs CPU (loss, gnorm, every
              gradient; Adam's bound, or each tensor's update within 1e-2 in
-             L2), K1 6 a micro-batch; prints {"optim_sweep": {...}}.
-             lm_adaptive: transformer_lm_wiki103 at full width (16 x 1024,
-             adaptive softmax 20,000 / 60,000) with adaptive_loss over a
+             L2), K1 2 a micro-batch; prints {"optim_sweep": {...}}.
+             lm_adaptive: transformer_lm_wiki103 at full width (1024, 4 of
+             its 16 layers, adaptive softmax 20,000 / 60,000) with adaptive_loss over a
              seeded 267,744-word dictionary, 3072-token blocks, nag + cosine
              (the wiki103 recipe, warm-up and period cut), bf16, 5 updates,
              eval_lm, an fp32 step on one 512-token block; one update of
              transformer_lm_gbw --character-embeddings; no kernel launched;
              prints {"lm_adaptive": {...}}. lm_fusion_adaptive (in the family
-             phases): mt_big with --lm-path of a full-width wiki103 LM over
-             the family's 32,768-subword dictionary (cutoffs 8,000 / 20,000),
-             served as lm_fusion (K3 6 + 16 a step at D 64 / 128).
+             phases): iwslt with --lm-path of a full-width wiki103 LM (4
+             of its 16 layers) over the family's 32,768-subword dictionary
+             (cutoffs 8,000 / 20,000), served as lm_fusion (K3 6 + 4 a step
+             at D 64 / 128).
              joint_shapes (timed) and optim_shapes (accuracy only): every K1,
              K2 and K3 shape these phases launched against the plain
              versions.
-11. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+11. the non-autoregressive family (this slice's main path, on the
+             family's fixture) - nat_serve: a seeded .ckpt of each of the
+             six models at the presets' full width (512 / 2048 / 8 heads,
+             6 + 6 layers: levenshtein_transformer_wmt_en_de with
+             --iter-decode-max-iter 9 --iter-decode-eos-penalty 0
+             --print-step, cmlm_transformer_wmt_en_de with
+             --iter-decode-max-iter 10 --iter-decode-with-beam 5, the
+             vanilla and iterative NAT, nacrf_transformer,
+             insertion_transformer under translation_ins), then a
+             two-checkpoint Levenshtein ensemble, CMLM with
+             --iter-decode-with-external-reranker (a transformer as the
+             last --path) and Levenshtein with --retain-iter-history, each
+             through
+             cli.generate on canvases of 64: fp32 card vs CPU on the 4
+             valid sentences (hypotheses and step counts identical; a
+             difference prints the sentence and its top-2 margin), then
+             bf16 on the 32 test pairs in one batch, K1 exact (6 encoder
+             layers a batch and member, 6 for each decoder pass that ran:
+             Levenshtein 3 a round, its rounds checked against the printed
+             steps, insertion 1 a round, CMLM 10, the others 1; the
+             reranker's encoder 6), no K3; the transformer at the same
+             width on the same batches at beam 4 and 1 beside them. Prints
+             {"nat_serve": {...}} (sentences/s). nat_train: cli.train --task
+             translation_lev --noise levenshtein --criterion
+             levenshtein_loss --arch levenshtein_transformer_wmt_en_de on
+             family_train's pairs, fairseq's recipe flags (label smoothing
+             0.1, Adam (0.9, 0.98), inverse_sqrt lr 5e-4, dropout 0.3,
+             --max-tokens 8000) with the warm-up cut to 4, bf16: run A to 10
+             updates, run B resumed to 12 under --profile, cli.generate of
+             its checkpoint; one update each of CMLM, the vanilla NAT, NAT-CRF
+             and insertion; one fp32 update of each criterion card vs CPU
+             (compare_step). K1 exact: 6 + 18 a Levenshtein micro-batch, 6 +
+             6 the others'. Prints {"nat_train": {...}} (updates/s after the
+             first, target tokens/s, peak memory, run B's busy share, the
+             host seconds a batch spends in the noising and the edit
+             operations as data_s). nat_shapes (after the other shape
+             groups): K1 at every shape nat_serve launched (timed, with
+             SDPA) and nat_train launched (accuracy), and at 16 heads of 64
+             (levenshtein_transformer_vaswani_wmt_en_de_big) on the canvas.
+12. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
-             decode, tts_update, mt_cli's and the family's, joint_train's
-             and optim_sweep's; K3's record holds its times at the search
+             decode, tts_update, mt_cli's and the family's, joint_train's,
+             optim_sweep's, nat_serve's and nat_train's; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -2466,7 +2508,7 @@ def phase_text(torch, fx, task, kernels):
 # batch, card vs CPU in fp32 with K3 held in place at each mode's ancestries,
 # then each mode timed in bf16 with exact launch counts
 
-SEARCH_BATCH = 8
+SEARCH_BATCH = 2  # cut from 8 for the script's time limit
 SEARCH_REPS = 2  # bf16 timing rounds, the modes in turn (2 keep retained dropout's
 # same-seed check)
 # per sentence, two target phrases of seeded random tokens (ids 4..9999)
@@ -2689,8 +2731,8 @@ def search_launches(name, layer_steps):
 
 
 def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
-    """The flagship's generation surface on one seeded batch of 8 utterances
-    of 2-6 s, beam 10, max_decode_len 64: each mode in fp32 on the card
+    """The flagship's generation surface on one seeded batch of SEARCH_BATCH
+    utterances of 2-6 s, beam 10, max_decode_len 64: each mode in fp32 on the card
     (kernels; K3 held in place at the mode's ancestries) and on the CPU
     (plain versions) from the same weights, best hypotheses token-identical
     and scores within the parity phase's 1e-4; then each mode in bf16 on
@@ -2965,8 +3007,8 @@ def phase_fbank_features(torch, root: Path, kernels):
 # transformer_lm of GPT widths fused in with --lm-path, and eval_lm
 
 FAMILY_VOCAB = 32768  # one joined dictionary: the size fairseq's WMT'16 en-de big dictionary is near
-FAMILY_TEST_PAIRS = 64
-FAMILY_PARITY_PAIRS = 4
+FAMILY_TEST_PAIRS = 32  # cut from 64 for the script's time limit: one batch of 32
+FAMILY_PARITY_PAIRS = 2  # cut from 4 for the script's time limit
 FAMILY_BATCH = 32
 FAMILY_DECODE = ["--beam", "4", "--lenpen", "0.6", "--max-decode-len", "64"]  # WMT'16 en-de big
 LM_STREAM_TOKENS = 200_000
@@ -3201,15 +3243,28 @@ def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
              for (name, cfg), seed in zip(FAMILY_MODELS.items(), (31, 37))}
     ckpts["lm"] = family_checkpoint(torch, fx, "lm", LM_GPT, 41)
     counts = {}
+    t0 = time.perf_counter()
+
+    def took(label):
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s into the family phases)")
+
     with recorded_shapes(enc_attn, conv_tail, dec_attn) as seen:
         counts["mt_big"] = phase_family_serve(torch, fx, "mt_big", ckpts["mt_big"], kernels, 6)
+        took("mt_big")
         counts["lm_fusion"] = phase_family_serve(
             torch, fx, "lm_fusion", ckpts["mt_big"], kernels, 6 + LM_GPT["layers"],
             ["--lm-path", str(ckpts["lm"]), "--lm-weight", "0.3"])
+        took("lm_fusion")
         counts["eval_lm"] = phase_eval_lm(torch, fx, ckpts["lm"], kernels)
+        took("eval_lm")
         counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6)
-        counts.update(phase_lm_fusion_wide(torch, fx, ckpts["mt_big"], kernels))
-        counts.update(phase_lm_fusion_adaptive(torch, fx, ckpts["mt_big"], kernels))
+        took("iwslt")
+        # the wider LMs fuse into iwslt (6 + 6 layers as mt_big, 65 M
+        # parameters against 243.5 M: cut for the script's time limit)
+        counts.update(phase_lm_fusion_wide(torch, fx, ckpts["iwslt"], kernels))
+        took("lm_fusion_wide")
+        counts.update(phase_lm_fusion_adaptive(torch, fx, ckpts["iwslt"], kernels))
+        took("lm_fusion_adaptive")
     if not any(s[3] == 128 for s, _ in seen["encoder_attention"]) or \
             not all(any(s[3] == d for s, _ in seen["decode_attention"]) for d in (32, 96, 128)):
         raise AssertionError(f"the family phases launched no head-dim-128 K1, or no K3 at one of "
@@ -3313,7 +3368,8 @@ def phase_w2v2_ckpt(torch, fx, work: Path, build, kernels):
     return counts
 
 
-LM_WIDE = {"lm_fusion_gbw": ({"arch": "transformer_lm_gbw"}, 43),
+# full width (512, 16 heads of 32), depth cut from 12 layers to 4
+LM_WIDE = {"lm_fusion_gbw": ({"arch": "transformer_lm_gbw", "layers": 4}, 43),
            # full width (3072, 32 heads of 96), depth cut from 72 layers to 2
            "lm_fusion_megatron": ({"arch": "transformer_lm_megatron", "layers": 2}, 47)}
 
@@ -3325,10 +3381,10 @@ def lm_layers(model_cfg: dict) -> int:
 
 
 def phase_lm_fusion_wide(torch, fx, mt_ckpt: Path, kernels):
-    """``--lm-path`` with an LM of head dim 32 (transformer_lm_gbw, the full
-    preset: 12 x 512, 16 heads) and of head dim 96 (transformer_lm_megatron
-    at full width, 2 of its 72 layers), fused into transformer_wmt_en_de_big
-    as phase_family_serve runs it: fp32 card vs CPU token-identical, bf16
+    """``--lm-path`` with an LM of head dim 32 (transformer_lm_gbw at full
+    width, 512 / 16 heads, 4 of its 12 layers) and of head dim 96 (transformer_lm_megatron
+    at full width, 2 of its 72 layers), fused into ``mt_ckpt`` (the family
+    phases pass transformer_iwslt_de_en) as phase_family_serve runs it: fp32 card vs CPU token-identical, bf16
     with K3 6 + the LM's layers a decoder step. Returns the launches."""
     counts = {}
     for name, (cfg, seed) in LM_WIDE.items():
@@ -3400,7 +3456,7 @@ def corpus_bleu(hyps, refs, tokenize="13a", lowercase=False, **_):
 
 
 def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=None, lr=1e-4,
-                       clip=0.0):
+                       clip=0.0, keys=("loss", "nll_loss")):
     """One accumulated update of a family model at full width in fp32 (TF32
     off), every dropout 0, on the card (kernels) and on the CPU (plain
     versions), from the same seeded weights: the optimizer ``opt_cfg``
@@ -3434,8 +3490,8 @@ def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=N
     (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
     torch.cuda.empty_cache()
     if opt_cfg["_name"] == "adam":
-        return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, lr=lr)
-    rec, _ = gradient_gates(torch, label, mg, mc, gg, gc, ("loss", "nll_loss"), list(gc))
+        return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, keys, lr=lr)
+    rec, _ = gradient_gates(torch, label, mg, mc, gg, gc, keys, list(gc))
     rec.update(optimizer_step_parity(label, before, pg, pc, gg, gc))
     return rec
 
@@ -4047,6 +4103,9 @@ OPTIM_SWEEP = {
                              "--save-interval-updates", "2"],
 }
 OPTIM_UPDATES = 6
+# the sweep's transformer: FAMILY_TRAIN_MODEL's widths, 2 of its 6 + 6 layers
+# (cut for the script's time limit)
+OPTIM_MODEL = {"arch": "transformer", "encoder_layers": 2, "decoder_layers": 2}
 
 
 def optim_argv(data: Path, save_dir: Path, name: str):
@@ -4058,7 +4117,7 @@ def optim_argv(data: Path, save_dir: Path, name: str):
     if name != "adafactor":
         flags += ["--clip-norm", "0.1"]
     return [str(data), "--task", "translation", "-s", "en", "-t", "de",
-            *model_flags(FAMILY_TRAIN_MODEL), "--criterion", "label_smoothed_cross_entropy",
+            *model_flags(OPTIM_MODEL), "--criterion", "label_smoothed_cross_entropy",
             "--label-smoothing", "0.1", "--warmup-updates", "2", "--max-tokens", "4096",
             "--dtype", "bfloat16", "--max-update", str(OPTIM_UPDATES), "--no-epoch-checkpoints",
             "--save-dir", str(save_dir), *flags]
@@ -4066,7 +4125,7 @@ def optim_argv(data: Path, save_dir: Path, name: str):
 
 def phase_optim_sweep(torch, fx, data: Path, kernels):
     """``cli.train --task translation --arch transformer`` (family_train's
-    model and data, bf16) for each optimizer and each schedule of
+    data and widths, 2 + 2 layers: OPTIM_MODEL; bf16) for each optimizer and each schedule of
     OPTIM_SWEEP: OPTIM_UPDATES updates with the warm-up cut to 2, the
     validation and the save at the end (reduce_lr_on_plateau also every 2
     updates, so that its step_val runs); the written optimizer state loads
@@ -4075,8 +4134,8 @@ def phase_optim_sweep(torch, fx, data: Path, kernels):
     update count 6; for each optimizer one fp32 update card vs CPU on a
     micro-batch of 4 pairs (family_step_parity; adamax and lamb at eps
     1e-3), for each schedule its lr from the count on the card against the
-    host's (it changes an update by its lr alone). K1 6 a
-    training micro-batch and 6 a validation batch, exactly. Prints
+    host's (it changes an update by its lr alone). K1 2 a
+    training micro-batch and 2 a validation batch, exactly. Prints
     {"optim_sweep": {...}} (updates/s after the first update beside
     adam's); returns the launches."""
     import itertools
@@ -4112,7 +4171,8 @@ def phase_optim_sweep(torch, fx, data: Path, kernels):
         counts = {fn.__name__: fn.launches for fn in kernels}
         t = out["times"]
         trainer = out["trainer"]
-        implied = {"encoder_attention": 6 * OPTIM_UPDATES + 6 * n_valid * len(t["valid_s"]),
+        layers = OPTIM_MODEL["encoder_layers"]
+        implied = {"encoder_attention": layers * (OPTIM_UPDATES + n_valid * len(t["valid_s"])),
                    "conv_tail": 0, "decode_attention": 0, "logmel": 0}
         after_first = t["update_s"][1:]
         rate = len(after_first) / sum(after_first)
@@ -4154,7 +4214,7 @@ def phase_optim_sweep(torch, fx, data: Path, kernels):
                 # g / (|g| + eps), as tests/test_torch_train.py raises adam_eps)
                 opt_cfg[f"{name}_eps"] = 1e-3
             parity = family_step_parity(
-                torch, f"optim_sweep {name}", task, FAMILY_TRAIN_MODEL,
+                torch, f"optim_sweep {name}", task, OPTIM_MODEL,
                 {"_name": "label_smoothed_cross_entropy", "label_smoothing": 0.1}, micro,
                 opt_cfg, lrs[-1], args.clip_norm)
         rec[name] = {"updates_per_s_after_first": rate, "update_s": t["update_s"],
@@ -4185,7 +4245,8 @@ WIKI103_VOCAB = 267744
 WIKI103_BLOCK = 3072  # the recipe's --tokens-per-sample
 WIKI103_STREAM = 6 * WIKI103_BLOCK + 2000
 WIKI103_UPDATES = 5
-WIKI103_MODEL = {"arch": "transformer_lm_wiki103"}  # 16 x 1024, 8 heads, cutoffs 20000 / 60000
+# 1024 wide, 8 heads, cutoffs 20000 / 60000; 4 of its 16 layers (cut for the time limit)
+WIKI103_MODEL = {"arch": "transformer_lm_wiki103", "layers": 4}
 CHAR_LM_MODEL = {"arch": "transformer_lm_gbw", "character_embeddings": True}
 # fairseq's wiki103 recipe: nag, lr 1e-4, clip 0.1, cosine to max_lr 1 with
 # t_mult 2; the warm-up (16,000) and the period (270,000) cut to this run
@@ -4244,8 +4305,8 @@ def lm_step_parity(torch, label, data: Path, model_cfg, crit_cfg):
 
 def phase_lm_adaptive(torch, work: Path, kernels):
     """``cli.train --task language_modeling --arch transformer_lm_wiki103
-    --criterion adaptive_loss`` at the preset's full width (16 x 1024, 8
-    heads, FFN 4096, adaptive softmax cutoffs 20,000 / 60,000) over a
+    --criterion adaptive_loss`` at the preset's full width (1024, 8 heads,
+    FFN 4096, adaptive softmax cutoffs 20,000 / 60,000; 4 of its 16 layers) over a
     dictionary of fairseq's wikitext-103 size, --tokens-per-sample 3072, one
     block a micro-batch, the recipe's optimizer and schedule (WIKI103_OPT),
     bf16, WIKI103_UPDATES updates; then cli.eval_lm of the result (bf16,
@@ -4326,15 +4387,17 @@ def phase_lm_adaptive(torch, work: Path, kernels):
 
 # the wiki103 LM over the family's 32,768-subword dictionary: its cutoffs
 # (20,000 / 60,000 for a 267,744-word vocabulary) set to fit it
-LM_ADAPTIVE_FUSION = {"arch": "transformer_lm_wiki103", "adaptive_softmax_cutoffs": (8000, 20000)}
+# the wiki103 widths, 4 of its 16 layers (cut for the script's time limit)
+LM_ADAPTIVE_FUSION = {"arch": "transformer_lm_wiki103", "adaptive_softmax_cutoffs": (8000, 20000),
+                      "layers": 4}
 
 
 def phase_lm_fusion_adaptive(torch, fx, mt_ckpt: Path, kernels):
-    """``--lm-path`` of a transformer_lm_wiki103 LM at full width (16 x
-    1024, 8 heads of 128) with an adaptive softmax, fused into
-    transformer_wmt_en_de_big as phase_family_serve runs it: the fused
+    """``--lm-path`` of a transformer_lm_wiki103 LM at full width (1024, 8
+    heads of 128; 4 of its 16 layers) with an adaptive softmax, fused into
+    ``mt_ckpt`` (transformer_iwslt_de_en) as phase_family_serve runs it: the fused
     scores add the adaptive softmax's normalized log-probabilities; fp32
-    card vs CPU token-identical, bf16 with K3 6 + 16 a decoder step (the
+    card vs CPU token-identical, bf16 with K3 6 + 4 a decoder step (the
     LM's at head dim 128). Returns the launches."""
     ckpt = family_checkpoint(torch, fx, "lm_fusion_adaptive", LM_ADAPTIVE_FUSION, 71)
     counts = phase_family_serve(torch, fx, "lm_fusion_adaptive", mt_ckpt, kernels,
@@ -4342,6 +4405,431 @@ def phase_lm_fusion_adaptive(torch, fx, mt_ckpt: Path, kernels):
                                 ["--lm-path", str(ckpt), "--lm-weight", "0.3"])
     ckpt.unlink()
     return {"lm_fusion_adaptive": counts}
+
+
+# ---- the non-autoregressive family: the six models served by cli.generate
+# --task translation_lev / translation_ins (K1 in the encoder and in every
+# decoder pass over the canvas), trained by cli.train
+
+NAT_DECODE = ["--max-decode-len", "64"]  # canvases of 64
+# name -> (model config, the generate flags, task); fairseq's
+# examples/nonautoregressive_translation README flags where it gives them
+NAT_MODELS = {
+    "levenshtein": ({"arch": "levenshtein_transformer_wmt_en_de"},
+                    ["--iter-decode-max-iter", "9", "--iter-decode-eos-penalty", "0",
+                     "--print-step"], "translation_lev"),
+    "cmlm": ({"arch": "cmlm_transformer_wmt_en_de"},
+             ["--iter-decode-max-iter", "10", "--iter-decode-with-beam", "5"], "translation_lev"),
+    "nat": ({"arch": "nonautoregressive_transformer_wmt_en_de"}, [], "translation_lev"),
+    "inat": ({"arch": "iterative_nonautoregressive_transformer_wmt_en_de"}, [],
+             "translation_lev"),
+    "nacrf": ({"arch": "nacrf_transformer"}, [], "translation_lev"),
+    "insertion": ({"arch": "insertion_transformer"}, [], "translation_ins"),
+}
+
+
+@contextlib.contextmanager
+def counted_refinement():
+    """While open, notes the rounds each refinement call runs (Levenshtein,
+    its ensemble and insertion share ``refine_rounds``): yields the list."""
+    from chimera_st_tpu_torch.models import nat_insertion, nat_levenshtein
+
+    rounds = []
+    real = nat_levenshtein.refine_rounds
+
+    def noted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        rounds.append(out[3])
+        return out
+
+    nat_levenshtein.refine_rounds = nat_insertion.refine_rounds = noted
+    try:
+        yield rounds
+    finally:
+        nat_levenshtein.refine_rounds = nat_insertion.refine_rounds = real
+
+
+def nat_generate(fx, task: str, ckpt: str, out_dir: Path, subset: str, extra):
+    """cli.generate --task ``task`` on the family fixture -> (its output
+    text, its returned counts and times)."""
+    from chimera_st_tpu_torch.cli import generate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats = generate.main([str(fx["mt"]), "--task", task, "-s", "en", "-t", "de", "--path",
+                           ckpt, "--gen-subset", subset, *NAT_DECODE, "--scoring", "bleu",
+                           "--results-path", str(out_dir), *extra])
+    return (out_dir / f"generate-{subset}.txt").read_text(), stats
+
+
+def nat_lines(text: str, kind: str):
+    """{sample id: rest of the line} of the output's ``kind``- lines."""
+    out = {}
+    for line in text.splitlines():
+        head, _, rest = line.partition("\t")
+        if head.startswith(kind + "-") and head[len(kind) + 1:].isdigit():
+            out[int(head[len(kind) + 1:])] = rest
+    return out
+
+
+def nat_margin(torch, fx, task_name: str, ckpt: str, sid: int, hyp: str) -> float:
+    """The smallest top-2 margin of the fp32 CPU model's word logits over
+    one sentence's hypothesis, teacher-forced as a canvas: how near a tie
+    the prediction that differed was."""
+    from chimera_st_tpu_torch.cli.generate import load_model_and_params
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": task_name, "data": str(fx["mt"]), "source_lang": "en",
+                       "target_lang": "de"})
+    model = load_model_and_params(ckpt, task, torch.float32, "cpu")
+    d = task.target_dictionary
+    src = torch.tensor([task.dataset("valid")[sid]["source"]]).long()
+    canvas = torch.tensor([[0] + [d.index(w) for w in hyp.split()] + [d.eos()]]).long()
+    enc, enc_mask = model.encode(src)
+    with torch.no_grad():
+        top = model.decode_tokens(canvas, enc, enc_mask).float().topk(2, dim=-1).values
+    return float((top[..., 0] - top[..., 1]).min())
+
+
+def nat_expected_k1(name: str, n_batches: int, rounds, members: int = 1,
+                    reranker: bool = False) -> int:
+    """K1 launches of a NAT decode run: 6 encoder layers a batch for each
+    member, and 6 decoder layers for each decoder pass that ran (Levenshtein
+    3 a round, insertion 1, CMLM one an iteration over every length-beam
+    candidate at once, the translate family one an iteration), plus the
+    reranker's 6 encoder layers a batch."""
+    if name == "levenshtein":
+        passes = 3 * members * sum(rounds)
+    elif name == "insertion":
+        passes = sum(rounds)
+    elif name == "cmlm":
+        passes = 10 * n_batches
+    else:
+        passes = n_batches  # --iter-decode-max-iter 1
+    return 6 * members * n_batches + 6 * passes + 6 * n_batches * reranker
+
+
+def nat_serve_one(torch, fx, label, name, ckpts, kernels, extra=(), members=1, flags=None):
+    """One NAT model through cli.generate: fp32 on the card against
+    --device cpu on the ``valid`` split (its 4 sentences), hypotheses and
+    step counts identical (a difference prints the sentence and its top-2
+    margin, then fails); then bf16 on the ``test`` split in batches of 32
+    with the launch counts zeroed before and read after, K1 exact by
+    nat_expected_k1 from the rounds run. Returns (launches, record)."""
+    _, default_flags, task = NAT_MODELS[name]
+    flags = [*(default_flags if flags is None else flags), *extra]
+    path = ":".join(ckpts)
+    work = fx["root"] / f"nat_{label}"
+    common = ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "float32", *flags]
+    t0 = time.perf_counter()
+    gpu_text, _ = nat_generate(fx, task, path, work / "parity_cuda", "valid", common)
+    cpu_text, _ = nat_generate(fx, task, path, work / "parity_cpu", "valid",
+                               common + ["--device", "cpu"])
+    gh, ch = nat_lines(gpu_text, "H"), nat_lines(cpu_text, "H")
+    if len(ch) != FAMILY_PARITY_PAIRS or sorted(gh) != sorted(ch):
+        raise AssertionError(f"nat {label}: samples {sorted(gh)} vs {sorted(ch)}")
+    worst = 0.0
+    for sid in sorted(ch):
+        (g_score, _, g_hyp), (c_score, _, c_hyp) = (x[sid].partition("\t") for x in (gh, ch))
+        worst = max(worst, abs(float(g_score) - float(c_score)))
+        if g_hyp != c_hyp:
+            margin = nat_margin(torch, fx, task, ckpts[0], sid, c_hyp)
+            log(f"nat {label}: sentence {sid} differs, card vs CPU:\n  {gh[sid]}\n  "
+                f"{ch[sid]}\n  smallest top-2 margin of the CPU model over it {margin:.3e}")
+            raise AssertionError(f"nat {label}: fp32 card vs CPU differ at sentence {sid}")
+    if nat_lines(gpu_text, "I") != nat_lines(cpu_text, "I"):
+        raise AssertionError(f"nat {label}: step counts differ card vs CPU")
+    # the scores: 0, or the reranker's, printed with four decimals
+    check(f"nat {label}: hypotheses identical, fp32 card vs CPU; scores", worst, 2e-4)
+    parity_s = time.perf_counter() - t0
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_refinement() as rounds, counted_decoder_steps() as steps:
+        t0 = time.perf_counter()
+        text, stats = nat_generate(fx, task, path, work / "serve", "test",
+                                   ["--batch-size", str(FAMILY_BATCH), "--dtype", "bfloat16",
+                                    *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    n_batches = -(-FAMILY_TEST_PAIRS // FAMILY_BATCH)
+    hyps = nat_lines(text, "H")
+    implied = {"encoder_attention": nat_expected_k1(
+        name, n_batches, rounds, members, "--iter-decode-with-external-reranker" in flags),
+        "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+    rec = {"sentences": stats["sentences"], "wall_s": wall, "decode_s": stats["decode_s"],
+           "load_s": stats["load_s"], "sentences_per_s": stats["sentences"] / stats["decode_s"],
+           "rounds": rounds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "fp32_parity_s": parity_s}
+    steps_printed = nat_lines(text, "I")
+    if steps_printed:
+        rec["steps"] = sorted(int(v) for v in steps_printed.values())
+    log(f"  nat {label}: bf16 {stats['sentences']} sentences in {wall:.1f} s (decode "
+        f"{stats['decode_s']:.2f} s, {rec['sentences_per_s']:.1f} sentences/s), rounds "
+        f"{rounds}; launches {counts}; fp32 card = CPU on {len(ch)} sentences")
+    if (counts != implied or steps[0] or len(hyps) != FAMILY_TEST_PAIRS
+            or any("nan" in h for h in hyps.values())):
+        raise AssertionError(f"nat {label}: launches {counts} (want {implied}), decoder steps "
+                             f"{steps[0]}, {len(hyps)} hypotheses")
+    if name == "levenshtein" and steps_printed and "--iter-decode-force-max-iter" not in flags:
+        # the rounds run follow the printed step counts: one past the batch's most
+        batches = nat_batch_ids(fx, task)
+        want = [min(9, max(int(steps_printed[i]) for i in ids) + 1) for ids in batches]
+        if sorted(want) != sorted(rounds):
+            raise AssertionError(f"nat {label}: rounds {rounds}, the printed steps imply {want}")
+    return counts, rec
+
+
+def nat_batch_ids(fx, task_name: str):
+    """The sample ids of each test batch of 32, as the generate CLI batches
+    them."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": task_name, "data": str(fx["mt"]), "source_lang": "en",
+                       "target_lang": "de"})
+    task.load_dataset("test")
+    itr = task.make_batch_iterator(task.dataset("test"), max_sentences=FAMILY_BATCH)
+    return [list(map(int, b["id"])) for b in itr.next_epoch_itr(shuffle=False)]
+
+
+def phase_nat_serve(torch, fx, kernels):
+    """The slice's main path: each of the six NAT models at the presets'
+    full width (512 / 2048 / 8 heads, 6 + 6 layers) on the family's
+    32,768-subword dictionary, a seeded ``.ckpt`` saved by the port, served
+    by cli.generate (nat_serve_one); then a two-checkpoint Levenshtein
+    ensemble, CMLM with --iter-decode-with-external-reranker (a
+    ``transformer`` on the same dictionary as the last --path) and
+    Levenshtein with --retain-iter-history; beside them the ``transformer``
+    at the same width on the same batches at beam 4 and beam 1. Returns
+    {run: launches}; prints {"nat_serve": {...}}."""
+    ckpts = {name: str(family_checkpoint(torch, fx, f"nat_{name}", cfg, 70 + i))
+             for i, (name, (cfg, _, _)) in enumerate(NAT_MODELS.items())}
+    ckpts["levenshtein_b"] = str(family_checkpoint(
+        torch, fx, "nat_levenshtein_b", NAT_MODELS["levenshtein"][0], 77))
+    ckpts["ar"] = str(family_checkpoint(torch, fx, "nat_ar", {"arch": "transformer"}, 78))
+    log(f"nat_serve: cli.generate --task translation_lev / translation_ins "
+        f"{' '.join(NAT_DECODE)}; fp32 card vs CPU on {FAMILY_PARITY_PAIRS} sentences, then bf16 "
+        f"on {FAMILY_TEST_PAIRS} in batches of {FAMILY_BATCH}")
+    counts, recs = {}, {}
+    for name in NAT_MODELS:
+        counts[f"nat_{name}"], recs[name] = nat_serve_one(torch, fx, name, name, [ckpts[name]],
+                                                          kernels)
+    counts["nat_levenshtein_ensemble"], recs["levenshtein_ensemble"] = nat_serve_one(
+        torch, fx, "levenshtein_ensemble", "levenshtein",
+        [ckpts["levenshtein"], ckpts["levenshtein_b"]], kernels, members=2,
+        flags=NAT_MODELS["levenshtein"][1][:-1])  # an ensemble prints no step counts
+    counts["nat_cmlm_reranker"], recs["cmlm_reranker"] = nat_serve_one(
+        torch, fx, "cmlm_reranker", "cmlm", [ckpts["cmlm"], ckpts["ar"]], kernels,
+        ["--iter-decode-with-external-reranker"])
+    counts["nat_levenshtein_history"], recs["levenshtein_history"] = nat_serve_one(
+        torch, fx, "levenshtein_history", "levenshtein", [ckpts["levenshtein"]], kernels,
+        ["--retain-iter-history"])
+    # the autoregressive transformer on the same batches
+    for beam in (4, 1):
+        _, stats = family_generate(fx, Path(ckpts["ar"]), fx["root"] / f"nat_ar_beam{beam}",
+                                   "test", ["--batch-size", str(FAMILY_BATCH), "--dtype",
+                                            "bfloat16", "--beam", str(beam)])
+        recs[f"transformer_beam{beam}"] = {"sentences_per_s": stats["sentences"]
+                                           / stats["decode_s"], "decode_s": stats["decode_s"]}
+    log("nat_serve: sentences/s " + ", ".join(
+        f"{k} {v['sentences_per_s']:.1f}" for k, v in recs.items()))
+    for path in ckpts.values():
+        Path(path).unlink()
+    print(json.dumps({"nat_serve": recs}), flush=True)
+    return counts
+
+
+NAT_TRAIN_UPDATES = (10, 12)  # run A to 10 with a save there, run B resumed to 12
+NAT_ONE_UPDATE = {  # name -> (task, --noise, criterion, model config)
+    "cmlm": ("translation_lev", "random_mask", "nat_loss", {"arch": "cmlm_transformer_wmt_en_de"}),
+    "nat": ("translation_lev", "full_mask", "nat_loss",
+            {"arch": "nonautoregressive_transformer_wmt_en_de"}),
+    "nacrf": ("translation_lev", "full_mask", "nacrf_loss", {"arch": "nacrf_transformer"}),
+    "insertion": ("translation_ins", "levenshtein", "insertion_loss",
+                  {"arch": "insertion_transformer"}),
+}
+
+
+def nat_train_argv(data: Path, save_dir: Path, max_update: int, task="translation_lev",
+                   noise="levenshtein", criterion="levenshtein_loss",
+                   model_cfg=None, extra=()):
+    """fairseq's Levenshtein recipe (examples/nonautoregressive_translation):
+    label smoothing 0.1, Adam (0.9, 0.98), inverse_sqrt lr 5e-4, dropout
+    0.3, --max-tokens 8000; bf16, the warm-up cut to 4 updates."""
+    return [str(data), "--task", task, "-s", "en", "-t", "de", "--noise", noise,
+            *model_flags(model_cfg or {"arch": "levenshtein_transformer_wmt_en_de"}),
+            "--criterion", criterion, "--label-smoothing", "0.1", "--dropout", "0.3",
+            "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "5e-4",
+            "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4", "--max-tokens", "8000",
+            "--dtype", "bfloat16", "--max-update", str(max_update), "--save-dir", str(save_dir),
+            *extra]
+
+
+def nat_data_s(task_name: str, noise: str, data: Path) -> dict:
+    """The host seconds an epoch's batches spend in their collate, with and
+    without the NAT noising (the edit operations and the noise), a batch."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    out = {}
+    for name, cfg in (("translation", {}), (task_name, {"noise": noise})):
+        task = setup_task({"_name": name, "data": str(data), "source_lang": "en",
+                           "target_lang": "de", **cfg})
+        task.load_dataset("train")
+        itr = task.make_batch_iterator(task.dataset("train"), max_tokens=8000, buffer_size=0)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in itr.next_epoch_itr(shuffle=False))
+        out[name] = (time.perf_counter() - t0) / n
+    out["noising_s_a_batch"] = out[task_name] - out["translation"]
+    return out
+
+
+def phase_nat_train(torch, fx, data: Path, kernels):
+    """``cli.train --task translation_lev --noise levenshtein --criterion
+    levenshtein_loss --arch levenshtein_transformer_wmt_en_de`` at full
+    width, bf16, on family_train's seeded pairs: run A to 10 updates (a save
+    there), run B resumed to 12 under --profile, cli.generate of its
+    checkpoint; then one update each of CMLM, vanilla NAT, NAT-CRF and
+    insertion; fp32 card-vs-CPU parity of one update of each criterion
+    (compare_step). Launches exact: K1 6 + 18 a Levenshtein micro-batch
+    (the encoder and three decoder passes; attention dropout 0: kernel
+    forward, plain backward), 6 + 6 the others'. Returns {run: launches};
+    prints {"nat_train": {...}}."""
+    import itertools
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import read_state
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "translation_lev", "data": str(data), "source_lang": "en",
+                       "target_lang": "de", "noise": "levenshtein"})
+    task.load_dataset("train")
+    per_epoch = len(task.make_batch_iterator(task.dataset("train"), max_tokens=8000))
+    tgt_tokens = int(task.dataset("train").tgt_sizes.sum())
+    save_dir, trace_dir = fx["root"] / "nat_train", fx["root"] / "nat_train_trace"
+    log(f"nat_train: cli.train --task translation_lev --arch levenshtein_transformer_wmt_en_de, "
+        f"bf16, {per_epoch} micro-batches of at most 8000 tokens an epoch")
+    counts, runs = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for label, max_update in zip("AB", NAT_TRAIN_UPDATES):
+        for fn in kernels:
+            fn.launches = 0
+        extra = ["--disable-validation", "--save-interval-updates", str(NAT_TRAIN_UPDATES[0])]
+        if label == "B":
+            extra += ["--profile", str(trace_dir)]
+        t0 = time.perf_counter()
+        out = train.main(nat_train_argv(data, save_dir, max_update, extra=extra))
+        torch.cuda.synchronize()
+        counts[label] = {fn.__name__: fn.launches for fn in kernels}
+        t = out["times"]
+        updates = out["trainer"].num_updates - t["restored"]["step"]
+        implied = {"encoder_attention": 24 * updates, "conv_tail": 0, "decode_attention": 0,
+                   "logmel": 0}
+        log(f"  run {label}: {time.perf_counter() - t0:.1f} s, step {t['restored']['step']} -> "
+            f"{out['trainer'].num_updates}; saves {[round(s, 2) for s in t['save_s']]} s, load "
+            f"{t['load_s']:.2f} s; launches {counts[label]}")
+        if counts[label] != implied or updates != max_update - t["restored"]["step"]:
+            raise AssertionError(f"nat_train run {label}: launches {counts[label]} (want "
+                                 f"{implied}), {updates} updates")
+        runs[label] = t
+        del out
+    a, b = runs["A"], runs["B"]
+    last = save_dir / "checkpoint_last.ckpt"
+    payload = read_state(str(last))
+    if b["restored"]["step"] != NAT_TRAIN_UPDATES[0] or payload["step"] != NAT_TRAIN_UPDATES[1]:
+        raise AssertionError(f"nat_train: B restored at {b['restored']['step']}, saved step "
+                             f"{payload['step']}")
+    del payload
+    after_first = a["update_s"][1:]
+    rate = len(after_first) / sum(after_first)
+    rec = dict(updates_per_s_after_first=rate, target_tokens_per_s=tgt_tokens / per_epoch * rate,
+               update_s={"A": a["update_s"], "B": b["update_s"]},
+               save_s=a["save_s"] + b["save_s"], resume_load_s=b["load_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               profile_run_b=trace_busy(trace_dir / "trace.json"),
+               data_s=nat_data_s("translation_lev", "levenshtein", data))
+    log(f"  run A: {rate:.3f} updates/s after the first, {rec['target_tokens_per_s']:.0f} target "
+        f"tokens/s; peak {rec['peak_memory_gb']:.2f} GB; run B busy "
+        f"{100 * rec['profile_run_b']['busy_share']:.1f} %; data_s {rec['data_s']}")
+    # cli.generate of the trained checkpoint
+    for fn in kernels:
+        fn.launches = 0
+    with counted_refinement() as rounds:
+        text, _ = nat_generate(fx, "translation_lev", str(last), fx["root"] / "nat_train_decode",
+                               "valid", ["--batch-size", str(FAMILY_PARITY_PAIRS),
+                                         "--dtype", "bfloat16", "--iter-decode-max-iter", "9"])
+        torch.cuda.synchronize()
+    gcounts = {fn.__name__: fn.launches for fn in kernels}
+    if (len(nat_lines(text, "H")) != FAMILY_PARITY_PAIRS
+            or gcounts["encoder_attention"] != nat_expected_k1("levenshtein", 1, rounds)):
+        raise AssertionError(f"nat_train generate: launches {gcounts}, rounds {rounds}")
+    rec["generate"] = {"rounds": rounds, "launches": gcounts}
+    counts["generate"] = gcounts
+    # one update each of the other models
+    for name, (task_name, noise, criterion, cfg) in NAT_ONE_UPDATE.items():
+        for fn in kernels:
+            fn.launches = 0
+        out = train.main(nat_train_argv(data, fx["root"] / f"nat_train_{name}", 1, task_name,
+                                        noise, criterion, cfg, ["--disable-validation",
+                                                                "--no-save"]))
+        torch.cuda.synchronize()
+        counts[name] = {fn.__name__: fn.launches for fn in kernels}
+        if counts[name]["encoder_attention"] != 12 or out["trainer"].num_updates != 1:
+            raise AssertionError(f"nat_train {name}: launches {counts[name]}")
+        rec[f"{name}_update_s"] = out["times"]["update_s"]
+        log(f"  {name}: one update ({criterion}) in {out['times']['update_s'][0]:.2f} s; "
+            f"launches {counts[name]}")
+        del out
+    # fp32 card vs CPU, one update of each criterion
+    rec["parity"] = {}
+    for name, (task_name, noise, criterion, cfg) in [
+            ("levenshtein", ("translation_lev", "levenshtein", "levenshtein_loss",
+                             {"arch": "levenshtein_transformer_wmt_en_de"})),
+            *NAT_ONE_UPDATE.items()]:
+        ptask = setup_task({"_name": task_name, "data": str(data), "source_lang": "en",
+                            "target_lang": "de", "noise": noise})
+        ptask.load_dataset("train")
+        micro = list(itertools.islice(ptask.make_batch_iterator(
+            ptask.dataset("train"), max_sentences=4).next_epoch_itr(shuffle=False), 2))
+        keys = ("loss",) if criterion in ("nacrf_loss", "insertion_loss") else ("loss",
+                                                                                "nll_loss")
+        rec["parity"][name] = family_step_parity(
+            torch, f"nat_train {name}", ptask, cfg, {"_name": criterion, "label_smoothing": 0.1},
+            micro, keys=keys)
+    for d in (save_dir, trace_dir, fx["root"] / "nat_train_decode"):
+        shutil.rmtree(d)
+    print(json.dumps({"nat_train": rec}), flush=True)
+    return {f"nat_train_{k}": v for k, v in counts.items()}
+
+
+def phase_nat_shapes(torch, ops, serve_seen, train_seen, records):
+    """K1 at the shapes of nat_serve's bf16 batches of 32 (the canvas of 64
+    and CMLM's 160 candidates, the encoder) timed: time, bound, share, SDPA;
+    every other shape nat_serve and nat_train launched (the parity batches,
+    the training micro-batches, K3 of the autoregressive comparison) for
+    accuracy in bf16 and fp32; the training targets' largest micro-batch
+    and levenshtein_transformer_vaswani_wmt_en_de_big's width (16 heads of
+    64) on the canvas timed too."""
+    served = {name: [p for p in pairs if name == "encoder_attention" and p[0][0] >= FAMILY_BATCH]
+              for name, pairs in serve_seen.items()}
+    rest = {name: [p for p in serve_seen[name] + train_seen[name] if p not in served[name]]
+            for name in serve_seen}
+    phase_shapes(torch, ops, served, records, "nat_serve", lambda sh: (
+        {(32, 64, 8, 64), (160, 64, 8, 64)} <= set(sh["encoder_attention"])),
+        timed=("encoder_attention",))
+    phase_shapes(torch, ops, rest, records, "nat", lambda sh: (
+        {(H, D) for _, _, H, D in sh["encoder_attention"]} == {(8, 64)}
+        and not sh["conv_tail"] and {C for *_, C in sh["decode_attention"]} == {1, 4}))
+    rec = {r["name"]: r for r in records}["encoder_attention"]
+    B, T, H, D = max((shape for shape, _ in train_seen["encoder_attention"]),
+                     key=lambda sh: sh[0] * sh[1])
+    tensor = Inputs(torch, 4)
+    rec["shapes"][f"nat_train_B{B}_T{T}_H{H}_D{D}"] = k1_case(torch, ops[0], tensor, "nat_train",
+                                                             B, T, H, D)
+    rec["shapes"]["nat_big_B32_T64_H16_D64"] = k1_case(torch, ops[0], tensor, "nat_big", 32, 64,
+                                                       16, 64)
 
 
 def main() -> int:
@@ -4470,6 +4958,7 @@ def main() -> int:
         counts["w2v2_st"] = phase_serve(torch, "w2v2_st", model, paths["flagship"]["serve"],
                                         kernels, W2V2_ST_ON_PATH, 6, profile=True)
         del model
+    mark("w2v2_st done")
 
     # 5b. the search surface on the flagship, and the fbank model on features
     build_second = seeded_builder(
@@ -4510,6 +4999,7 @@ def main() -> int:
         phase_train_parity(torch, training)
         counts["train"], counts["train_attention_dropout_0"], train_rec = phase_train(
             torch, training, kernels, args.profile)
+        mark("train done")
         counts["train_cli"], counts["train_cli_decode"] = phase_train_cli(
             torch, fx, work, kernels, train_rec)
         with recorded_shapes(*ops, slice_seen):
@@ -4524,6 +5014,7 @@ def main() -> int:
         # 8. the MT stage
         mt_fx = make_mt_fixture(work / "mt")
         phase_mt_parity(torch, mt_fx)
+        mark("mt_parity done")
         mt_counts, mt_seen = phase_mt_cli(torch, mt_fx, work, kernels, encoder_attention,
                                           conv_tail, decode_attention, args.profile)
         counts.update(mt_counts)
@@ -4537,6 +5028,7 @@ def main() -> int:
         ensure_sacrebleu(work)
         with recorded_shapes(*ops, slice_seen):
             counts.update(phase_family_train(torch, family_fx, kernels))
+        mark("family_train done")
         counts["lm_train"] = phase_lm_train(torch, family_fx, kernels)
         mark("family training done")
         # 10a. the other optimizers and schedules; the adaptive-softmax and
@@ -4547,6 +5039,15 @@ def main() -> int:
         mark("optim_sweep done")
         counts["lm_adaptive"] = phase_lm_adaptive(torch, work, kernels)
         mark("lm_adaptive done")
+        # 11. the non-autoregressive family (this slice's main path), its K1
+        # shapes held against the plain version below
+        with recorded_shapes(*ops) as nat_serve_seen:
+            counts.update(phase_nat_serve(torch, family_fx, kernels))
+        mark("nat_serve done")
+        with recorded_shapes(*ops) as nat_train_seen:
+            counts.update(phase_nat_train(torch, family_fx, family_fx["root"] / "mt_train",
+                                          kernels))
+        mark("nat_train done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -4582,8 +5083,9 @@ def main() -> int:
         {(H, D) for _, _, H, D in sh["encoder_attention"]} == {(8, 64)}
         and not sh["conv_tail"] and not sh["decode_attention"]))
 
+    phase_nat_shapes(torch, ops, nat_serve_seen, nat_train_seen, records)
     mark("shapes done")
-    # 11. report
+    # 12. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

@@ -357,13 +357,6 @@ def test_interactive_text_branch_matches_jax_generate_text(fixture, capsys):
 
 UNPORTED_FLAGS = {
     "ctc_lm_path": ["--ctc-lm-path", "lm.arpa"],
-    "iter_decode_max_iter": ["--iter-decode-max-iter", "3"],
-    "iter_decode_force_max_iter": ["--iter-decode-force-max-iter"],
-    "iter_decode_eos_penalty": ["--iter-decode-eos-penalty", "0.5"],
-    "iter_decode_with_beam": ["--iter-decode-with-beam", "2"],
-    "iter_decode_with_external_reranker": ["--iter-decode-with-external-reranker"],
-    "retain_iter_history": ["--retain-iter-history"],
-    "print_step": ["--print-step"],
     "distributed_world_size": ["--distributed-world-size", "2"],
     "model_parallel_size": ["--model-parallel-size", "2"],
     "zero_sharding": ["--zero-sharding", "os"],

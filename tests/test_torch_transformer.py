@@ -184,7 +184,6 @@ def test_round_trip_bit_for_bit_and_unknown_leaf_raises():
 
 @pytest.mark.parametrize("field, value, item", [
     ("pipeline_stages", 2, "A12"),
-    ("decoder_causal", False, "A17"),
 ])
 def test_unported_field_raises(field, value, item):
     builder = transformer_mt.build_transformer
