@@ -270,7 +270,10 @@ _COMMON_UNPORTED = (
 UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
 
 PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_modeling",
-                      "joint_task", "joint_task_mtst", "translation_lev", "translation_ins")
+                      "joint_task", "joint_task_mtst", "translation_lev", "translation_ins",
+                      "translation_from_pretrained_bart", "translation_multi_simple_epoch",
+                      "denoising", "multilingual_denoising", "sentence_prediction",
+                      "sentence_ranking", "multilingual_translation")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
@@ -280,8 +283,7 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "--arch of the fbank s2t_transformer presets (the JAX train CLI cannot train this "
      "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
-     "--task other than triplet / translation / translation_tts / language_modeling / "
-     "joint_task / joint_task_mtst / translation_lev / translation_ins", "A14"),
+     "--task other than " + " / ".join(PORTED_TRAIN_TASKS), "A14"),
     ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
 )
 

@@ -9,7 +9,9 @@ chimera_st_tpu/cli/validate.py: the same flags and the same output line).
 ``.pt`` of the interlingua model; ``--task translation`` validates an MT
 checkpoint on binarized text. A native checkpoint keeps the arch stored in
 it unless ``--arch`` is given (the JAX CLI replaces it with ``--arch``'s
-default, so a ``transformer`` checkpoint fails there without the flag). Prints one line of the losses over the
+default, so a ``transformer`` checkpoint fails there without the flag),
+and the undeclared flags (``--langs``, ``--lang-pairs``) reach the task as
+in generate (the JAX CLI drops them). Prints one line of the losses over the
 sample size in bits, ``loss 1.2345 | st_loss 1.2345 | …``, and returns them.
 ``--dump-feature-to-file FILE`` pickles, for a task with ``dump_memories``
 (triplet), a list with one dict a batch: the audio and text memory banks
@@ -48,8 +50,11 @@ def main(argv=None) -> dict:
     from ..train.train_step import prepare_batch, valid_step
     from .generate import load_model_and_params, torch_dtype
 
+    # the undeclared flags (--langs, --lang-pairs, --num-classes ...) reach
+    # the task, as in generate and train (the JAX CLI drops them; ROADMAP C)
     task_cfg = {"_name": args.task, "data": args.data, "config_yaml": args.config_yaml,
-                "source_lang": args.source_lang, "target_lang": args.target_lang}
+                "source_lang": args.source_lang, "target_lang": args.target_lang,
+                **model_overrides}
     task = setup_task(task_cfg)
     task.load_dataset(args.valid_subset)
 

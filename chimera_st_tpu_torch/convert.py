@@ -19,7 +19,10 @@ cannot drift apart. The tables are ``interlingua``, ``s2t``, ``wav2vec2``,
 adaptive softmax included), ``transformer_lm_char`` (with the character
 embedder: ``symbols`` is its ``symbol_embeddings`` leaf) and one for each
 non-autoregressive model (the ``transformer`` table under ``backbone/``
-plus its heads; ``crf`` is the NAT-CRF's ``E1`` / ``E2``);
+plus its heads; ``crf`` is the NAT-CRF's ``E1`` / ``E2``), ``bart`` (the
+same under ``backbone/`` and the classification head) and
+``multilingual_transformer`` (``enc_<lang>/`` and ``dec_<lang>/`` groups,
+``{g}`` in a template matching the group: a language or ``shared``);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
@@ -199,8 +202,35 @@ _RULES.update({
 })
 
 
+# BART: the ``transformer`` table under ``backbone/`` and the sentence
+# classification head; the multilingual transformer: an encoder a source
+# language group (``{g}``: a language or ``shared``), the ``transformer``
+# table's encoder rows, and a decoder a target language group
+_RULES["bart"] = [*_BACKBONE, ("classification_dense", "classification_dense", "dense"),
+                  ("classification_out", "classification_out", "dense")]
+_RULES["multilingual_transformer"] = [
+    *[(t.replace("encoder.", "encoders.{g}.", 1), f"enc_{{g}}/{f}", kind)
+      for t, f, kind in _RULES["transformer"] if t.startswith("encoder.")],
+    *[(t.replace("decoder.", "decoders.{g}.", 1), f.replace("decoder/", "dec_{g}/", 1), kind)
+      for t, f, kind in _RULES["transformer"] if t.startswith("decoder.")],
+]
+
+# placeholder of a template -> what it matches: ``{i}`` a layer index, ``{g}``
+# a language group
+_SLOTS = {"i": r"\d+", "g": r"[^./]+"}
+
+
 def _pattern(template: str) -> "re.Pattern[str]":
-    return re.compile(re.escape(template).replace(re.escape("{i}"), r"(\d+)") + "$")
+    out = re.escape(template)
+    for name, rx in _SLOTS.items():
+        out = out.replace(re.escape("{" + name + "}"), f"(?P<{name}>{rx})")
+    return re.compile(out + "$")
+
+
+def _fill(template: str, match: "re.Match[str]") -> str:
+    for name, value in match.groupdict().items():
+        template = template.replace("{" + name + "}", value)
+    return template
 
 
 class _Table:
@@ -214,7 +244,7 @@ class _Table:
         for t, _, kind, _, fx in self.rules:
             m = fx.match(module)
             if m:
-                return t.replace("{i}", m.group(1)) if m.groups() else t, kind
+                return _fill(t, m), kind
         raise KeyError(module)
 
     def from_torch(self, module: str) -> Tuple[str, str]:
@@ -222,7 +252,7 @@ class _Table:
         for _, f, kind, tx, _ in self.rules:
             m = tx.match(module)
             if m:
-                return f.replace("{i}", m.group(1)) if m.groups() else f, kind
+                return _fill(f, m), kind
         raise KeyError(module)
 
 
@@ -358,7 +388,8 @@ def model_kind(model: torch.nn.Module) -> str:
     language model with character embeddings) or a non-autoregressive
     model's name (``cmlm_transformer``, ``nonautoregressive_transformer``,
     ``iterative_nonautoregressive_transformer``, ``nacrf_transformer``,
-    ``levenshtein_transformer``, ``insertion_transformer``)."""
+    ``levenshtein_transformer``, ``insertion_transformer``), ``bart`` or
+    ``multilingual_transformer``."""
     cfg = getattr(model, "cfg", None)
     if getattr(cfg, "character_embeddings", False):
         return "transformer_lm_char"
@@ -371,7 +402,8 @@ def model_kind(model: torch.nn.Module) -> str:
             "TransformerModel": "transformer", "TransformerLM": "transformer_lm",
             "Wav2Vec2Encoder": "wav2vec2", "CMLMTransformer": "cmlm_transformer",
             "LevenshteinTransformer": "levenshtein_transformer",
-            "InsertionTransformer": "insertion_transformer"}[type(model).__name__]
+            "InsertionTransformer": "insertion_transformer", "BARTModel": "bart",
+            "MultilingualTransformer": "multilingual_transformer"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
-"""Concatenation and per-epoch resampling of datasets (own copy of the two
+"""Concatenation and per-epoch resampling of datasets (own copy of the
 wrappers of chimera_st_tpu/data/wrappers.py that comma-joined training
-splits use): the host-side dataset interface the tasks read (``__len__``,
-``num_tokens``, ``__getitem__``, ``collater``, ``set_epoch``). The epoch
-iterator re-packs the batches each epoch for a dataset with ``set_epoch``.
+splits and the multilingual tasks use): the host-side dataset interface the
+tasks read (``__len__``, ``num_tokens``, ``__getitem__``, ``collater``,
+``set_epoch``). The epoch iterator re-packs the batches each epoch for a
+dataset with ``set_epoch``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,41 @@ import bisect
 from typing import Any, Optional, Sequence
 
 import numpy as np
+
+
+class IdStampedConcat:
+    """Parts one after another that share one collater (the first part's),
+    each item's ``id`` replaced by its index in the whole (the multilingual
+    denoising and multi-simple-epoch views)."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.offsets = np.cumsum([0] + [len(p) for p in self.parts])
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def _locate(self, i: int):
+        k = int(np.searchsorted(self.offsets, i, side="right") - 1)
+        return self.parts[k], i - int(self.offsets[k])
+
+    def num_tokens(self, i: int) -> int:
+        ds, j = self._locate(i)
+        return ds.num_tokens(j)
+
+    def __getitem__(self, i: int):
+        ds, j = self._locate(i)
+        item = dict(ds[j])
+        item["id"] = i
+        return item
+
+    def collater(self, samples, *args, **kwargs):
+        return self.parts[0].collater(samples, *args, **kwargs)
+
+    def set_epoch(self, epoch: int):
+        for p in self.parts:
+            if hasattr(p, "set_epoch"):
+                p.set_epoch(epoch)
 
 
 class ConcatDataset:

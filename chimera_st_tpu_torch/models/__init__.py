@@ -5,8 +5,9 @@ interlingua model without its memory bank) with its five presets, the seven fban
 Transformer family (``transformer*``, ``transformer_lm*``) and the six
 non-autoregressive models with their 12 presets (``cmlm_transformer*``,
 ``*nonautoregressive_transformer*``, ``nacrf_transformer``,
-``levenshtein_transformer*``, ``insertion_transformer``; counterpart of the
-registrations in chimera_st_tpu/models/).
+``levenshtein_transformer*``, ``insertion_transformer``), ``bart`` with its
+five ``bart*`` / ``mbart*`` presets and ``multilingual_transformer`` with
+its two (counterpart of the registrations in chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
 function that fills a config dict with its preset's defaults. A field the
@@ -18,6 +19,8 @@ import dataclasses
 from typing import Dict
 
 from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
+from . import bart as _bart
+from . import multilingual_transformer as _multi
 from . import nat_cmlm as _cmlm
 from . import nat_insertion as _ins
 from . import nat_levenshtein as _lev
@@ -101,7 +104,8 @@ def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
 for _arch, _preset in _s2t.ARCHITECTURES.items():
     register_model_architecture("s2t_transformer", _arch)(_preset)
 
-# the Transformer family and the non-autoregressive family
+# the Transformer family, the non-autoregressive family, BART and the
+# multilingual transformer
 NAT_MODEL_BUILDERS = {
     "cmlm_transformer": _cmlm.build_cmlm,
     "nonautoregressive_transformer": _nat.build_nat,
@@ -112,9 +116,11 @@ NAT_MODEL_BUILDERS = {
 }
 NAT_ARCHITECTURES = {**_cmlm.ARCHITECTURES, **_nat.ARCHITECTURES, **_lev.ARCHITECTURES,
                      **_ins.ARCHITECTURES}
-for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS}.items():
+for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS, "bart": _bart.build_bart,
+                      "multilingual_transformer": _multi.build_multilingual}.items():
     register_model(_name)(_build)
-for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES}.items():
+for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES,
+                                 **_bart.ARCHITECTURES, **_multi.ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

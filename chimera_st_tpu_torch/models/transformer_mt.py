@@ -112,11 +112,14 @@ def _refuse(cfg) -> None:
         raise NotImplementedError("pipeline_stages above 1 is not ported yet (ROADMAP A12)")
 
 
-class _Encoder(nn.Module):
-    """The fairseq ``encoder`` submodule."""
+class TextEncoder(nn.Module):
+    """The fairseq ``encoder`` submodule, and its forward: the MT
+    transformer's encoder, and one language group of the multilingual
+    model's (JAX ``multilingual_transformer.py:63``)."""
 
     def __init__(self, c: TransformerMTConfig, device):
         super().__init__()
+        self.cfg = c
         self.embed_tokens = Embed(c.src_vocab_size, c.encoder_embed_dim,
                                   padding_idx=c.padding_idx, device=device)
         if c.learned_pos:  # the JAX model sizes it by max_target_positions
@@ -133,6 +136,27 @@ class _Encoder(nn.Module):
         ])
         if c.encoder_normalize_before:
             self.layer_norm = LayerNorm(c.encoder_embed_dim, device=device)
+        self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
+
+    def forward(self, src_tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """src_tokens [B, S] int -> (encoder states [B, S, C], padding mask
+        [B, S])."""
+        c = self.cfg
+        pad_mask = src_tokens == c.padding_idx
+        x = self.embed_scale * self.embed_tokens(src_tokens)
+        if c.learned_pos:
+            pos = learned_positions(self.embed_positions, pad_mask, c.padding_idx)
+        else:
+            pos = positional_embedding_from_mask(pad_mask, c.encoder_embed_dim, c.padding_idx)
+        x = x + pos.to(x.dtype)
+        if c.layernorm_embedding:
+            x = self.layernorm_embedding(x)
+        x = dropout(x, c.dropout if self.training else 0.0, generator)
+        for layer in self.layers:
+            x = layer(x, pad_mask, generator)
+        if c.encoder_normalize_before:
+            x = self.layer_norm(x)
+        return x, pad_mask
 
 
 class TransformerModel(nn.Module):
@@ -144,7 +168,7 @@ class TransformerModel(nn.Module):
         super().__init__()
         _refuse(cfg)
         self.cfg = c = cfg
-        self.encoder = _Encoder(cfg, device)
+        self.encoder = TextEncoder(cfg, device)
         self.decoder = TransformerDecoder(
             c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
             c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
@@ -154,27 +178,11 @@ class TransformerModel(nn.Module):
             share_input_output_embed=c.share_decoder_input_output_embed, causal=c.decoder_causal,
             device=device,
         )
-        self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
 
     def encode(self, src_tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
         """src_tokens [B, S] int -> (encoder states [B, S, C], padding mask
         [B, S])."""
-        c, enc = self.cfg, self.encoder
-        pad_mask = src_tokens == c.padding_idx
-        x = self.embed_scale * enc.embed_tokens(src_tokens)
-        if c.learned_pos:
-            pos = learned_positions(enc.embed_positions, pad_mask, c.padding_idx)
-        else:
-            pos = positional_embedding_from_mask(pad_mask, c.encoder_embed_dim, c.padding_idx)
-        x = x + pos.to(x.dtype)
-        if c.layernorm_embedding:
-            x = enc.layernorm_embedding(x)
-        x = dropout(x, c.dropout if self.training else 0.0, generator)
-        for layer in enc.layers:
-            x = layer(x, pad_mask, generator)
-        if c.encoder_normalize_before:
-            x = enc.layer_norm(x)
-        return x, pad_mask
+        return self.encoder(src_tokens, generator)
 
     def encode_text(self, src_tokens: torch.Tensor,
                     generator: Optional[torch.Generator] = None):

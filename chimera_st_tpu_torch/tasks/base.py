@@ -7,12 +7,14 @@ package's batch order and padded lengths (descending stable sort by size,
 ``batch_by_size``, DP-optimal bucket edges, ``pad_to_bucket``): the padded
 length of a batch changes the model's output, because the extractor's group
 norm spans the whole padded time axis, so hypotheses identical to the JAX
-CLI's need batches identical to it. Group-pure batching (the multilingual
-tasks) waits with those tasks (ROADMAP A14).
+CLI's need batches identical to it. A task with ``batch_groups`` (the
+multilingual translation task: one group a language pair) has each group
+packed on its own, so that no batch mixes groups and none is dropped.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 import logging
 from typing import Any, Dict, Optional
@@ -125,6 +127,11 @@ class ChimeraTask:
 
     # ------------------------------------------------------------ batching
 
+    def batch_groups(self, dataset) -> Optional[np.ndarray]:
+        """Optional [len(dataset)] group ids: where given, every batch is
+        packed from one group (JAX ``tasks/base.py:154``)."""
+        return None
+
     def make_batch_iterator(
         self,
         dataset,
@@ -143,7 +150,8 @@ class ChimeraTask:
         the descending stable sort, every batch padded to the smallest
         covering bucket edge, shuffled per epoch from ``seed`` and sharded
         by the iterator. A dataset that re-samples per epoch (``set_epoch``)
-        is re-packed each epoch, its bucket edges those of epoch 1."""
+        is re-packed each epoch, its bucket edges those of epoch 1. With
+        ``batch_groups`` each group is packed on its own, in group order."""
         if len(dataset) == 0:
             raise ValueError(
                 "dataset is empty after size filtering — check "
@@ -165,13 +173,15 @@ class ChimeraTask:
             order = np.argsort(-epoch_sizes, kind="stable")
             if max_positions is not None:
                 order = order[epoch_sizes[order] <= max_positions]
-            return batch_by_size(
-                order,
-                epoch_sizes,
-                max_tokens=max_tokens,
-                max_sentences=max_sentences,
-                required_batch_size_multiple=required_batch_size_multiple,
-            )
+            groups = self.batch_groups(dataset)
+            pack = functools.partial(batch_by_size, max_tokens=max_tokens,
+                                     max_sentences=max_sentences,
+                                     required_batch_size_multiple=required_batch_size_multiple)
+            if groups is None:
+                return pack(order, epoch_sizes)
+            groups = np.asarray(groups)
+            return [b for g in np.unique(groups[order])
+                    for b in pack(order[groups[order] == g], epoch_sizes)]
 
         # a task whose noise re-rolls each epoch (translation_lev) takes the
         # epoch, as the JAX base task gives it

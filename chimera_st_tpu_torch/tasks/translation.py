@@ -24,6 +24,15 @@ from .base import ChimeraTask
 logger = logging.getLogger(__name__)
 
 
+def collate_pairs(dataset, idx):
+    """Source and target each padded to a multiple of 16 of its own longest
+    row, as the JAX text tasks pad them (the bucket edge is unused)."""
+    samples = [dataset[int(i)] for i in idx]
+    src_max = round16(max(len(s["source"]) for s in samples))
+    tgt_max = round16(max(len(s["target"]) for s in samples))
+    return dataset.collater(samples, src_target_len=src_max, tgt_target_len=tgt_max)
+
+
 @register_task("translation")
 class TranslationTask(ChimeraTask):
     text_only = True
@@ -74,9 +83,4 @@ class TranslationTask(ChimeraTask):
         return self.tgt_dict
 
     def collate_indices(self, dataset, idx, target_len: Optional[int] = None):
-        """Source and target each padded to a multiple of 16 of its own
-        longest row, as the JAX task pads them (the bucket edge is unused)."""
-        samples = [dataset[int(i)] for i in idx]
-        src_max = round16(max(len(s["source"]) for s in samples))
-        tgt_max = round16(max(len(s["target"]) for s in samples))
-        return dataset.collater(samples, src_target_len=src_max, tgt_target_len=tgt_max)
+        return collate_pairs(dataset, idx)

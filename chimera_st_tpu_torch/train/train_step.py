@@ -47,7 +47,9 @@ from ..optim.optimizers import Optimizer
 _TOKEN_KEYS = ("prev_output_tokens", "target", "src_text", "src_tokens", "net_tokens", "id",
                # the non-autoregressive models' canvases and labels
                "masked_target", "target_lengths", "lev_target", "ins_input", "ins_targets",
-               "masked_tgt", "del_input", "del_targets", "slot_tokens")
+               "masked_tgt", "del_input", "del_targets", "slot_tokens",
+               # sentence ranking's candidates
+               "candidate_tokens")
 
 
 def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:

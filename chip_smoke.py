@@ -11,7 +11,8 @@ fairseq Transformer family (MT serving, an LM fused into the decode, LM
 perplexity), Chimera's joint MT + ST training, every optimizer and schedule
 of the train CLI, the adaptive-softmax and character-input LMs, and the
 non-autoregressive family (CMLM, vanilla / iterative NAT, NAT-CRF,
-Levenshtein, insertion), served and trained.
+Levenshtein, insertion), served and trained, and BART / mBART with the
+multilingual transformer, served and trained.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -86,8 +87,9 @@ Phases (any failure raises and the script exits non-zero):
              (2, strength 0.5), diverse siblings (rate 0.5), ordered and
              unordered lexical constraints (two seeded phrases a sentence),
              the two-model ensemble, LM shallow fusion (lm_fusion: a
-             transformer_lm of transformer_lm_gpt's widths, 12 x 768, GELU,
-             over the 10,000-word vocabulary, weight 0.3), reference
+             transformer_lm of transformer_lm_gpt's widths, 768 wide, GELU,
+             4 of its 12 layers, over the 10,000-word vocabulary, weight
+             0.3), reference
              scoring, alignments (the last
              layer's cross-attention over the best hypotheses), the int8 KV
              cache, sampling at top-k 1 and retained dropout. Each mode but
@@ -120,7 +122,9 @@ Phases (any failure raises and the script exits non-zero):
              w2v_args of a released checkpoint: 12 trunk heads).
              checkpoint: the .pt read back through the CLI's loader equals
              the seeded model. cli_parity: cli.generate on the card and with
-             --device cpu in fp32: every sample has its S-/H-/D-/P- lines,
+             --device cpu in fp32 (24 decode steps, PARITY_DECODE, as every
+             CLI parity run of the family and BART phases; served: 64):
+             every sample has its S-/H-/D-/P- lines,
              best hypotheses identical as strings, scores within 1e-4 (plus
              the two roundings to the four printed decimals), the same corpus
              BLEU line. cli_serve: the same command in bf16, launch counts
@@ -165,7 +169,7 @@ Phases (any failure raises and the script exits non-zero):
              (recipes/train-en2any-ST.sh) and a seeded fairseq-layout
              wav2vec2 .pt of the base trunk, warm-up 4, micro-batches of 8,
              3 an update, bf16: run A from a fresh start to 2 updates, run
-             B resumed from A's checkpoint_last to 4, then cli.generate of
+             B resumed from A's checkpoint_last to 3, then cli.generate of
              B's checkpoint_best (beam 10, bf16). Exact launches (a
              training micro-batch K2 6, K1 0; a validation batch, eval
              mode, K1 36, K2 6; the decode K1 24 and K2 6 a batch, K3 6 a
@@ -222,7 +226,7 @@ Phases (any failure raises and the script exits non-zero):
 9. family  - the fairseq Transformer family on seeded text over one joined
              dictionary of 32,768 subwords (binarized by the port's
              preprocess: 64 test and 4 parity pairs of 4-120 Zipf-drawn
-             subwords; a 200,000-token monolingual stream), each model
+             subwords; a 100,000-token monolingual stream), each model
              seeded and written as a native .ckpt by the port's writer in
              the JAX layout. mt_big: transformer_wmt_en_de_big (6 + 6 x 1024,
              FFN 4096, 16 heads of 64, post-norm, ReLU; separate source and
@@ -233,8 +237,9 @@ Phases (any failure raises and the script exits non-zero):
              (K1 6 a batch, K3 6 a decoder step, K2 and K4 0); prints
              {"mt_big": {...}} (sentences/s, load_s, peak memory).
              lm_fusion: the same with --lm-path of a transformer_lm saved
-             with transformer_lm_gpt's widths stated (12 x 768, FFN 3072,
-             12 heads, GELU) and --lm-weight 0.3 (K3 6 + 12 a step).
+             with transformer_lm_gpt's widths stated (768, FFN 3072, 12
+             heads, GELU; 4 of its 12 layers) and --lm-weight 0.3 (K3 6 + 4
+             a step).
              eval_lm: cli.eval_lm of that LM on the stream,
              --tokens-per-sample 512, context windows 0 and 256: fp32 card
              vs CPU within 1e-5 bits/token over the first 8 blocks, then
@@ -297,7 +302,7 @@ Phases (any failure raises and the script exits non-zero):
              {"joint_train": {...}} (updates/s, audio s/s and target tokens/s
              after run A's first update, peak memory, busy share of run B).
 10a. optimizers and the adaptive LM - optim_sweep: cli.train --arch
-             transformer (2 + 2 layers) on family_train's data for each of the eight
+             transformer (1 + 1 layers) on family_train's data for each of the eight
              optimizers and, under adam, each of the five other schedules
              (6 updates, warm-up 2; clip 0.1 but for adafactor;
              reduce_lr_on_plateau validating every 2 updates): the written
@@ -358,11 +363,42 @@ Phases (any failure raises and the script exits non-zero):
              groups): K1 at every shape nat_serve launched (timed, with
              SDPA) and nat_train launched (accuracy), and at 16 heads of 64
              (levenshtein_transformer_vaswani_wmt_en_de_big) on the canvas.
-12. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+12. BART / mBART and the multilingual transformer (this slice's main
+             path, on a fixture of its own: mBART.cc25's 250,027-row table,
+             bart.large's 50,265, a 10,000-subword IWSLT-like de / fr / en
+             dictionary) - bart_serve: a seeded .ckpt of mbart_large at
+             full width and depth (12 + 12 layers of 1,024, 16 heads of 64)
+             served by cli.generate --task translation_from_pretrained_bart
+             -s en_XX -t ro_RO --langs <the 25 cc25 languages> at batch 32,
+             beam 5, --max-decode-len 64: fp32 card vs CPU on the 2 valid
+             pairs (hypotheses and decoder steps identical), then bf16 on 32
+             test pairs (sentences/s, load_s, peak memory; K1 12 a batch, K3
+             12 a decoder step, exact); bart_large under --task translation
+             at beam 4 beside it. Prints {"bart_serve": {...}}. bart_train:
+             cli.train, bf16, of the mBART fine-tune (fairseq's
+             examples/mbart flags, from the served checkpoint with
+             --restore-file and the --reset-* flags), denoising on bart_base
+             (the BART paper's noise; run A to 3 updates, run B resumed to
+             5), RTE on bart_large (examples/bart/README.glue.md), the
+             multilingual transformer (examples/translation, de-en and
+             fr-en, --share-decoders) and translation_multi_simple_epoch on
+             a transformer (then cli.generate of its checkpoint), each with
+             a validation at the stop, fairseq's warm-up cut to 2 updates
+             (4 for the multilingual run); K1 exact (the encoder's layers a
+             training micro-batch where attention dropout is 0, a
+             validation batch always); one fp32 update of each card vs CPU
+             (compare_step; the BART models at 2 + 2 layers, widths and
+             vocabularies kept). Prints {"bart_train": {...}} (updates/s
+             after the first, peak memory, the resume's load seconds).
+             bart_shapes (after nat_shapes): K1 and K3 at every shape they
+             launched against the plain versions; the served batches' and
+             each head width's largest batch timed, K1 with SDPA beside it.
+13. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
-             optim_sweep's, nat_serve's and nat_train's; K3's record holds its times at the search
+             optim_sweep's, nat_serve's, nat_train's, bart_serve's and
+             bart_train's; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -405,6 +441,9 @@ FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
 # timed batches of each serve phase, after one warm-up batch
 SERVE_BATCHES = 3
+# the decode length of the CLI phases' fp32 card-vs-CPU parity runs (cut from
+# their served 64 for the script's time limit: the CPU side is the cost)
+PARITY_DECODE = ["--max-decode-len", "24"]
 
 
 def log(msg: str) -> None:
@@ -433,7 +472,7 @@ class Tee:
 def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
     """Device time of one fn() call in ms: the median over `groups` of the
     mean of `reps` back-to-back calls between two CUDA events. Each group is
-    queued behind a ~0.1 s device-side sleep, so the host has enqueued every
+    queued behind a ~25 ms device-side sleep, so the host has enqueued every
     call before the first starts and the events time the device alone, not
     the host's launch rate (which exceeds a small kernel's run time)."""
     import torch
@@ -445,7 +484,9 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
     for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)  # clock cycles
+        # clock cycles: ~25 ms, more than the host takes to enqueue a group
+        # (the slowest, 6 x 64 K3 launches or 20 plain-version calls, ~13 ms)
+        torch.cuda._sleep(50_000_000)
         start.record()
         for _ in range(reps):
             fn()
@@ -1718,7 +1759,8 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
     """The train CLI in-process at the recipe's model and settings: run A
     from a fresh start (seeded init, the trunk from a seeded fairseq-layout
     wav2vec2 .pt) to 2 updates, run B resumed from A's checkpoint_last to
-    4, then the generate CLI on B's checkpoint_best.
+    3 (cut from 4 for the script's time limit), then the generate CLI on
+    B's checkpoint_best.
 
     Launch counts (zeroed before each run, read after): a training
     micro-batch runs K2 6 times and K1 never (attention dropout 0.1 takes
@@ -1732,7 +1774,7 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
     bit; the file restored by the CLI's ``load_state`` into A's trainer on
     the card, its parameters zeroed and its Adam state cleared first, gives
     back the parameters and the Adam state bit for bit; run B starts at step
-    2 with the stored iterator state, ends at step 4 with the iterator and best
+    2 with the stored iterator state, ends at step 3 with the iterator and best
     metric the JAX rules give; the decode prints one hypothesis per
     utterance. Prints {"train_cli": {...}}; deletes its files."""
     import shutil
@@ -1751,7 +1793,7 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs, counts = {}, {}
-    for label, max_update in (("A", 2), ("B", 4)):
+    for label, max_update in (("A", 2), ("B", 3)):
         for fn in kernels:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1819,8 +1861,8 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
         f"{payload['extra']['best']:.4f} (run A's {best_a:.4f}, B's validations "
         f"{[round(v, 4) for v in vals]})")
     if (b["times"]["restored"]["step"] != 2 or b["times"]["restored"]["train_iterator"] !=
-            stored_iterator or payload["step"] != 4 or b["trainer"].num_updates != 4
-            or payload["extra"]["train_iterator"] != {"epoch": 5, "iterations_in_epoch": 0,
+            stored_iterator or payload["step"] != 3 or b["trainer"].num_updates != 3
+            or payload["extra"]["train_iterator"] != {"epoch": 4, "iterations_in_epoch": 0,
                                                      "shuffle": True}
             or payload["extra"]["best"] != want_best):
         raise AssertionError("train_cli: run B did not resume and end as the JAX rules give")
@@ -2354,7 +2396,7 @@ def phase_cli_parity(torch, fx, work: Path):
     (plain versions), the same arguments otherwise."""
     log(f"cli_parity: generate CLI, fp32, {CLI_WAVS} wavs in batches of {CLI_BATCH}, beam 10, "
         "card vs --device cpu")
-    common = ["--batch-size", str(CLI_BATCH), "--dtype", "float32"]
+    common = ["--batch-size", str(CLI_BATCH), "--dtype", "float32", *PARITY_DECODE]
     gpu_text, _, gpu_s = cli_generate(fx, work / "parity_cuda", "tst_wave", common)
     cpu_text, _, cpu_s = cli_generate(fx, work / "parity_cpu", "tst_wave",
                                       common + ["--device", "cpu"])
@@ -3011,10 +3053,12 @@ FAMILY_TEST_PAIRS = 32  # cut from 64 for the script's time limit: one batch of 
 FAMILY_PARITY_PAIRS = 2  # cut from 4 for the script's time limit
 FAMILY_BATCH = 32
 FAMILY_DECODE = ["--beam", "4", "--lenpen", "0.6", "--max-decode-len", "64"]  # WMT'16 en-de big
-LM_STREAM_TOKENS = 200_000
+LM_STREAM_TOKENS = 100_000  # cut from 200,000 for the script's time limit
 LM_BLOCK = 512
-LM_GPT = {"arch": "transformer_lm", "embed_dim": 768, "ffn_dim": 3072, "layers": 12,
-          "heads": 12, "activation": "gelu"}  # transformer_lm_gpt's widths, stated
+# transformer_lm_gpt's widths, stated; 4 of its 12 layers (cut for the
+# script's time limit)
+LM_GPT = {"arch": "transformer_lm", "embed_dim": 768, "ffn_dim": 3072, "layers": 4,
+          "heads": 12, "activation": "gelu"}
 FAMILY_MODELS = {"mt_big": {"arch": "transformer_wmt_en_de_big"},
                  "iwslt": {"arch": "transformer_iwslt_de_en"}}
 
@@ -3135,7 +3179,8 @@ def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int
     log(f"{label}: cli.generate --task translation {' '.join(FAMILY_DECODE + list(extra))}; "
         f"fp32 card vs CPU on {FAMILY_PARITY_PAIRS} pairs, then bf16 on "
         f"{FAMILY_TEST_PAIRS} in batches of {FAMILY_BATCH}")
-    common = ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "float32", *extra]
+    common = ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "float32", *extra,
+              *PARITY_DECODE]
     t0 = time.perf_counter()
     gpu_text, _ = family_generate(fx, ckpt, work / "parity_cuda", "valid", common)
     gpu_s = time.perf_counter() - t0
@@ -3456,24 +3501,31 @@ def corpus_bleu(hyps, refs, tokenize="13a", lowercase=False, **_):
 
 
 def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=None, lr=1e-4,
-                       clip=0.0, keys=("loss", "nll_loss")):
+                       clip=0.0, keys=("loss", "nll_loss"), prepare=None):
     """One accumulated update of a family model at full width in fp32 (TF32
     off), every dropout 0, on the card (kernels) and on the CPU (plain
     versions), from the same seeded weights: the optimizer ``opt_cfg``
     (Adam (0.9, 0.98) by default) at a fixed ``lr``, ``clip`` the global
-    norm. Adam's update is held by compare_step, another optimizer's by
-    gradient_gates and optimizer_step_parity."""
+    norm; ``prepare(model)`` runs on each model before its step. Adam's
+    update is held by compare_step, another optimizer's by gradient_gates
+    and optimizer_step_parity."""
+    import copy
+
     from chimera_st_tpu_torch.convert import checkpoint_axes
     from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.train import TrainStep
 
     opt_cfg = opt_cfg or {"_name": "adam", "adam_betas": "(0.9, 0.98)"}
+    seeded = init_params_(task.build_model(dict(model_cfg, dropout=0.0, attention_dropout=0.0,
+                                                activation_dropout=0.0),
+                                           device="cpu", train=True),
+                          torch.Generator().manual_seed(19))
+    if prepare is not None:
+        prepare(seeded)
     out = {}
     for device in ("cuda", "cpu"):
-        model = task.build_model(dict(model_cfg, dropout=0.0, attention_dropout=0.0,
-                                      activation_dropout=0.0), device="cpu", train=True)
-        init_params_(model, torch.Generator().manual_seed(19)).to(device)
+        model = copy.deepcopy(seeded).to(device) if device == "cuda" else seeded
         step = TrainStep(model, task.build_criterion(crit_cfg),
                          build_optimizer(opt_cfg, list(model.parameters()), clip_norm=clip,
                                          checkpoint_axes=checkpoint_axes(model)),
@@ -4103,9 +4155,9 @@ OPTIM_SWEEP = {
                              "--save-interval-updates", "2"],
 }
 OPTIM_UPDATES = 6
-# the sweep's transformer: FAMILY_TRAIN_MODEL's widths, 2 of its 6 + 6 layers
+# the sweep's transformer: FAMILY_TRAIN_MODEL's widths, 1 of its 6 + 6 layers
 # (cut for the script's time limit)
-OPTIM_MODEL = {"arch": "transformer", "encoder_layers": 2, "decoder_layers": 2}
+OPTIM_MODEL = {"arch": "transformer", "encoder_layers": 1, "decoder_layers": 1}
 
 
 def optim_argv(data: Path, save_dir: Path, name: str):
@@ -4832,6 +4884,499 @@ def phase_nat_shapes(torch, ops, serve_seen, train_seen, records):
                                                        16, 64)
 
 
+# ---- BART / mBART and multilingual translation: bart_serve (this slice's
+# main path), bart_train, bart_shapes
+
+MBART_LANGS = ("ar_AR,cs_CZ,de_DE,en_XX,es_XX,et_EE,fi_FI,fr_XX,gu_IN,hi_IN,it_IT,ja_XX,kk_KZ,"
+               "ko_KR,lt_LT,lv_LV,my_MM,ne_NP,nl_XX,ro_RO,ru_RU,si_LK,tr_TR,vi_VN,zh_CN")
+MBART_VOCAB = 250_027  # mBART.cc25's table: the dictionary, 25 [lang] tags and <mask>
+BART_VOCAB = 50_265  # bart.large's (GPT-2 BPE) dictionary
+IWSLT_VOCAB = 10_000  # a joined dictionary of the multilingual IWSLT example's size
+MBART_TEST_PAIRS = 32
+MBART_PARITY_PAIRS = 2
+MBART_DECODE = ["--max-decode-len", "64"]  # cut from fairseq's --max-len-b 200
+MBART_CKPT = {"arch": "mbart_large", "dropout": 0.3, "attention_dropout": 0.1}
+BART_CKPT = {"arch": "bart_large"}
+# the parity checkpoint of each trained model: the widths and the vocabulary
+# kept, the BART models' depth cut to 2 + 2 (an fp32 CPU step at full depth
+# would not finish in the script's time)
+BART_PARITY_DEPTH = {"encoder_layers": 2, "decoder_layers": 2}
+
+
+def seeded_words(n_words: int, seed: int, path: Path):
+    """A dictionary file of ``n_words`` subwords (Zipf 1.1 counts), "." the
+    third; -> (the words, their probabilities)."""
+    rng = np.random.default_rng(seed)
+    words = np.asarray([f"s{i}" for i in range(n_words)])
+    words[2] = "."
+    p = 1.0 / np.arange(1, n_words + 1) ** 1.1
+    p /= p.sum()
+    counts = np.maximum((p * 1e8).astype(np.int64), 1)
+    path.write_text("".join(f"{w} {c}\n" for w, c in zip(words, counts)))
+    return words, p
+
+
+def text_pairs(rng, words, p, n, lengths=MT_LENGTHS):
+    """n source lines of Zipf words and targets within +-20 % of their length."""
+    src, _ = zipf_rows(rng, words, p, n, lengths)
+    tgt = [" ".join(words[rng.choice(len(words), size=max(1, int(round(
+        len(line.split()) * rng.uniform(0.8, 1.2)))), p=p)]) for line in src]
+    return src, tgt
+
+
+def write_pairs(raw: Path, prefix: str, s: str, t: str, pairs) -> str:
+    src, tgt = pairs
+    (raw / f"{prefix}.{s}").write_text("\n".join(src) + "\n")
+    (raw / f"{prefix}.{t}").write_text("\n".join(tgt) + "\n")
+    return str(raw / prefix)
+
+
+def make_bart_fixture(root: Path, seed: int = 83) -> dict:
+    """Seeded text for the BART phases, binarized by the port's preprocess
+    CLI: ``mbart`` (en_XX -> ro_RO over a dictionary that makes mBART.cc25's
+    250,027-row table with the task's tags: 200 train, the parity pairs as
+    ``valid``, 32 test), ``bart_mt`` (en -> de, 32 test pairs, bart.large's
+    50,265 rows), ``mono`` (a denoising stream of sentences ending in ".",
+    40,000 subwords, on bart's dictionary), ``glue`` (RTE-like premise /
+    hypothesis pairs, 64 train and 16 valid, text labels) and ``iwslt``
+    (de-en and fr-en, 2,400 train and 8 valid pairs each of 4-40 subwords,
+    one joined 10,000-subword dictionary, also as ``dict.txt``)."""
+    import shutil
+
+    from chimera_st_tpu_torch.cli import preprocess
+
+    rng = np.random.default_rng(seed)
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    t0 = time.perf_counter()
+    n_tags = len(MBART_LANGS.split(",")) + 1
+    m_words, m_p = seeded_words(MBART_VOCAB - 4 - n_tags, seed, root / "dict.mbart.txt")
+    b_words, b_p = seeded_words(BART_VOCAB - 4, seed + 1, root / "dict.bart.txt")
+    i_words, i_p = seeded_words(IWSLT_VOCAB - 4, seed + 2, root / "dict.iwslt.txt")
+    splits = {split: write_pairs(raw, f"m{split}", "en_XX", "ro_RO",
+                                 text_pairs(rng, m_words, m_p, n, (4, 60) if split == "train"
+                                            else MT_LENGTHS))
+              for split, n in (("train", 200), ("valid", MBART_PARITY_PAIRS),
+                               ("test", MBART_TEST_PAIRS))}
+    preprocess.main(["-s", "en_XX", "-t", "ro_RO", "--joined-dictionary", "--srcdict",
+                     str(root / "dict.mbart.txt"), "--trainpref", splits["train"],
+                     "--validpref", splits["valid"], "--testpref", splits["test"],
+                     "--destdir", str(root / "mbart")])
+    test = write_pairs(raw, "btest", "en", "de", text_pairs(rng, b_words, b_p, MBART_TEST_PAIRS))
+    preprocess.main(["-s", "en", "-t", "de", "--joined-dictionary", "--srcdict",
+                     str(root / "dict.bart.txt"), "--testpref", test,
+                     "--destdir", str(root / "bart_mt")])
+    for split, n_tokens in (("train", 40_000), ("valid", 2_000)):
+        lines, n = [], 0
+        while n < n_tokens:
+            sents = [zipf_rows(rng, b_words, b_p, 1, (4, 30))[0][0] + " ."
+                     for _ in range(int(rng.integers(2, 6)))]
+            lines.append(" ".join(sents))
+            n += sum(len(s.split()) for s in sents)
+        (raw / f"mono.{split}").write_text("\n".join(lines) + "\n")
+    preprocess.main(["--only-source", "--srcdict", str(root / "dict.bart.txt"), "--trainpref",
+                     str(raw / "mono.train"), "--validpref", str(raw / "mono.valid"),
+                     "--destdir", str(root / "mono")])
+    shutil.copy(root / "mono" / "dict.None.txt" if (root / "mono" / "dict.None.txt").exists()
+                else root / "dict.bart.txt", root / "mono" / "dict.txt")
+    for k, (n, lengths) in enumerate(((64, (20, 100)), (64, (4, 20)))):
+        pre = {}
+        for split, m in (("train", n), ("valid", 16)):
+            rows, _ = zipf_rows(rng, b_words, b_p, m, lengths)
+            (raw / f"glue{k}.{split}").write_text("\n".join(rows) + "\n")
+            pre[split] = str(raw / f"glue{k}.{split}")
+        preprocess.main(["--only-source", "--srcdict", str(root / "dict.bart.txt"),
+                         "--trainpref", pre["train"], "--validpref", pre["valid"],
+                         "--destdir", str(root / "glue" / f"input{k}")])
+        shutil.copy(root / "dict.bart.txt", root / "glue" / f"input{k}" / "dict.txt")
+    (root / "glue" / "label").mkdir()
+    for split, m in (("train", 64), ("valid", 16)):
+        labels = rng.choice(["entailment", "not_entailment"], m)
+        (root / "glue" / "label" / f"{split}.label").write_text("\n".join(labels) + "\n")
+    for pair in ("de-en", "fr-en"):
+        s, t = pair.split("-")
+        pre = {split: write_pairs(raw, f"{pair}.{split}", s, t,
+                                  text_pairs(rng, i_words, i_p, n, (4, 40)))
+               for split, n in (("train", 2400), ("valid", 8))}
+        preprocess.main(["-s", s, "-t", t, "--joined-dictionary", "--srcdict",
+                         str(root / "dict.iwslt.txt"), "--trainpref", pre["train"],
+                         "--validpref", pre["valid"], "--destdir", str(root / "iwslt")])
+    shutil.copy(root / "dict.iwslt.txt", root / "iwslt" / "dict.txt")
+    log(f"bart fixture: mBART {MBART_VOCAB}-row table, bart {BART_VOCAB}, iwslt {IWSLT_VOCAB}; "
+        f"binarized in {time.perf_counter() - t0:.1f} s")
+    return dict(root=root, mbart=root / "mbart", bart_mt=root / "bart_mt", mono=root / "mono",
+                glue=root / "glue", iwslt=root / "iwslt")
+
+
+def bart_task_args(fx, name: str):
+    """The task flags of one BART phase's data."""
+    return {
+        "mbart": [str(fx["mbart"]), "--task", "translation_from_pretrained_bart", "-s", "en_XX",
+                  "-t", "ro_RO", "--langs", MBART_LANGS],
+        "bart_mt": [str(fx["bart_mt"]), "--task", "translation", "-s", "en", "-t", "de"],
+        "iwslt_mse": [str(fx["iwslt"]), "--task", "translation_multi_simple_epoch",
+                      "--lang-pairs", "de-en,fr-en", "--encoder-langtok", "src",
+                      "--decoder-langtok"],
+    }[name]
+
+
+def bart_checkpoint(torch, fx, name: str, data: str, model_cfg: dict, seed: int) -> Path:
+    """A native checkpoint (the JAX layout, through the port's writer) of
+    ``model_cfg`` on the task of ``data`` with seeded random weights."""
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+
+    task = bart_run_task(bart_task_args(fx, data))
+    t0 = time.perf_counter()
+    model = init_params_(task.build_model(dict(model_cfg), device="cpu", train=True),
+                         torch.Generator().manual_seed(seed))
+    path = fx["root"] / f"{name}.ckpt"
+    save_model(str(path), model, model_cfg)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {name}: {model_cfg['arch']}, {n / 1e6:.1f} M parameters (two {len(task.src_dict)}-row "
+        f"tables: share_all_embeddings is not honoured); {path.stat().st_size / 1e9:.2f} GB "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def bart_generate(fx, data: str, ckpt: Path, out_dir: Path, subset: str, extra):
+    """cli.generate on one BART phase's data -> (output text, its returned
+    counts and times)."""
+    from chimera_st_tpu_torch.cli import generate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats = generate.main([*bart_task_args(fx, data), "--path", str(ckpt), "--gen-subset",
+                           subset, *MBART_DECODE, "--scoring", "bleu", "--results-path",
+                           str(out_dir), *extra])
+    return (out_dir / f"generate-{subset}.txt").read_text(), stats
+
+
+def bart_serve_one(torch, fx, label, data, ckpt: Path, kernels, beam: int, layers: int,
+                   parity: bool):
+    """One model through cli.generate: with ``parity`` fp32 on the card
+    against --device cpu on the ``valid`` split (MBART_PARITY_PAIRS), best
+    hypotheses identical and equal decoder steps; then bf16 on the 32
+    ``test`` pairs in one batch with the counts zeroed before and read
+    after: K1 ``layers`` a batch, K3 ``layers`` a decoder step."""
+    work = fx["root"] / label
+    rec = {}
+    if parity:
+        common = ["--batch-size", str(MBART_PARITY_PAIRS), "--dtype", "float32", "--beam",
+                  str(beam), *PARITY_DECODE]
+        texts, steps_of = {}, {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            with counted_decoder_steps() as steps:
+                texts[side], _ = bart_generate(fx, data, ckpt, work / f"parity_{side}",
+                                               "valid", common + ["--device", dev])
+            steps_of[side] = steps[0]
+            rec[f"fp32_{side}_s"] = time.perf_counter() - t0
+        (gh, gfull, _), (ch, cfull, _) = (parse_protocol(texts[d]) for d in ("card", "cpu"))
+        if len(gfull) != MBART_PARITY_PAIRS or len(cfull) != MBART_PARITY_PAIRS \
+                or steps_of["card"] != steps_of["cpu"]:
+            raise AssertionError(f"{label}: samples card {len(gfull)} / CPU {len(cfull)}, "
+                                 f"decoder steps {steps_of}")
+        same_hypotheses(f"{label} fp32 card vs CPU", gh, ch, MBART_PARITY_PAIRS)
+        rec["fp32_decoder_steps"] = steps_of["card"]
+        log(f"  {label} fp32: card {rec['fp32_card_s']:.1f} s, CPU {rec['fp32_cpu_s']:.1f} s, "
+            f"{steps_of['cpu']} decoder steps each")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_decoder_steps() as steps:
+        t0 = time.perf_counter()
+        text, stats = bart_generate(fx, data, ckpt, work / "serve", "test",
+                                    ["--batch-size", str(MBART_TEST_PAIRS), "--dtype",
+                                     "bfloat16", "--beam", str(beam)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    hyps, full, last = parse_protocol(text)
+    implied = {"encoder_attention": layers, "conv_tail": 0,
+               "decode_attention": layers * steps[0], "logmel": 0}
+    rec.update(sentences=stats["sentences"], wall_s=wall, decode_s=stats["decode_s"],
+               load_s=stats["load_s"], sentences_per_s=stats["sentences"] / stats["decode_s"],
+               decoder_steps=steps[0], peak_memory_gb=peak / 1e9, launches=counts)
+    log(f"  {label} bf16 beam {beam}: {stats['sentences']} sentences in {wall:.1f} s (decode "
+        f"{stats['decode_s']:.2f} s, {rec['sentences_per_s']:.1f} sentences/s; load "
+        f"{stats['load_s']:.2f} s), {steps[0]} decoder steps; peak {peak / 1e9:.2f} GB; "
+        f"launches {counts}; {last}")
+    if (counts != implied or steps[1] != layers * steps[0] or not steps[0]
+            or len(full) != MBART_TEST_PAIRS
+            or any(not np.isfinite(h[0][0]) for h in hyps.values())):
+        raise AssertionError(f"{label}: launches {counts} (want {implied}), {len(full)} samples")
+    return counts, rec
+
+
+def phase_bart_serve(torch, fx, kernels):
+    """The slice's main path: ``mbart_large`` at full width and depth (12 +
+    12 layers of 1,024, 16 heads of 64, FFN 4,096, mBART.cc25's 250,027-row
+    table) served by ``cli.generate --task translation_from_pretrained_bart
+    -s en_XX -t ro_RO --langs <the 25 cc25 languages>`` at fairseq's
+    README operating point (batch 32, beam 5): fp32 card vs CPU on the
+    valid pairs, then bf16 on 32 test pairs; beside it ``bart_large`` under
+    ``--task translation`` at beam 4. Returns ({run: launches}, the mBART
+    checkpoint); prints {"bart_serve": {...}}."""
+    log(f"bart_serve: cli.generate {' '.join(MBART_DECODE)}, batches of {MBART_TEST_PAIRS}")
+    mbart = bart_checkpoint(torch, fx, "mbart_large", "mbart", MBART_CKPT, 91)
+    counts, recs = {}, {}
+    counts["bart_serve"], recs["mbart_large"] = bart_serve_one(
+        torch, fx, "bart_serve", "mbart", mbart, kernels, 5, 12, parity=True)
+    bart_large = bart_checkpoint(torch, fx, "bart_large", "bart_mt", BART_CKPT, 92)
+    counts["bart_serve_bart_large"], recs["bart_large"] = bart_serve_one(
+        torch, fx, "bart_serve_bart_large", "bart_mt", bart_large, kernels, 4, 12, parity=False)
+    bart_large.unlink()
+    print(json.dumps({"bart_serve": recs}), flush=True)
+    return counts, mbart
+
+
+@contextlib.contextmanager
+def counted_microbatches():
+    """While open, counts the training micro-batches the train step runs."""
+    from chimera_st_tpu_torch.train import train_step
+
+    n = [0]
+    real = train_step.microbatch_grad
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return real(*args, **kwargs)
+
+    train_step.microbatch_grad = counted
+    try:
+        yield n
+    finally:
+        train_step.microbatch_grad = real
+
+
+def bart_train_runs(fx, mbart_ckpt: Path):
+    """name -> the run: its data flags, model config, criterion, --max-tokens
+    and other recipe flags (fairseq's README flags that the train CLI
+    parses, each run cut to a few updates), the encoder's layers, whether
+    K1 runs in training (attention dropout 0) and the validation batch
+    size."""
+    common = ["--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--dtype", "bfloat16",
+              "--log-interval", "1"]
+    return {
+        # examples/mbart/README.md's fine-tune, from the served checkpoint as
+        # the pretrained model (--restore-file and the four --reset-* flags)
+        "mbart_ft": dict(
+            data=bart_task_args(fx, "mbart"),
+            model={"arch": "mbart_large", "layernorm_embedding": True},
+            criterion="label_smoothed_cross_entropy", layers=12, k1_train=False, valid_bs=8,
+            max_tokens=1024,
+            recipe=[*common, "--label-smoothing", "0.2", "--adam-eps", "1e-06",
+                    "--lr-scheduler", "polynomial_decay", "--lr", "3e-05", "--warmup-updates",
+                    "2", "--total-num-update", "40000", "--dropout", "0.3",
+                    "--attention-dropout", "0.1", "--weight-decay", "0.0", "--update-freq", "2", "--seed", "222", "--max-update", "4",
+                    "--no-save", "--restore-file", str(mbart_ckpt), "--reset-optimizer",
+                    "--reset-meters", "--reset-dataloader", "--reset-lr-scheduler"]),
+        # the BART paper's noise: text infilling and sentence permutation
+        "denoising": dict(
+            data=[str(fx["mono"]), "--task", "denoising", "--mask", "0.3", "--mask-random",
+                  "0.1", "--poisson-lambda", "3.5", "--permute-sentences", "1",
+                  "--replace-length", "1", "--tokens-per-sample", "512"],
+            model={"arch": "bart_base"}, criterion="label_smoothed_cross_entropy", layers=6,
+            k1_train=True, valid_bs=8, max_tokens=4096,
+            recipe=[*common, "--label-smoothing", "0.1", "--lr", "4e-4", "--lr-scheduler",
+                    "polynomial_decay", "--warmup-updates", "2", "--total-num-update",
+                    "500000", "--max-update", "3"]),
+        # examples/bart/README.glue.md, RTE
+        "sentence_prediction": dict(
+            data=[str(fx["glue"]), "--task", "sentence_prediction", "--num-classes", "2",
+                  "--max-positions", "1024"],
+            model={"arch": "bart_large"}, criterion="sentence_prediction", layers=12,
+            k1_train=False, valid_bs=16, max_tokens=None,
+            recipe=[*common, "--batch-size", "16", "--dropout", "0.1", "--attention-dropout",
+                    "0.1", "--weight-decay", "0.01", "--adam-eps", "1e-08", "--clip-norm",
+                    "0.0", "--lr-scheduler", "polynomial_decay", "--lr", "1e-05",
+                    "--total-num-update", "2036", "--warmup-updates", "2", "--max-update", "4",
+                    "--no-save"]),
+        # examples/translation/README.md, multilingual_transformer_iwslt_de_en
+        "multilingual": dict(
+            data=[str(fx["iwslt"]), "--task", "multilingual_translation", "--lang-pairs",
+                  "de-en,fr-en"],
+            model={"arch": "multilingual_transformer_iwslt_de_en", "share_decoders": True,
+                   "share_decoder_input_output_embed": True},
+            criterion="multilingual_label_smoothed_cross_entropy", layers=6, k1_train=True,
+            valid_bs=8, max_tokens=4000,
+            recipe=[*common, "--lr", "0.0005", "--lr-scheduler", "inverse_sqrt",
+                    "--warmup-updates", "4", "--warmup-init-lr", "1e-07", "--label-smoothing",
+                    "0.1", "--dropout", "0.3", "--weight-decay", "0.0001", "--update-freq",
+                    "8", "--max-update", "3", "--no-save"]),
+        # examples/multilingual/README.md, on a transformer
+        "multi_simple_epoch": dict(
+            data=[*bart_task_args(fx, "iwslt_mse"), "--sampling-temperature", "1.5"],
+            model={"arch": "transformer"}, criterion="label_smoothed_cross_entropy", layers=6,
+            k1_train=False, valid_bs=8, max_tokens=1024,
+            recipe=[*common, "--label-smoothing", "0.2", "--adam-eps", "1e-06",
+                    "--lr-scheduler", "inverse_sqrt", "--lr", "3e-05", "--warmup-updates",
+                    "2", "--dropout", "0.3", "--attention-dropout", "0.1", "--weight-decay",
+                    "0.0", "--update-freq", "2", "--max-update", "3"]),
+    }
+
+
+def max_tokens_flag(run):
+    return [] if run["max_tokens"] is None else ["--max-tokens", str(run["max_tokens"])]
+
+
+def bart_run_task(data_flags):
+    """The task of a run's data flags, as the CLIs build it."""
+    from chimera_st_tpu_torch.cli import options
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    args, extra = options.parse_with_model_overrides(options.base_parser("bart"), data_flags)
+    return setup_task({"_name": args.task, "data": args.data, "source_lang": args.source_lang,
+                       "target_lang": args.target_lang, **extra})
+
+
+def bart_train_one(torch, name, run, label, save_dir: Path, n_valid: int, kernels, extra=()):
+    """One cli.train run with the counts zeroed before and read after; K1
+    exact. -> (launches, record)."""
+    from chimera_st_tpu_torch.cli import train
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_microbatches() as micro, counted_decoder_steps() as steps:
+        out = train.main([*run["data"], *model_flags(run["model"]), "--criterion",
+                          run["criterion"], *run["recipe"], *max_tokens_flag(run),
+                          "--batch-size-valid", str(run["valid_bs"]), "--save-dir",
+                          str(save_dir), *extra])
+    torch.cuda.synchronize()
+    c = {fn.__name__: fn.launches for fn in kernels}
+    t = out["times"]
+    updates = out["trainer"].num_updates - t["restored"]["step"]
+    implied = {"encoder_attention": run["layers"] * (micro[0] * run["k1_train"]
+                                                     + n_valid * len(t["valid_s"])),
+               "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+    timed = t["update_s"][1:]  # after the first update of the run
+    r = dict(updates=updates, micro_batches=micro[0],
+             updates_per_s_after_first=len(timed) / sum(timed), update_s=t["update_s"],
+             valid_s=t["valid_s"], valid=t["valid"], save_s=t["save_s"], load_s=t["load_s"],
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=c,
+             wall_s=time.perf_counter() - t0,
+             params_m=sum(p.numel() for p in out["trainer"].model.parameters()) / 1e6)
+    log(f"  bart_train {name} run {label}: {r['wall_s']:.1f} s, {r['params_m']:.1f} M "
+        f"parameters, step {t['restored']['step']} -> {out['trainer'].num_updates} ({micro[0]} "
+        f"micro-batches), {r['updates_per_s_after_first']:.3f} updates/s after the first, peak "
+        f"{r['peak_memory_gb']:.2f} GB, load {t['load_s']:.2f} s, saves "
+        f"{[round(s, 2) for s in t['save_s']]} s, validation {t['valid']}; launches {c}")
+    if (c != implied or not updates or steps[0] or not t["valid_s"]
+            or any(not np.isfinite(v) for v in t["valid"])):
+        raise AssertionError(f"bart_train {name} run {label}: launches {c} (want {implied}), "
+                             f"{updates} updates, decoder steps {steps[0]}")
+    return c, r, t["restored"]["step"]
+
+
+def phase_bart_train(torch, fx, mbart_ckpt: Path, kernels):
+    """The five training runs of the slice through cli.train, bf16, each
+    to a few updates with a validation at the stop: the mBART fine-tune
+    from the served checkpoint, BART denoising (run A to 3 updates, run B
+    resumed to 5), RTE on bart_large, the multilingual transformer (de-en
+    and fr-en, --share-decoders, --update-freq 8) and
+    translation_multi_simple_epoch on a transformer (then cli.generate of
+    its checkpoint on the valid pairs); then one fp32 update of each, card
+    vs CPU (family_step_parity; the BART models at BART_PARITY_DEPTH).
+    Launches exact: K1 the encoder's layers a training micro-batch where
+    attention dropout is 0 (denoising, multilingual), none where it is 0.1,
+    and the encoder's layers a validation batch; K3 none in training.
+    Returns {run: launches}; prints {"bart_train": {...}}."""
+    import itertools
+    import shutil
+
+    counts, rec = {}, {}
+    for name, run in bart_train_runs(fx, mbart_ckpt).items():
+        task = bart_run_task(run["data"])
+        task.load_dataset("valid")
+        n_valid = len(task.make_batch_iterator(task.dataset("valid"),
+                                               max_tokens=run["max_tokens"],
+                                               max_sentences=run["valid_bs"]))
+        save_dir = fx["root"] / f"bart_train_{name}"
+        counts[f"bart_train_{name}"], rec[name], _ = bart_train_one(
+            torch, name, run, "A", save_dir, n_valid, kernels)
+        if name == "denoising":
+            counts["bart_train_denoising_resume"], rec["denoising_resume"], step = \
+                bart_train_one(torch, name, run, "B", save_dir, n_valid, kernels,
+                               ["--max-update", "5"])
+            if step != 3:
+                raise AssertionError(f"bart_train denoising: run B restored at {step}")
+        if name == "multi_simple_epoch":
+            for fn in kernels:
+                fn.launches = 0
+            with counted_decoder_steps() as steps:
+                text, _ = bart_generate(fx, "iwslt_mse", save_dir / "checkpoint_last.ckpt",
+                                        save_dir / "decode", "valid",
+                                        ["--batch-size", "16", "--dtype", "bfloat16"])
+                torch.cuda.synchronize()
+            c = {fn.__name__: fn.launches for fn in kernels}
+            _, full, line = parse_protocol(text)
+            if len(full) != 16 or c["encoder_attention"] != 6 \
+                    or c["decode_attention"] != 6 * steps[0]:
+                raise AssertionError(f"multi_simple_epoch generate: {len(full)} samples, {c}")
+            counts["bart_train_multi_simple_epoch_decode"] = c
+            log(f"  multi_simple_epoch cli.generate: 16 sentences, {steps[0]} decoder steps, "
+                f"launches {c}; {line}")
+        task.load_dataset("train")
+        micro = list(itertools.islice(task.make_batch_iterator(
+            task.dataset("train"), max_sentences=2).next_epoch_itr(shuffle=False), 2))
+        model_cfg = dict(run["model"])
+        if model_cfg["arch"].startswith(("bart", "mbart")):
+            model_cfg.update(BART_PARITY_DEPTH)
+        rec[f"{name}_parity"] = family_step_parity(
+            torch, f"bart_train {name}", task, model_cfg,
+            {"_name": run["criterion"], "label_smoothing": 0.1}, micro,
+            keys=("loss",) if run["criterion"] == "sentence_prediction" else ("loss", "nll_loss"),
+            prepare=zero_fixed_dropout)
+        shutil.rmtree(save_dir, ignore_errors=True)
+    print(json.dumps({"bart_train": rec}), flush=True)
+    return counts
+
+
+def zero_fixed_dropout(model) -> None:
+    """The multilingual decoders' attention and activation dropout, 0.1
+    whatever the config (as in the JAX package), set to 0 for a parity
+    step (other models have every dropout 0 from their config)."""
+    if hasattr(model, "decoders"):
+        for m in model.decoders.modules():
+            for attr in ("dropout", "activation_dropout"):
+                if isinstance(getattr(m, attr, None), float):
+                    setattr(m, attr, 0.0)
+
+
+def phase_bart_shapes(torch, ops, seen, records):
+    """K1 and K3 at every shape bart_serve and bart_train launched against
+    the plain versions. Timed (K1 with SDPA beside it): the served batches
+    (K1 at B 32, K3 at 32 sentences) and, for each head width, the
+    largest training or validation batch; the others for accuracy (the
+    training micro-batches of --max-tokens make dozens of shapes)."""
+    k1 = seen["encoder_attention"]
+    largest = {}
+    for shape, dtype in k1:
+        hd = shape[2:]
+        if shape[0] != MBART_TEST_PAIRS and (hd not in largest or shape[0] * shape[1]
+                                              > largest[hd][0][0] * largest[hd][0][1]):
+            largest[hd] = (shape, dtype)
+    timed_k1 = [p for p in k1 if p[0][0] == MBART_TEST_PAIRS] + list(largest.values())
+    k3 = seen["decode_attention"]
+    timed_k3 = [p for p in k3 if p[0][0] // p[0][4] == MBART_TEST_PAIRS]
+    timed = {"encoder_attention": timed_k1, "conv_tail": [], "decode_attention": timed_k3}
+    rest = {"encoder_attention": [p for p in k1 if p not in timed_k1], "conv_tail": [],
+            "decode_attention": [p for p in k3 if p not in timed_k3]}
+    phase_shapes(torch, ops, timed, records, "bart_serve", lambda sh: (
+        {(16, 64), (12, 64), (4, 128), (8, 64)} <= {(H, D) for _, _, H, D
+                                                    in sh["encoder_attention"]}
+        and {(16, 5), (16, 4)} <= {(H, C) for _, H, _, _, C in sh["decode_attention"]}),
+        timed=("encoder_attention", "decode_attention"))
+    phase_shapes(torch, ops, rest, records, "bart", lambda sh: (
+        (8, 5) in {(H, C) for _, H, _, _, C in sh["decode_attention"]}
+        and not sh["conv_tail"]))
+
+
 def main() -> int:
     import argparse
 
@@ -5048,6 +5593,16 @@ def main() -> int:
             counts.update(phase_nat_train(torch, family_fx, family_fx["root"] / "mt_train",
                                           kernels))
         mark("nat_train done")
+        # 12. BART / mBART and multilingual translation (this slice's main
+        # path), its K1 and K3 shapes held against the plain versions below
+        bart_fx = make_bart_fixture(work / "bart")
+        with recorded_shapes(*ops) as bart_seen:
+            bart_counts, mbart_ckpt = phase_bart_serve(torch, bart_fx, kernels)
+            counts.update(bart_counts)
+            mark("bart_serve done")
+            counts.update(phase_bart_train(torch, bart_fx, mbart_ckpt, kernels))
+            mbart_ckpt.unlink()
+        mark("bart_train done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -5084,8 +5639,9 @@ def main() -> int:
         and not sh["conv_tail"] and not sh["decode_attention"]))
 
     phase_nat_shapes(torch, ops, nat_serve_seen, nat_train_seen, records)
+    phase_bart_shapes(torch, ops, bart_seen, records)
     mark("shapes done")
-    # 12. report
+    # 13. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

@@ -404,7 +404,7 @@ def test_unported_scorer_and_task_raise(fixture):
         generate.main([str(fixture), *COMMON, "--path", str(fixture / "ref.pt"),
                        "--scoring", "wer", "--device", "cpu"])
     with pytest.raises(KeyError):
-        generate.main([str(fixture), *COMMON[2:], "--task", "multilingual_translation",
+        generate.main([str(fixture), *COMMON[2:], "--task", "semisupervised_translation",
                        "--path", str(fixture / "ref.pt"), "--device", "cpu"])
 
 

@@ -278,9 +278,11 @@ def test_logged_family_lines_match_jax(runs, family):
         want = jax_lines[line["update"]]
         assert set(line) == set(want)
         for key, value in line.items():
-            if key not in TIMED:
-                np.testing.assert_allclose(float(value), float(want[key]), rtol=1e-5,
-                                           err_msg=f"update {line['update']}: {key}")
+            # a meter another run in the process left (logged "None") equals JAX's too
+            if key in TIMED or value == want[key]:
+                continue
+            np.testing.assert_allclose(float(value), float(want[key]), rtol=1e-5,
+                                       err_msg=f"update {line['update']}: {key}")
 
 
 def test_bleu_validation_of_a_transformer_matches_jax(runs):
