@@ -18,8 +18,14 @@ nearly every key its name. What the importer does:
 - tracks which keys were read: any other key left unread is an error, so a
   tensor can never load as silently fresh-initialised.
 
-The CTC and seq2seq fine-tune importers of the JAX package wait for their
-models (ROADMAP A14).
+``import_wav2vec_ctc_state_dict`` and ``import_wav2vec_seq2seq_state_dict``
+read fairseq's wav2vec 2.0 fine-tune checkpoints (``Wav2VecCtc``:
+``w2v_encoder.w2v_model.*`` and ``w2v_encoder.proj``; ``wav2vec_seq2seq``:
+``encoder.w2v_model.*``, ``encoder.proj`` and ``decoder.*`` with the untied
+``decoder.embed_out``) into the state dicts of the port's ``Wav2VecCtcModel``
+/ ``Wav2VecSeq2SeqModel``; the trunk keeps its ``mask_emb`` unless
+``apply_mask`` is False, which drops it (a model built without span masking
+has no such parameter).
 """
 
 from __future__ import annotations
@@ -103,18 +109,19 @@ def _count_layers(sd, pattern: str) -> int:
 
 def _import_wav2vec2(sd, out, p: str, keep_mask_emb: bool):
     """Reads the Wav2Vec2Model keys under prefix ``p`` of ``sd`` into ``out``
-    under the same names."""
+    under the same names: the ``default`` extractor's group norm or the
+    ``layer_norm`` mode's per-layer norms (``conv_layers.{i}.2.1``), conv
+    biases where the checkpoint has them, and ``mask_emb`` with
+    ``keep_mask_emb``."""
     if keep_mask_emb and f"{p}mask_emb" in sd:
-        raise NotImplementedError(
-            "the port's wav2vec2 trunk has no span masking, so it cannot hold mask_emb "
-            "(ROADMAP A14)")
+        out[f"{p}mask_emb"] = _tensor(sd[f"{p}mask_emb"])
     n_conv = _count_layers(sd, re.escape(p) + r"feature_extractor\.conv_layers\.(\d+)\.0\.weight")
     for i in range(n_conv):
         _copy(sd, out, f"{p}feature_extractor.conv_layers.{i}.0")
         if f"{p}feature_extractor.conv_layers.{i}.2.1.weight" in sd:
-            raise NotImplementedError(
-                "the wav2vec2 extractor's layer_norm mode is not ported yet (ROADMAP A14)")
-    _copy(sd, out, f"{p}feature_extractor.conv_layers.0.2")
+            _copy(sd, out, f"{p}feature_extractor.conv_layers.{i}.2.1")
+    if f"{p}feature_extractor.conv_layers.0.2.weight" in sd:
+        _copy(sd, out, f"{p}feature_extractor.conv_layers.0.2")
     _copy(sd, out, f"{p}layer_norm")
     if f"{p}post_extract_proj.weight" in sd:
         _copy(sd, out, f"{p}post_extract_proj")
@@ -169,7 +176,7 @@ def import_interlingua_state_dict(sd: Dict[str, Any],
     pretraining-only heads: fairseq's Wav2Vec2Model registers it
     unconditionally (and quantizer / project_q / final_proj when configured),
     so real fine-tune checkpoints carry them though inference never reads
-    them. ``apply_mask=True`` (keep it for span masking) raises here."""
+    them. ``apply_mask=True`` keeps it (a model built with span masking)."""
     out: Dict[str, torch.Tensor] = {}
     tsd = _ConsumeTracking(sd)
 
@@ -202,6 +209,48 @@ def import_interlingua_state_dict(sd: Dict[str, Any],
     handled = set(tsd.consumed)
     handled |= {k for k in sd if k.startswith("encoder.wav2vec_model.")
                 and any(re.search(p, k) for p in W2V2_PRETRAIN_PATTERNS)}
+    return _finish_import(sd, out, handled)
+
+
+def import_wav2vec_ctc_state_dict(sd: Dict[str, Any],
+                                  apply_mask: bool = True) -> Dict[str, torch.Tensor]:
+    """A fairseq ``Wav2VecCtc`` fine-tune state dict (JAX
+    ``torch_import.py:222-248``) -> the state dict of the port's
+    ``Wav2VecCtcModel``: the trunk under ``w2v_encoder.w2v_model.`` and the
+    vocabulary projection ``w2v_encoder.proj``. ``apply_mask=False`` drops
+    the checkpoint's ``mask_emb``."""
+    out: Dict[str, torch.Tensor] = {}
+    tsd = _ConsumeTracking(sd)
+    _import_wav2vec2(tsd, out, "w2v_encoder.w2v_model.", keep_mask_emb=apply_mask)
+    _copy(tsd, out, "w2v_encoder.proj")
+    handled = set(tsd.consumed)
+    if not apply_mask:
+        handled |= {k for k in sd if k.endswith(".mask_emb")}
+    return _finish_import(sd, out, handled)
+
+
+def import_wav2vec_seq2seq_state_dict(sd: Dict[str, Any],
+                                      apply_mask: bool = True) -> Dict[str, torch.Tensor]:
+    """A fairseq ``wav2vec_seq2seq`` fine-tune state dict (JAX
+    ``torch_import.py:251-282``) -> the state dict of the port's
+    ``Wav2VecSeq2SeqModel``: the trunk under ``encoder.w2v_model.``, the
+    optional dimension bridge ``encoder.proj``, the decoder, and its untied
+    output matrix ``decoder.embed_out`` as ``decoder.output_projection``."""
+    out: Dict[str, torch.Tensor] = {}
+    tsd = _ConsumeTracking(sd)
+    _import_wav2vec2(tsd, out, "encoder.w2v_model.", keep_mask_emb=apply_mask)
+    if "encoder.proj.weight" in sd:
+        _copy(tsd, out, "encoder.proj")
+    _copy(tsd, out, "decoder.embed_tokens", bias=False)
+    for i in range(_count_layers(sd, r"decoder\.layers\.(\d+)\.")):
+        _dec_layer(tsd, out, f"decoder.layers.{i}")
+    if "decoder.layer_norm.weight" in sd:
+        _copy(tsd, out, "decoder.layer_norm")
+    if "decoder.embed_out" in sd:
+        out["decoder.output_projection.weight"] = _tensor(tsd["decoder.embed_out"])
+    handled = set(tsd.consumed)
+    if not apply_mask:
+        handled |= {k for k in sd if k.endswith(".mask_emb")}
     return _finish_import(sd, out, handled)
 
 

@@ -26,6 +26,14 @@ decode (shallow fusion, ``generation/ensemble.py``): each step's
 distribution is log(mean_i p_i) + W * log_softmax(LM), with one model or
 several, speech or text.
 
+Under ``--task audio_pretraining --labels ltr`` a ``wav2vec_ctc`` model
+(one with ``ctc_logits`` and no decoder) recognises speech
+(``run_ctc_generate``): the per-frame log-probabilities are collapsed
+greedily at ``--beam 1`` or searched by prefix beam above it, fused with an
+ARPA n-gram LM under ``--ctc-lm-path`` / ``--ctc-lm-weight``; it prints H-
+and T- lines and the corpus WER (letters joined, ``|`` a word boundary). A
+``wav2vec_seq2seq`` model decodes by beam search as the other speech models.
+
 Under ``--task translation_lev`` / ``translation_ins`` a non-autoregressive
 model (CMLM, vanilla / iterative NAT, NAT-CRF, Levenshtein, insertion)
 decodes by refinement (``generation/nat_generator.py``, the
@@ -178,6 +186,61 @@ class GenCfg:
         self.print_step = args.print_step
 
 
+def run_ctc_generate(args, task, model, itr, out, on_device) -> dict:
+    """Speech recognition over a CTC head (JAX ``cli/generate.py:65-146``):
+    greedy collapse at beam 1, else prefix beam search with the optional
+    ARPA LM (``generation/ctc_decoder.py``, on the host). -> the counts,
+    the decode's host-clock seconds and the WER."""
+    import numpy as np
+    import torch
+
+    from ..criterions.ctc import ctc_greedy_decode
+    from ..generation.ctc_decoder import ArpaLM, ctc_beam_search
+    from ..scoring.wer import letter_words, levenshtein
+    from . import options
+
+    tgt_dict = task.target_dictionary
+    lm = ArpaLM(args.ctc_lm_path) if args.ctc_lm_path else None
+    token_strings = [tgt_dict[i] for i in range(len(tgt_dict))]
+
+    errs = total = n_sent = 0
+    t0 = time.time()
+    with options.profiled(args):
+        for batch in itr:
+            with torch.inference_mode():
+                logits, frame_pad = model.ctc_logits(on_device(batch["audio"]),
+                                                     on_device(batch["audio_padding_mask"]))
+                lprobs = torch.log_softmax(logits, dim=-1).cpu().numpy()
+            frame_pad = None if frame_pad is None else frame_pad.cpu().numpy()
+            for b in range(lprobs.shape[0]):
+                sid = int(batch["id"][b]) if "id" in batch else n_sent
+                lp = lprobs[b] if frame_pad is None else lprobs[b][~frame_pad[b]]
+                if args.beam > 1:
+                    hyp_ids, score = ctc_beam_search(
+                        lp, beam_size=args.beam, blank=0, lm=lm, lm_weight=args.ctc_lm_weight,
+                        token_strings=token_strings)[0]
+                else:
+                    hyp_ids = ctc_greedy_decode(lp, blank_idx=0)
+                    score = float(lp.max(-1).sum())
+                hyp = letter_words(tgt_dict, hyp_ids)
+                if not args.quiet:
+                    print(f"H-{sid}\t{score:.4f}\t{' '.join(hyp)}", file=out)
+                if batch.get("target") is not None:
+                    ref = letter_words(tgt_dict, np.asarray(batch["target"][b]))
+                    if not args.quiet:
+                        print(f"T-{sid}\t{' '.join(ref)}", file=out)
+                    errs += levenshtein(hyp, ref)
+                    total += max(len(ref), 1)
+                n_sent += 1
+    dt = time.time() - t0
+    logger.info(f"Recognized {n_sent} utterances in {dt:.1f}s "
+                f"({n_sent / max(dt, 1e-9):.2f} utt/s)")
+    wer = 100.0 * errs / total if total else None
+    if total:
+        print(f"Generate {args.gen_subset} with beam={args.beam}: WER {wer:.2f}", file=out)
+    return {"sentences": n_sent, "tokens": 0, "decode_s": dt, "wer": wer}
+
+
 def run_score_reference(args, task, model, itr, out, on_device, strip) -> int:
     """``--score-reference``: each reference teacher-forced through the
     model; T-, H- (mean log-prob) and P- (each token's log-prob) lines."""
@@ -327,6 +390,13 @@ def main(argv=None) -> dict:
         if args.results_path else sys.stdout
     strip = task.lang_tag_indices() if hasattr(task, "lang_tag_indices") else set()
     on_device = functools.partial(to_device, device=device)
+
+    if hasattr(model, "ctc_logits") and not hasattr(model, "decoder"):
+        # speech recognition over a CTC head (wav2vec_ctc)
+        stats = run_ctc_generate(args, task, model, itr, out, on_device)
+        if out is not sys.stdout:
+            out.close()
+        return {**stats, "load_s": load_s}
 
     if args.score_reference:
         t0 = time.time()

@@ -93,7 +93,7 @@ def main(argv=None) -> None:
                           ("sampling_topp", -1.0), ("diverse_beam_groups", -1),
                           ("diversity_rate", -1.0), ("retain_dropout", False),
                           ("score_reference", False), ("print_alignment", False),
-                          ("replace_unk", None), ("lm_path", None),
+                          ("replace_unk", None), ("lm_path", None), ("ctc_lm_path", None),
                           ("iter_decode_max_iter", None), ("iter_decode_force_max_iter", False),
                           ("iter_decode_eos_penalty", 0.0), ("iter_decode_with_beam", 1),
                           ("iter_decode_with_external_reranker", False),

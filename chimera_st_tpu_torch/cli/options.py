@@ -273,7 +273,8 @@ PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_mod
                       "joint_task", "joint_task_mtst", "translation_lev", "translation_ins",
                       "translation_from_pretrained_bart", "translation_multi_simple_epoch",
                       "denoising", "multilingual_denoising", "sentence_prediction",
-                      "sentence_ranking", "multilingual_translation")
+                      "sentence_ranking", "multilingual_translation", "audio_pretraining",
+                      "bimodal_pretraining")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
@@ -284,7 +285,6 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
      "--task other than " + " / ".join(PORTED_TRAIN_TASKS), "A14"),
-    ("best_checkpoint_metric", lambda v: v == "wer", "--best-checkpoint-metric wer", "A14"),
 )
 
 

@@ -4,7 +4,10 @@
 ``--task language_modeling``, a ``transformer_lm*`` model (with
 ``adaptive_loss`` for ``transformer_lm_wiki103``), and ``--task
 joint_task_mtst --task-configs st.json mt.json --main-task st``, the joint
-MT + ST fine-tune, and ``--task translation_lev`` / ``translation_ins``, the
+MT + ST fine-tune, and ``--task audio_pretraining`` (wav2vec 2.0 pre-training; with ``--labels
+ltr`` the CTC or seq2seq fine-tune, ``--best-checkpoint-metric wer`` its
+greedy CTC WER) / ``bimodal_pretraining`` (Chimera's two-stream
+pre-training), and ``--task translation_lev`` / ``translation_ins``, the
 non-autoregressive models under ``--noise levenshtein | random_mask |
 full_mask`` (an undeclared flag, as ``--random-delete-max`` and
 ``--random-insert-max``, reaching the task and the model as in JAX) with
@@ -490,7 +493,8 @@ def validation_batches(args, task, max_tokens=None, max_sentences=None):
 
 def validate_and_metric(args, task, trainer) -> Optional[float]:
     """Losses over the valid split (sum / sample size / ln 2), plus BLEU
-    with ``--best-checkpoint-metric bleu``; returns the metric named by
+    with ``--best-checkpoint-metric bleu`` and the greedy CTC WER with
+    ``--best-checkpoint-metric wer``; returns the metric named by
     ``--best-checkpoint-metric`` (else ``loss``)."""
     if args.disable_validation:
         return None
@@ -509,6 +513,8 @@ def validate_and_metric(args, task, trainer) -> Optional[float]:
     stats = {k: v / ss / math.log(2) for k, v in totals.items() if k.endswith("loss")}
     if args.best_checkpoint_metric == "bleu":
         stats["bleu"] = validate_bleu(args, task, trainer)
+    if args.best_checkpoint_metric == "wer":
+        stats["wer"] = validate_wer(args, task, trainer)
     logger.info(
         "validation | " + " | ".join(f"{k} {v:.3f}" for k, v in sorted(stats.items())))
     metric = args.best_checkpoint_metric
@@ -558,6 +564,46 @@ def validate_bleu(args, task, trainer, beam: int = 4, max_decode_len: int = 64) 
     finally:
         model.train(was_training)
     return scorer.score()
+
+
+def validate_wer(args, task, trainer) -> float:
+    """Corpus WER over the valid split of greedy CTC decodes (JAX
+    ``cli/train.py:667-720``): letters joined, ``|`` a word boundary, each
+    reference counted as at least one word. A model without a CTC head
+    warns and gives inf, as in JAX."""
+    import numpy as np
+    import torch
+
+    from ..criterions.ctc import ctc_greedy_decode
+    from ..scoring.wer import letter_words, levenshtein
+
+    model = trainer.model
+    if not hasattr(model, "ctc_logits"):
+        logger.warning("--best-checkpoint-metric wer needs a CTC-head model")
+        return float("inf")
+    d = task.target_dictionary
+
+    device = trainer.step.device
+    was_training = model.training
+    model.eval()
+    errs = total = 0
+    try:
+        for batch in validation_batches(args, task, args.max_tokens, args.batch_size):
+            with torch.inference_mode():
+                logits, frame_pad = model.ctc_logits(
+                    torch.from_numpy(batch["audio"]).to(device),
+                    torch.from_numpy(batch["audio_padding_mask"]).to(device))
+            logits = logits.cpu().numpy()
+            frame_pad = None if frame_pad is None else frame_pad.cpu().numpy()
+            for b in range(logits.shape[0]):
+                valid = logits[b] if frame_pad is None else logits[b][~frame_pad[b]]
+                hyp = letter_words(d, ctc_greedy_decode(valid, blank_idx=0))
+                ref = letter_words(d, np.asarray(batch["target"][b]))
+                errs += levenshtein(hyp, ref)
+                total += max(len(ref), 1)
+    finally:
+        model.train(was_training)
+    return 100.0 * errs / max(total, 1)
 
 
 def cli_main():

@@ -22,7 +22,10 @@ non-autoregressive model (the ``transformer`` table under ``backbone/``
 plus its heads; ``crf`` is the NAT-CRF's ``E1`` / ``E2``), ``bart`` (the
 same under ``backbone/`` and the classification head) and
 ``multilingual_transformer`` (``enc_<lang>/`` and ``dec_<lang>/`` groups,
-``{g}`` in a template matching the group: a language or ``shared``);
+``{g}`` in a template matching the group: a language or ``shared``), and the
+wav2vec family's ``wav2vec_ctc``, ``wav2vec_seq2seq``, ``wav2vec2_pretrain``
+and ``wav2vec`` (v1; a module's own parameters, ``mask_emb`` and the
+quantizers' tables, are kinds of their own);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
@@ -65,6 +68,10 @@ _LEAVES = {
     "embed": (("weight", "embedding", True),),
     "symbols": (("symbol_embeddings", "symbol_embeddings", True),),
     "crf": (("E1", "E1", True), ("E2", "E2", True)),
+    # a module's own parameters: the trunk's span-masking embedding, the
+    # Gumbel quantizer's codebook or the k-means quantizer's embedding
+    "mask_emb": (("mask_emb", "mask_emb", True),),
+    "quantizer": (("codebook", "codebook", False), ("embedding", "embedding", False)),
 }
 
 
@@ -102,11 +109,14 @@ def _dec_layer(t: str, f: str) -> List[Tuple[str, str, str]]:
 
 def _wav2vec2(t: str, f: str) -> List[Tuple[str, str, str]]:
     """The trunk under torch prefix ``t`` / flax prefix ``f`` (``t`` ends
-    with a dot, ``f`` with a slash, both empty for a trunk alone)."""
+    with a dot, ``f`` with a slash, both empty for a trunk alone); the
+    ``layer_norm`` extractor's norms and ``mask_emb`` where it has them."""
     return [
         (f"{t}feature_extractor.conv_layers.{{i}}.0", f"{f}feature_extractor/conv_{{i}}",
          "conv_opt_bias"),
         (f"{t}feature_extractor.conv_layers.0.2", f"{f}feature_extractor/group_norm", "norm"),
+        (f"{t}feature_extractor.conv_layers.{{i}}.2.1", f"{f}feature_extractor/ln_{{i}}", "norm"),
+        (t.rstrip("."), f.rstrip("/"), "mask_emb"),
         (f"{t}layer_norm", f"{f}layer_norm", "norm"),
         (f"{t}post_extract_proj", f"{f}post_extract_proj", "dense"),
         (f"{t}encoder.pos_conv.0", f"{f}pos_conv/conv", "conv"),
@@ -215,6 +225,31 @@ _RULES["multilingual_transformer"] = [
       for t, f, kind in _RULES["transformer"] if t.startswith("decoder.")],
 ]
 
+# the wav2vec 2.0 family: the CTC and seq2seq fine-tune models (the trunk
+# under ``trunk/w2v_model/``, as the JAX ``_W2VTrunk`` names it), the
+# pre-training model (its own ``mask_emb`` beside the trunk, either
+# quantizer) and wav2vec v1
+_RULES["wav2vec_ctc"] = [*_wav2vec2("w2v_encoder.w2v_model.", "trunk/w2v_model/"),
+                         ("w2v_encoder.proj", "proj", "dense")]
+_RULES["wav2vec_seq2seq"] = [*_wav2vec2("encoder.w2v_model.", "trunk/w2v_model/"),
+                             ("encoder.proj", "proj", "dense"), *_decoder(),
+                             ("decoder.output_projection", "decoder/output_projection",
+                              "dense_nobias")]
+_RULES["wav2vec2_pretrain"] = [
+    *_wav2vec2("wav2vec_model.", "wav2vec_model/"),
+    ("", "", "mask_emb"),
+    ("quantizer", "quantizer", "quantizer"),
+    ("quantizer.weight_proj", "quantizer/weight_proj", "dense"),
+    ("quantizer.proj", "quantizer/proj", "conv_opt_bias"),
+    ("quantizer.group_norm", "quantizer/group_norm", "norm"),
+    ("project_q", "project_q", "dense"),
+    ("final_proj", "final_proj", "dense"),
+]
+_RULES["wav2vec"] = [("feature_convs.{i}", "feat_conv_{i}", "conv"),
+                     ("feature_norms.{i}", "feat_norm_{i}", "norm"),
+                     ("agg_convs.{i}", "agg_conv_{i}", "conv"),
+                     ("step_predictors.{i}", "pred_{i}", "dense_nobias")]
+
 # placeholder of a template -> what it matches: ``{i}`` a layer index, ``{g}``
 # a language group
 _SLOTS = {"i": r"\d+", "g": r"[^./]+"}
@@ -301,7 +336,7 @@ def _flax_to_torch_names(table: _Table, leaves: Iterable[Path]) -> Dict[Path, Tu
             if leaf not in spec:
                 unknown.append(f"{module}/{leaf}")
                 continue
-            out[path] = (f"{tmod}.{spec[leaf][0]}", kind)
+            out[path] = (f"{tmod}.{spec[leaf][0]}" if tmod else spec[leaf][0], kind)
         for fl, (_, req) in spec.items():
             if req and fl not in have:
                 raise KeyError(f"flax tree is missing {module}/{fl}")
@@ -334,7 +369,7 @@ def torch_to_flax_path(model: str, key: str) -> Tuple[Path, str]:
     flax_leaf = {tl: fl for tl, fl, _ in _LEAVES[kind]}.get(leaf)
     if flax_leaf is None:
         raise KeyError(key)
-    return tuple(fmod.split("/")) + (flax_leaf,), kind
+    return (tuple(fmod.split("/")) if fmod else ()) + (flax_leaf,), kind
 
 
 def _to_flax(model: str, state: Mapping[str, Any], raw: bool = False) -> Dict[str, Any]:
@@ -388,8 +423,10 @@ def model_kind(model: torch.nn.Module) -> str:
     language model with character embeddings) or a non-autoregressive
     model's name (``cmlm_transformer``, ``nonautoregressive_transformer``,
     ``iterative_nonautoregressive_transformer``, ``nacrf_transformer``,
-    ``levenshtein_transformer``, ``insertion_transformer``), ``bart`` or
-    ``multilingual_transformer``."""
+    ``levenshtein_transformer``, ``insertion_transformer``), ``bart``,
+    ``multilingual_transformer``, or of the wav2vec family ``wav2vec_ctc``,
+    ``wav2vec_seq2seq``, ``wav2vec2_pretrain`` (either quantizer) or
+    ``wav2vec`` (v1)."""
     cfg = getattr(model, "cfg", None)
     if getattr(cfg, "character_embeddings", False):
         return "transformer_lm_char"
@@ -403,7 +440,10 @@ def model_kind(model: torch.nn.Module) -> str:
             "Wav2Vec2Encoder": "wav2vec2", "CMLMTransformer": "cmlm_transformer",
             "LevenshteinTransformer": "levenshtein_transformer",
             "InsertionTransformer": "insertion_transformer", "BARTModel": "bart",
-            "MultilingualTransformer": "multilingual_transformer"}[type(model).__name__]
+            "MultilingualTransformer": "multilingual_transformer",
+            "Wav2VecCtcModel": "wav2vec_ctc", "Wav2VecSeq2SeqModel": "wav2vec_seq2seq",
+            "Wav2Vec2PretrainModel": "wav2vec2_pretrain",
+            "Wav2VecV1Model": "wav2vec"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

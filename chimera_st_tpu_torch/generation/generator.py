@@ -65,11 +65,9 @@ class GeneratorSettings:
 
 # generator settings whose feature is not ported yet, under the names the
 # task's ``build_generator`` reads them by (the CLI's argument names):
-# (attribute, test on its value, flag, ROADMAP item). The CTC model is not
-# ported yet.
-UNPORTED = (
-    ("ctc_lm_path", bool, "--ctc-lm-path", "A14"),
-)
+# (attribute, test on its value, flag, ROADMAP item). None is left; the
+# table stays for the next one.
+UNPORTED = ()
 
 # the non-autoregressive models' settings (``generation/nat_generator.py``):
 # an autoregressive model's generator refuses them instead of ignoring them
@@ -217,8 +215,8 @@ class SequenceGenerator:
                              "are mutually exclusive search modes")
         if s.retain_dropout and not hasattr(getattr(model, "cfg", None), "dropout"):
             raise NotImplementedError(
-                f"--retain-dropout: {type(model).__name__} is built without dropout in the "
-                "port (ROADMAP A14)")
+                f"--retain-dropout is not ported for {type(model).__name__}, whose config "
+                "has no dropout field (ROADMAP A14)")
         if strategy is None and s.diversity_rate > 0:
             from .search_strategies import DiverseSiblingsSearch
 

@@ -26,8 +26,8 @@ class SequenceScorer:
         self._calls = 0
         if retain_dropout and not hasattr(getattr(model, "cfg", None), "dropout"):
             raise NotImplementedError(
-                f"--retain-dropout: {type(model).__name__} is built without dropout in the "
-                "port (ROADMAP A14)")
+                f"--retain-dropout is not ported for {type(model).__name__}, whose config "
+                "has no dropout field (ROADMAP A14)")
 
     def _score(self, encode, target: torch.Tensor) -> Dict[str, torch.Tensor]:
         self._calls += 1

@@ -7,7 +7,10 @@ non-autoregressive models with their 12 presets (``cmlm_transformer*``,
 ``*nonautoregressive_transformer*``, ``nacrf_transformer``,
 ``levenshtein_transformer*``, ``insertion_transformer``), ``bart`` with its
 five ``bart*`` / ``mbart*`` presets and ``multilingual_transformer`` with
-its two (counterpart of the registrations in chimera_st_tpu/models/).
+its two, and the wav2vec family: ``wav2vec_ctc`` and ``wav2vec_seq2seq``
+(speech recognition), ``wav2vec2`` / ``wav2vec2_large`` and
+``wav2vec2_quasiwave`` / ``wav2vec2_quasiwave_base`` (pre-training) and
+``wav2vec`` (v1) (counterpart of the registrations in chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
 function that fills a config dict with its preset's defaults. A field the
@@ -27,6 +30,9 @@ from . import nat_levenshtein as _lev
 from . import nat_vanilla as _nat
 from . import s2t_transformer as _s2t
 from . import transformer_mt as _mt
+from . import wav2vec2_asr as _asr
+from . import wav2vec2_pretraining as _w2v2_pt
+from . import wav2vec_v1 as _w2v1
 from .interlingua import ChimeraInterlinguaModel, InterlinguaConfig
 
 
@@ -45,9 +51,6 @@ def build_interlingua_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlingua
     if not cfg_dict.get("share_decoder_input_output_embed", True):
         raise NotImplementedError("the port's decoder ties its output projection to "
                                   "embed_tokens (share_decoder_input_output_embed=True)")
-    if cfg_dict.get("w2v2_extractor_mode", "default") != "default":
-        raise NotImplementedError("the wav2vec2 extractor's layer_norm mode is not ported yet "
-                                  "(ROADMAP A14)")
     return ChimeraInterlinguaModel(InterlinguaConfig(**_known(InterlinguaConfig, cfg_dict)),
                                    device=device)
 
@@ -104,8 +107,8 @@ def build_s2t_model(cfg_dict: Dict, device="cuda") -> _s2t.S2TTransformerModel:
 for _arch, _preset in _s2t.ARCHITECTURES.items():
     register_model_architecture("s2t_transformer", _arch)(_preset)
 
-# the Transformer family, the non-autoregressive family, BART and the
-# multilingual transformer
+# the Transformer family, the non-autoregressive family, BART, the
+# multilingual transformer and the wav2vec family
 NAT_MODEL_BUILDERS = {
     "cmlm_transformer": _cmlm.build_cmlm,
     "nonautoregressive_transformer": _nat.build_nat,
@@ -117,10 +120,14 @@ NAT_MODEL_BUILDERS = {
 NAT_ARCHITECTURES = {**_cmlm.ARCHITECTURES, **_nat.ARCHITECTURES, **_lev.ARCHITECTURES,
                      **_ins.ARCHITECTURES}
 for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS, "bart": _bart.build_bart,
-                      "multilingual_transformer": _multi.build_multilingual}.items():
+                      "multilingual_transformer": _multi.build_multilingual,
+                      **_asr.MODEL_BUILDERS, **_w2v2_pt.MODEL_BUILDERS,
+                      **_w2v1.MODEL_BUILDERS}.items():
     register_model(_name)(_build)
 for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES,
-                                 **_bart.ARCHITECTURES, **_multi.ARCHITECTURES}.items():
+                                 **_bart.ARCHITECTURES, **_multi.ARCHITECTURES,
+                                 **_asr.ARCHITECTURES, **_w2v2_pt.ARCHITECTURES,
+                                 **_w2v1.ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

@@ -40,8 +40,8 @@ from .wav2vec2 import DEFAULT_CONV_SPEC, Wav2Vec2Encoder
 @dataclass(frozen=True)
 class InterlinguaConfig:
     """The fields of the JAX package's InterlinguaConfig that the port reads
-    (not ``w2v2_extractor_mode`` or ``share_decoder_input_output_embed``,
-    which ``build_interlingua_model`` checks); the defaults are the
+    (not ``share_decoder_input_output_embed``, which
+    ``build_interlingua_model`` checks); the defaults are the
     ``s2t_transformer_w2v2_interlingua_base`` preset's and, for dropout,
     ``feature_grad_mult`` and ``w2v2_remat``, the JAX package's."""
 
@@ -78,6 +78,7 @@ class InterlinguaConfig:
     w2v2_layers: int = 12
     w2v2_heads: int = 8
     w2v2_conv_spec: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_SPEC
+    w2v2_extractor_mode: str = "default"
     w2v2_conv_bias: bool = False
     w2v2_layer_norm_first: bool = False
     w2v2_conv_pos: int = 128
@@ -107,7 +108,8 @@ class _Encoder(nn.Module):
             layer_norm_first=c.w2v2_layer_norm_first, dropout=c.w2v2_dropout,
             attention_dropout=c.w2v2_attention_dropout,
             activation_dropout=c.w2v2_activation_dropout,
-            feature_grad_mult=c.feature_grad_mult, remat=c.w2v2_remat, device=device,
+            feature_grad_mult=c.feature_grad_mult, remat=c.w2v2_remat,
+            extractor_mode=c.w2v2_extractor_mode, device=device,
         )
         self.subsample = Conv1dSubsampler(c.w2v2_embed_dim, c.conv_channels, c.encoder_embed_dim,
                                           c.conv_kernel_sizes, device=device)

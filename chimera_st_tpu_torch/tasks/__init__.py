@@ -1,7 +1,7 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
 from . import (  # noqa: F401 — registration
-    denoising, joint_task, language_modeling, multilingual_translation, sentence_prediction,
+    audio_pretraining, denoising, joint_task, language_modeling, multilingual_translation, sentence_prediction,
     speech_to_text, translation, translation_extra, translation_lev, translation_tts, triplet)
 
 

@@ -11,8 +11,10 @@ fairseq Transformer family (MT serving, an LM fused into the decode, LM
 perplexity), Chimera's joint MT + ST training, every optimizer and schedule
 of the train CLI, the adaptive-softmax and character-input LMs, and the
 non-autoregressive family (CMLM, vanilla / iterative NAT, NAT-CRF,
-Levenshtein, insertion), served and trained, and BART / mBART with the
-multilingual transformer, served and trained.
+Levenshtein, insertion), served and trained, BART / mBART with the
+multilingual transformer, served and trained, and the wav2vec family:
+speech recognition (CTC and seq2seq) served and fine-tuned, wav2vec 2.0
+pre-training and Chimera's bimodal variant.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -103,7 +105,7 @@ Phases (any failure raises and the script exits non-zero):
              clones of its inputs at the ancestry the mode built (1e-4, the
              rows written bit-equal; sampling's ancestry must stay the
              identity). Then each mode in bf16 on the card between CUDA
-             events, 2 rounds of the modes in turn (median, min, max),
+             events, one run of each (retained dropout two),
              counts zeroed before and exact after each run (a batch: K1 24,
              K2 6, K3 6 a decoder step, 6 + 12 with the LM; the ensemble and
              the alignment pass encode twice; int8 and reference scoring
@@ -122,7 +124,7 @@ Phases (any failure raises and the script exits non-zero):
              w2v_args of a released checkpoint: 12 trunk heads).
              checkpoint: the .pt read back through the CLI's loader equals
              the seeded model. cli_parity: cli.generate on the card and with
-             --device cpu in fp32 (24 decode steps, PARITY_DECODE, as every
+             --device cpu in fp32 (16 decode steps, PARITY_DECODE, as every
              CLI parity run of the family and BART phases; served: 64):
              every sample has its S-/H-/D-/P- lines,
              best hypotheses identical as strings, scores within 1e-4 (plus
@@ -393,12 +395,54 @@ Phases (any failure raises and the script exits non-zero):
              bart_shapes (after nat_shapes): K1 and K3 at every shape they
              launched against the plain versions; the served batches' and
              each head width's largest batch timed, K1 with SDPA beside it.
-13. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+13. the wav2vec family (this slice's main path, on a fixture of its
+             own: 24 seeded wavs of 2-16 s with letter transcripts and
+             fairseq's 32-entry dict.ltr.txt, a seeded 3-gram ARPA LM over
+             the letters, 10 wavs of 16-20 s and as many aligned pairs) -
+             the fixture writes a fairseq-layout Wav2VecCtc .pt at wav2vec
+             2.0 base width (12 x 768, 12 heads of 64, the default conv
+             spec, mask_emb) and reads it back through the ported importer
+             (every tensor equal) into a native .ckpt. asr_serve:
+             cli.generate --task audio_pretraining --labels ltr of it: fp32
+             card vs CPU on the 2 shortest wavs, greedy and prefix beam 50
+             fused with the LM (--ctc-lm-path, weight 0.5), hypotheses
+             identical; bf16 greedy on the 24 wavs at --max-tokens 1280000
+             (K1 12 and K2 6 a batch, exact; utt/s, audio s/s, load_s, the
+             busy share of a run under --profile), beam 50 + LM on the 2
+             wavs. asr_seq2seq: wav2vec_seq2seq (decoder 10 x 1,024, 16
+             heads) at beam 5: fp32 card vs CPU at PARITY_DECODE steps,
+             then bf16 on the 24 wavs, 64 steps (K3 10 a decoder step).
+             asr_train: cli.train with fairseq's README base fine-tune
+             flags (--apply-mask --mask-prob 0.5 --layerdrop 0.1
+             --feature-grad-mult 0.0, tri_stage with its phases cut to one
+             epoch, --max-tokens 1280000, --best-checkpoint-metric wer), one
+             WER validation and one save, then cli.generate of
+             checkpoint_best (K1 one a trunk layer that ran, LayerDrop's
+             choice; K2 6 a forward of the extractor), one profiled update
+             (the plain K1 backward's share of its device time), one fp32
+             update card vs CPU at 2 layers (widths kept, the mask given).
+             w2v_pretrain: cli.train --task audio_pretraining --arch
+             wav2vec2 at base width with 12 heads (fairseq's pre-training
+             flags: crops of 250,000 samples, 5 a batch, 100 negatives,
+             mask 0.65, 320 x 2 codes, final dim 256), one epoch and a
+             validation (K2 forward and backward in every micro-batch, K1
+             only in validation: attention dropout 0.1), one fp32 update
+             card vs CPU at 2 layers with the Gumbel noise given.
+             bimodal_pretrain: --task bimodal_pretraining --arch
+             wav2vec2_quasiwave with wav2vec_bimodal and with
+             aligning_loss_bimodal (two streams: K2 12 a micro-batch), one
+             update of the k-means quantizer, one of wav2vec v1 (TrainStep;
+             no kernel). w2v_shapes (after bart_shapes): K1, K2 and K3 at
+             every shape the phases launched; timed: K1 at the
+             pre-training crop (B 5, T 781, with SDPA) and the largest, K2
+             forward and backward at the crop with cuDNN beside them, K3 at
+             the seq2seq decode's largest served shape.
+14. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
-             optim_sweep's, nat_serve's, nat_train's, bart_serve's and
-             bart_train's; K3's record holds its times at the search
+             optim_sweep's, nat_serve's, nat_train's, bart_serve's,
+             bart_train's and the wav2vec phases'; K3's record holds its times at the search
              modes' ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -443,7 +487,7 @@ FP64_FLOPS = 34e12
 SERVE_BATCHES = 3
 # the decode length of the CLI phases' fp32 card-vs-CPU parity runs (cut from
 # their served 64 for the script's time limit: the CPU side is the cost)
-PARITY_DECODE = ["--max-decode-len", "24"]
+PARITY_DECODE = ["--max-decode-len", "16"]  # 64 -> 24 -> 16
 
 
 def log(msg: str) -> None:
@@ -469,7 +513,7 @@ class Tee:
         return getattr(self.streams[0], name)
 
 
-def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
+def cuda_ms(fn, reps: int = 20, groups: int = 3) -> float:
     """Device time of one fn() call in ms: the median over `groups` of the
     mean of `reps` back-to-back calls between two CUDA events. Each group is
     queued behind a ~25 ms device-side sleep, so the host has enqueued every
@@ -514,14 +558,16 @@ def check(name: str, err: float, tol: float) -> None:
 
 
 class Inputs:
-    """Seeded tensors on the card."""
+    """Seeded tensors on the card: normal draws of a CUDA generator (drawing
+    them on the host took seconds a shape at the conv tail's sizes)."""
 
     def __init__(self, torch, seed: int):
-        self.torch, self.rng = torch, np.random.default_rng(seed)
+        self.torch = torch
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def __call__(self, shape, scale=1.0, dtype=None):
         torch = self.torch
-        t = torch.tensor(self.rng.normal(size=shape) * scale, dtype=torch.float32, device="cuda")
+        t = torch.randn(shape, generator=self.gen, device="cuda") * scale
         return t.to(dtype or torch.bfloat16)
 
 
@@ -2551,8 +2597,8 @@ def phase_text(torch, fx, task, kernels):
 # then each mode timed in bf16 with exact launch counts
 
 SEARCH_BATCH = 2  # cut from 8 for the script's time limit
-SEARCH_REPS = 2  # bf16 timing rounds, the modes in turn (2 keep retained dropout's
-# same-seed check)
+SEARCH_REPS = 2  # bf16 rounds: every mode timed in the first (cut from 2 for the
+# script's time limit), retained dropout in both (its same-seed check)
 # per sentence, two target phrases of seeded random tokens (ids 4..9999)
 SEARCH_PHRASE_SEED = 21
 
@@ -2861,8 +2907,8 @@ def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
     run_search_mode(torch, "beam", models, None, wav, mask)  # warm-up
     torch.cuda.synchronize()
     counts, times, snaps, first = {}, {n: [] for n in SEARCH_MODES}, {}, {}
-    for rep in range(SEARCH_REPS):  # the modes in turn, SEARCH_REPS rounds
-        for name in SEARCH_MODES:
+    for rep in range(SEARCH_REPS):  # the modes in turn; later rounds retained dropout alone
+        for name in SEARCH_MODES if rep == 0 else ("retain_dropout",):
             for fn in kernels:
                 fn.launches = 0
             start = torch.cuda.Event(enable_timing=True)
@@ -2897,7 +2943,7 @@ def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
                        "vs_beam": statistics.median(times["beam"]) / med,
                        "launches": counts[name]}
         log(f"  bf16 {name}: median {med:.1f} ms ({min(ms):.1f}-{max(ms):.1f}) over "
-            f"{SEARCH_REPS} runs, {SEARCH_BATCH / med * 1e3:.2f} sentences/s, "
+            f"{len(ms)} run(s), {SEARCH_BATCH / med * 1e3:.2f} sentences/s, "
             f"{rates[name]['vs_beam']:.2f}x plain beam; launches {counts[name]} (each run)")
     if torch.equal(first["beam"]["tokens"], first["retain_dropout"]["tokens"]):
         raise AssertionError("search retain_dropout: the dropout changed nothing")
@@ -3050,7 +3096,7 @@ def phase_fbank_features(torch, root: Path, kernels):
 
 FAMILY_VOCAB = 32768  # one joined dictionary: the size fairseq's WMT'16 en-de big dictionary is near
 FAMILY_TEST_PAIRS = 32  # cut from 64 for the script's time limit: one batch of 32
-FAMILY_PARITY_PAIRS = 2  # cut from 4 for the script's time limit
+FAMILY_PARITY_PAIRS = 1  # cut from 4, then 2, for the script's time limit
 FAMILY_BATCH = 32
 FAMILY_DECODE = ["--beam", "4", "--lenpen", "0.6", "--max-decode-len", "64"]  # WMT'16 en-de big
 LM_STREAM_TOKENS = 100_000  # cut from 200,000 for the script's time limit
@@ -3167,7 +3213,8 @@ def family_generate(fx, ckpt: Path, out_dir: Path, subset: str, extra):
     return (out_dir / f"generate-{subset}.txt").read_text(), stats
 
 
-def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int, extra=()):
+def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int, extra=(),
+                       profile=True):
     """One model of the family through the generate CLI: fp32 on the card
     against --device cpu on the ``valid`` split (one batch of
     FAMILY_PARITY_PAIRS), best hypotheses identical; then bf16 on the
@@ -3224,6 +3271,9 @@ def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int
             or len(full) != FAMILY_TEST_PAIRS
             or any(not np.isfinite(h[0][0]) for h in hyps.values())):
         raise AssertionError(f"{label}: launches {counts} (want {implied}), {len(full)} samples")
+    if not profile:  # the wide and adaptive LMs' fusions: cut for the time limit
+        print(json.dumps({label: rec}), flush=True)
+        return counts
     # the device's busy share: one more batch (the valid split) under --profile
     family_generate(fx, ckpt, work / "profiled", "valid",
                     ["--batch-size", str(FAMILY_PARITY_PAIRS), "--dtype", "bfloat16",
@@ -3414,7 +3464,7 @@ def phase_w2v2_ckpt(torch, fx, work: Path, build, kernels):
 
 
 # full width (512, 16 heads of 32), depth cut from 12 layers to 4
-LM_WIDE = {"lm_fusion_gbw": ({"arch": "transformer_lm_gbw", "layers": 4}, 43),
+LM_WIDE = {"lm_fusion_gbw": ({"arch": "transformer_lm_gbw", "layers": 2}, 43),  # 4 -> 2: time
            # full width (3072, 32 heads of 96), depth cut from 72 layers to 2
            "lm_fusion_megatron": ({"arch": "transformer_lm_megatron", "layers": 2}, 47)}
 
@@ -3435,7 +3485,8 @@ def phase_lm_fusion_wide(torch, fx, mt_ckpt: Path, kernels):
     for name, (cfg, seed) in LM_WIDE.items():
         ckpt = family_checkpoint(torch, fx, name, cfg, seed)
         counts[name] = phase_family_serve(torch, fx, name, mt_ckpt, kernels, 6 + lm_layers(cfg),
-                                          ["--lm-path", str(ckpt), "--lm-weight", "0.3"])
+                                          ["--lm-path", str(ckpt), "--lm-weight", "0.3"],
+                                          profile=False)
         ckpt.unlink()
     return counts
 
@@ -3878,7 +3929,7 @@ def phase_tts_update(torch, fx, kernels):
 # adaptive LM
 
 JOINT_MT_PAIRS = 48  # 6 MT batches of 8 at sample ratio 0.5: 3 an epoch beside 3 ST ones
-JOINT_UPDATES = (6, 10)  # run A to 6 (two epochs of 3 updates), run B resumed to 10
+JOINT_UPDATES = (6, 8)  # run A to 6 (two epochs of 3 updates), run B resumed to 8 (cut from 10)
 JOINT_KEYS = ("loss", "st_loss", "mt_loss", "contrastive_loss", "nll_loss")
 
 
@@ -4427,7 +4478,10 @@ def phase_lm_adaptive(torch, work: Path, kernels):
                 f"({r['eval_lm']['tokens_per_s']:.0f} tokens/s), {ev['loss_bits']:.4f} "
                 f"bits/token")
         shutil.rmtree(save_dir)
-        r["parity"] = lm_step_parity(torch, f"lm_adaptive {label}", fx["bin"], model,
+        # the character LM's parity step at 2 of its 12 layers (widths kept;
+        # cut for the script's time limit: the CPU side is the cost)
+        r["parity"] = lm_step_parity(torch, f"lm_adaptive {label}", fx["bin"],
+                                     dict(model, layers=2) if label == "char_gbw" else model,
                                      {"_name": crit})
         if any(fn.launches for fn in kernels):
             raise AssertionError(f"lm_adaptive {label}: the causal LM launched a kernel")
@@ -4454,7 +4508,7 @@ def phase_lm_fusion_adaptive(torch, fx, mt_ckpt: Path, kernels):
     ckpt = family_checkpoint(torch, fx, "lm_fusion_adaptive", LM_ADAPTIVE_FUSION, 71)
     counts = phase_family_serve(torch, fx, "lm_fusion_adaptive", mt_ckpt, kernels,
                                 6 + lm_layers(LM_ADAPTIVE_FUSION),
-                                ["--lm-path", str(ckpt), "--lm-weight", "0.3"])
+                                ["--lm-path", str(ckpt), "--lm-weight", "0.3"], profile=False)
     ckpt.unlink()
     return {"lm_fusion_adaptive": counts}
 
@@ -4562,7 +4616,7 @@ def nat_expected_k1(name: str, n_batches: int, rounds, members: int = 1,
 
 def nat_serve_one(torch, fx, label, name, ckpts, kernels, extra=(), members=1, flags=None):
     """One NAT model through cli.generate: fp32 on the card against
-    --device cpu on the ``valid`` split (its 4 sentences), hypotheses and
+    --device cpu on the ``valid`` split (FAMILY_PARITY_PAIRS sentences), hypotheses and
     step counts identical (a difference prints the sentence and its top-2
     margin, then fails); then bf16 on the ``test`` split in batches of 32
     with the launch counts zeroed before and read after, K1 exact by
@@ -5377,6 +5431,763 @@ def phase_bart_shapes(torch, ops, seen, records):
         and not sh["conv_tail"]))
 
 
+# ---- the wav2vec family: speech recognition (CTC and seq2seq) served and
+# fine-tuned, self-supervised pre-training and Chimera's bimodal variant
+
+# fairseq's dict.ltr.txt: the word boundary, 26 letters, the apostrophe
+W2V_LETTERS = "| E T A O N I H S R D L U M W C F G Y P B V K ' X J Q Z".split()
+ASR_WAVS = 24  # 2-16 s
+ASR_PARITY_WAVS = 2  # the fp32 card-vs-CPU decodes and the served beam-50 run
+ASR_MAX_TOKENS = "1280000"  # the README's fine-tune --max-tokens
+ASR_BEAM = ["--beam", "50", "--ctc-lm-weight", "0.5"]
+W2V_BASE = {"w2v2_embed_dim": 768, "w2v2_ffn_dim": 3072, "w2v2_layers": 12, "w2v2_heads": 12}
+ASR_CTC = {"arch": "wav2vec_ctc", "apply_mask": True, **W2V_BASE}
+ASR_S2S = {"arch": "wav2vec_seq2seq", **W2V_BASE}  # the decoder's defaults: 10 x 1,024, 16 heads
+PRETRAIN_WAVS = 10  # 16-20 s: crops of 250,000 samples, 5 a batch at --max-tokens 1400000
+PRETRAIN_T1 = (250000 - 10) // 5 + 1  # K2's input length at a crop of 250,000 samples
+PRETRAIN_T = 781  # the trunk's frames of such a crop
+PRETRAIN_FLAGS = ["--encoder-heads", "12", "--final-dim", "256", "--latent-vars", "320",
+                  "--latent-groups", "2", "--num-negatives", "100", "--mask-prob", "0.65",
+                  "--max-sample-size", "250000", "--min-sample-size", "32000",
+                  "--loss-weights", "[0.1, 10]", "--optimizer", "adam", "--adam-betas",
+                  "(0.9, 0.98)", "--lr", "0.0005", "--lr-scheduler", "polynomial_decay",
+                  "--warmup-updates", "1", "--total-num-update", "400000",
+                  "--max-tokens", "1400000", "--dtype", "bfloat16", "--log-interval", "1"]
+
+
+def letter_line(rng) -> str:
+    """A transcript in fairseq's letter format: ``H E L L O | W O R L D |``."""
+    words = ["".join(rng.choice(W2V_LETTERS[1:], size=int(rng.integers(1, 8))))
+             for _ in range(int(rng.integers(2, 12)))]
+    return " ".join(" ".join(w) + " |" for w in words)
+
+
+def write_manifest(root: Path, split: str, rows, labels=None) -> None:
+    cols = "audio\tn_frames" + ("\taudio2\tn_frames2" if len(rows[0]) > 2 else "")
+    (root / f"{split}.tsv").write_text(
+        cols + "\n" + "".join("\t".join(map(str, r)) + "\n" for r in rows))
+    if labels is not None:
+        (root / f"{split}.ltr").write_text("".join(line + "\n" for line in labels))
+
+
+def seeded_letter_arpa(path: Path, seed: int) -> Path:
+    """A back-off 3-gram LM in ARPA text over the letters (log10 scores):
+    every unigram, seeded bigrams and trigrams."""
+    rng = np.random.default_rng(seed)
+    grams = [[(w,) for w in W2V_LETTERS + ["<unk>"]]]
+    for n in (2, 3):
+        grams.append(sorted({tuple(rng.choice(W2V_LETTERS, size=n)) for _ in range(300)}))
+    lines = ["\\data\\"] + [f"ngram {n + 1}={len(g)}" for n, g in enumerate(grams)] + [""]
+    for n, g in enumerate(grams):
+        lines.append(f"\\{n + 1}-grams:")
+        for toks in g:
+            back = f"\t{-rng.uniform(0.0, 0.8):.4f}" if n < 2 else ""
+            lines.append(f"{-rng.uniform(0.2, 2.5):.4f}\t{' '.join(toks)}{back}")
+        lines.append("")
+    path.write_text("\n".join(lines + ["\\end\\", ""]))
+    return path
+
+
+def ctc_fairseq_state_dict(model):
+    """The port's Wav2VecCtcModel in a fairseq ``Wav2VecCtc`` checkpoint's
+    layout (the inverse of ``import_wav2vec_ctc_state_dict``): the
+    positional conv weight-normed (``weight_g`` its norm over dims 0 and 1,
+    ``weight_v`` a rescaled copy)."""
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    key = "w2v_encoder.w2v_model.encoder.pos_conv.0."
+    w = sd.pop(key + "weight")
+    sd[key + "weight_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    sd[key + "weight_v"] = 0.5 * w
+    return sd
+
+
+def make_w2v_fixture(torch, root: Path, seed: int = 89) -> dict:
+    """Writes, with the port's own code: ``asr/`` (24 seeded wavs of 2-16 s
+    as ``test`` and ``train``, 8 of them as ``valid``, the 2 shortest as
+    ``parity``; letter transcripts, fairseq's 32-entry dictionary, a seeded
+    3-gram ARPA LM), ``pretrain/`` (10 wavs of 16-20 s; 5 of them
+    ``valid``), ``bimodal/`` (the same with a second aligned stream), a
+    fairseq-layout ``Wav2VecCtc`` ``.pt`` at wav2vec 2.0 base width (12 x
+    768, 12 heads, the default conv spec, ``mask_emb``) with seeded weights,
+    read back through the ported importer (every tensor equal, the folded
+    weight norm to 1e-6) and written as a native ``.ckpt``, and a native
+    ``.ckpt`` of ``wav2vec_seq2seq`` on a trunk of the same widths."""
+    from argparse import Namespace
+
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.checkpoint.torch_import import (
+        import_wav2vec_ctc_state_dict,
+        load_torch_checkpoint,
+    )
+    from chimera_st_tpu_torch.data.audio import write_wav
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    asr, pre, bim = root / "asr", root / "pretrain", root / "bimodal"
+    for d in (asr, pre, bim):
+        d.mkdir(parents=True)
+    (asr / "dict.ltr.txt").write_text("".join(f"{c} {1000 - i}\n"
+                                              for i, c in enumerate(W2V_LETTERS)))
+    rows, labels = [], []
+    for i in range(ASR_WAVS):
+        n = 320 * int(rng.integers(100, 801))  # 2.0 .. 16.0 s
+        write_wav(str(asr / f"u{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+        rows.append((f"u{i}.wav", n))
+        labels.append(letter_line(rng))
+    shortest = sorted(range(ASR_WAVS), key=lambda j: rows[j][1])[:ASR_PARITY_WAVS]
+    for split, idx in (("test", range(ASR_WAVS)), ("train", range(ASR_WAVS)),
+                       ("valid", range(8)), ("parity", shortest)):
+        write_manifest(asr, split, [rows[j] for j in idx], [labels[j] for j in idx])
+    arpa = seeded_letter_arpa(asr / "letters_3gram.arpa", seed)
+    pre_rows, bim_rows = [], []
+    for i in range(PRETRAIN_WAVS):
+        n = 320 * int(rng.integers(800, 1001))  # 16.0 .. 20.0 s
+        write_wav(str(pre / f"p{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+        write_wav(str(bim / f"a{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+        write_wav(str(bim / f"b{i}.wav"), (rng.normal(size=n) * 0.1).astype(np.float32))
+        pre_rows.append((f"p{i}.wav", n))
+        bim_rows.append((f"a{i}.wav", n, f"b{i}.wav", n))
+    for d, r in ((pre, pre_rows), (bim, bim_rows)):
+        write_manifest(d, "train", r)
+        write_manifest(d, "valid", r[:5])
+
+    task = setup_task({"_name": "audio_pretraining", "data": str(asr), "labels": "ltr"})
+    model = init_params_(task.build_model(dict(ASR_CTC), device="cpu", train=True),
+                         torch.Generator().manual_seed(seed)).eval()
+    pt = asr / "wav2vec_ctc_seeded.pt"
+    w2v_args = Namespace(encoder_embed_dim=768, encoder_ffn_embed_dim=3072, encoder_layers=12,
+                         encoder_attention_heads=12, conv_feature_layers=W2V_CONV_FEATURE_LAYERS,
+                         extractor_mode="default", conv_bias=False)
+    torch.save({"args": Namespace(arch="wav2vec_ctc", w2v_args=w2v_args),
+                "model": ctc_fairseq_state_dict(model)}, str(pt))
+    imported = import_wav2vec_ctc_state_dict(load_torch_checkpoint(str(pt))["model"])
+    seeded = model.state_dict()
+    worst = max(max_err(imported[k], seeded[k]) for k in seeded)
+    if sorted(imported) != sorted(seeded):
+        raise AssertionError("the imported Wav2VecCtc keys are not the model's")
+    check("asr fixture: the .pt through import_wav2vec_ctc_state_dict vs the seeded model",
+          worst, 1e-6)
+    model.load_state_dict(imported, strict=True)
+    ctc = asr / "wav2vec_ctc.ckpt"
+    save_model(str(ctc), model, ASR_CTC)
+    n_ctc = sum(p.numel() for p in model.parameters())
+    s2s_model = init_params_(task.build_model(dict(ASR_S2S), device="cpu", train=True),
+                             torch.Generator().manual_seed(seed + 1))
+    s2s = asr / "wav2vec_seq2seq.ckpt"
+    save_model(str(s2s), s2s_model, ASR_S2S)
+    n_s2s = sum(p.numel() for p in s2s_model.parameters())
+    log(f"w2v fixture: {ASR_WAVS} wavs, {sum(r[1] for r in rows) / 16000:.1f} s of audio; "
+        f"{PRETRAIN_WAVS} pre-training wavs ({sum(r[1] for r in pre_rows) / 16000:.1f} s) and "
+        f"as many aligned pairs; wav2vec_ctc {n_ctc / 1e6:.1f} M parameters ({pt.name} "
+        f"{pt.stat().st_size / 1e6:.0f} MB), wav2vec_seq2seq {n_s2s / 1e6:.1f} M; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(root=root, asr=asr, pretrain=pre, bimodal=bim, arpa=arpa, ctc=ctc, s2s=s2s,
+                audio_s={s: sum(rows[j][1] for j in idx) / 16000 for s, idx in
+                         (("test", range(ASR_WAVS)), ("parity", shortest))})
+
+
+ASR_TASK = ["--task", "audio_pretraining", "--labels", "ltr"]
+
+
+def asr_generate(fx, ckpt: Path, out_dir: Path, subset: str, extra):
+    """cli.generate of an ASR checkpoint -> (output text, counts and times)."""
+    from chimera_st_tpu_torch.cli import generate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats = generate.main([str(fx["asr"]), *ASR_TASK, "--path", str(ckpt), "--gen-subset",
+                           subset, "--max-tokens", ASR_MAX_TOKENS, "--results-path",
+                           str(out_dir), *extra])
+    return (out_dir / f"generate-{subset}.txt").read_text(), stats
+
+
+def asr_lines(text: str):
+    """{sample id: (score, hypothesis)} from the H- lines, {sample id:
+    reference} from the T- lines, the last line."""
+    h, t = {}, {}
+    for line in text.splitlines():
+        head, _, rest = line.partition("\t")
+        if head[:2] == "H-" and head[2:].isdigit():
+            score, _, hyp = rest.partition("\t")
+            h[int(head[2:])] = (float(score), hyp)
+        elif head[:2] == "T-" and head[2:].isdigit():
+            t[int(head[2:])] = rest
+    return h, t, (text.strip().splitlines() or [""])[-1]
+
+
+@contextlib.contextmanager
+def counted_calls(cls, name: str = "forward"):
+    """While open, counts the calls of ``cls.<name>`` (eval-mode calls and
+    all calls: [all, in eval mode])."""
+    n = [0, 0]
+    real = getattr(cls, name)
+
+    def counted(self, *args, **kwargs):
+        n[0] += 1
+        n[1] += int(not self.training)
+        return real(self, *args, **kwargs)
+
+    setattr(cls, name, counted)
+    try:
+        yield n
+    finally:
+        setattr(cls, name, real)
+
+
+def asr_batches(fx, subset: str, max_tokens=ASR_MAX_TOKENS) -> int:
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "audio_pretraining", "data": str(fx["asr"]), "labels": "ltr"})
+    task.load_dataset(subset)
+    return len(task.make_batch_iterator(task.dataset(subset), max_tokens=int(max_tokens)))
+
+
+def phase_asr_serve(torch, fx, kernels):
+    """The slice's main path: cli.generate --task audio_pretraining --labels
+    ltr of the seeded wav2vec_ctc checkpoint (base width, 12 heads, 32
+    letters). fp32 card vs CPU on the 2 shortest wavs, greedy (beam 1) and
+    prefix beam 50 fused with the seeded 3-gram ARPA LM: hypotheses
+    identical. Then bf16: greedy on the 24 wavs (--max-tokens 1280000), the
+    counts zeroed before and read after (K2 6 and K1 12 a batch, exact), a
+    run under --profile (the busy share), and beam 50 + LM on the parity
+    wavs. Prints {"asr_serve": {...}}; returns the launches."""
+    work = fx["root"] / "asr_serve"
+    beam = ASR_BEAM + ["--ctc-lm-path", str(fx["arpa"])]
+    rec = {}
+    for name, flags in (("greedy", ["--beam", "1"]), ("beam50_lm", beam)):
+        t0 = time.perf_counter()
+        gtext, _ = asr_generate(fx, fx["ctc"], work / f"parity_{name}_cuda", "parity",
+                                ["--dtype", "float32", *flags])
+        t1 = time.perf_counter()
+        ctext, _ = asr_generate(fx, fx["ctc"], work / f"parity_{name}_cpu", "parity",
+                                ["--dtype", "float32", "--device", "cpu", *flags])
+        (gh, gt, gl), (ch, ct, cl) = asr_lines(gtext), asr_lines(ctext)
+        if ({k: v[1] for k, v in gh.items()} != {k: v[1] for k, v in ch.items()} or gt != ct
+                or len(gh) != ASR_PARITY_WAVS or gl != cl):
+            raise AssertionError(f"asr_serve fp32 {name}: card {gh} vs CPU {ch}")
+        worst = max(abs(gh[k][0] - ch[k][0]) for k in gh)
+        # a sum of ~100 frames' log-probabilities, printed with 4 decimals
+        check(f"asr_serve fp32 {name}: {len(gh)} hypotheses identical card vs CPU (card "
+              f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s); scores", worst, 1e-3)
+        log(f"  {gl}")
+        rec[f"parity_{name}"] = {"identical": True, "hypotheses": len(gh), "score_err": worst}
+    n_batches = asr_batches(fx, "test")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text, stats = asr_generate(fx, fx["ctc"], work / "serve", "test",
+                               ["--dtype", "bfloat16", "--beam", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    implied = {"encoder_attention": 12 * n_batches, "conv_tail": 6 * n_batches,
+               "decode_attention": 0, "logmel": 0}
+    hyps, _, last = asr_lines(text)
+    audio_s = fx["audio_s"]["test"]
+    rec["greedy"] = dict(utterances=stats["sentences"], batches=n_batches, wall_s=wall,
+                         decode_s=stats["decode_s"], load_s=stats["load_s"],
+                         utterances_per_s=stats["sentences"] / stats["decode_s"],
+                         audio_s_per_s=audio_s / stats["decode_s"], wer=stats["wer"],
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         launches=counts, launches_per_batch={k: v / n_batches for k, v
+                                                              in counts.items()})
+    log(f"asr_serve bf16 greedy: {stats['sentences']} utterances ({audio_s:.1f} s of audio) in "
+        f"{n_batches} batches, decode {stats['decode_s']:.2f} s = "
+        f"{rec['greedy']['utterances_per_s']:.2f} utt/s, "
+        f"{rec['greedy']['audio_s_per_s']:.1f} audio s/s; load {stats['load_s']:.2f} s; peak "
+        f"{rec['greedy']['peak_memory_gb']:.2f} GB; launches {counts}; {last}")
+    if counts != implied or len(hyps) != ASR_WAVS:
+        raise AssertionError(f"asr_serve: launches {counts} (want {implied}), {len(hyps)} "
+                             "hypotheses")
+    asr_generate(fx, fx["ctc"], work / "profiled", "test",
+                 ["--dtype", "bfloat16", "--beam", "1", "--profile", str(work / "trace")])
+    rec["greedy"]["busy"] = trace_busy(work / "trace" / "trace.json")
+    log(f"  under --profile: device busy {100 * rec['greedy']['busy']['busy_share']:.1f} % of "
+        f"{rec['greedy']['busy']['wall_ms']:.0f} ms")
+    t0 = time.perf_counter()
+    _, stats = asr_generate(fx, fx["ctc"], work / "serve_beam", "parity",
+                            ["--dtype", "bfloat16", *beam])
+    rec["beam50_lm"] = dict(utterances=stats["sentences"], decode_s=stats["decode_s"],
+                            utterances_per_s=stats["sentences"] / stats["decode_s"],
+                            audio_s_per_s=fx["audio_s"]["parity"] / stats["decode_s"])
+    log(f"asr_serve bf16 prefix beam 50 + 3-gram LM: {stats['sentences']} utterances "
+        f"({fx['audio_s']['parity']:.1f} s of audio) in {stats['decode_s']:.2f} s "
+        f"({rec['beam50_lm']['utterances_per_s']:.2f} utt/s; the host's beam search)")
+    print(json.dumps({"asr_serve": rec}), flush=True)
+    return counts
+
+
+def phase_asr_seq2seq(torch, fx, kernels):
+    """wav2vec_seq2seq (the decoder 10 x 1,024, 16 heads, untied output) on
+    a trunk of the same widths: fp32 card vs CPU on the 2 parity wavs at
+    PARITY_DECODE steps, tokens identical; bf16 on the 24 wavs at beam 5,
+    64 steps, K1 12 and K2 6 a batch, K3 10 a decoder step. Prints
+    {"asr_seq2seq": {...}}; returns the launches."""
+    work = fx["root"] / "asr_seq2seq"
+    common = ["--autoregressive", "--beam", "5", "--scoring", "wer"]
+    t0 = time.perf_counter()
+    gtext, _ = asr_generate(fx, fx["s2s"], work / "parity_cuda", "parity",
+                            [*common, "--dtype", "float32", *PARITY_DECODE])
+    t1 = time.perf_counter()
+    ctext, _ = asr_generate(fx, fx["s2s"], work / "parity_cpu", "parity",
+                            [*common, "--dtype", "float32", "--device", "cpu", *PARITY_DECODE])
+    (gh, gfull, _), (ch, cfull, _) = parse_protocol(gtext), parse_protocol(ctext)
+    same_hypotheses("asr_seq2seq fp32 card vs CPU", gh, ch, ASR_PARITY_WAVS)
+    log(f"  card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s")
+    n_batches = asr_batches(fx, "test")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with counted_decoder_steps() as steps:
+        text, stats = asr_generate(fx, fx["s2s"], work / "serve", "test",
+                                   [*common, "--dtype", "bfloat16", "--max-decode-len", "64"])
+        torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    implied = {"encoder_attention": 12 * n_batches, "conv_tail": 6 * n_batches,
+               "decode_attention": 10 * steps[0], "logmel": 0}
+    hyps, full, last = parse_protocol(text)
+    rec = dict(utterances=stats["sentences"], batches=n_batches, decoder_steps=steps[0],
+               decode_s=stats["decode_s"], load_s=stats["load_s"],
+               utterances_per_s=stats["sentences"] / stats["decode_s"], launches=counts)
+    log(f"asr_seq2seq bf16 beam 5: {stats['sentences']} utterances in {n_batches} batches, "
+        f"{steps[0]} decoder steps, decode {stats['decode_s']:.2f} s = "
+        f"{rec['utterances_per_s']:.2f} utt/s, load {stats['load_s']:.2f} s; launches {counts}; "
+        f"{last}")
+    if counts != implied or len(full) != ASR_WAVS or not steps[0]:
+        raise AssertionError(f"asr_seq2seq: launches {counts} (want {implied}), {len(full)}")
+    print(json.dumps({"asr_seq2seq": rec}), flush=True)
+    return counts
+
+
+def asr_train_argv(fx, save_dir: Path, max_update: int):
+    """fairseq's examples/wav2vec README base fine-tune under the names the
+    JAX train CLI reads (the flags it does not read left out: PERF.md §4),
+    the tri_stage phases cut to ``max_update``."""
+    return [str(fx["asr"]), *ASR_TASK, "--arch", "wav2vec_ctc", *[
+        x for k, v in W2V_BASE.items() for x in (f"--{k.replace('_', '-')}", str(v))],
+        "--apply-mask", "--mask-prob", "0.5", "--layerdrop", "0.1", "--feature-grad-mult",
+        "0.0", "--freeze-finetune-updates", "1", "--zero-infinity", "--final-dropout", "0.0",
+        "--criterion", "ctc", "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+        "--adam-eps", "1e-08", "--lr", "2e-05", "--lr-scheduler", "tri_stage",
+        "--phase-ratio", "[0.1, 0.4, 0.5]", "--final-lr-scale", "0.05",
+        "--max-update", str(max_update), "--max-tokens", ASR_MAX_TOKENS,
+        "--best-checkpoint-metric", "wer", "--dtype", "bfloat16", "--log-interval", "1",
+        "--save-dir", str(save_dir)]
+
+
+def k1_backward_share(path: Path) -> dict:
+    """The plain K1 backward's share of a traced run: the device time of
+    the kernels launched inside ``EncoderAttentionFnBackward`` (matched to
+    their launches by correlation id) over the device's busy time and over
+    the trace's span."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    xs = [e for e in events if e.get("ph") == "X" and "ts" in e]
+    spans = []
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in xs
+                       if "EncoderAttentionFnBackward" in str(e.get("name", ""))):
+        if spans and a <= spans[-1][1]:
+            spans[-1] = (spans[-1][0], max(spans[-1][1], b))
+        else:
+            spans.append((a, b))
+    launches = {}
+    for e in xs:
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = float(e["ts"])
+    inside = 0.0
+    import bisect
+
+    starts = [a for a, _ in spans]
+    for e in xs:
+        if e.get("cat") != "kernel":
+            continue
+        t = launches.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            inside += float(e.get("dur", 0))
+    busy = trace_busy(path)
+    return {"k1_backward_device_ms": inside / 1e3, "backward_spans": len(spans),
+            "share_of_device_busy": inside / 1e3 / busy["device_busy_ms"],
+            "share_of_wall": inside / 1e3 / busy["wall_ms"], **busy}
+
+
+def asr_update_profile(torch, fx):
+    """One bf16 update of the fine-tune's model (base width, the README's
+    rates, layerdrop 0 so that all 12 layers run) on the largest train
+    micro-batch under torch.profiler, after one warm-up update:
+    k1_backward_share of its trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    task = setup_task({"_name": "audio_pretraining", "data": str(fx["asr"]), "labels": "ltr",
+                       "mask_prob": 0.5})
+    task.load_dataset("train")
+    batch = next(iter(task.make_batch_iterator(task.dataset("train"),
+                                               max_tokens=int(ASR_MAX_TOKENS))
+                      .next_epoch_itr(shuffle=False)))
+    model = init_params_(task.build_model(dict(ASR_CTC), device="cuda", train=True),
+                         torch.Generator(device="cuda").manual_seed(7))
+    step = TrainStep(model, task.build_criterion({"_name": "ctc"}),
+                     build_optimizer(TRAIN_ADAM, model.parameters()),
+                     build_lr_schedule({"_name": "fixed", "lr": 2e-5}))
+    step.num_updates = 5  # past the freeze horizon: the trunk trains
+    step([batch])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step([batch])
+        torch.cuda.synchronize()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        out = k1_backward_share(path)
+    out["batch"] = list(batch["audio"].shape)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def asr_step_parity(torch, fx, label: str):
+    """One fp32 update card vs CPU of wav2vec_ctc at 2 trunk layers (widths
+    kept), layerdrop 0, every dropout 0, the span mask given, past the
+    freeze horizon: compare_step's gates."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    task = setup_task({"_name": "audio_pretraining", "data": str(fx["asr"]), "labels": "ltr",
+                       "mask_prob": 0.5})
+    task.load_dataset("parity")
+    batch = next(iter(task.make_batch_iterator(task.dataset("parity"), max_sentences=2)
+                      .next_epoch_itr(shuffle=False)))
+    cfg = dict(ASR_CTC, w2v2_layers=2, freeze_finetune_updates=1)
+    weights = init_params_(task.build_model(dict(cfg), device="cpu", train=True),
+                           torch.Generator().manual_seed(3)).state_dict()
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = task.build_model(dict(cfg), device=device, train=True)
+        model.load_state_dict(weights)
+        step = TrainStep(model, task.build_criterion({"_name": "ctc"}),
+                         build_optimizer(TRAIN_ADAM, model.parameters()),
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         compute_dtype=torch.float32)
+        step.num_updates = 5
+        before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        metrics = step([batch])
+        out[device] = (metrics, before, {k: p.grad.cpu() for k, p in model.named_parameters()},
+                       {k: p.detach().cpu() for k, p in model.named_parameters()})
+        log(f"  {label} {device}: loss {metrics['loss']:.4f}, gnorm {metrics['gnorm']:.4f}")
+        del model, step
+    (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
+    return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, keys=("loss",))
+
+
+def phase_asr_train(torch, fx, kernels):
+    """The CTC fine-tune through cli.train with the README's base flags,
+    bf16, to the end of epoch 1 (one WER validation and one save there),
+    under --profile; then cli.generate of its checkpoint_best, and one fp32
+    update card vs CPU at 2 layers. Launches exact: K2 6 a forward of the
+    extractor (the training micro-batches, the loss and the WER passes over
+    the valid split); K1 one a trunk layer that ran (training with
+    attention dropout 0 runs it in every layer LayerDrop keeps; evaluation
+    in all 12). Prints {"asr_train": {...}}; returns the launches."""
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.models.wav2vec2 import ConvFeatureExtractor, W2V2EncoderLayer
+
+    save_dir = fx["root"] / "asr_train"
+    updates = asr_batches(fx, "train")  # one epoch
+    n_valid = asr_batches(fx, "valid")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_microbatches() as micro, counted_calls(W2V2EncoderLayer) as layers, \
+            counted_calls(ConvFeatureExtractor) as extractor:
+        out = train.main(asr_train_argv(fx, save_dir, updates))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = {fn.__name__: fn.launches for fn in kernels}
+    t = out["times"]
+    implied = {"encoder_attention": layers[0], "conv_tail": 6 * extractor[0],
+               "decode_attention": 0, "logmel": 0}
+    timed = t["update_s"][1:]
+    audio_s = fx["audio_s"]["test"]  # the train split is the 24 wavs
+    rec = dict(updates=out["trainer"].num_updates, micro_batches=micro[0],
+               updates_per_s_after_first=len(timed) / sum(timed),
+               audio_s_per_s=audio_s / t["epoch_s"][0], epoch_s=t["epoch_s"][0],
+               valid_s=t["valid_s"], valid_wer=t["valid"], save_s=t["save_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall,
+               trunk_layer_calls=layers[0], eval_layer_calls=layers[1], launches=c)
+    rec["profile"] = asr_update_profile(torch, fx)
+    log(f"asr_train: {rec['updates']} updates ({micro[0]} micro-batches, one epoch of the 24 "
+        f"wavs) in {wall:.1f} s; {rec['updates_per_s_after_first']:.3f} updates/s after the "
+        f"first, {rec['audio_s_per_s']:.1f} audio s/s over the epoch; peak "
+        f"{rec['peak_memory_gb']:.2f} GB; WER validation {t['valid']} in "
+        f"{[round(s, 2) for s in t['valid_s']]} s; save {[round(s, 2) for s in t['save_s']]} s; "
+        f"trunk layers run {layers[0]} ({layers[1]} in evaluation); launches {c}")
+    log(f"  profile of one update (bf16, its largest micro-batch): device busy "
+        f"{100 * rec['profile']['busy_share']:.1f} % of {rec['profile']['wall_ms']:.0f} ms; the "
+        f"plain K1 backward {rec['profile']['k1_backward_device_ms']:.1f} ms = "
+        f"{100 * rec['profile']['share_of_device_busy']:.1f} % of the device's busy time, "
+        f"{100 * rec['profile']['share_of_wall']:.1f} % of the update "
+        f"({rec['profile']['backward_spans']} backward spans)")
+    if (c != implied or extractor[0] != micro[0] + 2 * n_valid
+            or layers[1] != 12 * 2 * n_valid or not layers[0] - layers[1]
+            or rec["updates"] != updates or len(t["valid"]) != 1):
+        raise AssertionError(f"asr_train: launches {c} (want {implied}), extractor "
+                             f"{extractor[0]}, layers {layers}, {rec['updates']} updates")
+    for fn in kernels:
+        fn.launches = 0
+    text, stats = asr_generate(fx, save_dir / "checkpoint_best.ckpt", save_dir / "decode",
+                               "valid", ["--dtype", "bfloat16", "--beam", "1"])
+    dc = {fn.__name__: fn.launches for fn in kernels}
+    hyps, _, last = asr_lines(text)
+    if len(hyps) != 8 or dc["encoder_attention"] != 12 * n_valid:
+        raise AssertionError(f"asr_train generate: {len(hyps)} hypotheses, {dc}")
+    log(f"  cli.generate of checkpoint_best: 8 utterances, launches {dc}; {last}")
+    rec["parity"] = asr_step_parity(torch, fx, "asr_train fp32 step (2 layers)")
+    print(json.dumps({"asr_train": rec}), flush=True)
+    return c, dc
+
+
+def pretrain_argv(data: Path, save_dir: Path, task: str, arch: str, criterion: str,
+                  max_update: int, extra=()):
+    return [str(data), "--task", task, "--arch", arch, "--criterion", criterion,
+            *PRETRAIN_FLAGS, "--max-update", str(max_update), "--save-dir", str(save_dir),
+            *extra]
+
+
+def pretrain_batches(data: Path, task_name: str, split: str) -> int:
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": task_name, "data": str(data), "max_sample_size": 250000,
+                       "min_sample_size": 32000})
+    task.load_dataset(split)
+    return len(task.make_batch_iterator(task.dataset(split), max_tokens=1400000))
+
+
+def pretrain_one(torch, label: str, argv, streams: int, n_valid: int, kernels):
+    """One pre-training cli.train run, the counts zeroed before and read
+    after. K2 6 a stream a micro-batch and a validation batch; K1 the 12
+    layers a stream a validation batch (training: attention dropout 0.1, the
+    plain path, as in JAX). -> (launches, record)."""
+    from chimera_st_tpu_torch.cli import train
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_microbatches() as micro:
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    c = {fn.__name__: fn.launches for fn in kernels}
+    t = out["times"]
+    implied = {"encoder_attention": streams * 12 * n_valid * len(t["valid_s"]),
+               "conv_tail": 6 * streams * (micro[0] + n_valid * len(t["valid_s"])),
+               "decode_attention": 0, "logmel": 0}
+    timed = t["update_s"][1:]
+    rec = dict(updates=out["trainer"].num_updates, micro_batches=micro[0],
+               updates_per_s_after_first=len(timed) / sum(timed) if timed else None,
+               update_s=t["update_s"], valid=t["valid"], valid_s=t["valid_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t0, launches=c)
+    log(f"  {label}: {rec['updates']} updates ({micro[0]} micro-batches) in "
+        f"{rec['wall_s']:.1f} s, updates/s after the first "
+        f"{rec['updates_per_s_after_first']}, peak {rec['peak_memory_gb']:.2f} GB, validation "
+        f"{t['valid']}; launches {c}")
+    if c != implied or not rec["updates"] or any(not np.isfinite(v) for v in t["valid"]):
+        raise AssertionError(f"{label}: launches {c} (want {implied})")
+    return c, rec
+
+
+def pretrain_step_parity(torch, fx, label: str):
+    """One fp32 pre-training update card vs CPU at 2 layers (widths kept):
+    the criterion wav2vec, the Gumbel quantizer's uniform noise given (the
+    same numbers on both devices), every dropout 0 (the trunk's attention
+    dropout set to 0 on the instance), a micro-batch of 2 crops."""
+    from chimera_st_tpu_torch.models import wav2vec2_pretraining as pt
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    task = setup_task({"_name": "audio_pretraining", "data": str(fx["pretrain"]),
+                       "max_sample_size": 250000, "min_sample_size": 32000})
+    task.load_dataset("valid")
+    batch = next(iter(task.make_batch_iterator(task.dataset("valid"), max_sentences=2)
+                      .next_epoch_itr(shuffle=False)))
+    cfg = {"encoder_heads": 12, "encoder_layers": 2, "dropout": 0.0}
+    weights = init_params_(task.build_model(dict(cfg), device="cpu", train=True),
+                           torch.Generator().manual_seed(4)).state_dict()
+    B, frames = batch["mask_indices"].shape
+    noise = torch.from_numpy(np.random.default_rng(5).random((B * frames * 2, 320))
+                             .astype(np.float32))
+    real_noise = pt.uniform_noise
+    pt.uniform_noise = lambda shape, generator, device: noise.to(device)
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            model = task.build_model(dict(cfg), device=device, train=True)
+            model.load_state_dict(weights)
+            for layer in model.wav2vec_model.encoder.layers:
+                layer.self_attn.dropout = 0.0
+            step = TrainStep(model, task.build_criterion({"_name": "wav2vec"}),
+                             build_optimizer(TRAIN_ADAM, model.parameters()),
+                             build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                             compute_dtype=torch.float32)
+            before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+            t0 = time.perf_counter()
+            metrics = step([batch])
+            out[device] = (metrics, before,
+                           {k: p.grad.cpu() for k, p in model.named_parameters()},
+                           {k: p.detach().cpu() for k, p in model.named_parameters()})
+            log(f"  {label} {device}: {time.perf_counter() - t0:.2f} s, loss "
+                f"{metrics['loss']:.4f}, gnorm {metrics['gnorm']:.4f}")
+            del model, step
+    finally:
+        pt.uniform_noise = real_noise
+    (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
+    # the InfoNCE logits are cosine similarities over the logit
+    # temperature 0.1, which scales the trunk's fp32 differences (K1 / K2 on
+    # the card, the plain versions on the CPU) tenfold before ~800 masked
+    # frames are summed: the losses 1e-4 relative; gnorm, every gradient
+    # and the update are held by compare_step's gates
+    for key in ("loss", "contrastive_loss", "features_pen"):
+        check(f"{label} {key} card vs CPU (relative)", abs(mg[key] - mc[key]) / abs(mc[key]),
+              1e-4)
+    return compare_step(torch, label, (mg, gg, pg), (mc, gc, pc), before, keys=())
+
+
+def phase_w2v_pretrain(torch, fx, kernels):
+    """wav2vec 2.0 pre-training through cli.train at base width (12 heads),
+    bf16: 2 updates (one epoch) of crops of 250,000 samples (5 a batch) and
+    one validation; K2 forward and backward (ConvTailFn) in every micro-batch;
+    then one fp32 update card vs CPU at 2 layers. Prints
+    {"w2v_pretrain": {...}}; returns the launches."""
+    data = fx["pretrain"]
+    n_valid = pretrain_batches(data, "audio_pretraining", "valid")
+    log(f"w2v_pretrain: cli.train --task audio_pretraining --arch wav2vec2, "
+        f"{PRETRAIN_WAVS} wavs of 16-20 s, {n_valid} validation batch(es)")
+    c, rec = pretrain_one(torch, "w2v_pretrain", pretrain_argv(
+        data, fx["root"] / "w2v_pretrain", "audio_pretraining", "wav2vec2", "wav2vec", 2),
+        1, n_valid, kernels)
+    rec["parity"] = pretrain_step_parity(torch, fx, "w2v_pretrain fp32 step (2 layers)")
+    print(json.dumps({"w2v_pretrain": rec}), flush=True)
+    return c
+
+
+def v1_update(torch, fx):
+    """One bf16 update of wav2vec v1 (its default conv stacks, 12 steps
+    ahead, 10 negatives) through TrainStep on the pre-training crops; no
+    kernel runs on this path."""
+    from chimera_st_tpu_torch.data.raw_audio_dataset import RawAudioDataset
+    from chimera_st_tpu_torch.models import wav2vec_v1
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    cfg = wav2vec_v1.Wav2VecV1Config()
+    ds = RawAudioDataset.from_tsv(str(fx["pretrain"] / "valid.tsv"), str(fx["pretrain"]),
+                                  num_negatives=cfg.num_negatives,
+                                  frames_fn=lambda n: wav2vec_v1.feature_length(n, cfg))
+    batch = ds.collater([ds[i] for i in range(2)])
+    model = init_params_(wav2vec_v1.build_wav2vec_v1({}, device="cuda").train(),
+                         torch.Generator(device="cuda").manual_seed(6))
+    task = setup_task({"_name": "audio_pretraining", "data": str(fx["pretrain"])})
+    step = TrainStep(model, task.build_criterion({"_name": "wav2vec_v1"}),
+                     build_optimizer(TRAIN_ADAM, model.parameters()),
+                     build_lr_schedule({"_name": "fixed", "lr": 1e-4}))
+    t0 = time.perf_counter()
+    m = step([batch])
+    torch.cuda.synchronize()
+    return {"loss": m["loss"], "gnorm": m["gnorm"], "s": time.perf_counter() - t0,
+            "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+
+
+def phase_bimodal_pretrain(torch, fx, kernels):
+    """Chimera's bimodal pre-training: cli.train --task bimodal_pretraining
+    --arch wav2vec2_quasiwave, 2 updates each with wav2vec_bimodal and with
+    aligning_loss_bimodal (two streams: K2 12 a micro-batch), then one
+    update of the k-means quantizer (--quantizer-type kmeans) and one of
+    wav2vec v1 (TrainStep). Prints {"bimodal_pretrain": {...}}; returns the
+    launches."""
+    data = fx["bimodal"]
+    n_valid = pretrain_batches(data, "bimodal_pretraining", "valid")
+    counts, rec = {}, {}
+    for crit in ("wav2vec_bimodal", "aligning_loss_bimodal"):
+        counts[f"bimodal_{crit}"], rec[crit] = pretrain_one(
+            torch, f"bimodal_pretrain {crit}", pretrain_argv(
+                data, fx["root"] / f"bimodal_{crit}", "bimodal_pretraining",
+                "wav2vec2_quasiwave", crit, 2, ["--no-save"]), 2, n_valid, kernels)
+    n_valid = pretrain_batches(fx["pretrain"], "audio_pretraining", "valid")
+    counts["kmeans"], rec["kmeans"] = pretrain_one(
+        torch, "w2v_pretrain kmeans quantizer", pretrain_argv(
+            fx["pretrain"], fx["root"] / "kmeans", "audio_pretraining", "wav2vec2", "wav2vec", 1,
+            ["--quantizer-type", "kmeans", "--no-save"]), 1, n_valid, kernels)
+    rec["wav2vec_v1"] = v1_update(torch, fx)
+    log(f"  wav2vec v1: one bf16 update, loss {rec['wav2vec_v1']['loss']:.2f}, "
+        f"{rec['wav2vec_v1']['params_m']:.1f} M parameters, {rec['wav2vec_v1']['s']:.2f} s")
+    print(json.dumps({"bimodal_pretrain": rec}), flush=True)
+    return counts
+
+
+def phase_w2v_shapes(torch, ops, seen, records):
+    """K1, K2 and K3 at every shape the wav2vec phases launched, against
+    the plain versions in bf16 and fp32; timed: the largest K1 (with SDPA)
+    and K2 shape, K3 at the seq2seq decode's largest; K2's backward at the
+    pre-training crop (B 5 x 250,000 samples) with cuDNN's forward +
+    backward beside it (its plain version)."""
+    def area(p):
+        return p[0][0] * p[0][1]
+
+    k1, k2, k3 = seen["encoder_attention"], seen["conv_tail"], seen["decode_attention"]
+    crop = [p for p in k2 if p[0][1] == PRETRAIN_T1]  # the pre-training crop
+    timed = {"encoder_attention": list(dict.fromkeys(
+                 [p for p in k1 if p[0][1] == PRETRAIN_T][:1] + [max(k1, key=area)])),
+             "conv_tail": list(dict.fromkeys(crop[:1] + [max(k2, key=area)])),
+             "decode_attention": [max(k3, key=lambda p: p[0][0] * p[0][2])]}
+    rest = {k: [p for p in v if p not in timed[k]] for k, v in seen.items()}
+    phase_shapes(torch, ops, timed, records, "w2v", lambda sh: (
+        (12, 64) in {(H, D) for _, _, H, D in sh["encoder_attention"]}
+        and bool(sh["conv_tail"]) and (16, 5) in {(H, C) for _, H, _, _, C
+                                                  in sh["decode_attention"]}),
+        timed=("encoder_attention", "conv_tail", "decode_attention"))
+    phase_shapes(torch, ops, rest, records, "w2v_all", lambda sh: True)
+    if not crop:
+        raise AssertionError(f"w2v_shapes: no K2 launch at the pre-training crop: {k2}")
+    B, T1, _ = crop[0][0]
+    conv_tail = ops[1]
+    rec = next(r for r in records if r["name"] == "conv_tail")
+    tensor = Inputs(torch, 8)
+    back = k2_backward_case(torch, conv_tail, tensor, B, T1)
+    CH = conv_tail.CH
+    x = torch.nn.functional.gelu(tensor((B, T1, CH), dtype=torch.float32)).to(torch.bfloat16)
+    ws = [tensor((CH, CH, k), scale=(2.0 / (k * CH)) ** 0.5) for k, _ in conv_tail.TAIL_SPEC]
+    g = tensor(tuple(conv_tail.conv_tail_plain(x, ws).shape))
+
+    def cudnn_forward_backward():
+        leaves = [x.detach().requires_grad_()] + [w.detach().requires_grad_() for w in ws]
+        conv_tail.conv_tail_plain(leaves[0], leaves[1:]).backward(g)
+
+    back["backward_library_ms"] = cuda_ms(cudnn_forward_backward, reps=3)
+    log(f"  B{B} T1 {T1} cuDNN forward + backward (bf16): {back['backward_library_ms']:.3f} ms")
+    rec.setdefault("backward", {})[f"w2v_pretrain_B{B}_T1_{T1}"] = back
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import argparse
 
@@ -5603,6 +6414,21 @@ def main() -> int:
             counts.update(phase_bart_train(torch, bart_fx, mbart_ckpt, kernels))
             mbart_ckpt.unlink()
         mark("bart_train done")
+        # 13. the wav2vec family (this slice's main path: asr_serve), its
+        # K1, K2 and K3 shapes held against the plain versions below
+        w2v_fx = make_w2v_fixture(torch, work / "w2v")
+        with recorded_shapes(*ops) as w2v_seen:
+            counts["asr_serve"] = phase_asr_serve(torch, w2v_fx, kernels)
+            mark("asr_serve done")
+            counts["asr_seq2seq"] = phase_asr_seq2seq(torch, w2v_fx, kernels)
+            mark("asr_seq2seq done")
+            counts["asr_train"], counts["asr_train_decode"] = phase_asr_train(
+                torch, w2v_fx, kernels)
+            mark("asr_train done")
+            counts["w2v_pretrain"] = phase_w2v_pretrain(torch, w2v_fx, kernels)
+            mark("w2v_pretrain done")
+            counts.update(phase_bimodal_pretrain(torch, w2v_fx, kernels))
+        mark("bimodal_pretrain done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -5640,8 +6466,9 @@ def main() -> int:
 
     phase_nat_shapes(torch, ops, nat_serve_seen, nat_train_seen, records)
     phase_bart_shapes(torch, ops, bart_seen, records)
+    phase_w2v_shapes(torch, ops, w2v_seen, records)
     mark("shapes done")
-    # 13. report
+    # 14. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

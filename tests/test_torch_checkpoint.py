@@ -140,8 +140,11 @@ def test_wav2vec2_importer_matches_jax(imported):
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(ref_mask))
     keep = ~np.asarray(ref_mask)
     np.testing.assert_allclose(got.numpy()[keep], np.asarray(ref)[keep], **TOL)
-    with pytest.raises(NotImplementedError, match="mask_emb"):
-        torch_import.import_wav2vec2_state_dict(sd, prefix=prefix, keep_mask_emb=True)
+    # keep_mask_emb reads the fine-tune span-masking embedding, as JAX does
+    kept = torch_import.import_wav2vec2_state_dict(sd, prefix=prefix, keep_mask_emb=True)
+    ref_kept = jax_import.import_wav2vec2_state_dict(sd, prefix=prefix, keep_mask_emb=True)
+    np.testing.assert_array_equal(kept["mask_emb"].numpy(), np.asarray(ref_kept["mask_emb"]))
+    assert sorted(set(kept) - set(out)) == ["mask_emb"]
 
 
 def test_unknown_key_raises(imported):

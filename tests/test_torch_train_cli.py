@@ -239,7 +239,6 @@ def test_resumed_run_equals_uninterrupted_run_with_dropout(runs, tmp_path):
 UNPORTED_TRAIN_FLAGS = {
     "arch": ["--arch", "s2t_transformer_s"],
     "task": ["--task", "speech_to_text"],
-    "best_checkpoint_metric": ["--best-checkpoint-metric", "wer"],
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],
     "user_dir": ["--user-dir", "plugins"],
