@@ -13,12 +13,15 @@ carried across with ``convert``; a file is written to ``.tmp`` and then
 moved into place. Naming and retention follow the JAX ``CheckpointManager``:
 ``checkpoint_last`` / ``checkpoint_best`` / ``checkpoint{epoch}`` /
 ``checkpoint_{epoch}_{updates}`` / ``checkpoint.best_{score}_{updates}``,
-written once and copied, then pruned.
+written once and replicated, then pruned. A replica is a hard link of the
+written file where the file system allows one (the JAX manager copies: the
+bytes are the same, and no file is ever changed in place), else a copy.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 import re
 import shutil
@@ -51,6 +54,18 @@ def save_state(path: str, state: TrainState, extra: Dict[str, Any]) -> None:
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     Path(tmp).replace(path)
+
+
+def replicate_file(src: Path, dst: Path) -> None:
+    """``dst`` with ``src``'s bytes: a hard link, or a copy where the file
+    system refuses one; moved into place as a write is."""
+    tmp = Path(str(dst) + ".tmp")
+    tmp.unlink(missing_ok=True)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    tmp.replace(dst)
 
 
 def save_model(path: str, model, model_cfg: Dict[str, Any], kind: Optional[str] = None) -> None:
@@ -178,7 +193,7 @@ class CheckpointManager:
             save_state(str(self.save_dir / name), host, extra)
             wrote.append(name)
 
-        # write once, then copy
+        # write once, then replicate
         primary = None
         if end_of_epoch and not self.no_epoch:
             primary = f"checkpoint{epoch}{SUFFIX}"
@@ -188,10 +203,12 @@ class CheckpointManager:
             _save(primary)
 
         def _replicate(name):
+            nonlocal primary
             if primary is not None:
-                shutil.copyfile(str(self.save_dir / primary), str(self.save_dir / name))
-            else:
+                replicate_file(self.save_dir / primary, self.save_dir / name)
+            else:  # the first file written is the one the others replicate
                 _save(name)
+                primary = name
             if name not in wrote:
                 wrote.append(name)
 

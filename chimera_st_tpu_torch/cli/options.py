@@ -264,7 +264,7 @@ _COMMON_UNPORTED = (
     ("model_parallel_size", lambda v: v > 1, "--model-parallel-size above 1", "A12"),
     ("zero_sharding", lambda v: v != "none", "--zero-sharding os", "A12"),
     ("pipeline_stages", lambda v: v > 1, "--pipeline-stages above 1", "A12"),
-    ("user_dir", bool, "--user-dir", "A14"),
+    ("user_dir", bool, "--user-dir", "A14b"),
 )
 # the generation and validation CLIs add the generator's own list
 UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
@@ -274,7 +274,9 @@ PORTED_TRAIN_TASKS = ("triplet", "translation", "translation_tts", "language_mod
                       "translation_from_pretrained_bart", "translation_multi_simple_epoch",
                       "denoising", "multilingual_denoising", "sentence_prediction",
                       "sentence_ranking", "multilingual_translation", "audio_pretraining",
-                      "bimodal_pretraining")
+                      "bimodal_pretraining", "masked_lm", "cross_lingual_lm",
+                      "multilingual_masked_lm", "legacy_masked_lm",
+                      "translation_from_pretrained_xlm", "semisupervised_translation")
 # the train CLI's
 TRAIN_UNPORTED = _COMMON_UNPORTED + (
     ("task", lambda v: v == "speech_to_text",
@@ -284,7 +286,7 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "--arch of the fbank s2t_transformer presets (the JAX train CLI cannot train this "
      "model either, ROADMAP C)", "A10c"),
     ("task", lambda v: v not in PORTED_TRAIN_TASKS + ("speech_to_text",),
-     "--task other than " + " / ".join(PORTED_TRAIN_TASKS), "A14"),
+     "--task other than " + " / ".join(PORTED_TRAIN_TASKS), "A14d"),
 )
 
 

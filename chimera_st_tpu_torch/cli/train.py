@@ -11,7 +11,12 @@ pre-training), and ``--task translation_lev`` / ``translation_ins``, the
 non-autoregressive models under ``--noise levenshtein | random_mask |
 full_mask`` (an undeclared flag, as ``--random-delete-max`` and
 ``--random-insert-max``, reaching the task and the model as in JAX) with
-``levenshtein_loss``, ``nat_loss``, ``nacrf_loss`` or ``insertion_loss``):
+``levenshtein_loss``, ``nat_loss``, ``nacrf_loss`` or ``insertion_loss``,
+and the masked-LM family: ``--task masked_lm`` / ``cross_lingual_lm`` /
+``multilingual_masked_lm`` (``--criterion masked_lm``), ``legacy_masked_lm``
+(``--criterion legacy_masked_lm``, with the next-sentence head of the
+``bert*`` presets), ``translation_from_pretrained_xlm``
+(``--pretrained-xlm-checkpoint``) and ``semisupervised_translation``):
 the same flags, loop, checkpoints and log lines. Every
 ``--optimizer`` (adam, adafactor, adagrad, adadelta, sgd, nag, adamax,
 lamb) and ``--lr-scheduler`` (fixed, inverse_sqrt, cosine,
@@ -47,6 +52,13 @@ CLI, from the same flags with the same defaults.
         --task-configs st.json mt.json --main-task st \\
         --arch s2t_transformer_w2v2_interlingua_base ... (the ST recipe's flags)
 
+    python -m chimera_st_tpu_torch.cli.train MLM_BIN --task masked_lm \\
+        --arch roberta_base --criterion masked_lm --tokens-per-sample 512 \\
+        --sample-break-mode complete --optimizer adam --adam-betas '(0.9,0.98)' \\
+        --adam-eps 1e-6 --weight-decay 0.01 --clip-norm 0.0 --lr-scheduler \\
+        polynomial_decay --lr 0.0005 --total-num-update 125000 \\
+        --warmup-updates 10000 --dropout 0.1 --max-sentences 16
+
     python -m chimera_st_tpu_torch.cli.train DATA_BIN --task translation_lev \\
         --noise levenshtein --arch levenshtein_transformer_wmt_en_de \\
         --criterion levenshtein_loss --label-smoothing 0.1 --optimizer adam \\
@@ -56,8 +68,9 @@ CLI, from the same flags with the same defaults.
 In order: the task, the model (fp32 parameters in train mode), the
 schedule, the optimizer, the criterion, then the parameters (the seeded
 ``init_params_``, then ``--w2v2-model-path`` through
-``import_wav2vec2_state_dict``), the ``--fix-*`` freezing (a text-only task
-adds the audio-trunk mask unless ``--fix-wav2vec`` is given; the Transformer
+``import_wav2vec2_state_dict``, then the task's ``post_init_params``), the
+``--fix-*`` freezing (a text-only task adds the audio-trunk mask unless
+``--fix-wav2vec`` is given; the Transformer
 family has no audio trunk, so ``--w2v2-model-path`` and ``--fix-*`` raise
 for it), the restore
 (``--restore-file`` / ``--finetune-from-model`` and the ``--reset-*`` rules of
@@ -164,6 +177,10 @@ def main(argv=None) -> dict:
         raise ValueError(f"{args.arch}: --w2v2-model-path and --fix-* apply to the "
                          "interlingua model's audio trunk and memory, which this model has not")
     init_params(model, args, model_overrides)
+    if hasattr(task, "post_init_params"):
+        # the task's warm start (translation_from_pretrained_xlm: the XLM
+        # checkpoint's embeddings and layers)
+        task.post_init_params(model, args)
     model.to(device)
     from ..optim.freeze import auto_text_only_fixes, frozen_fraction, wrap_freeze
 

@@ -25,7 +25,8 @@ same under ``backbone/`` and the classification head) and
 ``{g}`` in a template matching the group: a language or ``shared``), and the
 wav2vec family's ``wav2vec_ctc``, ``wav2vec_seq2seq``, ``wav2vec2_pretrain``
 and ``wav2vec`` (v1; a module's own parameters, ``mask_emb`` and the
-quantizers' tables, are kinds of their own);
+quantizers' tables, are kinds of their own), and ``masked_lm`` (RoBERTa /
+BERT / XLM, its ``lm_head_bias`` a kind of its own);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
@@ -72,6 +73,8 @@ _LEAVES = {
     # Gumbel quantizer's codebook or the k-means quantizer's embedding
     "mask_emb": (("mask_emb", "mask_emb", True),),
     "quantizer": (("codebook", "codebook", False), ("embedding", "embedding", False)),
+    # the masked LM's output bias, a parameter of the model itself
+    "lm_head_bias": (("lm_head_bias", "lm_head_bias", True),),
 }
 
 
@@ -250,6 +253,16 @@ _RULES["wav2vec"] = [("feature_convs.{i}", "feat_conv_{i}", "conv"),
                      ("agg_convs.{i}", "agg_conv_{i}", "conv"),
                      ("step_predictors.{i}", "pred_{i}", "dense_nobias")]
 
+# the masked-LM family (RoBERTa / BERT / XLM): the encoder stack, the LM head
+# with its bias and, for the bert* presets, the next-sentence head
+_RULES["masked_lm"] = [("embed_tokens", "embed_tokens", "embed"),
+                       ("emb_layer_norm", "emb_layer_norm", "norm"),
+                       *_enc_layer("layers.{i}", "layers_{i}"),
+                       ("lm_head_dense", "lm_head_dense", "dense"),
+                       ("lm_head_layer_norm", "lm_head_layer_norm", "norm"),
+                       ("", "", "lm_head_bias"),
+                       ("sentence_projection", "sentence_projection", "dense")]
+
 # placeholder of a template -> what it matches: ``{i}`` a layer index, ``{g}``
 # a language group
 _SLOTS = {"i": r"\d+", "g": r"[^./]+"}
@@ -426,7 +439,7 @@ def model_kind(model: torch.nn.Module) -> str:
     ``levenshtein_transformer``, ``insertion_transformer``), ``bart``,
     ``multilingual_transformer``, or of the wav2vec family ``wav2vec_ctc``,
     ``wav2vec_seq2seq``, ``wav2vec2_pretrain`` (either quantizer) or
-    ``wav2vec`` (v1)."""
+    ``wav2vec`` (v1), or ``masked_lm``."""
     cfg = getattr(model, "cfg", None)
     if getattr(cfg, "character_embeddings", False):
         return "transformer_lm_char"
@@ -443,7 +456,7 @@ def model_kind(model: torch.nn.Module) -> str:
             "MultilingualTransformer": "multilingual_transformer",
             "Wav2VecCtcModel": "wav2vec_ctc", "Wav2VecSeq2SeqModel": "wav2vec_seq2seq",
             "Wav2Vec2PretrainModel": "wav2vec2_pretrain",
-            "Wav2VecV1Model": "wav2vec"}[type(model).__name__]
+            "Wav2VecV1Model": "wav2vec", "MaskedLMModel": "masked_lm"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -13,41 +13,28 @@ source) and loaded with ctypes; a failed build raises, nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import host_library
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "edit_ops.cpp"
-BUILD_DIR = PKG_DIR / "_build"
-FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+BUILD_DIR = host_library.BUILD_DIR
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha1(" ".join(FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libchimera_edit_ops_{h}.so"
+    return host_library.library_path(SOURCE, "libchimera_edit_ops", BUILD_DIR)
 
 
 def build() -> Path:
     """Compiles the routine if its library is missing; raises with the
     compiler's output if ``g++`` fails."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.so.tmp"
-    proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", str(tmp)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent process never sees half a file
-    return lib
+    return host_library.build(SOURCE, "libchimera_edit_ops", BUILD_DIR)
 
 
 def _library() -> ctypes.CDLL:

@@ -1,6 +1,8 @@
 """Subword/tokenizer encoder registry (own copy of
-chimera_st_tpu/data/encoders.py; the gpt2 / subword-nmt / fastbpe / byte-bpe
-encoders and the nltk / moses tokenizers are not ported yet).
+chimera_st_tpu/data/encoders.py): the ``sentencepiece``, ``bytes`` and
+``characters`` encoders here, the subword BPEs in :mod:`.encoders_bpe`, and
+the ``space``, ``nltk`` and ``moses`` tokenizers (``nltk`` and
+``sacremoses`` imported by their constructors).
 
 Each encoder: encode(str) -> str of space-joined tokens; decode(str) -> str.
 `sentencepiece` uses the sentencepiece wheel where one is installed and the
@@ -77,6 +79,36 @@ class SpaceTokenizer:
         return text
 
 
+@register_tokenizer("nltk")
+class NLTKTokenizer:
+    def __init__(self, cfg: Dict):
+        from nltk.tokenize import word_tokenize
+
+        self._tok = word_tokenize
+
+    def encode(self, text: str) -> str:
+        return " ".join(self._tok(text))
+
+    def decode(self, text: str) -> str:
+        return text
+
+
+@register_tokenizer("moses")
+class MosesTokenizer:
+    def __init__(self, cfg: Dict):
+        from sacremoses import MosesDetokenizer, MosesTokenizer as MT
+
+        lang = cfg.get("source_lang", "en")
+        self._tok = MT(lang=lang)
+        self._detok = MosesDetokenizer(lang=cfg.get("target_lang", lang))
+
+    def encode(self, text: str) -> str:
+        return self._tok.tokenize(text, return_str=True)
+
+    def decode(self, text: str) -> str:
+        return self._detok.detokenize(text.split())
+
+
 def build_bpe(cfg: Optional[Dict]):
     if not cfg or not cfg.get("_name") or cfg.get("_name") == "none":
         return None
@@ -87,3 +119,6 @@ def build_tokenizer(cfg: Optional[Dict]):
     if not cfg or not cfg.get("_name") or cfg.get("_name") == "none":
         return None
     return TOKENIZERS.get(cfg["_name"])(cfg)
+
+
+from . import encoders_bpe  # noqa: F401,E402 — registers the subword BPEs

@@ -10,7 +10,10 @@ five ``bart*`` / ``mbart*`` presets and ``multilingual_transformer`` with
 its two, and the wav2vec family: ``wav2vec_ctc`` and ``wav2vec_seq2seq``
 (speech recognition), ``wav2vec2`` / ``wav2vec2_large`` and
 ``wav2vec2_quasiwave`` / ``wav2vec2_quasiwave_base`` (pre-training) and
-``wav2vec`` (v1) (counterpart of the registrations in chimera_st_tpu/models/).
+``wav2vec`` (v1), and the masked-LM family: ``masked_lm``, ``roberta``,
+``camembert`` and ``xlmr`` with the ten ``roberta*`` / ``bert*`` / ``xlm*`` /
+``camembert`` / ``masked_lm`` presets, and ``transformer_from_pretrained_xlm``
+(counterpart of the registrations in chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
 function that fills a config dict with its preset's defaults. A field the
@@ -23,11 +26,13 @@ from typing import Dict
 
 from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
 from . import bart as _bart
+from . import masked_lm as _mlm
 from . import multilingual_transformer as _multi
 from . import nat_cmlm as _cmlm
 from . import nat_insertion as _ins
 from . import nat_levenshtein as _lev
 from . import nat_vanilla as _nat
+from . import roberta_hub as _roberta_hub
 from . import s2t_transformer as _s2t
 from . import transformer_mt as _mt
 from . import wav2vec2_asr as _asr
@@ -108,7 +113,7 @@ for _arch, _preset in _s2t.ARCHITECTURES.items():
     register_model_architecture("s2t_transformer", _arch)(_preset)
 
 # the Transformer family, the non-autoregressive family, BART, the
-# multilingual transformer and the wav2vec family
+# multilingual transformer, the wav2vec family and the masked-LM family
 NAT_MODEL_BUILDERS = {
     "cmlm_transformer": _cmlm.build_cmlm,
     "nonautoregressive_transformer": _nat.build_nat,
@@ -122,12 +127,14 @@ NAT_ARCHITECTURES = {**_cmlm.ARCHITECTURES, **_nat.ARCHITECTURES, **_lev.ARCHITE
 for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS, "bart": _bart.build_bart,
                       "multilingual_transformer": _multi.build_multilingual,
                       **_asr.MODEL_BUILDERS, **_w2v2_pt.MODEL_BUILDERS,
-                      **_w2v1.MODEL_BUILDERS}.items():
+                      **_w2v1.MODEL_BUILDERS, **_mlm.MODEL_BUILDERS,
+                      **_roberta_hub.MODEL_BUILDERS}.items():
     register_model(_name)(_build)
 for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES,
                                  **_bart.ARCHITECTURES, **_multi.ARCHITECTURES,
                                  **_asr.ARCHITECTURES, **_w2v2_pt.ARCHITECTURES,
-                                 **_w2v1.ARCHITECTURES}.items():
+                                 **_w2v1.ARCHITECTURES, **_mlm.ARCHITECTURES,
+                                 **_roberta_hub.ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

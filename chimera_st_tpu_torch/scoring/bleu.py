@@ -2,16 +2,23 @@
 
 - `sacrebleu`: detokenized corpus BLEU through the sacrebleu wheel, which is
   imported only when this scorer is built;
-- `bleu`: corpus BLEU over int token ids, counted in Python (the JAX
-  package's C++ counter is not ported).
+- `bleu`: corpus BLEU over int token ids, its n-grams counted by the C++
+  routine ``csrc/libbleu.cpp`` (``ngram_stats_native``: built with g++ on
+  first use into ``_build/``; a failed build raises), as the JAX package's
+  ``clib`` counts them; ``ngram_stats`` is the Python version it is held
+  against.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from collections import Counter
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional
+
+import numpy as np
 
 from ..config.registry import register_scorer
 
@@ -95,9 +102,40 @@ def bleu_from_stats(stat: BleuStat, order: int = 4) -> float:
     return 100.0 * bp * math.exp(psum / order)
 
 
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "libbleu.cpp"
+_lib: Optional[ctypes.CDLL] = None
+
+
+class _BleuStatC(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int64) for name in BleuStat.__dataclass_fields__]
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from .. import host_library
+
+        lib = ctypes.CDLL(str(host_library.build(_SOURCE, "libchimera_bleu")))
+        lib.chimera_bleu_add.restype = None
+        lib.chimera_bleu_add.argtypes = [ctypes.POINTER(_BleuStatC), ctypes.c_void_p,
+                                         ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        _lib = lib
+    return _lib
+
+
+def ngram_stats_native(ref: List[int], pred: List[int]) -> BleuStat:
+    """``ngram_stats`` counted by the C++ routine."""
+    r = np.ascontiguousarray(ref, np.int32)
+    p = np.ascontiguousarray(pred, np.int32)
+    stat = _BleuStatC()
+    _library().chimera_bleu_add(ctypes.byref(stat), r.ctypes.data, len(r), p.ctypes.data,
+                                len(p))
+    return BleuStat(**{f: getattr(stat, f) for f, _ in _BleuStatC._fields_})
+
+
 @register_scorer("bleu")
 class Scorer:
-    """Token-id corpus BLEU."""
+    """Token-id corpus BLEU (n-grams counted by ``ngram_stats_native``)."""
 
     def __init__(self, cfg: Optional[dict] = None, tgt_dict=None):
         cfg = cfg or {}
@@ -114,7 +152,7 @@ class Scorer:
         pred = [int(t) for t in pred if int(t) != self.pad and int(t) != self.eos]
         # a hypothesis <unk> must never match a reference <unk>
         ref = [-(t + 100) if t == self.unk else t for t in ref]
-        self.stat += ngram_stats(ref, pred)
+        self.stat += ngram_stats_native(ref, pred)
 
     def score(self, order: int = 4) -> float:
         return bleu_from_stats(self.stat, order)

@@ -1,8 +1,9 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
 from . import (  # noqa: F401 — registration
-    audio_pretraining, denoising, joint_task, language_modeling, multilingual_translation, sentence_prediction,
-    speech_to_text, translation, translation_extra, translation_lev, translation_tts, triplet)
+    audio_pretraining, denoising, joint_task, language_modeling, lm_tail, masked_lm,
+    multilingual_translation, sentence_prediction, speech_to_text, translation,
+    translation_extra, translation_lev, translation_tts, triplet)
 
 
 def setup_task(cfg: dict, **kwargs) -> ChimeraTask:

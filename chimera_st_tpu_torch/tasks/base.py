@@ -72,7 +72,8 @@ class ChimeraTask:
 
         arch = model_cfg.get("arch") or model_cfg.get("_name")
         full_cfg = self.model_config_overrides(dict(model_cfg))
-        if arch in ARCHITECTURES:
+        if arch in ARCHITECTURES or arch not in MODELS:
+            # an unported or unknown arch raises from the architecture registry
             model_name, preset = ARCHITECTURES.get(arch)
             full_cfg = preset(full_cfg)
             build_fn = MODELS.get(model_name)

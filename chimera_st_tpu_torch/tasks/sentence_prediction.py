@@ -15,8 +15,10 @@ reads floats. A sample is bos, input0 + eos [, input1 + eos], cut to
 ``--max-positions`` with eos kept last; it is both the source and the
 decoder's input, so ``classify`` pools the decoder at its eos positions.
 Ranking: ``input0`` the shared context, ``input1..N`` the candidates, one
-score each. The port trains these tasks on ``bart*`` models; a
-``roberta*`` / ``masked_lm`` model waits for ROADMAP A14.
+score each. The port trains these tasks on ``bart*`` models. A
+``roberta*`` / ``masked_lm`` model raises: the JAX criterion calls a
+``classify`` method that ``MaskedLMModel`` has not, so neither package
+trains it (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -52,14 +54,16 @@ def _read_labels(path: Path, regression: bool, mapping=None):
 
 def _bart_only(cfg: Dict, dictionary: Dictionary) -> Dict:
     """The vocabulary sizes of the shared dictionary; a model other than
-    BART raises (the masked LMs wait for ROADMAP A14)."""
+    BART raises (on a masked LM the JAX criterion fails: ROADMAP C)."""
     from ..config.registry import ARCHITECTURES
 
     arch = cfg.get("arch") or cfg.get("_name")
     model = ARCHITECTURES.get(arch)[0] if arch in ARCHITECTURES else arch
     if model != "bart":
-        raise NotImplementedError(f"sentence prediction on {arch}: the port trains it on bart* "
-                                  "models; roberta* / masked_lm is not ported yet (ROADMAP A14)")
+        raise NotImplementedError(
+            f"sentence prediction on {arch}: the port trains it on bart* models; on a masked "
+            "LM the JAX criterion calls a classify method MaskedLMModel has not, so neither "
+            "package trains it (ROADMAP C)")
     out = dict(cfg)
     out.setdefault("vocab_size", len(dictionary))
     out.setdefault("src_vocab_size", len(dictionary))

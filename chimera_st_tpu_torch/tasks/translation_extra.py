@@ -19,14 +19,29 @@ chimera_st_tpu/tasks/translation_extra.py):
   epoch by ``--sampling-temperature`` (p^(1/T)) or ``--sampling-alpha``
   (p^a) through ``ResamplingDataset``.
 
-``semisupervised_translation`` and ``translation_from_pretrained_xlm``
-wait for their host pieces (ROADMAP A14).
+- ``translation_from_pretrained_xlm`` (fairseq
+  ``tasks/translation_from_pretrained_xlm.py``): translation whose encoder
+  starts from a masked-LM (XLM) checkpoint: ``post_init_params`` reads
+  ``--pretrained-xlm-checkpoint`` (a ``.ckpt`` of either package) and
+  copies its embeddings and layers in through
+  ``init_transformer_from_pretrained_xlm`` (the decoder's embeddings too
+  with ``--init-decoder``). As in JAX, the dictionaries are the translation
+  task's: the embeddings are copied only where their sizes agree.
+- ``semisupervised_translation`` (fairseq
+  ``tasks/semisupervised_translation.py``): the parallel pairs mixed with
+  denoising-autoencoder pairs (``NoisingDataset`` of the target side's
+  monolingual split, or of the parallel target side where there is none,
+  word shuffle ``--word-shuffle`` then word dropout ``--word-dropout``)
+  at the ratios of ``--lambda-parallel`` / ``--lambda-denoising``, drawn
+  per epoch through ``ResamplingDataset``. As in JAX the lambdas weigh the
+  data, not the losses; the batches take the parallel data's collater.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional
+import logging
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -37,6 +52,8 @@ from ..data.language_pair import LanguagePairDataset
 from ..data.wrappers import IdStampedConcat, ResamplingDataset
 from .base import ChimeraTask
 from .translation import TranslationTask, collate_pairs
+
+logger = logging.getLogger(__name__)
 
 
 class LangTokPairDataset:
@@ -186,3 +203,126 @@ class TranslationFromPretrainedBARTTask(TranslationTask):
             self.datasets[split], src_append=self.src_dict.index(f"[{src}]"),
             tgt_bos=self.tgt_dict.index(f"[{tgt}]"),
             tgt_append=self.tgt_dict.index(f"[{tgt}]"))
+
+
+@register_task("translation_from_pretrained_xlm")
+class TranslationFromPretrainedXLMTask(TranslationTask):
+    def model_config_overrides(self, cfg: Dict) -> Dict:
+        out = super().model_config_overrides(cfg)
+        out.setdefault("arch", "transformer_from_pretrained_xlm")
+        return out
+
+    def post_init_params(self, model, args=None) -> None:
+        """The pretrained XLM weights over the fresh model's, in place (the
+        train CLI calls this after the initialisation)."""
+        ckpt = self.cfg.get("pretrained_xlm_checkpoint") or getattr(
+            args, "pretrained_xlm_checkpoint", None)
+        if not ckpt:
+            return
+        from ..checkpoint.store import read_state
+        from ..convert import params_from_flax
+        from ..models.roberta_hub import init_transformer_from_pretrained_xlm
+
+        xlm_state = params_from_flax(read_state(str(ckpt))["params"], "masked_lm")
+        merged = init_transformer_from_pretrained_xlm(
+            model.state_dict(), xlm_state, init_decoder=bool(self.cfg.get("init_decoder", False)))
+        model.load_state_dict(merged, strict=True)
+        logger.info(f"initialized encoder from XLM checkpoint {ckpt}")
+
+
+@register_task("semisupervised_translation")
+class SemisupervisedTranslationTask(ChimeraTask):
+    text_only = True
+
+    def __init__(self, cfg: Dict, src_dict: Dictionary, tgt_dict: Dictionary):
+        super().__init__(cfg)
+        self.src_dict = src_dict
+        self.tgt_dict = tgt_dict
+        self.backtranslate_fn: Optional[Callable] = None  # set by a trainer or a user
+
+    @classmethod
+    def setup_task(cls, cfg: Dict, **kwargs):
+        root = Path(cfg["data"])
+        src, tgt = cfg.get("source_lang"), cfg.get("target_lang")
+        if src is None or tgt is None:
+            src, tgt = TranslationTask.infer_language_pair(root)
+        cfg["source_lang"], cfg["target_lang"] = src, tgt
+        return cls(cfg, cls.load_dictionary(str(root / f"dict.{src}.txt")),
+                   cls.load_dictionary(str(root / f"dict.{tgt}.txt")))
+
+    def load_dataset(self, split: str, **kwargs):
+        from ..data.noising import NoisingDataset
+
+        root = Path(self.cfg["data"])
+        src, tgt = self.cfg["source_lang"], self.cfg["target_lang"]
+        lam_par = float(self.cfg.get("lambda_parallel", 1.0))
+        lam_dae = float(self.cfg.get("lambda_denoising", 0.0))
+        prefix = str(root / f"{split}.{src}-{tgt}.")
+        parallel = LanguagePairDataset(MMapIndexedDataset(prefix + src),
+                                       MMapIndexedDataset(prefix + tgt),
+                                       self.src_dict, self.tgt_dict)
+        parts = [(parallel, lam_par)] if lam_par > 0 else []
+        if lam_dae > 0 and split == self.cfg.get("train_subset", "train"):
+            # noised(tgt) -> tgt over the target side's monolingual split
+            mono_path = root / f"{split}.{tgt}"
+            if Path(str(mono_path) + ".idx").exists():
+                mono = MMapIndexedDataset(str(mono_path))
+            else:
+                mono = MMapIndexedDataset(prefix + tgt)
+            noised = NoisingDataset(mono, self.tgt_dict, seed=int(self.cfg.get("seed", 1)),
+                                    dropout_prob=float(self.cfg.get("word_dropout", 0.1)),
+                                    max_shuffle_distance=int(self.cfg.get("word_shuffle", 3)))
+            parts.append((_PairedView(noised, mono), lam_dae))
+        if not parts:
+            raise ValueError("all lambda weights are zero")
+        total = sum(w for _, w in parts)
+        datasets = []
+        for ds, w in parts:
+            ratio = w / total * len(parts)
+            datasets.append(ResamplingDataset(ds, size_ratio=max(ratio, 0.01),
+                                              seed=int(self.cfg.get("seed", 1)))
+                            if ratio != 1.0 else ds)
+        self.datasets[split] = _SemiConcat(datasets, parallel)
+
+    @property
+    def source_dictionary(self) -> Dictionary:
+        return self.src_dict
+
+    @property
+    def target_dictionary(self) -> Dictionary:
+        return self.tgt_dict
+
+    def collate_indices(self, dataset, idx, target_len=None):
+        return collate_pairs(dataset, idx)
+
+
+class _PairedView:
+    """(noised source, clean target) pairs of a monolingual dataset."""
+
+    def __init__(self, noised, clean):
+        self.noised = noised
+        self.clean = clean
+
+    def __len__(self):
+        return len(self.clean)
+
+    def num_tokens(self, i: int) -> int:
+        sizes = getattr(self.clean, "sizes", None)
+        if sizes is not None:
+            return int(sizes[i])
+        return len(self.clean[i])
+
+    def __getitem__(self, i: int):
+        return {"id": i, "source": np.asarray(self.noised[i], np.int32),
+                "target": np.asarray(self.clean[i], np.int32)}
+
+
+class _SemiConcat(IdStampedConcat):
+    """The parts one after another, collated by the parallel dataset."""
+
+    def __init__(self, parts, collate_owner: LanguagePairDataset):
+        super().__init__(parts)
+        self._owner = collate_owner
+
+    def collater(self, samples, **kwargs):
+        return self._owner.collater(samples, **kwargs)

@@ -12,9 +12,11 @@ perplexity), Chimera's joint MT + ST training, every optimizer and schedule
 of the train CLI, the adaptive-softmax and character-input LMs, and the
 non-autoregressive family (CMLM, vanilla / iterative NAT, NAT-CRF,
 Levenshtein, insertion), served and trained, BART / mBART with the
-multilingual transformer, served and trained, and the wav2vec family:
+multilingual transformer, served and trained, the wav2vec family:
 speech recognition (CTC and seq2seq) served and fine-tuned, wav2vec 2.0
-pre-training and Chimera's bimodal variant.
+pre-training and Chimera's bimodal variant, and the masked-LM family:
+RoBERTa served through its hub and pre-trained, BERT's legacy objective,
+XLM's cross-lingual one and the XLM-initialised translation model.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -96,12 +98,13 @@ Phases (any failure raises and the script exits non-zero):
              layer's cross-attention over the best hypotheses), the int8 KV
              cache, sampling at top-k 1 and retained dropout. Each mode but
              the last in fp32 on the card (kernels) and on the CPU (plain
-             versions) from the same weights and encoder inputs: best
+             versions) from the same weights and encoder inputs, 32
+             decoder steps (cut from 64 for the time limit): best
              hypotheses token-identical, best scores within 1e-4 (reference
              scores 1e-4 the mean, 1e-3 each token; alignment weights 1e-4
              and their argmax), constrained hypotheses hold their phrases,
              top-k 1 is the CPU model's greedy decode; every K3 launch at
-             steps 5, 31 and 63 is held against the plain version on
+             steps 5, 15 and 31 is held against the plain version on
              clones of its inputs at the ancestry the mode built (1e-4, the
              rows written bit-equal; sampling's ancestry must stay the
              identity). Then each mode in bf16 on the card between CUDA
@@ -124,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
              w2v_args of a released checkpoint: 12 trunk heads).
              checkpoint: the .pt read back through the CLI's loader equals
              the seeded model. cli_parity: cli.generate on the card and with
-             --device cpu in fp32 (16 decode steps, PARITY_DECODE, as every
+             --device cpu in fp32 (8 decode steps, PARITY_DECODE, as every
              CLI parity run of the family and BART phases; served: 64):
              every sample has its S-/H-/D-/P- lines,
              best hypotheses identical as strings, scores within 1e-4 (plus
@@ -253,9 +256,10 @@ Phases (any failure raises and the script exits non-zero):
              heads of 32) with 4 of its 12 layers and of a
              transformer_lm_megatron LM at full width (3072, 32 heads of
              96) with 2 of its 72 layers, as lm_fusion (K3 6 + 4 and 6 + 2
-             a step, at head dims 32 and 96). Each family serve phase then runs one more batch under
-             the CLI's --profile and reads the device's busy share from
-             its trace. family_shapes (after mt_shapes): K1 and K3 against
+             a step, at head dims 32 and 96). mt_big then runs one more
+             batch under the CLI's --profile and reads the device's busy
+             share from its trace (the other serve phases' profiled
+             batches are cut for the time limit). family_shapes (after mt_shapes): K1 and K3 against
              their plain versions at every shape these phases launched, as
              mt_shapes.
 10. family training - family_train: cli.train --task translation --arch
@@ -437,13 +441,38 @@ Phases (any failure raises and the script exits non-zero):
              pre-training crop (B 5, T 781, with SDPA) and the largest, K2
              forward and backward at the crop with cuDNN beside them, K3 at
              the seq2seq decode's largest served shape.
-14. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+14. mlm    - the masked-LM family on a fixture made from a seed (a GPT-2
+             BPE of 50,257 symbols, fairseq RoBERTa's 50,260-line dict.txt
+             of its ids: 50,265 rows with the specials and <mask>; 96 + 16
+             sentences of 30-240 tokens; en / fr folders; de-en pairs on the
+             same dictionary). mlm_serve: roberta_large (24 x 1,024, 16
+             heads of 64) from a native .ckpt through the RoBERTa hub in
+             bf16: extract_features over 3 batches of 16 rows of 64-512
+             tokens (K1 24 a batch), fill_mask on 4 BPE-encoded sentences,
+             predict through a 3-class head (K1 24 a call), the counts
+             exact; a profiled batch (busy share); cli.validate --task
+             masked_lm (K1 24 a batch); first the hub fp32 card vs CPU at 2
+             of 24 layers (features 1e-3, fill_mask's top 5 identical,
+             predict 1e-4). mlm_train: cli.train --task masked_lm --arch
+             roberta_base with fairseq's README flags (--update-freq and the
+             warm-up cut), run A one epoch with its validation and save, run
+             B resumed; one fp32 update card vs CPU at 2 of 12 layers; two
+             updates each of legacy_masked_lm (bert_base, next-sentence
+             head), cross_lingual_lm (xlm_base), translation_from_pretrained_xlm
+             from that XLM checkpoint, then one cli.generate batch of it
+             (beam 5, K1 6, K3 6 a decoder step), and
+             semisupervised_translation (K1 only in validation: attention
+             dropout 0.1). mlm_shapes (after w2v_shapes): K1 and K3 at
+             every shape these launched; timed: K1 at the hub's B 16 / T
+             512 / H 16 / D 64 (with SDPA), K3 at the XLM decode's.
+15. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
              optim_sweep's, nat_serve's, nat_train's, bart_serve's,
-             bart_train's and the wav2vec phases'; K3's record holds its times at the search
-             modes' ancestries, "search_ancestries";
+             bart_train's, the wav2vec phases' and the masked-LM
+             phases'; K3's record holds its times at the search modes'
+             ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
 
@@ -487,7 +516,7 @@ FP64_FLOPS = 34e12
 SERVE_BATCHES = 3
 # the decode length of the CLI phases' fp32 card-vs-CPU parity runs (cut from
 # their served 64 for the script's time limit: the CPU side is the cost)
-PARITY_DECODE = ["--max-decode-len", "16"]  # 64 -> 24 -> 16
+PARITY_DECODE = ["--max-decode-len", "8"]  # 64 -> 24 -> 16 -> 8
 
 
 def log(msg: str) -> None:
@@ -2601,6 +2630,10 @@ SEARCH_REPS = 2  # bf16 rounds: every mode timed in the first (cut from 2 for th
 # script's time limit), retained dropout in both (its same-seed check)
 # per sentence, two target phrases of seeded random tokens (ids 4..9999)
 SEARCH_PHRASE_SEED = 21
+# the fp32 card-vs-CPU decodes: 32 steps (cut from 64 for the script's time
+# limit; the bf16 runs keep 64), K3 held in place at three of them
+SEARCH_PARITY_STEPS = 32
+SEARCH_PARITY_K3_STEPS = (5, 15, 31)
 
 
 def search_phrases():
@@ -2706,7 +2739,7 @@ SEARCH_MODES = ("beam", "diverse_groups", "diverse_siblings", "ordered_constrain
 SEARCH_LM_WEIGHT = 0.3
 
 
-def run_search_mode(torch, name, models, enc, wav, mask, seed=1, lm=None):
+def run_search_mode(torch, name, models, enc, wav, mask, seed=1, lm=None, max_decode_len=64):
     """One generation mode of the flagship on (wav, mask) -> its results.
     ``models`` holds two seeded models (the second for the ensemble), on one
     device; ``enc`` [(encoder_out, mask)] per model is reused by the modes
@@ -2724,8 +2757,8 @@ def run_search_mode(torch, name, models, enc, wav, mask, seed=1, lm=None):
     m0 = models[0]
 
     def settings(**kw):
-        return GeneratorSettings(beam_size=10, max_decode_len=64, len_penalty=1.5, min_len=30,
-                                 **kw)
+        return GeneratorSettings(beam_size=10, max_decode_len=max_decode_len, len_penalty=1.5,
+                                 min_len=30, **kw)
 
     def decode(gen, **kw):
         t = gen.generate_audio(wav, mask) if enc is None else gen.generate_from_encoder(*enc[0],
@@ -2820,11 +2853,12 @@ def search_launches(name, layer_steps):
 
 def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
     """The flagship's generation surface on one seeded batch of SEARCH_BATCH
-    utterances of 2-6 s, beam 10, max_decode_len 64: each mode in fp32 on the card
-    (kernels; K3 held in place at the mode's ancestries) and on the CPU
-    (plain versions) from the same weights, best hypotheses token-identical
-    and scores within the parity phase's 1e-4; then each mode in bf16 on
-    the card between CUDA events, counts zeroed before and exact after.
+    utterances of 2-6 s, beam 10: each mode in fp32 on the card (kernels;
+    K3 held in place at the mode's ancestries) and on the CPU (plain
+    versions) from the same weights, SEARCH_PARITY_STEPS decoder steps, best
+    hypotheses token-identical and scores within the parity phase's 1e-4;
+    then each mode in bf16 on the card between CUDA events, max_decode_len
+    64, counts zeroed before and exact after.
     Returns ({mode: launches}, {mode: K3 record})."""
     wav_np, mask_np = make_audio(np.random.default_rng(17), SEARCH_BATCH, 2.0, 6.0)
     log(f"search: flagship, {SEARCH_BATCH} utterances of "
@@ -2845,11 +2879,13 @@ def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
                 continue  # its masks come from each device's own generator
             t0 = time.perf_counter()
             if on_card:
-                with k3_held_in_place(torch, dec_attn) as rec:
-                    res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm)
+                with k3_held_in_place(torch, dec_attn, SEARCH_PARITY_K3_STEPS) as rec:
+                    res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm,
+                                          max_decode_len=SEARCH_PARITY_STEPS)
                 k3_recs[name] = rec
             else:
-                res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm)
+                res = run_search_mode(torch, name, models, enc, wav, mask, lm=lm,
+                                      max_decode_len=SEARCH_PARITY_STEPS)
                 if name == "sampling_topk1":
                     res["greedy"] = greedy_positions(torch, models[0], enc[0], res)
             results.setdefault(name, {})["card" if on_card else "host"] = {
@@ -2895,7 +2931,8 @@ def phase_search(torch, build0, build1, build_lm, kernels, dec_attn):
                 "the end)")
         rec = k3_recs.get(name, {"checked": 0})
         if rec["checked"]:
-            check(f"search {name}: K3 in place at steps 5 / 31 / 63, {rec['checked']} launches "
+            check(f"search {name}: K3 in place at steps {SEARCH_PARITY_K3_STEPS}, "
+                  f"{rec['checked']} launches "
                   f"at ancestries {100 * max(rec['non_identity']):.1f} % off the identity",
                   rec["max_abs_err"], 1e-4)
             if name == "sampling_topk1" and max(rec["non_identity"]) != 0.0:
@@ -3271,7 +3308,7 @@ def phase_family_serve(torch, fx, label: str, ckpt: Path, kernels, per_step: int
             or len(full) != FAMILY_TEST_PAIRS
             or any(not np.isfinite(h[0][0]) for h in hyps.values())):
         raise AssertionError(f"{label}: launches {counts} (want {implied}), {len(full)} samples")
-    if not profile:  # the wide and adaptive LMs' fusions: cut for the time limit
+    if not profile:  # cut for the script's time limit
         print(json.dumps({label: rec}), flush=True)
         return counts
     # the device's busy share: one more batch (the valid split) under --profile
@@ -3346,13 +3383,16 @@ def phase_family(torch, work: Path, kernels, enc_attn, conv_tail, dec_attn):
     with recorded_shapes(enc_attn, conv_tail, dec_attn) as seen:
         counts["mt_big"] = phase_family_serve(torch, fx, "mt_big", ckpts["mt_big"], kernels, 6)
         took("mt_big")
+        # one --profile batch (mt_big's) for the family's busy share: the
+        # fused and iwslt ones cut for the script's time limit
         counts["lm_fusion"] = phase_family_serve(
             torch, fx, "lm_fusion", ckpts["mt_big"], kernels, 6 + LM_GPT["layers"],
-            ["--lm-path", str(ckpts["lm"]), "--lm-weight", "0.3"])
+            ["--lm-path", str(ckpts["lm"]), "--lm-weight", "0.3"], profile=False)
         took("lm_fusion")
         counts["eval_lm"] = phase_eval_lm(torch, fx, ckpts["lm"], kernels)
         took("eval_lm")
-        counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6)
+        counts["iwslt"] = phase_family_serve(torch, fx, "iwslt", ckpts["iwslt"], kernels, 6,
+                                             profile=False)
         took("iwslt")
         # the wider LMs fuse into iwslt (6 + 6 layers as mt_big, 65 M
         # parameters against 243.5 M: cut for the script's time limit)
@@ -6188,6 +6228,524 @@ def phase_w2v_shapes(torch, ops, seen, records):
     torch.cuda.empty_cache()
 
 
+# ---- the masked-LM family (RoBERTa / BERT / XLM): roberta_large served
+# through the hub and cli.validate, roberta_base trained with fairseq's
+# README flags, the rest of the family one or two updates each
+
+MLM_BPE_SYMBOLS = 50_257  # GPT-2's encoder.json
+MLM_MADEUP = 3  # fairseq RoBERTa's dict.txt ends with madeupword0000..0002
+MLM_VOCAB = 4 + MLM_BPE_SYMBOLS + MLM_MADEUP + 1  # 50,265 rows: specials, dict.txt, <mask>
+MLM_SERVE = {"arch": "roberta_large", "dropout": 0.1}  # 24 x 1,024, FFN 4,096, 16 heads of 64
+MLM_SERVE_LAYERS = 24
+MLM_BATCH = 16
+MLM_SERVE_BATCHES = 3  # of 16 rows of 64-512 tokens, the first of each 512
+MLM_PARITY_LAYERS = 2  # the fp32 card-vs-CPU hub and update (widths kept)
+MLM_FILL_SENTENCES = 4
+MLM_WORDS = 400  # the seeded words the fixture's BPE merges spell
+MLM_SENTS = {"train": 96, "valid": 16}  # of 30-240 tokens: 1 validation batch of blocks
+MLM_TOKENS_PER_SAMPLE = 512
+# fairseq examples/roberta/README.pretraining.md; --update-freq 16 -> 1 and
+# --warmup-updates 10000 -> 1 (--total-num-update 125000 -> 10) for the
+# script's time limit
+MLM_README = ["--tokens-per-sample", str(MLM_TOKENS_PER_SAMPLE), "--sample-break-mode",
+              "complete", "--optimizer", "adam", "--adam-betas", "(0.9,0.98)", "--adam-eps",
+              "1e-6", "--weight-decay", "0.01", "--clip-norm", "0.0", "--lr-scheduler",
+              "polynomial_decay", "--lr", "0.0005", "--warmup-updates", "1",
+              "--total-num-update", "10", "--dropout", "0.1", "--attention-dropout", "0.1",
+              "--max-sentences", str(MLM_BATCH), "--update-freq", "1", "--dtype", "bfloat16",
+              "--log-interval", "1", "--num-workers", "1"]
+# the rest of the family: arch, task flags, criterion, encoder layers
+MLM_XLM = {"arch": "xlm_base"}  # 6 x 1,024, FFN 4,096, 8 heads of 128
+MLM_MT_WIDTHS = ["--encoder-embed-dim", "1024", "--encoder-ffn-dim", "4096", "--encoder-layers",
+                 "6", "--encoder-heads", "8", "--decoder-embed-dim", "1024", "--decoder-ffn-dim",
+                 "4096", "--decoder-layers", "6", "--decoder-heads", "8", "--activation", "gelu"]
+MLM_MT_PAIRS = {"train": 64, "valid": 8, "test": 16}
+MLM_MT_TOKENS = 2048
+MLM_DECODE = ["--beam", "5", "--max-decode-len", "64"]
+
+
+def gpt2_fixture(rng, root: Path, n_words: int):
+    """A seeded GPT-2 BPE: encoder.json (the 256 byte symbols, the merges
+    that spell ``n_words`` seeded words with and without the leading-space
+    marker, fillers up to GPT-2's 50,257) and vocab.bpe -> (the BPE config,
+    the words)."""
+    b2u = {}
+    printable = (list(range(ord("!"), ord("~") + 1)) + list(range(0xA1, 0xAD))
+                 + list(range(0xAE, 0x100)))
+    shift = 0
+    for b in range(256):
+        if b in printable:
+            b2u[b] = chr(b)
+        else:
+            b2u[b] = chr(256 + shift)
+            shift += 1
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(rng.integers(3, 9))))
+                    for _ in range(n_words)})
+    merges = {}
+    for w in words:
+        for word in ("Ġ" + w, w):
+            cur = word[0]
+            for c in word[1:]:
+                merges.setdefault((cur, c), None)
+                cur += c
+    symbols = list(dict.fromkeys([b2u[b] for b in range(256)] + ["".join(m) for m in merges]))
+    symbols += [f"<filler{i}>" for i in range(MLM_BPE_SYMBOLS - len(symbols))]
+    (root / "encoder.json").write_text(json.dumps({s: i for i, s in enumerate(symbols)}))
+    (root / "vocab.bpe").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return {"_name": "gpt2", "gpt2_encoder_json": str(root / "encoder.json"),
+            "gpt2_vocab_bpe": str(root / "vocab.bpe")}, words
+
+
+def mlm_rows(rng, n: int, lengths, p):
+    """n rows of dictionary indices (Zipf over the BPE ids), eos last."""
+    out = []
+    for _ in range(n):
+        ids = rng.choice(MLM_BPE_SYMBOLS, size=int(rng.integers(*lengths)) - 1, p=p) + 4
+        out.append(np.concatenate([ids, [2]]).astype(np.int32))
+    return out
+
+
+def make_mlm_fixture(root: Path, seed: int = 97) -> dict:
+    """Seeded data for the masked-LM phases, binarized with the port's
+    ``MMapIndexedDatasetBuilder``: a GPT-2 BPE and fairseq RoBERTa's 50,260-line dict.txt of its
+    ids (``mlm``: train / valid sentences of 30-240 tokens), per-language
+    folders for cross_lingual_lm (``xlm``: en, fr), de-en pairs whose
+    dictionaries are the masked LM's with ``<mask>`` (``mt``: the XLM warm
+    start copies the embeddings too), and the rows the hub serves."""
+    from chimera_st_tpu_torch.data.indexed_dataset import MMapIndexedDatasetBuilder
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    for d in ("mlm", "xlm/en", "xlm/fr", "mt"):
+        (root / d).mkdir(parents=True)
+    bpe_cfg, words = gpt2_fixture(rng, root, MLM_WORDS)
+    p = 1.0 / np.arange(1, MLM_BPE_SYMBOLS + 1) ** 1.1
+    p /= p.sum()
+    counts = np.maximum((p * 1e9).astype(np.int64), 1)
+    lines = [f"{i} {c}\n" for i, c in enumerate(counts)]
+    lines += [f"madeupword{i:04d} 0\n" for i in range(MLM_MADEUP)]
+    for path in (root / "mlm" / "dict.txt", root / "xlm" / "dict.txt"):
+        path.write_text("".join(lines))
+    for lang in ("de", "en"):
+        (root / "mt" / f"dict.{lang}.txt").write_text("".join(lines) + "<mask> 0\n")
+
+    def write(prefix: Path, rows):
+        b = MMapIndexedDatasetBuilder(str(prefix))
+        for r in rows:
+            b.add_item(r)
+        b.finalize()
+
+    for split, n in MLM_SENTS.items():
+        write(root / "mlm" / split, mlm_rows(rng, n, (30, 241), p))
+        for lang in ("en", "fr"):
+            write(root / "xlm" / lang / split, mlm_rows(rng, n // 2, (30, 241), p))
+    for split, n in MLM_MT_PAIRS.items():
+        for lang in ("de", "en"):
+            write(root / "mt" / f"{split}.de-en.{lang}", mlm_rows(rng, n, (8, 49), p))
+    serve = []
+    for _ in range(MLM_SERVE_BATCHES):
+        lens = rng.integers(64, 513, size=MLM_BATCH)
+        lens[0] = 512
+        batch = np.full((MLM_BATCH, 512), 1, np.int32)  # pad 1; <s> ... </s>
+        for i, n in enumerate(lens):
+            ids = rng.choice(MLM_BPE_SYMBOLS, size=int(n) - 2, p=p) + 4
+            batch[i, :n] = np.concatenate([[0], ids, [2]])
+        serve.append(batch)
+    sentences = [" ".join(rng.choice(words, int(rng.integers(4, 12))))
+                 for _ in range(MLM_FILL_SENTENCES)]
+    log(f"mlm fixture: GPT-2 BPE of {MLM_BPE_SYMBOLS} symbols, a {MLM_VOCAB}-row dictionary, "
+        f"{sum(MLM_SENTS.values())} sentences, 2 x {sum(MLM_SENTS.values()) // 2} a language, "
+        f"{sum(MLM_MT_PAIRS.values())} pairs; in {time.perf_counter() - t0:.1f} s")
+    return dict(root=root, mlm=root / "mlm", xlm=root / "xlm", mt=root / "mt", bpe=bpe_cfg,
+                serve=serve, sentences=sentences)
+
+
+def mlm_task(fx):
+    """The masked-LM task over the fixture (its dictionary with <mask>)."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({"_name": "masked_lm", "data": str(fx["mlm"])})
+    if len(task.dictionary) != MLM_VOCAB:
+        raise AssertionError(f"mlm dictionary of {len(task.dictionary)} rows")
+    return task
+
+
+def mlm_hub(fx, task, model):
+    """The RoBERTa hub over ``model`` with the fixture's BPE and the task's
+    dictionary."""
+    from chimera_st_tpu_torch.data.encoders import build_bpe
+    from chimera_st_tpu_torch.models.roberta_hub import RobertaHubInterface
+
+    return RobertaHubInterface(model, task.dictionary, build_bpe(dict(fx["bpe"])))
+
+
+def mlm_fills(hub, fx):
+    """(tokens, position) of each fixture sentence through the BPE, its
+    third token replaced by <mask>."""
+    out = []
+    for s in fx["sentences"]:
+        t = hub.encode(s)
+        t[2] = hub.dictionary.index("<mask>")
+        out.append((t, 2))
+    return out
+
+
+def mlm_hub_parity(torch, fx, cfg: dict):
+    """fp32 card vs CPU through the hub at MLM_PARITY_LAYERS of roberta_large
+    (widths kept): features of a padded batch (1e-3: fp32 matmuls at width
+    1,024 and FFN 4,096 round differently on the two devices, K1 against
+    its plain version), fill_mask's top 5 identical (probabilities 1e-4) and
+    predict through a 3-class head (1e-4)."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+
+    small = {**cfg, "layers": MLM_PARITY_LAYERS}
+    task = mlm_task(fx)
+    weights = init_params_(task.build_model(dict(small), device="cpu", train=True),
+                           torch.Generator().manual_seed(11)).state_dict()
+    rows = fx["serve"][0][:4]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = task.build_model(dict(small), device=device)
+        model.load_state_dict(weights)
+        hub = mlm_hub(fx, task, model)
+        hub.register_classification_head("nli", 3, seed=5)
+        out[device] = (hub.extract_features(rows), [hub.fill_mask(t, pos) for t, pos
+                                                    in mlm_fills(hub, fx)],
+                       hub.predict("nli", rows))
+    (fg, mg, pg), (fc, mc, pc) = out["cuda"], out["cpu"]
+    check("mlm_serve fp32 hub features card vs CPU (2 layers)", float(np.abs(fg - fc).max()),
+          1e-3)
+    for g, c in zip(mg, mc):
+        if [t for t, _ in g] != [t for t, _ in c]:
+            raise AssertionError(f"mlm_serve fill_mask top 5 card {g} vs CPU {c}")
+    check(f"mlm_serve fp32 fill_mask: {len(mg)} top-5 lists identical; probabilities",
+          max(abs(a[1] - b[1]) for g, c in zip(mg, mc) for a, b in zip(g, c)), 1e-4)
+    check("mlm_serve fp32 predict card vs CPU", float(np.abs(pg - pc).max()), 1e-4)
+    return {"features_err": float(np.abs(fg - fc).max()), "fill_mask_identical": True,
+            "predict_err": float(np.abs(pg - pc).max())}
+
+
+def mlm_checkpoint(torch, fx, name: str, model_cfg: dict, seed: int) -> Path:
+    """A native checkpoint of the masked LM ``model_cfg`` on the fixture's
+    dictionary with seeded random weights (drawn on the card)."""
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+
+    task = mlm_task(fx)
+    t0 = time.perf_counter()
+    model = init_params_(task.build_model(dict(model_cfg), device="cuda", train=True),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    path = fx["root"] / f"{name}.ckpt"
+    save_model(str(path), model, model_cfg)
+    log(f"  {name}: {model_cfg['arch']}, {sum(q.numel() for q in model.parameters()) / 1e6:.1f} M "
+        f"parameters, {path.stat().st_size / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_mlm_serve(torch, fx, kernels):
+    """The slice's main path: roberta_large (24 x 1,024, FFN 4,096, 16 heads
+    of 64) over the fixture's 50,265-row dictionary, bf16, served through
+    the RoBERTa hub from a native .ckpt: extract_features over
+    MLM_SERVE_BATCHES batches of 16 rows of 64-512 tokens (K1 24 a batch),
+    fill_mask on the fixture's sentences through the GPT-2 BPE (K1 24 a
+    sentence) and predict through a registered 3-class head (K1 24), the
+    counts zeroed before each and exact after; one more batch under
+    torch.profiler (the busy share); then cli.validate --task masked_lm of
+    the checkpoint (K1 24 a validation batch). First the fp32 card-vs-CPU
+    hub at 2 layers. Prints {"mlm_serve": {...}}; returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chimera_st_tpu_torch.cli import validate
+    from chimera_st_tpu_torch.cli.generate import load_model_and_params
+
+    rec = {"parity": mlm_hub_parity(torch, fx, MLM_SERVE)}
+    ckpt = mlm_checkpoint(torch, fx, "roberta_large", MLM_SERVE, 13)
+    task = mlm_task(fx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_model_and_params(str(ckpt), task, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    rec["load_s"] = time.perf_counter() - t0
+    hub = mlm_hub(fx, task, model)
+    hub.register_classification_head("nli", 3, seed=5)
+    hub.extract_features(fx["serve"][0])  # warm-up
+    counts = {}
+
+    def counted(label, fn, implied):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        c = {k.__name__: k.launches for k in kernels}
+        want = {"encoder_attention": implied, "conv_tail": 0, "decode_attention": 0,
+                "logmel": 0}
+        if c != want:
+            raise AssertionError(f"mlm_serve {label}: launches {c} (want {want})")
+        counts[label] = c
+        return out, wall
+
+    feats, wall = counted("features", lambda: [hub.extract_features(b) for b in fx["serve"]],
+                          MLM_SERVE_LAYERS * MLM_SERVE_BATCHES)
+    width = model.cfg.embed_dim
+    if any(f.shape != (MLM_BATCH, 512, width) or not np.isfinite(f).all() for f in feats):
+        raise AssertionError(f"mlm_serve: features not finite [16, 512, {width}]")
+    n_tokens = sum(int((b != 1).sum()) for b in fx["serve"])
+    rec["features"] = dict(sequences=MLM_BATCH * MLM_SERVE_BATCHES, tokens=n_tokens, wall_s=wall,
+                           sequences_per_s=MLM_BATCH * MLM_SERVE_BATCHES / wall,
+                           tokens_per_s=n_tokens / wall)
+    fills = mlm_fills(hub, fx)
+    tops, wall = counted("fill_mask", lambda: [hub.fill_mask(t, pos) for t, pos in fills],
+                         MLM_SERVE_LAYERS * len(fills))
+    rec["fill_mask"] = dict(sentences=len(fills), wall_s=wall, top5=[
+        [tok for tok, _ in top] for top in tops])
+    lp, wall = counted("predict", lambda: hub.predict("nli", fx["serve"][1]), MLM_SERVE_LAYERS)
+    if lp.shape != (MLM_BATCH, 3) or not np.allclose(np.exp(lp).sum(1), 1.0, atol=1e-4):
+        raise AssertionError(f"mlm_serve predict: {lp.shape} log-probs")
+    rec["predict"] = dict(wall_s=wall)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hub.extract_features(fx["serve"][2])
+        torch.cuda.synchronize()
+    rec["busy"] = profiler_busy(prof)
+    log(f"mlm_serve bf16 roberta_large: load {rec['load_s']:.2f} s; features "
+        f"{rec['features']['sequences_per_s']:.1f} sequences/s, "
+        f"{rec['features']['tokens_per_s']:.0f} tokens/s ({MLM_SERVE_BATCHES} batches of "
+        f"{MLM_BATCH}, {n_tokens} tokens); fill_mask {len(fills)} sentences in "
+        f"{rec['fill_mask']['wall_s']:.3f} s; predict {rec['predict']['wall_s']:.3f} s; peak "
+        f"{rec['peak_memory_gb']:.2f} GB; a profiled batch busy "
+        f"{100 * rec['busy']['busy_share']:.1f} % of {rec['busy']['wall_ms']:.0f} ms")
+    del hub, model
+    torch.cuda.empty_cache()
+    n_valid = mlm_batches(fx["mlm"], {"_name": "masked_lm"}, "valid")
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    stats = validate.main([str(fx["mlm"]), "--task", "masked_lm", "--path", str(ckpt),
+                           "--valid-subset", "valid", "--criterion", "masked_lm",
+                           "--batch-size", str(MLM_BATCH), "--dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    c = {k.__name__: k.launches for k in kernels}
+    want = {"encoder_attention": MLM_SERVE_LAYERS * n_valid, "conv_tail": 0,
+            "decode_attention": 0, "logmel": 0}
+    rec["validate"] = dict(wall_s=time.perf_counter() - t0, batches=n_valid, **stats)
+    log(f"  cli.validate --task masked_lm: {n_valid} batch(es), {stats} in "
+        f"{rec['validate']['wall_s']:.1f} s; launches {c}")
+    if c != want or not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"mlm_serve validate: launches {c} (want {want}), {stats}")
+    counts["validate"] = c
+    ckpt.unlink()
+    print(json.dumps({"mlm_serve": rec}), flush=True)
+    return {f"mlm_serve_{k}": v for k, v in counts.items()}
+
+
+def mlm_batches(data: Path, task_cfg: dict, split: str, max_tokens=None) -> int:
+    """The batches of ``split`` as the validation iterator packs them: at
+    ``max_tokens``, else MLM_BATCH sentences."""
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    task = setup_task({**task_cfg, "data": str(data)})
+    task.load_dataset(split)
+    return len(task.make_batch_iterator(task.dataset(split), max_tokens=max_tokens,
+                                        max_sentences=None if max_tokens else MLM_BATCH))
+
+
+def mlm_train_one(torch, label: str, argv, enc_layers: int, n_valid: int, kernels):
+    """One cli.train run, the counts zeroed before and read after: K1 the
+    encoder's layers a validation batch (a training micro-batch runs the
+    plain path: attention dropout 0.1, as in JAX). -> (launches, record)."""
+    from chimera_st_tpu_torch.cli import train
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_microbatches() as micro, counted_decoder_steps() as steps:
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    c = {fn.__name__: fn.launches for fn in kernels}
+    t = out["times"]
+    implied = {"encoder_attention": enc_layers * n_valid * len(t["valid_s"]), "conv_tail": 0,
+               "decode_attention": 0, "logmel": 0}
+    timed = t["update_s"][1:]
+    updates = out["trainer"].num_updates - t["restored"]["step"]
+    rec = dict(updates=updates, micro_batches=micro[0], step=out["trainer"].num_updates,
+               updates_per_s_after_first=len(timed) / sum(timed) if timed else None,
+               update_s=t["update_s"], valid=t["valid"], valid_s=t["valid_s"],
+               save_s=t["save_s"], load_s=t["load_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t0, launches=c,
+               params_m=sum(q.numel() for q in out["trainer"].model.parameters()) / 1e6)
+    log(f"  {label}: {rec['params_m']:.1f} M parameters, step {t['restored']['step']} -> "
+        f"{rec['step']} ({micro[0]} micro-batches) in {rec['wall_s']:.1f} s, updates/s after the "
+        f"first {rec['updates_per_s_after_first']}, peak {rec['peak_memory_gb']:.2f} GB, load "
+        f"{t['load_s']:.2f} s, saves {[round(s, 2) for s in t['save_s']]} s, validation "
+        f"{t['valid']}; launches {c}")
+    if (c != implied or not updates or steps[0]
+            or any(not np.isfinite(v) for v in t["valid"])):
+        raise AssertionError(f"{label}: launches {c} (want {implied}), {updates} updates")
+    return c, rec
+
+
+def mlm_step_parity(torch, fx):
+    """One fp32 update of roberta_base at MLM_PARITY_LAYERS of 12 layers
+    (widths kept), card vs CPU, every dropout 0, a micro-batch of 2 blocks
+    of up to 512 tokens: compare_step's gates."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    task = setup_task({"_name": "masked_lm", "data": str(fx["mlm"])})
+    task.load_dataset("valid")
+    batch = next(iter(task.make_batch_iterator(task.dataset("valid"), max_sentences=2)
+                      .next_epoch_itr(shuffle=False)))
+    cfg = {"arch": "roberta_base", "layers": MLM_PARITY_LAYERS, "dropout": 0.0}
+    weights = init_params_(task.build_model(dict(cfg), device="cpu", train=True),
+                           torch.Generator().manual_seed(12)).state_dict()
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = task.build_model(dict(cfg), device=device, train=True)
+        model.load_state_dict(weights)
+        step = TrainStep(model, task.build_criterion({"_name": "masked_lm"}),
+                         build_optimizer(TRAIN_ADAM, model.parameters()),
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                         compute_dtype=torch.float32)
+        before = {k: q.detach().cpu().clone() for k, q in model.named_parameters()}
+        t0 = time.perf_counter()
+        metrics = step([batch])
+        out[device] = (metrics, before, {k: q.grad.cpu() for k, q in model.named_parameters()},
+                       {k: q.detach().cpu() for k, q in model.named_parameters()})
+        log(f"  mlm_train fp32 step {device}: {time.perf_counter() - t0:.2f} s, loss "
+            f"{metrics['loss']:.4f}, gnorm {metrics['gnorm']:.4f}")
+        del model, step
+    (mg, before, gg, pg), (mc, _, gc, pc) = out["cuda"], out["cpu"]
+    return compare_step(torch, f"mlm_train fp32 step (roberta_base, {MLM_PARITY_LAYERS} layers)",
+                        (mg, gg, pg), (mc, gc, pc), before, keys=("loss", "nll_loss"))
+
+
+def phase_mlm_train(torch, fx, kernels):
+    """cli.train --task masked_lm --arch roberta_base with fairseq's README
+    flags (MLM_README): run A one epoch (its validation, K1 12 a batch, and
+    a save), run B resumed for one more; one fp32 update card vs CPU at 2
+    layers; then one or two updates each of legacy_masked_lm (bert_base,
+    with its next-sentence head), cross_lingual_lm (xlm_base over the en /
+    fr folders), translation_from_pretrained_xlm initialised from that XLM
+    checkpoint (its embeddings too: the dictionaries agree) and served by one
+    cli.generate batch (K1 6, K3 6 a decoder step), and
+    semisupervised_translation (transformer, word-noised denoising pairs
+    beside the parallel ones). Prints {"mlm_train": {...}}; returns the
+    launches."""
+    from chimera_st_tpu_torch.cli import generate
+
+    root = fx["root"]
+    counts, rec = {}, {}
+    n_valid = mlm_batches(fx["mlm"], {"_name": "masked_lm"}, "valid")
+    log(f"mlm_train: cli.train --task masked_lm --arch roberta_base, fairseq's README flags "
+        f"(--update-freq 16 -> 1, --warmup-updates 10000 -> 1); {n_valid} validation batch(es)")
+    base = [str(fx["mlm"]), "--task", "masked_lm", "--arch", "roberta_base", "--criterion",
+            "masked_lm", *MLM_README, "--save-dir", str(root / "roberta_base")]
+    for run, epochs in (("A", 1), ("B", 2)):
+        counts[f"mlm_train_{run}"], rec[run] = mlm_train_one(
+            torch, f"mlm_train roberta_base run {run}", base + ["--max-epoch", str(epochs)], 12,
+            n_valid, kernels)
+        blocks = MLM_BATCH * MLM_TOKENS_PER_SAMPLE
+        rec[run]["tokens_per_s_after_first_at_most"] = (
+            blocks * rec[run]["updates_per_s_after_first"]
+            if rec[run]["updates_per_s_after_first"] else None)
+    if rec["B"]["step"] <= rec["A"]["step"] or rec["B"]["load_s"] <= 0:
+        raise AssertionError(f"mlm_train: run B did not resume run A: {rec['A']} {rec['B']}")
+    rec["parity"] = mlm_step_parity(torch, fx)
+    others = {
+        "legacy_masked_lm": ([str(fx["mlm"]), "--task", "legacy_masked_lm", "--arch",
+                              "bert_base", "--criterion", "legacy_masked_lm"], 12,
+                             mlm_batches(fx["mlm"], {"_name": "legacy_masked_lm"}, "valid")),
+        "cross_lingual_lm": ([str(fx["xlm"]), "--task", "cross_lingual_lm",
+                              "--monolingual-langs", "en,fr", "--arch", MLM_XLM["arch"],
+                              "--criterion", "masked_lm"], 6,
+                             mlm_batches(fx["xlm"], {"_name": "cross_lingual_lm",
+                                                     "monolingual_langs": "en,fr"}, "valid")),
+    }
+    for name, (argv, layers, nv) in others.items():
+        # the XLM checkpoint warm-starts the translation model below: its
+        # parameters are saved, the legacy model's nothing
+        save = (["--no-save-optimizer-state"] if name == "cross_lingual_lm" else ["--no-save"])
+        counts[f"mlm_{name}"], rec[name] = mlm_train_one(
+            torch, f"mlm_train {name}", [*argv, *MLM_README, "--max-update", "2", *save,
+                                         "--save-dir", str(root / name)], layers, nv, kernels)
+    mt_task = {"_name": "translation_from_pretrained_xlm", "source_lang": "de",
+               "target_lang": "en"}
+    nv = mlm_batches(fx["mt"], mt_task, "valid", max_tokens=MLM_MT_TOKENS)
+    xlm_ckpt = root / "cross_lingual_lm" / "checkpoint_last.ckpt"
+    mt_flags = ["--optimizer", "adam", "--adam-betas", "(0.9,0.98)", "--lr", "0.0001",
+                "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "1", "--dropout", "0.1",
+                "--attention-dropout", "0.1", "--criterion", "label_smoothed_cross_entropy",
+                "--label-smoothing", "0.1", "--max-tokens", str(MLM_MT_TOKENS), "--max-update", "2",
+                "--dtype", "bfloat16", "--log-interval", "1", "-s", "de", "-t", "en"]
+    counts["mlm_xlm_mt"], rec["translation_from_pretrained_xlm"] = mlm_train_one(
+        torch, "mlm_train translation_from_pretrained_xlm", [
+            str(fx["mt"]), "--task", "translation_from_pretrained_xlm", "--arch",
+            "transformer_from_pretrained_xlm", *MLM_MT_WIDTHS, "--pretrained-xlm-checkpoint",
+            str(xlm_ckpt), "--init-decoder", "True", *mt_flags, "--no-save-optimizer-state",
+            "--save-dir", str(root / "xlm_mt")], 6, nv, kernels)
+    (root / "xlm_mt" / "gen").mkdir()
+    for fn in kernels:
+        fn.launches = 0
+    with counted_decoder_steps() as steps:
+        t0 = time.perf_counter()
+        stats = generate.main([str(fx["mt"]), "--task", "translation_from_pretrained_xlm", "-s",
+                               "de", "-t", "en", "--path",
+                               str(root / "xlm_mt" / "checkpoint_last.ckpt"), "--gen-subset",
+                               "test", "--batch-size", str(MLM_MT_PAIRS["test"]), *MLM_DECODE,
+                               "--dtype", "bfloat16", "--scoring", "bleu", "--results-path",
+                               str(root / "xlm_mt" / "gen")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c = {fn.__name__: fn.launches for fn in kernels}
+    want = {"encoder_attention": 6, "conv_tail": 0, "decode_attention": 6 * steps[0],
+            "logmel": 0}
+    rec["xlm_decode"] = dict(sentences=stats["sentences"], decoder_steps=steps[0], wall_s=wall,
+                             decode_s=stats["decode_s"], launches=c)
+    log(f"  xlm_mt cli.generate beam 5: {stats['sentences']} sentences, {steps[0]} decoder steps "
+        f"in {stats['decode_s']:.2f} s; launches {c}")
+    if c != want or stats["sentences"] != MLM_MT_PAIRS["test"] or steps[1] != 6 * steps[0]:
+        raise AssertionError(f"mlm_train xlm decode: launches {c} (want {want})")
+    counts["mlm_xlm_decode"] = c
+    semi = {"_name": "semisupervised_translation", "source_lang": "de", "target_lang": "en"}
+    counts["mlm_semisupervised"], rec["semisupervised_translation"] = mlm_train_one(
+        torch, "mlm_train semisupervised_translation", [
+            str(fx["mt"]), "--task", "semisupervised_translation", "--arch", "transformer",
+            "--lambda-denoising", "1.0", "--word-dropout", "0.1", "--word-shuffle", "3",
+            *mt_flags, "--no-save"], 6,
+        mlm_batches(fx["mt"], semi, "valid", max_tokens=MLM_MT_TOKENS), kernels)
+    print(json.dumps({"mlm_train": rec}), flush=True)
+    return counts
+
+
+def phase_mlm_shapes(torch, ops, seen, records):
+    """K1 and K3 at every shape the masked-LM phases launched, against the
+    plain versions in bf16 and fp32; timed: K1 at the hub's B 16 / T 512 /
+    H 16 / D 64 (with SDPA) and K3 at the XLM decode's."""
+    hub_shape = (MLM_BATCH, 512, 16, 64)
+    k1, k3 = seen["encoder_attention"], seen["decode_attention"]
+    timed = {"encoder_attention": [p for p in k1 if p[0] == hub_shape][:1],
+             "conv_tail": [], "decode_attention": [p for p in k3 if p[0][3] == 128][:1]}
+    rest = {k: [p for p in v if p not in timed[k]] for k, v in seen.items()}
+    phase_shapes(torch, ops, timed, records, "mlm", lambda sh: (
+        sh["encoder_attention"] == [hub_shape] and len(sh["decode_attention"]) == 1
+        and not sh["conv_tail"]), timed=("encoder_attention", "decode_attention"))
+    phase_shapes(torch, ops, rest, records, "mlm_all", lambda sh: (
+        {(H, D) for _, _, H, D in sh["encoder_attention"]} >= {(16, 64), (12, 64), (8, 128)}))
+
+
 def main() -> int:
     import argparse
 
@@ -6429,6 +6987,14 @@ def main() -> int:
             mark("w2v_pretrain done")
             counts.update(phase_bimodal_pretrain(torch, w2v_fx, kernels))
         mark("bimodal_pretrain done")
+        # 14. the masked-LM family (this slice's main path: mlm_serve), its
+        # K1 and K3 shapes held against the plain versions below
+        mlm_fx = make_mlm_fixture(work / "mlm")
+        with recorded_shapes(*ops) as mlm_seen:
+            counts.update(phase_mlm_serve(torch, mlm_fx, kernels))
+            mark("mlm_serve done")
+            counts.update(phase_mlm_train(torch, mlm_fx, kernels))
+        mark("mlm_train done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -6467,8 +7033,9 @@ def main() -> int:
     phase_nat_shapes(torch, ops, nat_serve_seen, nat_train_seen, records)
     phase_bart_shapes(torch, ops, bart_seen, records)
     phase_w2v_shapes(torch, ops, w2v_seen, records)
+    phase_mlm_shapes(torch, ops, mlm_seen, records)
     mark("shapes done")
-    # 14. report
+    # 15. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

@@ -227,8 +227,8 @@ def test_encoders_match_jax(tmp_path):
             assert enc.encode(s) == ref_enc.encode(s)
             assert enc.decode(enc.encode(s)) == ref_enc.decode(ref_enc.encode(s))
     assert encoders.build_bpe(None) is None and encoders.build_tokenizer(None) is None
-    with pytest.raises(KeyError):
-        encoders.build_bpe({"_name": "gpt2"})  # not ported yet
+    with pytest.raises(KeyError, match="unknown bpe"):
+        encoders.build_bpe({"_name": "no_such_bpe"})  # every JAX name is ported
 
 
 # ------------------------------------------------------- tasks and batches
@@ -371,12 +371,12 @@ def test_registry_lists_what_is_ported():
     assert "language_modeling" in set(get_registry("task").keys())
     assert {"transformer", "transformer_wmt_en_de_big", "transformer_iwslt_de_en",
             "transformer_lm", "transformer_lm_gpt"} <= archs
-    # BART / mBART and multilingual translation are ported;
-    # semisupervised_translation still waits for its noising host module
-    assert {"multilingual_translation", "denoising", "sentence_prediction"} <= set(
-        get_registry("task").keys())
-    with pytest.raises(KeyError):
-        get_registry("task").get("semisupervised_translation")
+    # BART / mBART, multilingual translation and the masked-LM family are
+    # ported; the dummy tasks wait for ROADMAP A14d
+    assert {"multilingual_translation", "denoising", "sentence_prediction", "masked_lm",
+            "semisupervised_translation"} <= set(get_registry("task").keys())
+    with pytest.raises(NotImplementedError, match="A14d"):
+        get_registry("task").get("dummy_mt")
 
 
 # ------------------------------------------------------------------- bleu
@@ -402,5 +402,12 @@ def test_bleu_scorers_match_jax(dict_file):
         assert ours.score(order) == pytest.approx(ref.score(order), abs=1e-9)
     assert ours_sb.result_string() == ref_sb.result_string()
     assert ours_sb.score() == pytest.approx(ref_sb.score(), abs=1e-9)
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_scorer({"_name": "chrf"}, d)
+    ours_chrf = build_scorer({"_name": "chrf"}, d)
+    ref_chrf = jax_build_scorer({"_name": "chrf"}, d)
+    for _ in range(6):
+        target = rng.integers(4, 30, size=int(rng.integers(3, 14))).tolist()
+        hyp = [t if rng.random() < 0.7 else int(rng.integers(4, 30)) for t in target]
+        ours_chrf.add_string(d.string(target), d.string(hyp))
+        ref_chrf.add_string(d.string(target), d.string(hyp))
+    assert ours_chrf.result_string() == ref_chrf.result_string()
+    assert ours_chrf.score() == ref_chrf.score() > 0

@@ -90,7 +90,9 @@ def _flat(t, path=()):
 
 
 class _Lines(logging.Handler):
-    """Collects the json progress lines of one logger."""
+    """Collects the json progress lines of one logger, from a run that
+    starts without the meters an earlier run of this process left in either
+    package's global aggregators (as a run of its own process does)."""
 
     def __init__(self, name):
         super().__init__(logging.INFO)
@@ -101,6 +103,11 @@ class _Lines(logging.Handler):
         self.lines.append(json.loads(record.getMessage()))
 
     def __enter__(self):
+        from chimera_st_tpu.logging import metrics as jax_metrics
+        from chimera_st_tpu_torch.logging import metrics
+
+        jax_metrics.reset()
+        metrics.reset()
         self.logger.addHandler(self)
         self.level_was = self.logger.level
         self.logger.setLevel(logging.INFO)

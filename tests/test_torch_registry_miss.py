@@ -1,0 +1,93 @@
+"""Names that the JAX package registers and the port does not (ROADMAP C1,
+repaired): ``config/registry.py`` ``UNPORTED`` lists each with the ROADMAP
+item that ports it, and ``Registry.get`` raises ``NotImplementedError``
+naming that item, where a name neither package knows keeps its
+``KeyError``.
+
+The table is held to both packages' registries, kind by kind, so that it
+cannot go stale; each name raises through the routes a user reaches it by:
+``--arch`` (``tasks/base.py`` ``build_model``), ``--task`` and
+``--criterion``, and a data config's ``bpe_tokenizer`` and
+``pre_tokenizer`` (``data/manifests.py``). Every BPE and tokenizer name is
+ported, so those two routes are shown with a name taken out of the port's
+registry for the test.
+"""
+
+import json
+
+import pytest
+
+import chimera_st_tpu.criterions  # noqa: F401 — registration
+import chimera_st_tpu.data.encoders  # noqa: F401
+import chimera_st_tpu.models  # noqa: F401
+import chimera_st_tpu.optim  # noqa: F401
+import chimera_st_tpu.scoring  # noqa: F401
+import chimera_st_tpu.tasks  # noqa: F401
+import chimera_st_tpu_torch.criterions  # noqa: F401
+import chimera_st_tpu_torch.data.encoders  # noqa: F401
+import chimera_st_tpu_torch.models  # noqa: F401
+import chimera_st_tpu_torch.optim  # noqa: F401
+import chimera_st_tpu_torch.scoring  # noqa: F401
+import chimera_st_tpu_torch.tasks  # noqa: F401
+from chimera_st_tpu.config import registry as JR
+from chimera_st_tpu_torch.config import registry as R
+from chimera_st_tpu_torch.data.manifests import S2TDataConfig, SpeechToTextDataset
+from chimera_st_tpu_torch.tasks import setup_task
+from chimera_st_tpu_torch.tasks.base import ChimeraTask
+
+ITEMS = {"A14b", "A14d", "A14e"}
+
+
+@pytest.mark.parametrize("kind", sorted(JR.REGISTRIES))
+def test_table_is_the_jax_names_less_the_ports(kind):
+    """``UNPORTED[kind]`` is exactly the JAX names the port lacks; each row
+    names an item."""
+    jax_names = set(JR.REGISTRIES[kind].keys())
+    port_names = set(R.get_registry(kind).keys())
+    table = R.UNPORTED.get(kind, {})
+    assert set(table) == jax_names - port_names
+    assert set(table.values()) <= ITEMS
+
+
+@pytest.mark.parametrize("name", sorted(R.UNPORTED["architecture"]))
+def test_arch_route_raises_naming_the_item(name):
+    item = R.UNPORTED["architecture"][name]
+    message = f"'{name}' is not ported yet \\(ROADMAP {item}\\)"
+    with pytest.raises(NotImplementedError, match=message):
+        ChimeraTask({}).build_model({"arch": name}, device="cpu")
+
+
+@pytest.mark.parametrize("kind, name", [("task", n) for n in sorted(R.UNPORTED["task"])]
+                         + [("criterion", n) for n in sorted(R.UNPORTED["criterion"])])
+def test_task_and_criterion_routes_raise_naming_the_item(kind, name):
+    item = R.UNPORTED[kind][name]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        if kind == "task":
+            setup_task({"_name": name, "data": "unused"})
+        else:
+            ChimeraTask({}).build_criterion({"_name": name})
+
+
+@pytest.mark.parametrize("field, kind, name", [("bpe_tokenizer", "bpe", "gpt2"),
+                                               ("pre_tokenizer", "tokenizer", "moses")])
+def test_data_config_routes_raise_naming_the_item(field, kind, name, tmp_path, monkeypatch):
+    """A data config naming an unported BPE or tokenizer raises naming its
+    item when its dataset is built; with the name registered it builds."""
+    key = "bpe" if kind == "bpe" else "tokenizer"
+    extra = {"gpt2_encoder_json": "unused", "gpt2_vocab_bpe": "unused"} if kind == "bpe" else {}
+    (tmp_path / "config.yaml").write_text(json.dumps({field: {key: name, **extra}}))
+    cfg = S2TDataConfig(str(tmp_path / "config.yaml"))
+    registry = R.get_registry(kind)
+    monkeypatch.delitem(registry._entries, name)
+    monkeypatch.setitem(R.UNPORTED, kind, {name: "A14x"})
+    with pytest.raises(NotImplementedError, match="ROADMAP A14x"):
+        SpeechToTextDataset("train", True, cfg, [], [])
+    monkeypatch.undo()
+    if kind == "tokenizer":
+        assert SpeechToTextDataset("train", True, cfg, [], []).pre_tokenizer is not None
+
+
+def test_unknown_names_keep_the_key_error():
+    for kind in ("architecture", "task", "bpe", "scoring"):
+        with pytest.raises(KeyError, match="unknown"):
+            R.get_registry(kind).get("no_such_name")

@@ -37,6 +37,7 @@ from chimera_st_tpu.cli import train as jax_train
 from chimera_st_tpu_torch.cli import train, validate
 from chimera_st_tpu_torch.convert import params_from_flax
 from tests.synthetic_data import TINY_ARCH_FLAGS, make_triplet_dir
+from tests.test_torch_mt import _Lines
 
 REPO = Path(__file__).resolve().parents[1]
 LR = 1e-3
@@ -56,28 +57,6 @@ TIMED = {"ups", "wps"}
 def _load(path):
     with open(path, "rb") as f:
         return pickle.load(f)
-
-
-class _Lines(logging.Handler):
-    """Collects the json progress lines of one logger."""
-
-    def __init__(self, name):
-        super().__init__(logging.INFO)
-        self.lines = []
-        self.logger = logging.getLogger(name)
-
-    def emit(self, record):
-        self.lines.append(json.loads(record.getMessage()))
-
-    def __enter__(self):
-        self.logger.addHandler(self)
-        self.level_was = self.logger.level
-        self.logger.setLevel(logging.INFO)
-        return self.lines
-
-    def __exit__(self, *exc):
-        self.logger.removeHandler(self)
-        self.logger.setLevel(self.level_was)
 
 
 @pytest.fixture(scope="module")
