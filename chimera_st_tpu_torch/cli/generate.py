@@ -98,6 +98,21 @@ def load_model_and_params(path: str, task, dtype, device="cuda", gen_model_overr
     return build_and_load(task, model_cfg, tree, dtype, device)
 
 
+def require_decoder(model) -> None:
+    """Raises for a model of the zoo (fconv, lightconv, the LSTMs, berard
+    ...), which neither package decodes: none has an incremental decoder
+    (chimera_st_tpu/generation/generator.py:190-195 needs
+    ``decoder.precompute_encoder_kv``), and the JAX eval_lm / --lm-path
+    build ``transformer_lm`` whatever the checkpoint holds (ROADMAP C3)."""
+    from .. import convert
+    from ..models import ZOO_MODEL_BUILDERS
+
+    kind = convert.model_kind(model)
+    if kind in ZOO_MODEL_BUILDERS:
+        raise NotImplementedError(f"{kind} has no incremental decoder in either package: it "
+                                  "is trained and validated, not decoded (ROADMAP C3)")
+
+
 def build_and_load(task, model_cfg, tree, dtype, device):
     """``task.build_model(model_cfg)`` with the flax ``tree`` loaded through
     the converter table of its model type (``strict=True``)."""
@@ -119,6 +134,7 @@ def load_language_model(path: str, task, dtype, device="cuda", overrides=None):
     which rebuilds an LM saved under a preset such as ``transformer_lm_gpt``
     at the base preset's widths and activation (ROADMAP C)."""
     from ..checkpoint.store import load_native_checkpoint
+    from ..models import ZOO_ARCHITECTURES
     from ..models.transformer_mt import ARCHITECTURES
 
     if not path.endswith(".ckpt"):
@@ -126,6 +142,10 @@ def load_language_model(path: str, task, dtype, device="cuda", overrides=None):
     tree, model_cfg = load_native_checkpoint(path)
     model_cfg.update(overrides or {})
     arch = model_cfg.setdefault("arch", "transformer_lm")
+    if arch in ZOO_ARCHITECTURES:
+        raise NotImplementedError(f"{path}: {arch} is a language model of the zoo, which "
+                                  "eval_lm and --lm-path do not score in either package "
+                                  "(ROADMAP C3)")
     if ARCHITECTURES.get(arch, (None,))[0] != "transformer_lm":
         raise ValueError(f"{path}: {arch} is not a transformer_lm architecture")
     return build_and_load(task, model_cfg, tree, dtype, device)
@@ -370,6 +390,8 @@ def main(argv=None) -> dict:
                                       "supported; use one decoding checkpoint + one reranker")
     models = [load_model_and_params(path, task, torch_dtype(args.dtype), device,
                                     model_overrides) for path in paths]
+    for m in models + ([reranker] if reranker is not None else []):
+        require_decoder(m)
     model = models[0]
     load_s = time.time() - t_load
     from ..generation.nat_generator import is_nat

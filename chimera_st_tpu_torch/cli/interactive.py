@@ -57,7 +57,7 @@ def constraint_strategy(tgt_dict, mode: str, constraints):
 
 def main(argv=None) -> None:
     from . import options
-    from .generate import load_model_and_params, to_device, torch_dtype
+    from .generate import load_model_and_params, require_decoder, to_device, torch_dtype
 
     p = options.base_parser("chimera-interactive (PyTorch port)")
     options.add_generation_args(p)
@@ -85,6 +85,7 @@ def main(argv=None) -> None:
 
     model = load_model_and_params(args.path, task, torch_dtype(args.dtype), device,
                                   model_overrides)
+    require_decoder(model)
     # the JAX CLI forwards these settings here and drops the rest of the
     # generation arguments; a dropped one that is set raises instead
     for flag, default in (("no_repeat_ngram_size", 0), ("min_len_a", 0.0), ("min_len_b", 0),

@@ -55,31 +55,13 @@ class Registry:
 
 REGISTRIES: Dict[str, Registry] = {}
 
-_A14D_ARCHITECTURES = (
-    "dummy_model", "dynamicconv_iwslt_de_en", "dynamicconv_lm", "fconv", "fconv_iwslt_de_en",
-    "fconv_lm", "fconv_lm_dauphin_gbw", "fconv_lm_dauphin_wikitext103", "fconv_self_att",
-    "fconv_self_att_wp", "fconv_wmt_en_de", "fconv_wmt_en_fr", "fconv_wmt_en_ro", "lightconv",
-    "lightconv_iwslt_de_en", "lightconv_lm", "lightconv_lm_gbw", "lightconv_wmt_en_de",
-    "lightconv_wmt_en_de_big", "lightconv_wmt_en_fr_big", "lightconv_wmt_zh_en_big", "lstm",
-    "lstm_lm", "lstm_luong_wmt_en_de", "lstm_wiseman_iwslt_de_en", "pytorch_tutorial_rnn",
-    "rnn_classifier", "s2t_berard", "s2t_berard_256_3_3", "s2t_berard_512_3_2",
-    "s2t_berard_512_5_3", "simple_lstm", "tutorial_simple_lstm")
-_A14D_MODELS = ("dummy_model", "fconv", "fconv_lm", "fconv_self_att", "lightconv",
-                "lightconv_lm", "lstm", "lstm_lm", "rnn_classifier", "s2t_berard", "simple_lstm")
-
 # registry -> {name the JAX package registers and the port does not yet:
 # the ROADMAP item that ports it}
 UNPORTED: Dict[str, Dict[str, str]] = {
-    "architecture": {**dict.fromkeys(_A14D_ARCHITECTURES, "A14d"),
-                     **dict.fromkeys(("hf_gpt2", "hf_gpt2_large", "hf_gpt2_medium",
+    "architecture": {**dict.fromkeys(("hf_gpt2", "hf_gpt2_large", "hf_gpt2_medium",
                                       "hf_gpt2_xl"), "A14e"),
                      "transformer_lm_pipe": "A14e"},
-    "model": {**dict.fromkeys(_A14D_MODELS, "A14d"), "hf_gpt2": "A14e",
-              "transformer_lm_pipe": "A14e"},
-    "task": dict.fromkeys(("dummy_lm", "dummy_masked_lm", "dummy_mt", "simple_classification"),
-                          "A14d"),
-    "criterion": dict.fromkeys(("label_smoothed_cross_entropy_with_alignment",
-                                "simple_classification"), "A14d"),
+    "model": {"hf_gpt2": "A14e", "transformer_lm_pipe": "A14e"},
 }
 
 

@@ -25,8 +25,13 @@ same under ``backbone/`` and the classification head) and
 ``{g}`` in a template matching the group: a language or ``shared``), and the
 wav2vec family's ``wav2vec_ctc``, ``wav2vec_seq2seq``, ``wav2vec2_pretrain``
 and ``wav2vec`` (v1; a module's own parameters, ``mask_emb`` and the
-quantizers' tables, are kinds of their own), and ``masked_lm`` (RoBERTa /
-BERT / XLM, its ``lm_head_bias`` a kind of its own);
+quantizers' tables, are kinds of their own), ``masked_lm`` (RoBERTa /
+BERT / XLM, its ``lm_head_bias`` a kind of its own), and the convolutional
+and recurrent zoo's ``fconv``, ``fconv_lm``, ``fconv_self_att``,
+``lightconv``, ``lightconv_lm``, ``lstm``, ``lstm_lm``, ``rnn_classifier``,
+``dummy_model`` and ``s2t_berard`` (``dense_opt_bias`` a recurrent cell's
+gate layers, ``conv2d`` flax's NHWC kernels ``[kh, kw, in, out]``,
+``param_weight`` a lightweight convolution's own ``[H, K]`` weight);
 ``model_kind`` names the one of a port model. Every leaf must match a rule and every module must have
 all of its kind's leaves, or the conversion raises, as the JAX importer's
 completeness check does.
@@ -65,6 +70,11 @@ _LEAVES = {
     "dense_nobias": (("weight", "kernel", True),),
     "conv": (("weight", "kernel", True), ("bias", "bias", True)),
     "conv_opt_bias": (("weight", "kernel", True), ("bias", "bias", False)),
+    "dense_opt_bias": (("weight", "kernel", True), ("bias", "bias", False)),
+    # flax's NHWC ``nn.Conv``: ``kernel [kh, kw, in, out]`` <-> ``weight [out, in, kh, kw]``
+    "conv2d": (("weight", "kernel", True), ("bias", "bias", True)),
+    # a module's own ``weight`` in one layout on both sides (LightweightConv's [H, K])
+    "param_weight": (("weight", "weight", True),),
     "norm": (("weight", "scale", True), ("bias", "bias", True)),
     "embed": (("weight", "embedding", True),),
     "symbols": (("symbol_embeddings", "symbol_embeddings", True),),
@@ -78,20 +88,27 @@ _LEAVES = {
 }
 
 
-def _to_torch_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
+def _torch_axes(kind: str, leaf: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation of a flax leaf's axes that gives the torch layout
+    (None: the same layout)."""
     if leaf == "kernel" and kind.startswith("dense"):
-        return a.T
+        return tuple(reversed(range(ndim)))
+    if leaf == "kernel" and kind == "conv2d":
+        return (3, 2, 0, 1)
     if leaf == "kernel":  # conv [k, in/g, out] -> [out, in/g, k]
-        return a.transpose(2, 1, 0)
-    return a
+        return (2, 1, 0)
+    return None
 
 
-def _to_flax_layout(kind: str, leaf: str, a: np.ndarray) -> np.ndarray:
+def _flax_axes(kind: str, leaf: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation of a torch leaf's axes that gives the flax layout."""
     if leaf == "weight" and kind.startswith("dense"):
-        return a.T
+        return tuple(reversed(range(ndim)))
+    if leaf == "weight" and kind == "conv2d":
+        return (2, 3, 1, 0)
     if leaf == "weight" and kind.startswith("conv"):
-        return a.transpose(2, 1, 0)
-    return a
+        return (2, 1, 0)
+    return None
 
 
 def _enc_layer(t: str, f: str) -> List[Tuple[str, str, str]]:
@@ -263,6 +280,85 @@ _RULES["masked_lm"] = [("embed_tokens", "embed_tokens", "embed"),
                        ("", "", "lm_head_bias"),
                        ("sentence_projection", "sentence_projection", "dense")]
 
+# the convolutional and recurrent zoo. A flax recurrent cell's dense layers
+# (``ii`` / ``if`` ... without bias, ``hi`` ... with; a GRU's ``hr`` / ``hz``
+# without) map one to one onto the port's ``cell`` of ``models/lstm.py``,
+# whose forward stacks them for ``torch.lstm`` / ``torch.gru``
+
+
+def _rnn(t: str, f: str) -> List[Tuple[str, str, str]]:
+    return [(f"{t}.cell.{{g}}", f"{f}/cell/{{g}}", "dense_opt_bias")]
+
+
+def _dense(*names: str) -> List[Tuple[str, str, str]]:
+    return [(n, n, "dense") for n in names]
+
+
+def _per_layer(t: str, f: str, kind: str = "dense") -> Tuple[str, str, str]:
+    return (f"{t}.{{i}}", f"{f}_{{i}}", kind)
+
+
+def _conv_block(t: str, f: str) -> List[Tuple[str, str, str]]:
+    """A ``ConvAttentionLayer`` (and the lightconv decoder layer's extras)."""
+    return [*[(f"{t}.{n}", f"{f}/{n}", "norm")
+              for n in ("conv_layer_norm", "final_layer_norm", "encoder_attn_layer_norm")],
+            *[(f"{t}.{n}", f"{f}/{n}", "dense") for n in ("linear1", "linear2", "fc1", "fc2")],
+            (f"{t}.conv", f"{f}/conv", "param_weight"),
+            (f"{t}.conv.weight_linear", f"{f}/conv/weight_linear", "dense_nobias"),
+            *[(f"{t}.encoder_attn.{p}", f"{f}/encoder_attn/{p}", "dense")
+              for p in ("q_proj", "k_proj", "v_proj", "out_proj")]]
+
+
+_FCONV_LM = [("embed", "embed", "embed"), ("pos", "pos", "embed"),
+             *_dense("proj_in", "proj_out", "out"), ("conv.{i}.conv", "conv_{i}/conv", "dense")]
+_FCONV = [*[(n, n, "embed") for n in ("src_embed", "tgt_embed", "src_pos", "tgt_pos")],
+          *_dense("enc_proj_in", "enc_proj_out", "dec_proj_in", "dec_proj_out", "out_proj"),
+          ("enc_conv.{i}.conv", "enc_conv_{i}/conv", "dense"),
+          ("dec_conv.{i}.conv", "dec_conv_{i}/conv", "dense"),
+          _per_layer("attn_q", "attn_q"), _per_layer("attn_o", "attn_o")]
+_RULES["fconv"] = _FCONV
+_RULES["fconv_lm"] = _FCONV_LM
+_RULES["fconv_self_att"] = [
+    *_FCONV, _per_layer("attn_gate", "attn_gate"),
+    *[(f"self_attn.{{i}}.{p}", f"self_attn_{{i}}/{p}", "dense")
+      for p in ("q_proj", "k_proj", "v_proj", "out_proj")],
+    *[(f"pretrained.{t}", f"pretrained/{f}", kind) for t, f, kind in _FCONV_LM],
+    *_dense("gate1", "gate2", "lm_proj")]
+_RULES["lightconv"] = [("embed_tokens", "embed_tokens", "embed"),
+                       ("tgt_embed_tokens", "tgt_embed_tokens", "embed"),
+                       *_conv_block("enc.{i}", "enc_{i}"), *_conv_block("dec.{i}", "dec_{i}"),
+                       ("enc_norm", "enc_norm", "norm"), ("dec_norm", "dec_norm", "norm"),
+                       ("output_projection", "output_projection", "dense_nobias")]
+_RULES["lightconv_lm"] = [("embed", "embed", "embed"), *_conv_block("layers.{i}", "layers_{i}"),
+                          ("norm", "norm", "norm"),
+                          ("output_projection", "output_projection", "dense_nobias")]
+_LSTM_ENCODER = [*_rnn("enc_rnn.{i}", "enc_rnn_{i}"), *_rnn("enc_rnn_rev.{i}", "enc_rnn_rev_{i}")]
+_RULES["lstm"] = [("src_embed", "src_embed", "embed"), ("tgt_embed", "tgt_embed", "embed"),
+                  *_LSTM_ENCODER, *_rnn("dec_rnn.{i}", "dec_rnn_{i}"),
+                  ("attention.input_proj", "attention/input_proj", "dense_nobias"),
+                  ("attention.output_proj", "attention/output_proj", "dense_nobias"),
+                  ("output_projection", "output_projection", "dense_nobias")]
+_RULES["lstm_lm"] = [("embed", "embed", "embed"), *_rnn("rnn.{i}", "rnn_{i}"),
+                     ("out_proj_dim", "out_proj_dim", "dense"),
+                     ("output_projection", "output_projection", "dense_nobias")]
+# the JAX classifier builds its GRUCell in its own compact scope, so the
+# cell's layers sit at ``GRUCell_0/`` and not under ``rnn/cell/``
+_RULES["rnn_classifier"] = [("embed", "embed", "embed"),
+                            ("rnn.cell.{g}", "GRUCell_0/{g}", "dense_opt_bias"),
+                            ("classifier", "classifier", "dense")]
+_RULES["dummy_model"] = [("embed", "embed", "embed"), ("out_proj", "out_proj", "dense"),
+                         _per_layer("attn_ln", "attn_ln", "norm"),
+                         _per_layer("ffn_ln", "ffn_ln", "norm"),
+                         *[_per_layer(n, n) for n in ("qkv", "attn_skip", "attn_out", "ffn_up",
+                                                      "ffn_down")]]
+_RULES["s2t_berard"] = [("conv.{i}", "conv_{i}", "conv2d"), *_LSTM_ENCODER,
+                        ("embed_tokens", "embed_tokens", "embed"),
+                        *_rnn("dec_rnn.{i}", "dec_rnn_{i}"),
+                        ("attention.query_proj", "attention/query_proj", "dense"),
+                        ("attention.context_proj", "attention/context_proj", "dense_nobias"),
+                        ("attention.score_proj", "attention/score_proj", "dense_nobias"),
+                        ("output_projection", "output_projection", "dense")]
+
 # placeholder of a template -> what it matches: ``{i}`` a layer index, ``{g}``
 # a language group
 _SLOTS = {"i": r"\d+", "g": r"[^./]+"}
@@ -360,16 +456,19 @@ def _flax_to_torch_names(table: _Table, leaves: Iterable[Path]) -> Dict[Path, Tu
 
 def _from_flax(model: str, tree: Mapping[str, Any], raw: bool = False
                ) -> Dict[str, torch.Tensor]:
-    """A flax tree -> {torch key: fp32 tensor}; ``raw`` keeps each leaf in
-    its flax layout (an optimizer state kept in that layout)."""
+    """A flax tree -> {torch key: fp32 tensor}, each a copy of its leaf;
+    ``raw`` keeps each leaf in its flax layout (an optimizer state kept in
+    that layout). The layouts are permuted by torch, on all the host's
+    threads (numpy's transpose takes one)."""
     flat = _flatten(_strip_variables(tree))
     names = _flax_to_torch_names(_TABLES[model], flat)
     out = {}
     for path, (key, kind) in names.items():
         a = np.asarray(flat[path], dtype=np.float32)
-        if not raw:
-            a = _to_torch_layout(kind, path[-1], a)
-        out[key] = torch.tensor(np.ascontiguousarray(a))
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+        axes = None if raw else _torch_axes(kind, path[-1], t.dim())
+        out[key] = (t if axes is None else t.permute(axes)).clone(
+            memory_format=torch.contiguous_format)
     return out
 
 
@@ -388,16 +487,23 @@ def torch_to_flax_path(model: str, key: str) -> Tuple[Path, str]:
 def _to_flax(model: str, state: Mapping[str, Any], raw: bool = False) -> Dict[str, Any]:
     """{torch key: tensor or None} -> the flax tree of numpy leaves (None
     keeps its place as an empty ``{}``, what a masked leaf is in optax);
-    ``raw`` leaves are in the flax layout already."""
+    ``raw`` leaves are in the flax layout already. A tensor's layout is
+    permuted by torch on its own device before it is copied to the host."""
     flat = {}
     for key, value in state.items():
         path, kind = torch_to_flax_path(model, key)
         if value is None:
             flat[path] = {}
             continue
-        a = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
-        if not raw:
-            a = _to_flax_layout(kind, key.rpartition(".")[2], a)
+        leaf = key.rpartition(".")[2]
+        if torch.is_tensor(value):
+            t = value.detach()
+            axes = None if raw else _flax_axes(kind, leaf, t.dim())
+            a = (t if axes is None else t.permute(axes).contiguous()).cpu().numpy()
+        else:
+            a = np.asarray(value)
+            axes = None if raw else _flax_axes(kind, leaf, a.ndim)
+            a = a if axes is None else a.transpose(axes)
         flat[path] = np.ascontiguousarray(a)
     return _unflatten(flat)
 
@@ -412,6 +518,9 @@ def checkpoint_axes(model: torch.nn.Module) -> Dict[torch.nn.Parameter, Tuple[in
     out = {}
     for name, p in model.named_parameters():
         _, kind = torch_to_flax_path(kind_of, name)
+        if name.endswith(".weight") and kind == "conv2d":
+            out[p] = (2, 3, 1, 0)
+            continue
         rev = name.endswith(".weight") and kind.startswith(("dense", "conv"))
         out[p] = tuple(range(p.dim()))[::-1] if rev else tuple(range(p.dim()))
     return out
@@ -439,7 +548,8 @@ def model_kind(model: torch.nn.Module) -> str:
     ``levenshtein_transformer``, ``insertion_transformer``), ``bart``,
     ``multilingual_transformer``, or of the wav2vec family ``wav2vec_ctc``,
     ``wav2vec_seq2seq``, ``wav2vec2_pretrain`` (either quantizer) or
-    ``wav2vec`` (v1), or ``masked_lm``."""
+    ``wav2vec`` (v1), or ``masked_lm``, or a zoo model's name (``lstm`` for
+    ``simple_lstm`` too)."""
     cfg = getattr(model, "cfg", None)
     if getattr(cfg, "character_embeddings", False):
         return "transformer_lm_char"
@@ -456,7 +566,11 @@ def model_kind(model: torch.nn.Module) -> str:
             "MultilingualTransformer": "multilingual_transformer",
             "Wav2VecCtcModel": "wav2vec_ctc", "Wav2VecSeq2SeqModel": "wav2vec_seq2seq",
             "Wav2Vec2PretrainModel": "wav2vec2_pretrain",
-            "Wav2VecV1Model": "wav2vec", "MaskedLMModel": "masked_lm"}[type(model).__name__]
+            "Wav2VecV1Model": "wav2vec", "MaskedLMModel": "masked_lm",
+            "FConvModel": "fconv", "FConvLM": "fconv_lm", "FConvSelfAttModel": "fconv_self_att",
+            "LightConvModel": "lightconv", "LightConvLM": "lightconv_lm", "LSTMModel": "lstm",
+            "LSTMLM": "lstm_lm", "RNNClassifier": "rnn_classifier", "DummyModel": "dummy_model",
+            "BerardModel": "s2t_berard"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -64,3 +64,41 @@ def make_label_smoothed_ce(cfg: Dict):
         return loss, sample_size, logging
 
     return criterion
+
+
+@register_criterion("label_smoothed_cross_entropy_with_alignment")
+def make_label_smoothed_ce_with_alignment(cfg: Dict):
+    """Label-smoothed CE plus ``alignment_lambda`` (0.05) times the
+    supervised-attention loss (fairseq
+    ``label_smoothed_cross_entropy_with_alignment.py``): the NLL of the last
+    decoder layer's head-averaged cross-attention at the gold (target,
+    source) links of ``alignment_tgt`` / ``alignment_src`` ([B, A], -1 pads),
+    each link weighted by one over the links that share its target
+    position. As in JAX, the attention comes from a second, dropout-free
+    pass (``decoder.cross_attention_weights``, the Transformer's)."""
+    base = make_label_smoothed_ce(cfg)
+    align_lambda = float(cfg.get("alignment_lambda", 0.05))
+
+    def criterion(model, batch, generator=None, num_updates=None):
+        loss, sample_size, logging = base(model, batch, generator, num_updates)
+        if "alignment_tgt" not in batch:
+            return loss, sample_size, logging
+        training = model.training
+        model.eval()
+        try:
+            attn = model.decoder.cross_attention_weights(
+                batch["prev_output_tokens"], *model.encode_text(batch["src_tokens"]))
+        finally:
+            model.train(training)
+        at, asrc = batch["alignment_tgt"].long(), batch["alignment_src"].long()
+        valid = (at >= 0) & (asrc >= 0)
+        rows = attn.gather(1, at.clamp(min=0)[:, :, None].expand(-1, -1, attn.shape[2]))
+        p = rows.gather(2, asrc.clamp(min=0)[:, :, None])[..., 0]
+        align_nll = -torch.log(torch.clamp(p.float(), 1e-9, 1.0))
+        same_tgt = (at[:, :, None] == at[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+        align_nll = align_nll / torch.clamp(same_tgt.sum(dim=-1), min=1).to(align_nll.dtype)
+        align_loss = torch.where(valid, align_nll, 0.0).sum()
+        loss = loss + align_lambda * align_loss
+        return loss, sample_size, {**logging, "alignment_loss": align_loss, "loss": loss}
+
+    return criterion

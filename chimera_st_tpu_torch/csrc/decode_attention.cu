@@ -31,16 +31,19 @@
 //   (trip 2). A tile holds at most 512 16-byte chunks of K (and of V), a
 //   whole number of rows: the largest power of two of times that fits,
 //   so 64 times in bf16 and 32 in fp32 at D = 64; 32 and 16 at D = 96 and
-//   D = 128; 128 and 64 at D = 32. A row is D / 8 chunks in bf16, D / 4
-//   in fp32, and the 128 threads split a tile's rows evenly, 1 to 8
-//   threads a row. Longer timelines loop over tiles through a two-stage
-//   ring, the next tile's copies in flight while this one is reduced.
+//   D = 128; 128 and 64 at D = 32; unless one pass of the warps' row
+//   groups needs more: D = 80 (the xlm preset) takes 64 times in bf16 and
+//   32 in fp32, 640 chunks. A row is D / 8 chunks in bf16, D / 4 in fp32,
+//   and the 128 threads split a tile's rows evenly, 1 to 8 threads a row.
+//   Longer timelines loop over tiles through a two-stage ring, the next
+//   tile's copies in flight while this one is reduced.
 // - The time-`step` row is taken from k_new / v_new of the ancestor column
 //   (inputs, never written), and a block writes only its own column's row
 //   into the cache: no block reads what another block writes, so there is
 //   no race across blocks and the cache ends bit-equal to a plain copy.
-// - Wide reads from shared memory: a group of 8 lanes shares a row (4 when
-//   the row's chunks do not divide by 8: D = 32 bf16, D = 96 bf16), each
+// - Wide reads from shared memory: a group of 8 lanes shares a row (else
+//   the largest power of two that divides the row's chunks: 4 at D = 32
+//   and D = 96 in bf16 and D = 80 in fp32, 2 at D = 80 in bf16), each
 //   lane reading a whole number of 16-byte chunks; a shuffle across the
 //   group finishes the dot product, and the same lanes then read the same
 //   slice of the V row, so P.V needs no exchange of probabilities. A warp
@@ -95,10 +98,12 @@ template <typename T, int D>
 struct K3Split {
   static constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
   static constexpr int CH = D / EPC;           // chunks per row
-  static constexpr int LPR = CH % 8 == 0 ? 8 : 4;  // lanes per row
+  static constexpr int LPR = CH % 8 == 0 ? 8 : CH % 4 == 0 ? 4 : 2;  // lanes per row
   static constexpr int CPL = CH / LPR;         // chunks a lane reads per row
   static constexpr int GPW = 32 / LPR;         // row groups per warp
-  static constexpr int TILE = pow2_floor(CHUNKS_PER_TILE / CH);  // times per tile
+  // times per tile: within 512 chunks, but at least one pass of row groups
+  static constexpr int TILE = pow2_floor(CHUNKS_PER_TILE / CH) > GPW * K3_WARPS
+                                  ? pow2_floor(CHUNKS_PER_TILE / CH) : GPW * K3_WARPS;
   static constexpr int TPR = K3_THREADS / TILE;  // copying threads per row
   static constexpr int CPT = CH / TPR;         // chunks a thread copies per row
   static constexpr int PASSES = TILE / (GPW * K3_WARPS);  // runs of groups a warp takes per tile
@@ -107,7 +112,7 @@ struct K3Split {
                 "the threads copy whole chunks of whole rows");
   static_assert(PASSES >= 1 && TILE % (GPW * K3_WARPS) == 0, "a tile holds whole row groups");
   static_assert(D <= K3_THREADS && 2 * CH <= K3_THREADS, "one thread an output element");
-  static_assert(2 * 2 * TILE * D * sizeof(T) <= 32 * 1024, "the ring fits in 32 KB");
+  static_assert(2 * 2 * TILE * D * sizeof(T) <= 40 * 1024, "the ring fits in 40 KB");
 };
 
 template <typename T, int D>
@@ -291,7 +296,8 @@ template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const int* anc, void* out, int n_cols, int beam, int heads, int head_dim,
            int max_len, int step, float scale, cudaStream_t stream) {
-  if ((head_dim != 32 && head_dim != 64 && head_dim != 96 && head_dim != 128) || beam < 1 ||
+  if ((head_dim != 32 && head_dim != 64 && head_dim != 80 && head_dim != 96 && head_dim != 128) ||
+      beam < 1 ||
       beam > MAX_BEAM || n_cols % beam != 0 || heads > 65535 || step < 0 || step >= max_len)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k_new, v_new, (const void*)k_cache, (const void*)v_cache,
@@ -300,6 +306,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
   dim3 grid(n_cols, heads);
   auto kernel = head_dim == 32   ? decode_attention_kernel<T, 32>
                 : head_dim == 64 ? decode_attention_kernel<T, 64>
+                : head_dim == 80 ? decode_attention_kernel<T, 80>
                 : head_dim == 96 ? decode_attention_kernel<T, 96>
                                  : decode_attention_kernel<T, 128>;
   kernel<<<grid, K3_THREADS, 0, stream>>>(

@@ -28,7 +28,12 @@
 // through a 2-stage ring with TMA (a 4-D tensor map over [B, T, H, D]; keys
 // past T read as zeros), signalling full/empty mbarriers. D is cut into
 // 32-column slabs of 64-byte rows in the 64-byte swizzle, so D = 96 (192-byte
-// rows, not a 128-byte atom), D = 64 and D = 128 share one layout. At D = 128
+// rows, not a 128-byte atom), D = 64 and D = 128 share one layout. D = 80
+// (the xlm preset's 1,280 / 16 heads) keeps three slabs, 96 columns: the
+// tensor map's innermost extent stays 80, so TMA fills columns 80-95 of the
+// third slab with zeros; Q.K^T steps over the 80 real columns only, and
+// P.V runs at n = 96 into an accumulator whose last 16 columns (0 . P) are
+// never written out. At D = 128
 // (the MT presets of 512 / 4 and 1024 / 8 heads) a stage holds 32 KB of K
 // and V, the Q tile 16 KB: 81 KB of shared memory a block, two blocks an SM;
 // the O accumulator is 64 registers a thread. S = Q.K^T runs as
@@ -47,7 +52,8 @@
 // warps, each owns 4 queries; keys stream through shared memory 32 at a
 // time, lane j scores key j, the warp keeps an online softmax per query. At
 // D = 128 a warp owns 2 queries (a tile of 16), which keeps the block's
-// static shared memory under 48 KB.
+// static shared memory under 48 KB. Lane j owns output columns j + 32 e;
+// at D = 80 the third column of lanes 16-31 is past D and idle.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -73,7 +79,7 @@ encoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ v, const uint8_t* __restrict__ mask,
                              float* __restrict__ out, int seq, int heads, float scale) {
   constexpr int QPW = F32Tile<D>::QPW, QT = F32Tile<D>::QT;
-  constexpr int DL = D / 32;  // output columns per lane
+  constexpr int DL = (D + 31) / 32;  // output columns per lane (the last may be past D)
   __shared__ float qs[QT][D];
   __shared__ float ks[KT][D + 1];
   __shared__ float vs[KT][D];
@@ -130,7 +136,8 @@ encoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
       for (int j = 0; j < n_keys; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int e = 0; e < DL; ++e) acc[i][e] = fmaf(pj, vs[j][lane + 32 * e], acc[i][e]);
+        for (int e = 0; e < DL; ++e)
+          if (lane + 32 * e < D) acc[i][e] = fmaf(pj, vs[j][lane + 32 * e], acc[i][e]);
       }
       m[i] = m_new;
     }
@@ -142,7 +149,8 @@ encoder_attention_f32_kernel(const float* __restrict__ q, const float* __restric
     if (t >= seq) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int e = 0; e < DL; ++e) out[base + (size_t)t * row_stride + lane + 32 * e] = acc[i][e] * inv;
+    for (int e = 0; e < DL; ++e)
+      if (lane + 32 * e < D) out[base + (size_t)t * row_stride + lane + 32 * e] = acc[i][e] * inv;
   }
 }
 
@@ -157,7 +165,8 @@ constexpr int TC_THREADS = 160;  // warps 0-3 consumers, warp 4 producer
 
 template <int D>
 struct TcLayout {
-  static constexpr int SLABS = D / SLAB;
+  static constexpr int SLABS = (D + SLAB - 1) / SLAB;  // 3 at D = 80: columns past D read as 0
+  static constexpr int DP = SLABS * SLAB;  // the head dim as the tiles and P.V hold it
   static constexpr int TILE = SLABS * SLAB_BYTES;  // one [64, D] bf16 tile
   // Q tile, then per stage a K tile and a V tile, then the mbarriers
   static constexpr int K_OFF = TILE;
@@ -173,7 +182,8 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                             const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
                             int seq, int heads, float scale_log2) {
   using L = TcLayout<D>;
-  constexpr int NO = D / 2;  // output accumulator registers per thread
+  static_assert(D % 16 == 0, "Q.K^T steps over 16 head-dim columns at a time");
+  constexpr int NO = L::DP / 2;  // output accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the swizzle pattern is a function of the address
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -283,7 +293,7 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       l_run[half] = l_run[half] * alpha + sum;  // this thread's columns only
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < L::DP / 8; ++c) {
         o[4 * c + 2 * half] *= alpha;
         o[4 * c + 2 * half + 1] *= alpha;
       }
@@ -302,9 +312,9 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t desc_v = gmma_desc(v_s + kk * 1024, SLAB_BYTES, 512, GMMA_SW64);
-      if constexpr (D == 64)
+      if constexpr (L::DP == 64)
         wgmma_m64n64k16_rs_tb(o, a[kk], desc_v);
-      else if constexpr (D == 96)
+      else if constexpr (L::DP == 96)
         wgmma_m64n96k16_rs_tb(o, a[kk], desc_v);
       else
         wgmma_m64n128k16_rs_tb(o, a[kk], desc_v);
@@ -349,7 +359,8 @@ int launch_tc(const void* q, const void* k, const void* v, const uint8_t* mask, 
               int batch, int seq, int heads, float scale, cudaStream_t stream) {
   using L = TcLayout<D>;
   // [B, T, H, D] as a 4-D map, innermost first; a box is one 32-column slab
-  // of 64 rows of one (batch, head)
+  // of 64 rows of one (batch, head); at D = 80 the third box reaches past the
+  // innermost extent and TMA fills its last 16 columns with zeros
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads, (uint64_t)seq, (uint64_t)batch};
   const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)heads * D * 2,
                                (uint64_t)seq * heads * D * 2};
@@ -388,11 +399,13 @@ extern "C" int chimera_encoder_attention(int dtype, const void* q, const void* k
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == CHIMERA_F32) {
     if (head_dim == 64) return launch_f32<64>(q, k, v, m, out, batch, seq, heads, scale, s);
+    if (head_dim == 80) return launch_f32<80>(q, k, v, m, out, batch, seq, heads, scale, s);
     if (head_dim == 96) return launch_f32<96>(q, k, v, m, out, batch, seq, heads, scale, s);
     if (head_dim == 128) return launch_f32<128>(q, k, v, m, out, batch, seq, heads, scale, s);
   }
   if (dtype == CHIMERA_BF16) {
     if (head_dim == 64) return launch_tc<64>(q, k, v, m, out, batch, seq, heads, scale, s);
+    if (head_dim == 80) return launch_tc<80>(q, k, v, m, out, batch, seq, heads, scale, s);
     if (head_dim == 96) return launch_tc<96>(q, k, v, m, out, batch, seq, heads, scale, s);
     if (head_dim == 128) return launch_tc<128>(q, k, v, m, out, batch, seq, heads, scale, s);
   }

@@ -12,8 +12,12 @@ its two, and the wav2vec family: ``wav2vec_ctc`` and ``wav2vec_seq2seq``
 ``wav2vec2_quasiwave`` / ``wav2vec2_quasiwave_base`` (pre-training) and
 ``wav2vec`` (v1), and the masked-LM family: ``masked_lm``, ``roberta``,
 ``camembert`` and ``xlmr`` with the ten ``roberta*`` / ``bert*`` / ``xlm*`` /
-``camembert`` / ``masked_lm`` presets, and ``transformer_from_pretrained_xlm``
-(counterpart of the registrations in chimera_st_tpu/models/).
+``camembert`` / ``masked_lm`` presets, and ``transformer_from_pretrained_xlm``,
+and the convolutional and recurrent zoo: ``fconv`` / ``fconv_lm`` /
+``fconv_self_att``, ``lightconv`` / ``lightconv_lm``, ``lstm`` /
+``lstm_lm`` / ``simple_lstm``, ``rnn_classifier``, ``dummy_model`` and
+``s2t_berard`` with their 33 presets (counterpart of the registrations in
+chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
 function that fills a config dict with its preset's defaults. A field the
@@ -26,6 +30,12 @@ from typing import Dict
 
 from ..config.registry import ARCHITECTURES, MODELS, register_model, register_model_architecture
 from . import bart as _bart
+from . import berard as _berard
+from . import fconv as _fconv
+from . import fconv_self_att as _fconv_sa
+from . import lightconv_mt as _lightconv
+from . import lm_extra as _lm_extra
+from . import lstm as _lstm
 from . import masked_lm as _mlm
 from . import multilingual_transformer as _multi
 from . import nat_cmlm as _cmlm
@@ -122,19 +132,23 @@ NAT_MODEL_BUILDERS = {
     "levenshtein_transformer": _lev.build_levenshtein,
     "insertion_transformer": _ins.build_insertion,
 }
+# the convolutional and recurrent zoo
+_ZOO = (_fconv, _fconv_sa, _lightconv, _lstm, _lm_extra, _berard)
+ZOO_MODEL_BUILDERS = {k: v for m in _ZOO for k, v in m.MODEL_BUILDERS.items()}
+ZOO_ARCHITECTURES = {k: v for m in _ZOO for k, v in m.ARCHITECTURES.items()}
 NAT_ARCHITECTURES = {**_cmlm.ARCHITECTURES, **_nat.ARCHITECTURES, **_lev.ARCHITECTURES,
                      **_ins.ARCHITECTURES}
 for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS, "bart": _bart.build_bart,
                       "multilingual_transformer": _multi.build_multilingual,
                       **_asr.MODEL_BUILDERS, **_w2v2_pt.MODEL_BUILDERS,
                       **_w2v1.MODEL_BUILDERS, **_mlm.MODEL_BUILDERS,
-                      **_roberta_hub.MODEL_BUILDERS}.items():
+                      **_roberta_hub.MODEL_BUILDERS, **ZOO_MODEL_BUILDERS}.items():
     register_model(_name)(_build)
 for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES,
                                  **_bart.ARCHITECTURES, **_multi.ARCHITECTURES,
                                  **_asr.ARCHITECTURES, **_w2v2_pt.ARCHITECTURES,
                                  **_w2v1.ARCHITECTURES, **_mlm.ARCHITECTURES,
-                                 **_roberta_hub.ARCHITECTURES}.items():
+                                 **_roberta_hub.ARCHITECTURES, **ZOO_ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

@@ -54,6 +54,12 @@ def conv1d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int =
     return _zeroed(conv, device)
 
 
+def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1, *, device) -> nn.Conv2d:
+    """nn.Conv2d with zero parameters (see ``linear``); callers pad
+    explicitly."""
+    return _zeroed(nn.Conv2d(in_ch, out_ch, kernel, stride=stride, device="meta"), device)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics and parameters, output in the input
     dtype."""

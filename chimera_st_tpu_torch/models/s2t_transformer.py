@@ -21,8 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.fbank import num_frames
-from ..ops.logmel import logmel
+from ..ops.logmel import wave_features
 from .layers import LayerNorm, TransformerEncoderLayer, positional_embedding_from_mask
 from .subsampler import Conv1dSubsampler, subsampled_length
 from .transformer_decoder import TransformerDecoder
@@ -94,10 +93,8 @@ class S2TTransformerModel(nn.Module):
         c, enc = self.cfg, self.encoder
         features = source
         if c.compute_fbank:
-            samples = (~padding_mask).sum(dim=-1)
-            features = logmel(source.float().contiguous(), c.input_feat_per_channel)
-            pos = torch.arange(features.shape[1], device=features.device)[None, :]
-            padding_mask = pos >= num_frames(samples)[:, None]
+            features, padding_mask = wave_features(source, padding_mask,
+                                                   c.input_feat_per_channel)
         x = enc.subsample(features.to(enc.subsample.conv_layers[0].weight.dtype))
         lengths = subsampled_length((~padding_mask).sum(dim=-1), len(c.conv_kernel_sizes))
         sub_mask = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None]

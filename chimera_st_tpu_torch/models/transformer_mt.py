@@ -279,6 +279,14 @@ def _config(config_cls, cfg_dict: Dict):
     return config_cls(**{k: v for k, v in cfg_dict.items() if k in names})
 
 
+def preset(**defaults):
+    """An architecture preset: fills ``defaults`` into a config, a given
+    field winning (the JAX presets' ``setdefault``)."""
+    def fill(cfg: Dict) -> Dict:
+        return {**defaults, **cfg}
+    return fill
+
+
 def build_transformer(cfg_dict: Dict, device="cuda") -> TransformerModel:
     return TransformerModel(_config(TransformerMTConfig, cfg_dict), device=device)
 

@@ -18,9 +18,11 @@ first and then gathers every K and V row of a time tile at once into
 shared memory with 16-byte ``cp.async`` copies (two trips; a two-stage ring
 for timelines longer than a tile: the most rows of a power of two within
 512 chunks, 64 times in bf16 and 32 in fp32 at D 64). The warps split the
-tile's rows, eight lanes a row (four where a row's chunks do not divide by
-eight: D 32 and D 96 in bf16), and merge their partial (max, sum,
-accumulator) at the end. Head dims 32, 64, 96 and 128 are instantiated. The time-``cache_index`` row is read
+tile's rows, eight lanes a row (else the largest power of two dividing a
+row's chunks: four at D 32 and D 96 in bf16 and D 80 in fp32, two at D 80
+in bf16, whose tile grows to 64 times so that it holds one pass of the
+warps' row groups), and merge their partial (max, sum, accumulator) at the
+end. Head dims 32, 64, 80, 96 and 128 are instantiated. The time-``cache_index`` row is read
 from ``k_new`` / ``v_new`` of the ancestor column and a block writes only
 its own column's row, so no block reads what another writes.
 """
@@ -31,7 +33,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index: int,

@@ -30,7 +30,7 @@ import torch
 from . import _build
 from .attention import NEG_INF, dot_product_attention
 
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def encoder_attention_plain(q, k, v, key_padding_mask=None):

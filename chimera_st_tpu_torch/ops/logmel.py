@@ -38,7 +38,8 @@ from .fbank import (
     povey_window,
 )
 
-__all__ = ["logmel", "logmel_cuda", "logmel_plain", "mel_compact", "mel_ranges"]
+__all__ = ["logmel", "logmel_cuda", "logmel_plain", "mel_compact", "mel_ranges",
+           "wave_features"]
 
 # what csrc/logmel.cu holds in shared memory
 MAX_MEL_BINS = 128
@@ -119,3 +120,14 @@ def logmel(wav: torch.Tensor, num_mel_bins: int = 80) -> torch.Tensor:
 
 
 logmel.launches = 0
+
+
+def wave_features(wav: torch.Tensor, padding_mask: torch.Tensor, num_mel_bins: int = 80):
+    """A padded batch of 16 kHz waves [B, T] and its padding mask (True =
+    pad) -> the log-mel features [B, F, num_mel_bins] (``logmel``: K4 on the
+    card) and their padding mask [B, F], a frame being real where the
+    wave's real samples fill it."""
+    samples = (~padding_mask).sum(dim=-1)
+    features = logmel(wav.float().contiguous(), num_mel_bins)
+    pos = torch.arange(features.shape[1], device=features.device)[None, :]
+    return features, pos >= num_frames(samples)[:, None]

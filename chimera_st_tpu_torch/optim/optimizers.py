@@ -7,8 +7,8 @@ parameters needs no loss scaler.
 ``optax.adamw`` (not Adam's L2 on the gradient). Both run fused, whose
 ``found_inf`` skips an update on the device.
 
-The other seven are ``OptaxRule`` subclasses, one update rule each, written
-from optax 0.2.6 (``torch.optim``'s classes differ from it):
+The other seven are ``OptaxRule`` subclasses, one update rule each,
+written after optax 0.2.6 (``torch.optim``'s classes differ from it):
 
 - ``adafactor``: ``optax.adafactor`` at its defaults (decay rate 0.8,
   second moments factored over the two largest axes where both are at least

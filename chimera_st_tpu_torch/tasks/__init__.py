@@ -1,7 +1,7 @@
 from ..config.registry import TASKS
 from .base import ChimeraTask
 from . import (  # noqa: F401 — registration
-    audio_pretraining, denoising, joint_task, language_modeling, lm_tail, masked_lm,
+    audio_pretraining, denoising, dummy, joint_task, language_modeling, lm_tail, masked_lm,
     multilingual_translation, sentence_prediction, speech_to_text, translation,
     translation_extra, translation_lev, translation_tts, triplet)
 

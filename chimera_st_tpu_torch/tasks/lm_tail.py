@@ -1,6 +1,5 @@
-"""Cross-lingual and legacy masked LMs (counterpart of
-chimera_st_tpu/tasks/lm_tail.py, without ``simple_classification``, which
-waits for ROADMAP A14d).
+"""Cross-lingual and legacy masked LMs and the tutorial classification task
+(counterpart of chimera_st_tpu/tasks/lm_tail.py).
 
 - ``cross_lingual_lm`` / ``multilingual_masked_lm`` (fairseq
   ``tasks/cross_lingual_lm.py``, ``tasks/multilingual_masked_lm.py``): the
@@ -15,6 +14,12 @@ waits for ROADMAP A14d).
   ``legacy_masked_lm_loss``) adds the next-sentence cross entropy of
   ``forward_with_sentence`` (one encoder pass) to the masked-LM loss where
   the model has the head.
+- ``simple_classification`` (fairseq's tutorial
+  ``tasks/simple_classification.py``): ``{split}.input`` lines of words and
+  ``{split}.label`` lines of labels over ``dict.input.txt`` /
+  ``dict.label.txt``, each input closed by eos and a batch padded to a
+  multiple of 16; its criterion is the summed cross entropy of the model's
+  class log-probabilities (``rnn_classifier``), over the sentence count.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from ..config.registry import register_criterion, register_task
 from ..criterions.masked_lm import apply_bert_masking, masked_nll
-from ..data.batching import collate_tokens
+from ..data.batching import collate_tokens, round16
 from ..data.dictionary import Dictionary
 from ..data.indexed_dataset import MMapIndexedDataset
 from ..data.wrappers import IdStampedConcat, ResamplingDataset
@@ -234,5 +239,93 @@ def make_legacy_masked_lm(cfg: Dict):
                                    "sample_size": sample_size,
                                    "ntokens": batch.get("ntokens", sample_size),
                                    "nsentences": batch["net_tokens"].shape[0]}
+
+    return criterion
+
+
+# ------------------------------------------------------ simple_classification
+
+
+class _LabeledText:
+    def __init__(self, inputs: List[np.ndarray], labels: np.ndarray, pad: int):
+        self.inputs, self.labels, self.pad = inputs, labels, pad
+
+    def __len__(self):
+        return len(self.inputs)
+
+    def num_tokens(self, i):
+        return len(self.inputs[i])
+
+    def __getitem__(self, i):
+        return {"id": i, "tokens": self.inputs[i], "label": int(self.labels[i])}
+
+    def collater(self, samples, target_len: Optional[int] = None):
+        if not samples:
+            return {}
+        return {
+            "id": np.asarray([s["id"] for s in samples], np.int64),
+            "net_tokens": collate_tokens([s["tokens"] for s in samples], self.pad,
+                                         target_len=target_len, dtype=np.int32),
+            "target_labels": np.asarray([s["label"] for s in samples], np.int64),
+            "ntokens": float(sum(len(s["tokens"]) for s in samples)),
+            "nsentences": len(samples),
+        }
+
+
+@register_task("simple_classification")
+class SimpleClassificationTask(ChimeraTask):
+    def __init__(self, cfg: Dict, input_vocab: Dictionary, label_vocab: Dictionary):
+        super().__init__(cfg)
+        self.input_vocab, self.label_vocab = input_vocab, label_vocab
+
+    @classmethod
+    def setup_task(cls, cfg: Dict, **kwargs):
+        root = Path(cfg["data"])
+        input_vocab = cls.load_dictionary(str(root / "dict.input.txt"))
+        label_vocab = cls.load_dictionary(str(root / "dict.label.txt"))
+        logger.info(f"[input] {len(input_vocab)} types, [label] {len(label_vocab)} types")
+        return cls(cfg, input_vocab, label_vocab)
+
+    def model_config_overrides(self, cfg: Dict) -> Dict:
+        out = dict(cfg)
+        out.setdefault("vocab_size", len(self.input_vocab))
+        out.setdefault("num_classes", len(self.label_vocab))
+        return out
+
+    def load_dataset(self, split: str, **kwargs):
+        root = Path(self.cfg["data"])
+        inputs = [np.asarray(self.input_vocab.encode_line(line, append_eos=True,
+                                                          add_if_not_exist=False), np.int64)
+                  for line in (root / f"{split}.input").read_text().splitlines()]
+        labels = np.asarray([self.label_vocab.index(line.strip())
+                             for line in (root / f"{split}.label").read_text().splitlines()])
+        self.datasets[split] = _LabeledText(inputs, labels, self.input_vocab.pad())
+
+    @property
+    def source_dictionary(self) -> Dictionary:
+        return self.input_vocab
+
+    @property
+    def target_dictionary(self) -> Dictionary:
+        return self.label_vocab
+
+    def collate_indices(self, dataset, idx, target_len=None):
+        samples = [dataset[int(i)] for i in idx]
+        return dataset.collater(samples, round16(max(len(s["tokens"]) for s in samples)))
+
+
+@register_criterion("simple_classification")
+def make_simple_classification(cfg: Dict):
+    """The summed negative log-probability of each sentence's label, over
+    the sentence count; ``ncorrect`` counts the argmax hits."""
+
+    def criterion(model, batch, generator=None, num_updates=None):
+        lp = model(batch["net_tokens"], generator)  # [B, C] log-probs
+        targets = batch["target_labels"]
+        loss = -lp.gather(-1, targets.long()[:, None]).sum()
+        ncorrect = (lp.argmax(dim=-1) == targets).float().sum()
+        n = float(targets.shape[0])
+        return loss, n, {"loss": loss, "ncorrect": ncorrect, "sample_size": n,
+                         "ntokens": batch.get("ntokens", n), "nsentences": targets.shape[0]}
 
     return criterion

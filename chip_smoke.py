@@ -16,7 +16,10 @@ multilingual transformer, served and trained, the wav2vec family:
 speech recognition (CTC and seq2seq) served and fine-tuned, wav2vec 2.0
 pre-training and Chimera's bimodal variant, and the masked-LM family:
 RoBERTa served through its hub and pre-trained, BERT's legacy objective,
-XLM's cross-lingual one and the XLM-initialised translation model.
+XLM's cross-lingual one and the XLM-initialised translation model, the
+xlm preset at head dim 80, and the convolutional and recurrent zoo
+(fconv, lightconv / dynamicconv, the LSTMs, s2t_berard, the benchmark and
+tutorial tasks).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -465,13 +468,42 @@ Phases (any failure raises and the script exits non-zero):
              dropout 0.1). mlm_shapes (after w2v_shapes): K1 and K3 at
              every shape these launched; timed: K1 at the hub's B 16 / T
              512 / H 16 / D 64 (with SDPA), K3 at the XLM decode's.
-15. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+15. xlm and the zoo - xlm_serve: the xlm preset (16 x 1,280, 16 heads of
+             80) through the hub in bf16 (K1 at D 80, 16 a batch of 16 x
+             64-512 tokens), then a transformer_from_pretrained_xlm model at
+             its widths (2 + 2 layers) initialised from that checkpoint and
+             decoded by one cli.generate batch (K1 at D 80 in the encoder,
+             K3 at H 16 / D 80 in every step), the counts exact; first the
+             hub fp32 card vs CPU at 2 of 16 layers. xlm_shapes: K1 and K3
+             at D 80 at every shape it launched, bf16 and fp32, K3 at steps
+             0 / 31 / 63 with the caches bit-equal; timed: K1 at B 16 / T
+             512 / H 16 / D 80 (with SDPA), K3 at the decode's. zoo_lm_train:
+             cli.train --task language_modeling of fconv_lm_dauphin_wikitext103,
+             lightconv_lm_gbw, dynamicconv_lm and lstm_lm on the family's
+             LM stream, 2 updates each, lstm_lm resumed for one more and
+             validated by cli.validate. zoo_steps: one bf16 TrainStep update
+             at full width of fconv_wmt_en_de, fconv_self_att,
+             lightconv_wmt_en_de_big, dynamicconv_iwslt_de_en and
+             lstm_luong_wmt_en_de on a family MT batch, of s2t_berard_512_5_3
+             on seeded wavs through compute_fbank (K4 once an update, first
+             held against its plain version on that batch) and of
+             dummy_model on a dummy_lm batch, each with its ms an update,
+             peak memory and, where it has recurrences, the ms of
+             restacking their gate layers; then one fp32 update of
+             lstm_luong at 1 + 1 layers card vs CPU. zoo_tasks: cli.train of
+             dummy_mt (transformer), dummy_lm (transformer_lm),
+             dummy_masked_lm (roberta_base) and simple_classification
+             (rnn_classifier), 3 updates each. The zoo's launch counts are
+             exact: none but K1 in dummy_mt's encoder and K4 in berard's.
+             zoo_shapes (after xlm_shapes): K1 at every shape the zoo
+             launched, bf16 and fp32.
+16. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
              optim_sweep's, nat_serve's, nat_train's, bart_serve's,
-             bart_train's, the wav2vec phases' and the masked-LM
-             phases'; K3's record holds its times at the search modes'
+             bart_train's, the wav2vec phases', the masked-LM
+             phases' and the xlm and zoo phases'; K3's record holds its times at the search modes'
              ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -521,6 +553,36 @@ PARITY_DECODE = ["--max-decode-len", "8"]  # 64 -> 24 -> 16 -> 8
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_probe(work: Path) -> dict:
+    """Seconds of a fixed host workload, so that two runs of the script on
+    different machines can be told apart by their host: a pure-Python loop
+    of 10^7 additions (one core), twenty 1,024 x 1,024 fp32 numpy matmuls
+    and 512 MB written to a file under ``work`` (the page cache, as the
+    checkpoint saves write)."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(10_000_000):
+        x += i
+    python_s = time.perf_counter() - t0
+    a = np.random.default_rng(0).random((1024, 1024), dtype=np.float32)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        a @ a
+    matmul_s = time.perf_counter() - t0
+    block = np.ones(64 << 20, dtype=np.uint8)
+    path = work / "host_probe.bin"
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(8):
+            f.write(block.data)
+    write_s = time.perf_counter() - t0
+    path.unlink()
+    out = dict(python_loop_s=python_s, numpy_matmul_s=matmul_s, write_512mb_s=write_s)
+    log(f"host_probe: python loop {python_s:.3f} s, numpy matmuls {matmul_s:.3f} s, "
+        f"512 MB written {write_s:.3f} s")
+    return out
 
 
 class Tee:
@@ -1536,13 +1598,22 @@ def train_task(fx):
     return setup_task({"_name": "triplet", "data": str(root), "config_yaml": "config_wave.yaml"})
 
 
-def train_model(torch, task, device, **overrides):
-    """The recipe's model built for training (fp32 parameters, train mode)
-    with seeded random weights, drawn on the CPU."""
+def drawn_on_card(torch, model, seed: int):
+    """``init_params_`` of a model built on the card, from a card generator
+    seeded ``seed``: the same weights at every call, drawn (and first
+    default-initialised by the builder) in a fraction of the host's time at
+    these sizes. A parity check's CPU side takes a copy of them."""
     from chimera_st_tpu_torch.models.interlingua import init_params_
 
-    model = task.build_model(dict(TRAIN_ARCH, **overrides), device="cpu", train=True)
-    return init_params_(model, torch.Generator().manual_seed(11)).to(device)
+    return init_params_(model, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def train_model(torch, task, device, **overrides):
+    """The recipe's model built for training (fp32 parameters, train mode)
+    with seeded random weights, drawn on the card (drawn_on_card) and moved
+    to ``device``."""
+    model = task.build_model(dict(TRAIN_ARCH, **overrides), device="cuda", train=True)
+    return drawn_on_card(torch, model, 11).to(device)
 
 
 def gradient_gates(torch, label, mg, mc, gg, gc, keys, names):
@@ -2060,7 +2131,6 @@ def phase_mt_parity(torch, fx):
     import itertools
     import pickle
 
-    from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.optim.freeze import auto_text_only_fixes, wrap_freeze
     from chimera_st_tpu_torch.train import TrainStep
@@ -2073,9 +2143,9 @@ def phase_mt_parity(torch, fx):
         f"{[b['target'].shape[1] for b in micro]}), card vs CPU, one Adam update at lr 1e-4")
     out = {}
     for device in ("cuda", "cpu"):
-        model = task.build_model(dict(MT_MODEL, dropout=0.0, attention_dropout=0.0,
-                                      activation_dropout=0.0), device="cpu", train=True)
-        init_params_(model, torch.Generator().manual_seed(17)).to(device)
+        model = drawn_on_card(torch, task.build_model(
+            dict(MT_MODEL, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0),
+            device="cuda", train=True), 17).to(device)
         fixes = auto_text_only_fixes(task, model)
         trained, frozen = wrap_freeze(model, fixes)
         opt = build_optimizer({"_name": "adam", "adam_betas": "(0.9, 0.98)"}, trained,
@@ -3603,20 +3673,20 @@ def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=N
     import copy
 
     from chimera_st_tpu_torch.convert import checkpoint_axes
-    from chimera_st_tpu_torch.models.interlingua import init_params_
     from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
     from chimera_st_tpu_torch.train import TrainStep
 
     opt_cfg = opt_cfg or {"_name": "adam", "adam_betas": "(0.9, 0.98)"}
-    seeded = init_params_(task.build_model(dict(model_cfg, dropout=0.0, attention_dropout=0.0,
-                                                activation_dropout=0.0),
-                                           device="cpu", train=True),
-                          torch.Generator().manual_seed(19))
+    seeded = drawn_on_card(torch, task.build_model(
+        dict(model_cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0),
+        device="cuda", train=True), 19)
     if prepare is not None:
         prepare(seeded)
+    models = {"cpu": copy.deepcopy(seeded).to("cpu"), "cuda": seeded}
+    del seeded
     out = {}
     for device in ("cuda", "cpu"):
-        model = copy.deepcopy(seeded).to(device) if device == "cuda" else seeded
+        model = models.pop(device)
         step = TrainStep(model, task.build_criterion(crit_cfg),
                          build_optimizer(opt_cfg, list(model.parameters()), clip_norm=clip,
                                          checkpoint_axes=checkpoint_axes(model)),
@@ -5122,8 +5192,8 @@ def bart_checkpoint(torch, fx, name: str, data: str, model_cfg: dict, seed: int)
 
     task = bart_run_task(bart_task_args(fx, data))
     t0 = time.perf_counter()
-    model = init_params_(task.build_model(dict(model_cfg), device="cpu", train=True),
-                         torch.Generator().manual_seed(seed))
+    model = init_params_(task.build_model(dict(model_cfg), device="cuda", train=True),
+                         torch.Generator(device="cuda").manual_seed(seed))
     path = fx["root"] / f"{name}.ckpt"
     save_model(str(path), model, model_cfg)
     n = sum(p.numel() for p in model.parameters())
@@ -5613,8 +5683,8 @@ def make_w2v_fixture(torch, root: Path, seed: int = 89) -> dict:
     ctc = asr / "wav2vec_ctc.ckpt"
     save_model(str(ctc), model, ASR_CTC)
     n_ctc = sum(p.numel() for p in model.parameters())
-    s2s_model = init_params_(task.build_model(dict(ASR_S2S), device="cpu", train=True),
-                             torch.Generator().manual_seed(seed + 1))
+    s2s_model = init_params_(task.build_model(dict(ASR_S2S), device="cuda", train=True),
+                             torch.Generator(device="cuda").manual_seed(seed + 1))
     s2s = asr / "wav2vec_seq2seq.ckpt"
     save_model(str(s2s), s2s_model, ASR_S2S)
     n_s2s = sum(p.numel() for p in s2s_model.parameters())
@@ -6391,7 +6461,7 @@ def mlm_fills(hub, fx):
     return out
 
 
-def mlm_hub_parity(torch, fx, cfg: dict):
+def mlm_hub_parity(torch, fx, cfg: dict, label: str = "mlm_serve"):
     """fp32 card vs CPU through the hub at MLM_PARITY_LAYERS of roberta_large
     (widths kept): features of a padded batch (1e-3: fp32 matmuls at width
     1,024 and FFN 4,096 round differently on the two devices, K1 against
@@ -6414,14 +6484,14 @@ def mlm_hub_parity(torch, fx, cfg: dict):
                                                     in mlm_fills(hub, fx)],
                        hub.predict("nli", rows))
     (fg, mg, pg), (fc, mc, pc) = out["cuda"], out["cpu"]
-    check("mlm_serve fp32 hub features card vs CPU (2 layers)", float(np.abs(fg - fc).max()),
+    check(f"{label} fp32 hub features card vs CPU (2 layers)", float(np.abs(fg - fc).max()),
           1e-3)
     for g, c in zip(mg, mc):
         if [t for t, _ in g] != [t for t, _ in c]:
-            raise AssertionError(f"mlm_serve fill_mask top 5 card {g} vs CPU {c}")
-    check(f"mlm_serve fp32 fill_mask: {len(mg)} top-5 lists identical; probabilities",
+            raise AssertionError(f"{label} fill_mask top 5 card {g} vs CPU {c}")
+    check(f"{label} fp32 fill_mask: {len(mg)} top-5 lists identical; probabilities",
           max(abs(a[1] - b[1]) for g, c in zip(mg, mc) for a, b in zip(g, c)), 1e-4)
-    check("mlm_serve fp32 predict card vs CPU", float(np.abs(pg - pc).max()), 1e-4)
+    check(f"{label} fp32 predict card vs CPU", float(np.abs(pg - pc).max()), 1e-4)
     return {"features_err": float(np.abs(fg - fc).max()), "fill_mask_identical": True,
             "predict_err": float(np.abs(pg - pc).max())}
 
@@ -6746,6 +6816,474 @@ def phase_mlm_shapes(torch, ops, seen, records):
         {(H, D) for _, _, H, D in sh["encoder_attention"]} >= {(16, 64), (12, 64), (8, 128)}))
 
 
+# ---- K1 / K3 at head dim 80 (the xlm preset) and the convolutional and
+# recurrent zoo
+
+XLM_SERVE = {"arch": "xlm", "dropout": 0.1}  # 16 x 1,280, FFN 5,120, 16 heads of 80
+XLM_SERVE_LAYERS = 16
+XLM_HEADS = 16
+XLM_MT_DEPTH = 2  # the XLM-initialised model's encoder and decoder layers, cut from 16
+XLM_MT = {"arch": "transformer_from_pretrained_xlm", "encoder_embed_dim": 1280,
+          "encoder_ffn_dim": 5120, "encoder_heads": 16, "encoder_layers": XLM_MT_DEPTH,
+          "decoder_embed_dim": 1280, "decoder_ffn_dim": 5120, "decoder_heads": 16,
+          "decoder_layers": XLM_MT_DEPTH, "activation": "gelu"}
+ZOO_DUMMY_MT_ENCODER_LAYERS = 6  # transformer's: K1 in each a micro-batch
+
+
+def phase_xlm_serve(torch, fx, kernels):
+    """Repair C2 on its path: the ``xlm`` preset (16 x 1,280, FFN 5,120, 16
+    heads of 80) over the masked-LM fixture's dictionary, bf16 through the
+    RoBERTa hub from a native .ckpt: extract_features over the fixture's
+    MLM_SERVE_BATCHES batches of 16 rows of 64-512 tokens (K1 at D 80, 16 a
+    batch); then a transformer_from_pretrained_xlm model at the xlm widths,
+    XLM_MT_DEPTH + XLM_MT_DEPTH layers, initialised from that checkpoint by
+    the task's warm start and decoded by one cli.generate batch of 16 at
+    beam 5 (K1 at D 80 in the encoder, K3 at H 16 / D 80 in every decoder
+    step). The counts are zeroed before each and exact after. First the fp32
+    card-vs-CPU hub at 2 of 16 layers. Prints {"xlm_serve": {...}}; returns
+    the launches."""
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.cli import generate
+    from chimera_st_tpu_torch.cli.generate import load_model_and_params
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    rec = {"parity": mlm_hub_parity(torch, fx, XLM_SERVE, "xlm_serve")}
+    ckpt = mlm_checkpoint(torch, fx, "xlm", XLM_SERVE, 17)
+    task = mlm_task(fx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_model_and_params(str(ckpt), task, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    rec["load_s"] = time.perf_counter() - t0
+    hub = mlm_hub(fx, task, model)
+    hub.extract_features(fx["serve"][0])  # warm-up
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [hub.extract_features(b) for b in fx["serve"]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"xlm_serve_features": {k.__name__: k.launches for k in kernels}}
+    want = {"encoder_attention": XLM_SERVE_LAYERS * MLM_SERVE_BATCHES, "conv_tail": 0,
+            "decode_attention": 0, "logmel": 0}
+    if counts["xlm_serve_features"] != want:
+        raise AssertionError(f"xlm_serve: launches {counts['xlm_serve_features']} (want {want})")
+    width = model.cfg.embed_dim
+    if any(f.shape != (MLM_BATCH, 512, width) or not np.isfinite(f).all() for f in feats):
+        raise AssertionError(f"xlm_serve: features not finite [16, 512, {width}]")
+    n_tokens = sum(int((b != 1).sum()) for b in fx["serve"])
+    rec["features"] = dict(sequences=MLM_BATCH * MLM_SERVE_BATCHES, tokens=n_tokens, wall_s=wall,
+                           sequences_per_s=MLM_BATCH * MLM_SERVE_BATCHES / wall,
+                           tokens_per_s=n_tokens / wall,
+                           peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"xlm_serve bf16 xlm (16 heads of 80): load {rec['load_s']:.2f} s; features "
+        f"{rec['features']['sequences_per_s']:.1f} sequences/s, "
+        f"{rec['features']['tokens_per_s']:.0f} tokens/s; peak "
+        f"{rec['features']['peak_memory_gb']:.2f} GB; launches {counts['xlm_serve_features']}")
+    del hub, model
+    torch.cuda.empty_cache()
+
+    root = fx["root"]
+    mt_cfg = {"_name": "translation_from_pretrained_xlm", "data": str(fx["mt"]),
+              "source_lang": "de", "target_lang": "en", "pretrained_xlm_checkpoint": str(ckpt),
+              "init_decoder": True}
+    mt_task = setup_task(dict(mt_cfg))
+    t0 = time.perf_counter()
+    mt = init_params_(mt_task.build_model(dict(XLM_MT), device="cuda", train=True),
+                      torch.Generator(device="cuda").manual_seed(18))
+    mt_task.post_init_params(mt)
+    mt_ckpt = root / "xlm_mt.ckpt"
+    save_model(str(mt_ckpt), mt, XLM_MT)
+    del mt
+    torch.cuda.empty_cache()
+    log(f"  xlm_mt: {XLM_MT_DEPTH} + {XLM_MT_DEPTH} layers at the xlm widths, initialised from "
+        f"the xlm checkpoint and written in {time.perf_counter() - t0:.1f} s")
+    (root / "xlm_gen").mkdir()
+    for k in kernels:
+        k.launches = 0
+    with counted_decoder_steps() as steps:
+        t0 = time.perf_counter()
+        stats = generate.main([str(fx["mt"]), "--task", "translation_from_pretrained_xlm", "-s",
+                               "de", "-t", "en", "--path", str(mt_ckpt), "--gen-subset", "test",
+                               "--batch-size", str(MLM_MT_PAIRS["test"]), *MLM_DECODE, "--dtype",
+                               "bfloat16", "--scoring", "bleu", "--results-path",
+                               str(root / "xlm_gen")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c = {k.__name__: k.launches for k in kernels}
+    want = {"encoder_attention": XLM_MT_DEPTH, "conv_tail": 0,
+            "decode_attention": XLM_MT_DEPTH * steps[0], "logmel": 0}
+    rec["decode"] = dict(sentences=stats["sentences"], decoder_steps=steps[0], wall_s=wall,
+                         decode_s=stats["decode_s"], launches=c)
+    log(f"  xlm_mt cli.generate beam 5: {stats['sentences']} sentences, {steps[0]} decoder steps "
+        f"in {stats['decode_s']:.2f} s; launches {c}")
+    if c != want or stats["sentences"] != MLM_MT_PAIRS["test"]:
+        raise AssertionError(f"xlm_serve decode: launches {c} (want {want})")
+    counts["xlm_serve_decode"] = c
+    ckpt.unlink()
+    mt_ckpt.unlink()
+    print(json.dumps({"xlm_serve": rec}), flush=True)
+    return counts
+
+
+def phase_xlm_shapes(torch, ops, seen, records):
+    """K1 and K3 at every shape xlm_serve launched (head dim 80), against the
+    plain versions in bf16 and fp32, K3 at steps 0, 31 and 63 with the
+    cache writes bit-equal; timed: K1 at the hub's B 16 / T 512 / H 16 / D 80
+    (with SDPA) and K3 at the decode's S 16 x C 5, H 16, D 80."""
+    hub_shape = (MLM_BATCH, 512, XLM_HEADS, 80)
+    k1 = seen["encoder_attention"]
+    timed = {"encoder_attention": [p for p in k1 if p[0] == hub_shape][:1], "conv_tail": [],
+             "decode_attention": seen["decode_attention"][:1]}
+    rest = {k: [p for p in v if p not in timed[k]] for k, v in seen.items()}
+    phase_shapes(torch, ops, timed, records, "xlm", lambda sh: (
+        sh["encoder_attention"] == [hub_shape] and len(sh["decode_attention"]) == 1
+        and sh["decode_attention"][0][3] == 80), timed=("encoder_attention", "decode_attention"))
+    phase_shapes(torch, ops, rest, records, "xlm_all", lambda sh: (
+        {D for _, _, _, D in sh["encoder_attention"]} == {80} and not sh["conv_tail"]))
+
+
+def phase_zoo_shapes(torch, ops, seen, records):
+    """K1 at every shape the zoo phases launched (dummy_mt's encoder: micro-
+    batches of 64 sentences at 8 heads of 64), against the plain version in
+    bf16 and fp32; the zoo launches no K2 or K3 (berard's K4 input is held
+    in zoo_steps)."""
+    phase_shapes(torch, ops, seen, records, "zoo", lambda sh: (
+        {(B, H, D) for B, _, H, D in sh["encoder_attention"]} == {(64, 8, 64)}
+        and not sh["conv_tail"] and not sh["decode_attention"]))
+
+
+# the zoo's language models, at their presets, on the family's LM stream
+ZOO_LMS = {"fconv_lm": ["--arch", "fconv_lm_dauphin_wikitext103"],
+           "lightconv_lm_gbw": ["--arch", "lightconv_lm_gbw"],
+           "dynamicconv_lm": ["--arch", "dynamicconv_lm"], "lstm_lm": ["--arch", "lstm_lm"]}
+ZOO_LM_UPDATES = 2
+ZOO_LM_RESUMED = "lstm_lm"  # resumed from its save for one update more
+
+
+def zoo_counts(kernels):
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def zoo_train_run(torch, label: str, argv, kernels, tokens_per_update=None, want=None):
+    """One cli.train run, the counts zeroed before and read after (``want``,
+    default none of the kernels: the zoo runs no attention the kernels
+    cover) -> (launches, record with updates/s after the first, tokens/s and
+    peak memory)."""
+    from chimera_st_tpu_torch.cli import train
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_microbatches() as micro:
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    c = zoo_counts(kernels)
+    t = out["times"]
+    timed = t["update_s"][1:]
+    rate = len(timed) / sum(timed) if timed else None
+    rec = dict(step=out["trainer"].num_updates, restored=t["restored"]["step"],
+               micro_batches=micro[0], updates_per_s_after_first=rate,
+               tokens_per_s_after_first=(tokens_per_update * rate
+                                         if rate and tokens_per_update else None),
+               update_s=t["update_s"], valid=t["valid"], load_s=t["load_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t0, launches=c,
+               params_m=sum(q.numel() for q in out["trainer"].model.parameters()) / 1e6)
+    log(f"  {label}: {rec['params_m']:.1f} M parameters, step {rec['restored']} -> "
+        f"{rec['step']} ({micro[0]} micro-batches) in {rec['wall_s']:.1f} s; updates/s after "
+        f"the first {rate}, tokens/s {rec['tokens_per_s_after_first']}; peak "
+        f"{rec['peak_memory_gb']:.2f} GB; validation {t['valid']}; launches {c}")
+    want = want or {"encoder_attention": 0, "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+    if c != want or rec["step"] <= rec["restored"] \
+            or not all(np.isfinite(v) for v in t["valid"]):
+        raise AssertionError(f"{label}: launches {c} (want {want}), {rec}")
+    return c, rec
+
+
+def phase_zoo_lm_train(torch, fx, kernels):
+    """cli.train --task language_modeling of the zoo's LMs (ZOO_LMS, at
+    their presets' widths and depths) on the family's seeded LM stream of a
+    32,768-subword dictionary (--vocab-size: the JAX builders read no task
+    vocabulary, ROADMAP C3): blocks of LM_BLOCK tokens, 8 a micro-batch,
+    bf16, ZOO_LM_UPDATES updates each with validation; lstm_lm resumed from
+    its save for one more; cli.validate of its checkpoint. No kernel runs (no
+    self-attention). Prints {"zoo_lm_train": {...}}; returns the launches."""
+    import shutil
+
+    from chimera_st_tpu_torch.cli import validate
+    from chimera_st_tpu_torch.data.dictionary import Dictionary
+
+    vocab = len(Dictionary.load(str(fx["lm"] / "dict.txt")))
+    counts, rec = {}, {}
+    common = ["--task", "language_modeling", "--criterion", "cross_entropy",
+              "--vocab-size", str(vocab), "--tokens-per-sample", str(LM_BLOCK), "--optimizer",
+              "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "5e-4", "--max-tokens",
+              str(8 * LM_BLOCK), "--dtype", "bfloat16", "--train-subset", "test",
+              "--valid-subset", "valid", "--no-epoch-checkpoints", "--log-interval", "1"]
+    log(f"zoo_lm_train: cli.train --task language_modeling, {vocab}-row dictionary, "
+        f"{ZOO_LM_UPDATES} updates of 8 blocks of {LM_BLOCK} tokens each")
+    for name, model_argv in ZOO_LMS.items():
+        arch = model_argv[1]
+        save = fx["root"] / f"zoo_{name}"
+        argv = [str(fx["lm"]), *model_argv, *common, "--save-dir", str(save)]
+        counts[f"zoo_lm_{name}"], rec[name] = zoo_train_run(
+            torch, f"zoo_lm_train {arch}", argv + ["--max-update", str(ZOO_LM_UPDATES)],
+            kernels, 8 * LM_BLOCK)
+        if name == ZOO_LM_RESUMED:
+            counts[f"zoo_lm_{name}_resumed"], rec[f"{name}_resumed"] = zoo_train_run(
+                torch, f"zoo_lm_train {arch} resumed", argv + [
+                    "--max-update", str(ZOO_LM_UPDATES + 1)], kernels, 8 * LM_BLOCK)
+            if rec[f"{name}_resumed"]["restored"] != ZOO_LM_UPDATES:
+                raise AssertionError(f"zoo_lm_train: the resume started at "
+                                     f"{rec[f'{name}_resumed']['restored']}")
+            for fn in kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            stats = validate.main([str(fx["lm"]), "--task", "language_modeling", "--path",
+                                   str(save / "checkpoint_last.ckpt"), "--valid-subset", "valid",
+                                   "--criterion", "cross_entropy", "--tokens-per-sample",
+                                   str(LM_BLOCK), "--batch-size", "8", "--dtype", "bfloat16"])
+            torch.cuda.synchronize()
+            rec["validate"] = dict(wall_s=time.perf_counter() - t0, **stats)
+            counts["zoo_lm_validate"] = zoo_counts(kernels)
+            log(f"  cli.validate {arch}: {stats} in {rec['validate']['wall_s']:.1f} s")
+            if any(counts["zoo_lm_validate"].values()) or not all(
+                    np.isfinite(v) for v in stats.values()):
+                raise AssertionError(f"zoo_lm_train validate: {stats}, "
+                                     f"{counts['zoo_lm_validate']}")
+        shutil.rmtree(save)
+    print(json.dumps({"zoo_lm_train": rec}), flush=True)
+    return counts
+
+
+# the encoder-decoder zoo at fairseq's presets; one bf16 TrainStep update
+# each (the JAX train CLI cannot initialise them, ROADMAP C3)
+ZOO_STEPS = {arch: {"arch": arch} for arch in (
+    "fconv_wmt_en_de", "fconv_self_att", "lightconv_wmt_en_de_big", "dynamicconv_iwslt_de_en",
+    "lstm_luong_wmt_en_de")}
+ZOO_DUMMY_MODEL = {"arch": "dummy_model"}  # 24 x 1,024
+ZOO_BERARD = {"arch": "s2t_berard_512_5_3", "tgt_vocab_size": 10000, "compute_fbank": True}
+ZOO_BERARD_WAVS = 8  # of 2-6 s
+ZOO_PARITY = {"arch": "lstm_luong_wmt_en_de", "encoder_layers": 1, "decoder_layers": 1}
+
+
+def restack_ms(torch, model):
+    """Device ms of what keeping each gate layer as a parameter of its own
+    costs an update of ``model``: every recurrence's ``flat_weights()`` (the
+    ``torch.cat`` of its gate layers) cast to bf16, as each forward of
+    models/lstm.py builds them, and the backward of that, once for each
+    recurrence (an update runs each once). None without a recurrence."""
+    from chimera_st_tpu_torch.models.lstm import _Recurrence
+
+    rnns = [m for m in model.modules() if isinstance(m, _Recurrence)]
+    if not rnns:
+        return None
+    grads = [torch.ones_like(w, dtype=torch.bfloat16)
+             for m in rnns for w in m.flat_weights() if w.requires_grad]
+
+    def restack():
+        ws = [w.to(torch.bfloat16) for m in rnns for w in m.flat_weights() if w.requires_grad]
+        torch.autograd.backward(ws, grads)
+
+    ms = cuda_ms(restack, reps=5)
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def zoo_step_time(torch, label: str, model, criterion, batch, kernels, want):
+    """Two bf16 TrainStep updates of ``model`` on ``batch`` (the first warms
+    up); the second timed, the counts of both exact -> record (with
+    ``restack_ms`` where the model has recurrences)."""
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.train import TrainStep
+
+    step = TrainStep(model, criterion, build_optimizer(TRAIN_ADAM, list(model.parameters())),
+                     build_lr_schedule({"_name": "fixed", "lr": 1e-4}),
+                     compute_dtype=torch.bfloat16)
+    step([batch])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = step([batch])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c = zoo_counts(kernels)
+    rec = dict(update_ms=ms, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss=metrics["loss"], gnorm=metrics["gnorm"], launches=c,
+               params_m=sum(q.numel() for q in model.parameters()) / 1e6)
+    log(f"  zoo_steps {label}: {rec['params_m']:.1f} M parameters, {ms:.1f} ms an update, peak "
+        f"{rec['peak_memory_gb']:.2f} GB, loss {metrics['loss']:.3f}, gnorm "
+        f"{metrics['gnorm']:.3f}; launches {c}")
+    rec["restack_ms"] = restack_ms(torch, model)
+    if rec["restack_ms"] is not None:
+        log(f"  zoo_steps {label}: the recurrences' weights restacked and cast, forward and "
+            f"backward: {rec['restack_ms']:.3f} ms of the update's {ms:.1f}")
+    if c != want or not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["gnorm"])):
+        raise AssertionError(f"zoo_steps {label}: launches {c} (want {want}), {metrics}")
+    return c, rec
+
+
+def phase_zoo_steps(torch, fx, kernels, records):
+    """One bf16 TrainStep update at full width of each encoder-decoder of
+    ZOO_STEPS on a family MT batch (en -> de, the 32,768-subword dictionary,
+    up to 4,096 tokens), of s2t_berard_512_5_3 on ZOO_BERARD_WAVS seeded
+    wavs through the port's compute_fbank (K4 once an update; K4 first held
+    against its plain version on that batch, into the K4 record's
+    ``shapes``), and of
+    dummy_model (24 x 1,024) on a dummy_lm batch; ms an update and peak
+    memory each, the counts exact (no K1 / K3: the zoo's attention is
+    cross-attention or causal, run plainly). Then one fp32 update of
+    lstm_luong_wmt_en_de at 1 + 1 layers, card vs CPU within compare_step's
+    gates. Prints {"zoo_steps": {...}}; returns the launches."""
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train.train_step import prepare_batch
+
+    none = {"encoder_attention": 0, "conv_tail": 0, "decode_attention": 0, "logmel": 0}
+    task = setup_task({"_name": "translation", "data": str(fx["mt"]), "source_lang": "en",
+                       "target_lang": "de"})
+    task.load_dataset("test")
+    batch = prepare_batch(next(iter(task.make_batch_iterator(
+        task.dataset("test"), max_tokens=MT_MAX_TOKENS).next_epoch_itr(shuffle=False))), "cuda")
+    crit = task.build_criterion({"_name": "label_smoothed_cross_entropy",
+                                 "label_smoothing": 0.1})
+    counts, rec = {}, {"batch": dict(sentences=int(batch["target"].shape[0]),
+                                     tokens=float(batch["ntokens"]))}
+    for i, (arch, model_cfg) in enumerate(ZOO_STEPS.items()):
+        model = init_params_(task.build_model(dict(model_cfg), device="cuda", train=True),
+                             torch.Generator(device="cuda").manual_seed(40 + i))
+        counts[f"zoo_step_{arch}"], rec[arch] = zoo_step_time(torch, arch, model, crit, batch,
+                                                              kernels, none)
+        del model
+        torch.cuda.empty_cache()
+
+    from chimera_st_tpu_torch.config.registry import ARCHITECTURES
+    from chimera_st_tpu_torch.criterions.label_smoothed_ce import make_label_smoothed_ce
+    from chimera_st_tpu_torch.models.berard import build_berard
+    from chimera_st_tpu_torch.ops import logmel as lm
+    from chimera_st_tpu_torch.ops.fbank import num_frames
+
+    rng = np.random.default_rng(41)
+    wav, mask = make_audio(rng, ZOO_BERARD_WAVS, 2.0, 6.0)
+    prev = rng.integers(4, ZOO_BERARD["tgt_vocab_size"], size=(ZOO_BERARD_WAVS, 30))
+    prev[:, 0] = 2
+    target = np.concatenate([prev[:, 1:], np.full((ZOO_BERARD_WAVS, 1), 2)], axis=1)
+    audio_batch = prepare_batch({"audio": wav, "audio_padding_mask": mask,
+                                 "prev_output_tokens": prev, "target": target,
+                                 "ntokens": float(target.size)}, "cuda")
+    B, T = wav.shape
+    label = f"zoo_berard_B{B}_T{T}"
+    _, _, err, exact_err = k4_check(torch, lm, audio_batch["audio"].float().contiguous(), label,
+                                    num_frames(T))
+    next(r for r in records if r["name"] == "logmel").setdefault("shapes", {})[label] = dict(
+        max_abs_err=err, max_abs_err_fp64_plain=exact_err)
+    berard_cfg = ARCHITECTURES.get(ZOO_BERARD["arch"])[1](dict(ZOO_BERARD))
+    model = init_params_(build_berard(berard_cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(46)).train()
+    counts["zoo_step_s2t_berard"], rec["s2t_berard_512_5_3"] = zoo_step_time(
+        torch, "s2t_berard_512_5_3 (K4 features)", model,
+        make_label_smoothed_ce({"label_smoothing": 0.1}), audio_batch, kernels,
+        dict(none, logmel=1))
+    rec["s2t_berard_512_5_3"]["audio_s"] = float((~mask).sum()) / 16000
+    del model
+    torch.cuda.empty_cache()
+
+    lm_task = setup_task({"_name": "dummy_lm", "data": "", "dict_size": 49996,
+                          "tokens_per_sample": 512, "dataset_size": 8})
+    lm_task.load_dataset("train")
+    lm_batch = prepare_batch(next(iter(lm_task.make_batch_iterator(
+        lm_task.dataset("train"), max_sentences=8).next_epoch_itr(shuffle=False))), "cuda")
+    model = init_params_(lm_task.build_model(dict(ZOO_DUMMY_MODEL), device="cuda", train=True),
+                         torch.Generator(device="cuda").manual_seed(47))
+    counts["zoo_step_dummy_model"], rec["dummy_model"] = zoo_step_time(
+        torch, "dummy_model (dummy_lm batch of 8 x 512)", model,
+        lm_task.build_criterion({"_name": "cross_entropy"}), lm_batch, kernels, none)
+    del model
+    torch.cuda.empty_cache()
+
+    micro = [next(iter(task.make_batch_iterator(task.dataset("test"), max_sentences=2)
+                       .next_epoch_itr(shuffle=False)))]
+    rec["parity"] = family_step_parity(torch, "zoo_steps fp32 lstm_luong_wmt_en_de (1 + 1 layers)",
+                                       task, ZOO_PARITY, {"_name": "label_smoothed_cross_entropy",
+                                                          "label_smoothing": 0.1}, micro)
+    print(json.dumps({"zoo_steps": rec}), flush=True)
+    return counts
+
+
+ZOO_TASK_UPDATES = 3
+ZOO_TASK_ARCHS = {"dummy_mt": ["--arch", "transformer"], "dummy_lm": ["--arch", "transformer_lm"],
+                  "dummy_masked_lm": ["--arch", "roberta_base"],
+                  "simple_classification": ["--arch", "rnn_classifier"]}
+
+
+def make_classification_fixture(root: Path, seed: int = 101) -> Path:
+    """simple_classification data: 64 sentences of a 2,000-word
+    vocabulary, two labels."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    (root / "dict.input.txt").write_text("".join(f"w{i} {2000 - i}\n" for i in range(2000)))
+    (root / "dict.label.txt").write_text("pos 1\nneg 1\n")
+    for split, n in (("train", 64), ("valid", 16)):
+        rows = [" ".join(f"w{i}" for i in rng.integers(0, 2000, size=int(rng.integers(5, 60))))
+                for _ in range(n)]
+        (root / f"{split}.input").write_text("\n".join(rows) + "\n")
+        (root / f"{split}.label").write_text("\n".join(rng.choice(["pos", "neg"], n)) + "\n")
+    return root
+
+
+def phase_zoo_tasks(torch, work: Path, kernels):
+    """fairseq's benchmark tasks (fixed synthetic batches) and the tutorial
+    classification through cli.train, ZOO_TASK_UPDATES updates each, bf16,
+    no validation: dummy_mt with transformer (K1 6 a micro-batch: its
+    attention dropout is 0), dummy_lm with transformer_lm (causal: none;
+    the JAX CLI cannot initialise dummy_model, ROADMAP C3, which zoo_steps
+    steps instead), dummy_masked_lm with roberta_base (attention dropout
+    0.1: the plain path) and simple_classification with rnn_classifier.
+    Prints {"zoo_tasks": {...}}; returns the launches."""
+    common = ["--optimizer", "adam", "--lr", "1e-4", "--dtype", "bfloat16",
+              "--max-update", str(ZOO_TASK_UPDATES), "--disable-validation", "--no-save",
+              "--log-interval", "1"]
+    dummy = ["--dict-size", "49996", "--dataset-size", "256"]
+    runs = {
+        "dummy_mt": ([str(work), "--task", "dummy_mt", *ZOO_TASK_ARCHS["dummy_mt"], *dummy,
+                      "--src-len", "30", "--tgt-len", "30", "--max-sentences", "64",
+                      "--criterion", "label_smoothed_cross_entropy"], 64 * 30,
+                     ZOO_DUMMY_MT_ENCODER_LAYERS),
+        "dummy_lm": ([str(work), "--task", "dummy_lm", *ZOO_TASK_ARCHS["dummy_lm"], *dummy,
+                      "--tokens-per-sample", "512", "--max-sentences", "8",
+                      "--criterion", "cross_entropy"], 8 * 512, 0),
+        "dummy_masked_lm": ([str(work), "--task", "dummy_masked_lm",
+                             *ZOO_TASK_ARCHS["dummy_masked_lm"],
+                             "--dict-size", "49995", "--dataset-size", "256",
+                             "--tokens-per-sample", "512", "--max-sentences", "8",
+                             "--criterion", "masked_lm"], 8 * 512, 0),
+        "simple_classification": ([str(make_classification_fixture(work / "cls")), "--task",
+                                   "simple_classification",
+                                   *ZOO_TASK_ARCHS["simple_classification"],
+                                   "--max-sentences", "32", "--criterion",
+                                   "simple_classification"], None, 0),
+    }
+    counts, rec = {}, {}
+    for name, (argv, tokens, k1_per_micro) in runs.items():
+        want = None
+        if k1_per_micro:
+            want = {"encoder_attention": k1_per_micro * ZOO_TASK_UPDATES, "conv_tail": 0,
+                    "decode_attention": 0, "logmel": 0}
+        counts[f"zoo_task_{name}"], rec[name] = zoo_train_run(
+            torch, f"zoo_tasks {name}", [*argv, *common, "--save-dir", str(work / name)],
+            kernels, tokens, want)
+    print(json.dumps({"zoo_tasks": rec}), flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -6891,6 +7429,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
+        host_probe(work)
         # the flagship as a released checkpoint builds it: 12 trunk heads
         fx = make_cli_fixture(
             torch, work / "data",
@@ -6995,6 +7534,18 @@ def main() -> int:
             mark("mlm_serve done")
             counts.update(phase_mlm_train(torch, mlm_fx, kernels))
         mark("mlm_train done")
+        # 15. K1 / K3 at head dim 80 (the xlm preset), its shapes held against
+        # the plain versions below; then the convolutional and recurrent zoo
+        with recorded_shapes(*ops) as xlm_seen:
+            counts.update(phase_xlm_serve(torch, mlm_fx, kernels))
+        mark("xlm_serve done")
+        counts.update(phase_zoo_lm_train(torch, family_fx, kernels))
+        mark("zoo_lm_train done")
+        with recorded_shapes(*ops) as zoo_seen:
+            counts.update(phase_zoo_steps(torch, family_fx, kernels, records))
+            mark("zoo_steps done")
+            counts.update(phase_zoo_tasks(torch, work / "zoo_tasks", kernels))
+        mark("zoo_tasks done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -7034,8 +7585,10 @@ def main() -> int:
     phase_bart_shapes(torch, ops, bart_seen, records)
     phase_w2v_shapes(torch, ops, w2v_seen, records)
     phase_mlm_shapes(torch, ops, mlm_seen, records)
+    phase_xlm_shapes(torch, ops, xlm_seen, records)
+    phase_zoo_shapes(torch, ops, zoo_seen, records)
     mark("shapes done")
-    # 15. report
+    # 16. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

@@ -360,7 +360,6 @@ UNPORTED_FLAGS = {
     "model_parallel_size": ["--model-parallel-size", "2"],
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],
-    "user_dir": ["--user-dir", "plugins"],
 }
 
 
@@ -399,11 +398,11 @@ def test_interactive_refuses_an_argument_it_would_drop(fixture):
 
 
 def test_unported_scorer_and_task_raise(fixture):
-    """A task the JAX package registers and the port does not yet raises
-    naming its ROADMAP item; a scorer neither package knows raises
-    ``KeyError`` (every JAX scorer, ``chrf`` included, is ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A14d"):
-        generate.main([str(fixture), *COMMON[2:], "--task", "dummy_mt",
+    """A task or a scorer neither package knows raises ``KeyError``: every
+    JAX task (the zoo's dummy and classification tasks since ROADMAP A14d)
+    and every JAX scorer, ``chrf`` included, is ported."""
+    with pytest.raises(KeyError, match="unknown task 'nope'"):
+        generate.main([str(fixture), *COMMON[2:], "--task", "nope",
                        "--path", str(fixture / "ref.pt"), "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown scoring 'nope'"):
         generate.main([str(fixture), *COMMON, "--path", str(fixture / "ref.pt"),

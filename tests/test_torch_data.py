@@ -371,12 +371,11 @@ def test_registry_lists_what_is_ported():
     assert "language_modeling" in set(get_registry("task").keys())
     assert {"transformer", "transformer_wmt_en_de_big", "transformer_iwslt_de_en",
             "transformer_lm", "transformer_lm_gpt"} <= archs
-    # BART / mBART, multilingual translation and the masked-LM family are
-    # ported; the dummy tasks wait for ROADMAP A14d
+    # BART / mBART, multilingual translation, the masked-LM family and the
+    # zoo's benchmark and classification tasks are ported
     assert {"multilingual_translation", "denoising", "sentence_prediction", "masked_lm",
-            "semisupervised_translation"} <= set(get_registry("task").keys())
-    with pytest.raises(NotImplementedError, match="A14d"):
-        get_registry("task").get("dummy_mt")
+            "semisupervised_translation", "dummy_mt", "dummy_lm", "dummy_masked_lm",
+            "simple_classification"} <= set(get_registry("task").keys())
 
 
 # ------------------------------------------------------------------- bleu

@@ -281,3 +281,35 @@ def test_sentence_prediction_on_a_masked_lm_is_refused_by_both(data):
         crit(jm, None, {k: jnp.asarray(v) for k, v in batch.items()}, train=False)
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
         setup_task(dict(cfg)).build_model(dict(model_cfg), device="cpu")
+
+
+def test_xlm_hub_at_two_layers_matches_jax(tmp_path):
+    """The ``xlm`` preset at its widths (1,280, FFN 5,120, 16 heads of 80,
+    the head dim K1 and K3 took last) cut to 2 layers, through both hubs:
+    the features of a padded batch and ``fill_mask`` against JAX, fp32 (1e-4
+    of the features' scale: sums over 1,280 and 5,120 terms)."""
+    bpe_cfg = gpt2_assets(tmp_path)
+    jd, pd = JaxDictionary.load(str(tmp_path / "dict.txt")), Dictionary.load(
+        str(tmp_path / "dict.txt"))
+    for d in (jd, pd):
+        d.add_symbol("<mask>")
+    cfg = JR.ARCHITECTURES.get("xlm")[1]({"vocab_size": len(pd), "layers": 2, "dropout": 0.0})
+    assert (cfg["embed_dim"], cfg["ffn_dim"], cfg["heads"]) == (1280, 5120, 16)
+    jm = jax_mlm.build_masked_lm(cfg)
+    params = seeded_tree(jax.jit(lambda k: jm.init(k, jnp.asarray(TOKENS)))(
+        jax.random.PRNGKey(0)), 13)
+    jhub = jax_hub.RobertaHubInterface(jm, jax.tree_util.tree_map(jnp.asarray, params), jd,
+                                       jax_build_bpe(bpe_cfg))
+    hub = roberta_hub.RobertaHubInterface(port_model(cfg, params), pd, build_bpe(bpe_cfg))
+    rows = [hub.encode(s) for s in SENTENCES]
+    batch = np.full((len(rows), max(map(len, rows))), pd.pad(), np.int32)
+    for i, r in enumerate(rows):
+        batch[i, :len(r)] = r
+    want = jhub.extract_features(batch)
+    np.testing.assert_allclose(hub.extract_features(batch), want,
+                               atol=1e-4 * np.abs(want).max(), rtol=0)
+    masked = rows[1].copy()
+    masked[2] = pd.index("<mask>")
+    got, ref = hub.fill_mask(masked, 2, topk=5), jhub.fill_mask(masked, 2, topk=5)
+    assert [t for t, _ in got] == [t for t, _ in ref]
+    np.testing.assert_allclose([p for _, p in got], [p for _, p in ref], atol=1e-4)

@@ -21,7 +21,7 @@ def _qkv(rng, B, T, H, D):
     return [rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("D", [64, 96, 80])
 def test_encoder_attention_matches_jax(D):
     """K1's plain version vs JAX dot_product_attention and the Pallas kernel
     (interpret mode), with an unpadded and a partly padded row; 1e-5."""
@@ -126,14 +126,15 @@ def _bf16(x):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
 
 
-def _k1_tiled_mirror(q, k, v, mask, round_p):
+def _k1_tiled_mirror(q, k, v, mask, round_p, head_dim=None):
     """numpy mirror of the bf16 K1 kernel's arithmetic (csrc/encoder_attention.cu):
     64-key tiles, online softmax in the log2 domain, a padded real key at
     -1e8 * log2(e), a key past T at -inf, P optionally rounded to bf16 before
-    P.V, the row sum taken over the unrounded P."""
+    P.V, the row sum taken over the unrounded P. ``head_dim`` is the real
+    head dim where the inputs carry zero columns past it (D 80 in 96)."""
     B, T, H, D = q.shape
     log2e = np.float32(1.4426950408889634)
-    scale = np.float32(D**-0.5) * log2e
+    scale = np.float32((head_dim or D)**-0.5) * log2e
     out = np.zeros_like(q)
     for b in range(B):
         for h in range(H):
@@ -178,6 +179,28 @@ def test_encoder_attention_tiled_mirror_matches_plain(T, round_p, tol):
         *map(torch.from_numpy, (q, k, v)), torch.from_numpy(mask)).numpy()
     got = _k1_tiled_mirror(q, k, v, mask, round_p)
     np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("T", [65, 130])
+def test_encoder_attention_tiled_mirror_at_head_dim_80(T):
+    """The bf16 kernel at D 80 keeps three 32-column slabs: columns 80-95 of
+    Q, K and V read as zeros (TMA's fill past the tensor map's extent), and
+    P.V runs 96 wide. The mirror over the zero-padded inputs, cut back to 80
+    columns, vs the plain version at D 80: 1e-5 with fp32 P, 2e-2 with bf16
+    P; the padded columns of the output stay 0."""
+    rng = np.random.default_rng(300 + T)
+    B, H, D = 2, 2, 80
+    q, k, v = (_bf16(x) for x in _qkv(rng, B, T, H, D))
+    mask = _edge_mask(B, T)
+    ref = encoder_attention.encoder_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(mask)).numpy()
+    q96, k96, v96 = (np.concatenate([x, np.zeros((B, T, H, 16), np.float32)], axis=-1)
+                     for x in (q, k, v))
+    for round_p, tol in ((False, 1e-5), (True, 2e-2)):
+        got = _k1_tiled_mirror(q96, k96, v96, mask, round_p, head_dim=D)
+        np.testing.assert_array_equal(got[..., D:], 0.0)
+        np.testing.assert_allclose(got[..., :D], ref, atol=tol, rtol=0)
+    assert D in encoder_attention.HEAD_DIMS
 
 
 def _conv_inputs(rng, B, T1):
@@ -366,11 +389,11 @@ def test_decode_attention_split_mirror_matches_plain(step, L, tile):
 def _k3_split(D, itemsize):
     """(times per tile, row groups per warp) of the kernel's K3Split<T, D>:
     a row is D * itemsize / 16 chunks, read by 8 lanes when they divide it,
-    else by 4; a tile is the largest power of two of rows within 512
-    chunks."""
+    else by 4, else by 2; a tile is the largest power of two of rows within
+    512 chunks, or one pass of the 4 warps' row groups where that is more."""
     ch = D * itemsize // 16
-    lpr = 8 if ch % 8 == 0 else 4
-    return 1 << (512 // ch).bit_length() - 1, 32 // lpr
+    lpr = 8 if ch % 8 == 0 else 4 if ch % 4 == 0 else 2
+    return max(1 << (512 // ch).bit_length() - 1, 4 * (32 // lpr)), 32 // lpr
 
 
 @pytest.mark.parametrize("D, itemsize, step, L", [
@@ -397,7 +420,30 @@ def test_decode_attention_split_mirror_at_head_dims_96_and_32(D, itemsize, step,
     np.testing.assert_array_equal(vc, vc_t.numpy())
 
 
-@pytest.mark.parametrize("D", [96, 32])
+@pytest.mark.parametrize("itemsize, step, L", [(2, 0, 64), (2, 63, 64), (2, 150, 200),
+                                                (4, 31, 64), (4, 40, 64)])
+def test_decode_attention_split_mirror_at_head_dim_80(itemsize, step, L):
+    """The K3 split of D 80 (the xlm preset's 1,280 / 16 heads): 10 chunks a
+    bf16 row, 2 lanes of 5 chunks, so 16 row groups a warp and a 64-row
+    tile (one pass of the warps, 640 chunks); 20 fp32 chunks, 4 lanes of 5,
+    a 32-row tile. Mirrored in numpy vs the plain version: output within
+    1e-5, caches equal, NaN past the step never read."""
+    tile, gpw = _k3_split(80, itemsize)
+    assert (tile, gpw) == {2: (64, 16), 4: (32, 8)}[itemsize]
+    rng = np.random.default_rng(800 + step + itemsize)
+    q, k_new, v_new, kc, vc, anc = _k3_inputs(rng, 2, 3, 2, L, 80)
+    kc[:, :, step + 1:], vc[:, :, step + 1:] = np.nan, np.nan
+    kc_t, vc_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    ref = decode_attention.decode_attention_plain(
+        *map(torch.from_numpy, (q, k_new, v_new)), kc_t, vc_t, torch.from_numpy(anc), step, 3)
+    got = _k3_split_mirror(q, k_new, v_new, kc, vc, anc, step, 3, tile, gpw)
+    np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(kc, kc_t.numpy())
+    np.testing.assert_array_equal(vc, vc_t.numpy())
+    assert 80 in decode_attention.HEAD_DIMS
+
+
+@pytest.mark.parametrize("D", [96, 32, 80])
 @pytest.mark.parametrize("anc_seed", [0, 1])
 @pytest.mark.parametrize("step", [0, 5, 11])
 def test_decode_attention_plain_at_head_dims_96_and_32_matches_pallas(D, anc_seed, step):

@@ -35,7 +35,7 @@ from chimera_st_tpu_torch.data.manifests import S2TDataConfig, SpeechToTextDatas
 from chimera_st_tpu_torch.tasks import setup_task
 from chimera_st_tpu_torch.tasks.base import ChimeraTask
 
-ITEMS = {"A14b", "A14d", "A14e"}
+ITEMS = {"A14e"}
 
 
 @pytest.mark.parametrize("kind", sorted(JR.REGISTRIES))
@@ -57,15 +57,41 @@ def test_arch_route_raises_naming_the_item(name):
         ChimeraTask({}).build_model({"arch": name}, device="cpu")
 
 
-@pytest.mark.parametrize("kind, name", [("task", n) for n in sorted(R.UNPORTED["task"])]
-                         + [("criterion", n) for n in sorted(R.UNPORTED["criterion"])])
-def test_task_and_criterion_routes_raise_naming_the_item(kind, name):
-    item = R.UNPORTED[kind][name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+@pytest.mark.parametrize("kind, name", [("task", "dummy_lm"),
+                                        ("criterion", "simple_classification")])
+def test_task_and_criterion_routes_raise_naming_the_item(kind, name, monkeypatch):
+    """Every JAX task and criterion is ported, so the two routes are shown
+    with a name taken out of the port's registry for the test."""
+    monkeypatch.delitem(R.get_registry(kind)._entries, name)
+    monkeypatch.setitem(R.UNPORTED, kind, {name: "A14x"})
+    with pytest.raises(NotImplementedError, match="ROADMAP A14x"):
         if kind == "task":
             setup_task({"_name": name, "data": "unused"})
         else:
             ChimeraTask({}).build_criterion({"_name": name})
+
+
+# the names ROADMAP A14d ported (the convolutional and recurrent zoo)
+A14D_ARCHITECTURES = (
+    "dummy_model", "dynamicconv_iwslt_de_en", "dynamicconv_lm", "fconv", "fconv_iwslt_de_en",
+    "fconv_lm", "fconv_lm_dauphin_gbw", "fconv_lm_dauphin_wikitext103", "fconv_self_att",
+    "fconv_self_att_wp", "fconv_wmt_en_de", "fconv_wmt_en_fr", "fconv_wmt_en_ro", "lightconv",
+    "lightconv_iwslt_de_en", "lightconv_lm", "lightconv_lm_gbw", "lightconv_wmt_en_de",
+    "lightconv_wmt_en_de_big", "lightconv_wmt_en_fr_big", "lightconv_wmt_zh_en_big", "lstm",
+    "lstm_lm", "lstm_luong_wmt_en_de", "lstm_wiseman_iwslt_de_en", "pytorch_tutorial_rnn",
+    "rnn_classifier", "s2t_berard", "s2t_berard_256_3_3", "s2t_berard_512_3_2",
+    "s2t_berard_512_5_3", "simple_lstm", "tutorial_simple_lstm")
+
+
+@pytest.mark.parametrize("name", A14D_ARCHITECTURES)
+def test_zoo_architecture_resolves_to_the_jax_preset(name):
+    """Each A14d architecture resolves in the port to the JAX package's
+    model name and fills the same defaults into a config."""
+    model, preset = R.ARCHITECTURES.get(name)
+    jax_model, jax_preset = JR.ARCHITECTURES.get(name)
+    assert model == jax_model and model in R.MODELS
+    cfg = {"src_vocab_size": 11, "dropout": 0.2}
+    assert preset(dict(cfg)) == jax_preset(dict(cfg))
 
 
 @pytest.mark.parametrize("field, kind, name", [("bpe_tokenizer", "bpe", "gpt2"),

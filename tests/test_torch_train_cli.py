@@ -220,7 +220,6 @@ UNPORTED_TRAIN_FLAGS = {
     "task": ["--task", "speech_to_text"],
     "zero_sharding": ["--zero-sharding", "os"],
     "pipeline_stages": ["--pipeline-stages", "2"],
-    "user_dir": ["--user-dir", "plugins"],
     "distributed_world_size": ["--distributed-world-size", "2"],
     "distributed_init_method": ["--distributed-init-method", "tcp://localhost:1"],
     "model_parallel_size": ["--model-parallel-size", "2"],
