@@ -11,8 +11,8 @@ nearly every key its name. What the importer does:
 - folds the weight-normed ``pos_conv`` (``weight_g``, ``weight_v``; torch
   ``weight_norm`` with dim=2) into a plain weight, w = g * v / ||v||_{dims (0,1)};
 - drops the aliased ``decoder.output_projection.weight`` when it equals
-  ``decoder.embed_tokens.weight`` (the port's decoder is tied) and raises when
-  it does not;
+  ``decoder.embed_tokens.weight`` (a tied decoder) and keeps it when it does
+  not (a decoder built with ``share_decoder_input_output_embed=False``);
 - drops the allowlisted key families (wav2vec2 pretraining-only heads,
   parameter-free sinusoidal position dummies);
 - tracks which keys were read: any other key left unread is an error, so a
@@ -198,12 +198,13 @@ def import_interlingua_state_dict(sd: Dict[str, Any],
     if "decoder.layer_norm.weight" in sd:
         _copy(tsd, out, "decoder.layer_norm")
     if "decoder.output_projection.weight" in sd:
+        # tied: an alias of the embedding, already imported; untied: the
+        # projection of a decoder built with share_decoder_input_output_embed
+        # False (JAX torch_import.py:349-355)
         w_proj = _tensor(tsd["decoder.output_projection.weight"])
         w_emb = out["decoder.embed_tokens.weight"]
         if w_proj.shape != w_emb.shape or not torch.allclose(w_proj, w_emb):
-            raise NotImplementedError(
-                "the checkpoint's decoder.output_projection is a tensor of its own; the "
-                "port's decoder ties its output projection to embed_tokens")
+            out["decoder.output_projection.weight"] = w_proj
 
     # documented drop: the trunk's pretraining-only heads
     handled = set(tsd.consumed)
@@ -286,10 +287,6 @@ def infer_interlingua_config(ckpt_args, tgt_vocab: int, src_vocab: Optional[int]
     def g(name, default):
         return getattr(ckpt_args, name, default)
 
-    if not g("share_decoder_input_output_embed", True):
-        raise NotImplementedError(
-            "share_decoder_input_output_embed=False: the port's decoder ties its output "
-            "projection to embed_tokens")
     cfg = InterlinguaConfig(
         tgt_vocab_size=tgt_vocab,
         src_vocab_size=src_vocab,
@@ -311,6 +308,7 @@ def infer_interlingua_config(ckpt_args, tgt_vocab: int, src_vocab: Optional[int]
         attention_dropout=g("attention_dropout", 0.1),
         activation_dropout=g("activation_dropout", 0.1),
         activation=g("activation_fn", "relu"),
+        share_decoder_input_output_embed=g("share_decoder_input_output_embed", True),
         no_scale_embedding=g("no_scale_embedding", False),
     )
     # wav2vec2 trunk dims: flat on the namespace, or nested as the released

@@ -40,6 +40,7 @@ def main(argv=None) -> dict:
                         "preceding context whose loss is not counted")
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
+    options.require_single_host(args, "chimera-eval-lm")
     device = options.resolve_device(args)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s | %(message)s")

@@ -124,16 +124,24 @@ def build_and_load(task, model_cfg, tree, dtype, device):
     return model
 
 
-def load_language_model(path: str, task, dtype, device="cuda", overrides=None):
-    """The ``transformer_lm`` of a native ``.ckpt`` (``--lm-path``,
-    ``eval_lm --path``), built on the task's target dictionary, with
-    ``overrides`` applied to its stored config. The checkpoint's own
-    architecture is kept (``transformer_lm`` only where it names none): the
-    JAX CLIs replace it with ``transformer_lm``
+# language models that score a stream (eval_lm) but have no incremental
+# step in either package, so no --lm-path fusion (ROADMAP C5)
+STEPLESS_LMS = ("hf_gpt2", "transformer_lm_pipe")
+
+
+def load_language_model(path: str, task, dtype, device="cuda", overrides=None,
+                        fusion: bool = False):
+    """The language model of a native ``.ckpt`` (``--lm-path`` with
+    ``fusion``, ``eval_lm --path``), built on the task's target dictionary,
+    with ``overrides`` applied to its stored config: a ``transformer_lm``
+    preset, or for ``eval_lm`` GPT-2 or the stacked ``transformer_lm_pipe``.
+    The checkpoint's own architecture is kept (``transformer_lm`` only where
+    it names none): the JAX CLIs replace it with ``transformer_lm``
     (``chimera_st_tpu/cli/generate.py:362-366``, ``cli/eval_lm.py:56``),
     which rebuilds an LM saved under a preset such as ``transformer_lm_gpt``
     at the base preset's widths and activation (ROADMAP C)."""
     from ..checkpoint.store import load_native_checkpoint
+    from ..config.registry import ARCHITECTURES as ALL_ARCHITECTURES
     from ..models import ZOO_ARCHITECTURES
     from ..models.transformer_mt import ARCHITECTURES
 
@@ -146,6 +154,13 @@ def load_language_model(path: str, task, dtype, device="cuda", overrides=None):
         raise NotImplementedError(f"{path}: {arch} is a language model of the zoo, which "
                                   "eval_lm and --lm-path do not score in either package "
                                   "(ROADMAP C3)")
+    model_name = ALL_ARCHITECTURES.get(arch)[0] if arch in ALL_ARCHITECTURES else None
+    if model_name in STEPLESS_LMS:
+        if fusion:
+            raise NotImplementedError(
+                f"{path}: {arch} has no incremental decode step (in either package), so it "
+                "cannot be fused by --lm-path; eval_lm scores it (ROADMAP C5)")
+        return build_and_load(task, model_cfg, tree, dtype, device)
     if ARCHITECTURES.get(arch, (None,))[0] != "transformer_lm":
         raise ValueError(f"{path}: {arch} is not a transformer_lm architecture")
     return build_and_load(task, model_cfg, tree, dtype, device)
@@ -358,8 +373,16 @@ def main(argv=None) -> dict:
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
     device = options.resolve_device(args)
+    if options.spawn_ranks(args, device, _rank_main, argv):
+        return None  # the ranks decoded
+    mesh = options.setup_data_mesh(args, device)
+    from ..parallel.mesh import is_lead
+
+    lead = is_lead()
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s | %(message)s")
+    if not lead:
+        logging.getLogger("chimera_st_tpu_torch").setLevel(logging.WARNING)
 
     import numpy as np
 
@@ -409,7 +432,7 @@ def main(argv=None) -> dict:
     ).next_epoch_itr(shuffle=False)
 
     out = open(Path(args.results_path) / f"generate-{args.gen_subset}.txt", "w") \
-        if args.results_path else sys.stdout
+        if args.results_path and lead else sys.stdout
     strip = task.lang_tag_indices() if hasattr(task, "lang_tag_indices") else set()
     on_device = functools.partial(to_device, device=device)
 
@@ -447,8 +470,8 @@ def main(argv=None) -> dict:
         refuse_nat_settings(gen_cfg)
         lm = None
         if args.lm_path:
-            lm = (load_language_model(args.lm_path, task, torch_dtype(args.dtype), device),
-                  args.lm_weight)
+            lm = (load_language_model(args.lm_path, task, torch_dtype(args.dtype), device,
+                                      fusion=True), args.lm_weight)
         generator = EnsembleSequenceGenerator(models, settings_from_cfg(gen_cfg),
                                               pad=tgt_dict.pad(), eos=tgt_dict.eos(),
                                               unk=tgt_dict.unk(), lm=lm)
@@ -472,29 +495,42 @@ def main(argv=None) -> dict:
     n_sent = 0
     n_tokens = 0
     t0 = time.time()
+    from ..parallel.partition import count_batch_path, gather_rows, split_batch
+
     with options.profiled(args):
         for batch in itr:
             ids = batch["id"]
+            # several ranks: each decodes its slice of the batch (or, where
+            # the batch does not divide, the whole batch) and the lead rank
+            # prints every sentence in the input order
+            part, sliced = split_batch(batch, mesh)
+            if mesh is not None and mesh.shape.get("data", 1) > 1:
+                count_batch_path("decode", sliced)
             extra = {}
-            if prefix_size > 0 and batch.get("target") is not None:
+            if prefix_size > 0 and part.get("target") is not None:
                 # force each hypothesis to start with the reference's first
                 # prefix_size tokens; pad rows force nothing
                 extra["prefix_tokens"] = on_device(
-                    np.asarray(batch["target"])[:, :prefix_size].astype(np.int64))
-            if "audio" in batch:
+                    np.asarray(part["target"])[:, :prefix_size].astype(np.int64))
+            if "audio" in part:
                 tokens, scores, lens = generator.generate_audio(
-                    on_device(batch["audio"]),
-                    on_device(batch["audio_padding_mask"]),
-                    src_lengths=on_device(batch["audio_lengths"]),
+                    on_device(part["audio"]),
+                    on_device(part["audio_padding_mask"]),
+                    src_lengths=on_device(part["audio_lengths"]),
                     **extra,
                 )
             else:
                 tokens, scores, lens = generator.generate_text(
-                    on_device(batch["src_tokens"]).long(),
-                    src_lengths=on_device(batch["src_lengths"]),
+                    on_device(part["src_tokens"]).long(),
+                    src_lengths=on_device(part["src_lengths"]),
                     **extra,
                 )
             tokens, scores, lens = (x.cpu().numpy() for x in (tokens, scores.float(), lens))
+            if sliced:
+                tokens, scores, lens = gather_rows(mesh, tokens, scores, lens,
+                                                   pad_value=tgt_dict.pad())
+            if not lead:
+                continue
             alignments = None
             if args.print_alignment or (args.replace_unk and "src_tokens" in batch):
                 alignments = best_alignments(model, batch, tokens, tgt_dict.eos(), on_device)
@@ -555,6 +591,10 @@ def main(argv=None) -> dict:
     if out is not sys.stdout:
         out.close()
     return {"sentences": n_sent, "tokens": n_tokens, "load_s": load_s, "decode_s": dt}
+
+
+def _rank_main(rank: int, argv) -> None:
+    main(argv)
 
 
 def cli_main():

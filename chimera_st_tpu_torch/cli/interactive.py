@@ -70,6 +70,7 @@ def main(argv=None) -> None:
                         "the given order, 'unordered' in any order")
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
+    options.require_single_host(args, "chimera-interactive")
     device = options.resolve_device(args)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s | %(message)s")

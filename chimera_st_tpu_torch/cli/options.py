@@ -257,17 +257,9 @@ def add_generation_args(p: argparse.ArgumentParser):
     return p
 
 
-# what every entry point cannot do yet: several processes or cards
-# (attribute, test on its value, flag, ROADMAP item)
-_COMMON_UNPORTED = (
-    ("distributed_world_size", lambda v: v > 1, "--distributed-world-size above 1", "A12"),
-    ("distributed_init_method", bool, "--distributed-init-method", "A12"),
-    ("model_parallel_size", lambda v: v > 1, "--model-parallel-size above 1", "A12"),
-    ("zero_sharding", lambda v: v != "none", "--zero-sharding os", "A12"),
-    ("pipeline_stages", lambda v: v > 1, "--pipeline-stages above 1", "A12"),
-)
-# the generation and validation CLIs add the generator's own list
-UNPORTED = generator.UNPORTED + _COMMON_UNPORTED
+# the generation and validation CLIs refuse the generator's own list
+UNPORTED = generator.UNPORTED
+
 
 # the zoo's models that the JAX train CLI cannot initialise: its
 # init_params_for_task (chimera_st_tpu/cli/train.py:490-553) has no branch
@@ -277,7 +269,7 @@ ZOO_CLI_UNTRAINED = frozenset(
     arch for arch, (model, _) in ZOO_ARCHITECTURES.items()
     if model not in ("fconv_lm", "lightconv_lm", "lstm_lm", "rnn_classifier"))
 # the train CLI's
-TRAIN_UNPORTED = _COMMON_UNPORTED + (
+TRAIN_UNPORTED = (
     ("task", lambda v: v == "speech_to_text",
      "--task speech_to_text (fbank training; the JAX train CLI cannot train this model "
      "either: its init_params_for_task has no S2T branch, ROADMAP C)", "A10c"),
@@ -288,6 +280,100 @@ TRAIN_UNPORTED = _COMMON_UNPORTED + (
      "--arch of the encoder-decoder zoo, s2t_berard or dummy_model (the JAX train CLI "
      "cannot initialise these models; train them through train.TrainStep)", "C3"),
 )
+
+
+def _distributed_args(args) -> Tuple[Any, Any, Any]:
+    """(init method, rank, process count) of the ``--distributed-*`` flags,
+    with the JAX CLI's errors (``chimera_st_tpu/cli/options.py:325-352``);
+    without rank and count, torchrun's ``RANK`` / ``WORLD_SIZE``."""
+    import os
+
+    init = getattr(args, "distributed_init_method", None)
+    rank = getattr(args, "distributed_rank", None)
+    nprocs = getattr(args, "distributed_num_procs", None)
+    if init is None:
+        if rank is not None or nprocs is not None:
+            raise SystemExit("--distributed-rank/--distributed-num-procs have no effect "
+                             "without --distributed-init-method tcp://HOST:PORT")
+        return None, None, None
+    if (rank is None) != (nprocs is None):
+        raise SystemExit("give --distributed-rank and --distributed-num-procs together, or "
+                         f"neither (then RANK / WORLD_SIZE); got rank={rank} "
+                         f"num_procs={nprocs}")
+    if rank is None:
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise SystemExit("--distributed-init-method needs --distributed-rank and "
+                             "--distributed-num-procs (or RANK and WORLD_SIZE)")
+        rank, nprocs = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    from ..parallel.mesh import parse_init_method
+
+    return parse_init_method(init), rank, nprocs
+
+
+def spawn_ranks(args, device: str, fn, argv) -> bool:
+    """``--distributed-world-size N`` (N > 1) without an init method, in a
+    process that is not a rank yet: starts N ranks of ``fn(rank, argv)`` on
+    this host (one a card; gloo on the CPU) and waits for them -> True.
+    Otherwise False (this process runs the program)."""
+    import torch.distributed as dist
+
+    n = getattr(args, "distributed_world_size", -1)
+    if n <= 1 or getattr(args, "distributed_init_method", None) or dist.is_initialized():
+        return False
+    from ..parallel.mesh import spawn
+
+    spawn(fn, n, argv, device=device)
+    return True
+
+
+def setup_mesh(args, device: str):
+    """Joins the world of ``--distributed-init-method`` (rank
+    ``--distributed-rank`` of ``--distributed-num-procs``) unless this
+    process already is a rank, then -> the rank grid: data x
+    ``--pipeline-stages`` or data x ``--model-parallel-size``; None for one
+    process that asks for no grid."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_mod
+
+    init, rank, nprocs = _distributed_args(args)
+    if init is not None and not dist.is_initialized():
+        mesh_mod.initialize_distributed(init, nprocs, rank, device)
+    stages = getattr(args, "pipeline_stages", 0)
+    tp = getattr(args, "model_parallel_size", 1)
+    if stages > 1 and tp > 1:
+        raise SystemExit("--pipeline-stages and --model-parallel-size are mutually exclusive "
+                         "(the pipe mesh has no model axis); pick one")
+    if not dist.is_initialized() and stages <= 1 and tp <= 1:
+        return None
+    if stages > 1:
+        return mesh_mod.make_pipeline_mesh(stages)
+    return mesh_mod.make_mesh(model_parallel=tp)
+
+
+def setup_data_mesh(args, device: str):
+    """The decode CLI's grid: every rank a data rank (``generate`` shards
+    each batch over them, as the JAX CLI shards it over its devices); the
+    training-only grid flags do not reach a decode, as in JAX. None for one
+    process."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_mod
+
+    init, rank, nprocs = _distributed_args(args)
+    if init is not None and not dist.is_initialized():
+        mesh_mod.initialize_distributed(init, nprocs, rank, device)
+    return mesh_mod.make_mesh() if dist.is_initialized() else None
+
+
+def require_single_host(args, entry_point: str) -> None:
+    """The JAX decode CLIs' refusal of a job of several processes
+    (``chimera_st_tpu/cli/options.py:356-376``): run one job a data shard."""
+    _, _, nprocs = _distributed_args(args)
+    if nprocs is not None and nprocs > 1:
+        raise SystemExit(
+            f"{entry_point} does not support several processes: it writes a single results "
+            "file. Run one job per data shard (--num-shards / --shard-id) instead.")
 
 
 def require_ported(args, table=UNPORTED) -> None:

@@ -92,6 +92,18 @@ versions. The compute dtype is ``--dtype`` (bf16 autocast over fp32
 parameters, or fp32). ``main`` returns the trainer, the checkpoint manager
 and the run's host-clock times. Options that are not ported raise
 ``NotImplementedError`` naming the ROADMAP item (``options.TRAIN_UNPORTED``).
+
+Several cards (``parallel/``): ``--distributed-world-size N`` on one host
+starts N ranks of this program (one a card; gloo ranks under ``--cpu``),
+``--distributed-init-method tcp://HOST:PORT --distributed-rank R
+--distributed-num-procs N`` makes this process rank R of N (on several
+hosts). Every rank builds the same batches and takes its data rank's part;
+gradients are all-reduced and normalised by the global sample size. The
+grid is data x ``--model-parallel-size`` (tensor parallelism) or data x
+``--pipeline-stages`` (the GPipe schedule, ``--pipeline-chunks``
+micro-batches, ``--pipeline-checkpoint`` to recompute each stage);
+``--zero-sharding os`` splits the optimizer state over the data ranks.
+Only rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -105,7 +117,11 @@ from typing import Dict, Optional
 logger = logging.getLogger("chimera_st_tpu_torch.train")
 
 
-def main(argv=None) -> dict:
+def _rank_main(rank: int, argv) -> None:
+    main(argv)
+
+
+def main(argv=None) -> Optional[dict]:
     from . import options
     from .options import parse_update_freq
 
@@ -114,12 +130,20 @@ def main(argv=None) -> dict:
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args, options.TRAIN_UNPORTED)
     device = options.resolve_device(args)
+    if options.spawn_ranks(args, device, _rank_main, argv):
+        return None  # the ranks ran the program
+    mesh = options.setup_mesh(args, device)
+    from ..parallel.mesh import is_lead
+
+    lead = is_lead()
 
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
         stream=sys.stdout,
     )
+    if not lead:
+        logging.getLogger("chimera_st_tpu_torch").setLevel(logging.WARNING)
 
     import numpy as np
     import torch
@@ -151,7 +175,13 @@ def main(argv=None) -> dict:
     model_cfg = {"arch": args.arch, **model_overrides}
     if args.feature_grad_mult != 1.0:
         model_cfg["feature_grad_mult"] = args.feature_grad_mult
-    model = task.build_model(model_cfg, device="cpu", train=True)
+    pipeline = {}
+    if args.pipeline_stages > 1:
+        # execution config of this run, not the model's identity: never saved
+        pipeline = dict(pipeline_stages=args.pipeline_stages,
+                        pipeline_chunks=args.pipeline_chunks,
+                        pipeline_remat=args.pipeline_checkpoint, pipeline_mesh=mesh)
+    model = task.build_model({**model_cfg, **pipeline}, device="cpu", train=True)
     logger.info(f"model arch {args.arch} ({type(model).__name__})")
     from ..convert import model_kind
 
@@ -182,6 +212,12 @@ def main(argv=None) -> dict:
         # checkpoint's embeddings and layers)
         task.post_init_params(model, args)
     model.to(device)
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        from ..parallel.partition import apply_tensor_parallel
+
+        split = apply_tensor_parallel(model, mesh)
+        logger.info(f"tensor parallel over {mesh.shape['model']} ranks: {len(split)} "
+                    "parameters split")
     from ..optim.freeze import auto_text_only_fixes, frozen_fraction, wrap_freeze
 
     if interlingua and "fix_wav2vec" not in fixes:
@@ -195,14 +231,24 @@ def main(argv=None) -> dict:
                     f"({frozen_fraction(model, fixes):.1%} of parameters)")
     from ..convert import checkpoint_axes
 
+    axes = checkpoint_axes(model)
     optimizer = build_optimizer(opt_cfg, trained, clip_norm=args.clip_norm, frozen=frozen,
-                                checkpoint_axes=checkpoint_axes(model))
+                                checkpoint_axes=axes)
+    if args.zero_sharding == "os" and mesh is not None:
+        from ..parallel.partition import ZeroOptimizer
+
+        trained = list(trained)
+        optimizer = ZeroOptimizer(optimizer, trained, mesh, lambda shards: build_optimizer(
+            opt_cfg, shards, clip_norm=args.clip_norm, frozen=frozen,
+            checkpoint_axes={s: axes[p] for s, p in zip(shards, trained)}))
     logger.info(f"device: {device}; params: "
-                f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+                f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M"
+                + (f"; mesh {mesh.shape}" if mesh is not None else ""))
 
     async_depth = max(args.async_dispatch, 0)
+    pad = task.target_dictionary.pad() if task.target_dictionary is not None else None
     trainer = Trainer(model, criterion, optimizer, lr_schedule, compute_dtype,
-                      async_depth=async_depth)
+                      async_depth=async_depth, mesh=mesh, pad=pad)
     # persisted so generate/validate can rebuild the model from the checkpoint
     run_cfg = {"model_cfg": model_cfg, "task_cfg": task_cfg, "criterion_cfg": crit_cfg}
 
@@ -214,7 +260,7 @@ def main(argv=None) -> dict:
         keep_best_checkpoints=args.keep_best_checkpoints,
         no_last=args.no_last_checkpoints,
         no_epoch=args.no_epoch_checkpoints,
-        no_save=args.no_save,
+        no_save=args.no_save or not lead,  # the other ranks track the best only
         save_optimizer_state=not args.no_save_optimizer_state,
     )
 
@@ -307,10 +353,19 @@ def main(argv=None) -> dict:
         times["load_s"] = time.perf_counter() - t0
         logger.info(f"restored {restore} (epoch {epoch}, {trainer.num_updates} updates)")
 
+    # a state split over ranks is gathered by every rank (collectives); the
+    # lead rank writes it
+    gathered = mesh is not None and (getattr(model, "tp_split", None)
+                                     or args.zero_sharding == "os")
+
     def save(val, end_of_epoch):
         t0 = time.perf_counter()
+        state_fn = trainer.host_state
+        if gathered and not args.no_save:
+            host = trainer.host_state(not args.no_save_optimizer_state)
+            state_fn = lambda _save_opt: host  # noqa: E731
         ckpt_mgr.save(
-            trainer.host_state,
+            state_fn,
             {**trainer.extra_state(train_itr, val, ckpt_mgr.best), **run_cfg},
             epoch, trainer.num_updates, val_metric=val, end_of_epoch=end_of_epoch,
             save_interval_updates=0 if end_of_epoch else args.save_interval_updates,
@@ -360,7 +415,7 @@ def main(argv=None) -> dict:
             grouped = GroupedIterator(itr, update_freq)
             pbar = progress_bar(grouped, log_format=args.log_format,
                                 log_interval=args.log_interval, epoch=epoch,
-                                tensorboard_logdir=args.tensorboard_logdir)
+                                tensorboard_logdir=args.tensorboard_logdir if lead else None)
             with metrics_mod.aggregate("train_inner") as agg:
                 for microbatches in pbar:
                     trainer.train_step(microbatches, seed=args.seed + trainer.num_updates)
@@ -428,6 +483,11 @@ def main(argv=None) -> dict:
         logger.info(f"profiler trace written to {args.profile}")
     logger.info(f"done training in {time.time() - start:.1f}s "
                 f"({trainer.num_updates} updates)")
+    if mesh is not None and mesh.shape.get("data", 1) > 1:
+        from ..parallel.partition import BATCH_PATHS
+
+        logger.info(f"data ranks: {BATCH_PATHS['train_sliced']} batches split, "
+                    f"{BATCH_PATHS['train_whole']} run whole")
     return {"trainer": trainer, "checkpoints": ckpt_mgr, "times": times}
 
 

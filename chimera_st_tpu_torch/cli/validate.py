@@ -39,6 +39,7 @@ def main(argv=None) -> dict:
     p.set_defaults(arch=None)
     args, model_overrides = options.parse_with_model_overrides(p, argv)
     options.require_ported(args)
+    options.require_single_host(args, "chimera-validate")
     device = options.resolve_device(args)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s | %(message)s")

@@ -72,7 +72,8 @@ class CommonConfig(_Base):
 
 @dataclass
 class DistributedConfig(_Base):
-    # the JAX package's mesh description (several cards are ROADMAP A12)
+    # the JAX package's mesh description; the port's rank grid over
+    # torch.distributed is parallel/mesh.py (one process a card)
     data_parallel: int = -1  # -1: infer = n_devices / (model*pipeline)
     model_parallel: int = 1
     pipeline_parallel: int = 1

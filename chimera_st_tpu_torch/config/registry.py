@@ -57,12 +57,8 @@ REGISTRIES: Dict[str, Registry] = {}
 
 # registry -> {name the JAX package registers and the port does not yet:
 # the ROADMAP item that ports it}
-UNPORTED: Dict[str, Dict[str, str]] = {
-    "architecture": {**dict.fromkeys(("hf_gpt2", "hf_gpt2_large", "hf_gpt2_medium",
-                                      "hf_gpt2_xl"), "A14e"),
-                     "transformer_lm_pipe": "A14e"},
-    "model": {"hf_gpt2": "A14e", "transformer_lm_pipe": "A14e"},
-}
+# (empty: every name is ported; the table stays for the next one)
+UNPORTED: Dict[str, Dict[str, str]] = {}
 
 
 def get_registry(kind: str) -> Registry:

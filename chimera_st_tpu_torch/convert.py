@@ -85,6 +85,10 @@ _LEAVES = {
     "quantizer": (("codebook", "codebook", False), ("embedding", "embedding", False)),
     # the masked LM's output bias, a parameter of the model itself
     "lm_head_bias": (("lm_head_bias", "lm_head_bias", True),),
+    # HF's Conv1D: ``weight [in, out]``, the kernel's own layout
+    "hf_conv1d": (("weight", "kernel", True), ("bias", "bias", True)),
+    # the stacked LM's layers: ``weight [L, out, in]`` <-> ``kernel [L, in, out]``
+    "stacked_dense": (("weight", "kernel", True), ("bias", "bias", True)),
 }
 
 
@@ -95,6 +99,10 @@ def _torch_axes(kind: str, leaf: str, ndim: int) -> Optional[Tuple[int, ...]]:
         return tuple(reversed(range(ndim)))
     if leaf == "kernel" and kind == "conv2d":
         return (3, 2, 0, 1)
+    if leaf == "kernel" and kind == "stacked_dense":
+        return (0, 2, 1)
+    if leaf == "kernel" and kind == "hf_conv1d":
+        return None
     if leaf == "kernel":  # conv [k, in/g, out] -> [out, in/g, k]
         return (2, 1, 0)
     return None
@@ -106,6 +114,8 @@ def _flax_axes(kind: str, leaf: str, ndim: int) -> Optional[Tuple[int, ...]]:
         return tuple(reversed(range(ndim)))
     if leaf == "weight" and kind == "conv2d":
         return (2, 3, 1, 0)
+    if leaf == "weight" and kind == "stacked_dense":
+        return (0, 2, 1)
     if leaf == "weight" and kind.startswith("conv"):
         return (2, 1, 0)
     return None
@@ -152,12 +162,15 @@ def _decoder(cross_attention: bool = True) -> List[Tuple[str, str, str]]:
             ("decoder.layer_norm", "decoder/layer_norm", "norm")]
 
 
+# an untied decoder's output projection (share_decoder_input_output_embed
+# False; JAX transformer_decoder.py:139-152)
+_OUTPUT_PROJECTION = ("decoder.output_projection", "decoder/output_projection", "dense_nobias")
 # the Transformer family's decoder options (JAX transformer_decoder.py:104-117;
 # flax names the decoder's embedding LayerNorm after its attribute)
 _DECODER_OPTIONS = [
     ("decoder.embed_positions", "decoder/embed_positions", "embed"),
     ("decoder.layernorm_embedding", "decoder/layernorm_embedding_mod", "norm"),
-    ("decoder.output_projection", "decoder/output_projection", "dense_nobias"),
+    _OUTPUT_PROJECTION,
 ]
 
 
@@ -198,10 +211,11 @@ _RULES = {
           for n in ("text_embed_tokens", "interlingua_embedding", "modal_embedding")],
         *_encoder_stacks("transformer_layers", "audio_exclusive_layers", "interlingua_layers"),
         ("encoder.layer_norm", "encoder_layer_norm", "norm"),
-        *_decoder(),
+        *_decoder(), _OUTPUT_PROJECTION,
     ],
     "s2t": [*_SUBSAMPLE, *_encoder_stacks("transformer_layers"),
-            ("encoder.layer_norm", "encoder_layer_norm", "norm"), *_decoder()],
+            ("encoder.layer_norm", "encoder_layer_norm", "norm"), *_decoder(),
+            _OUTPUT_PROJECTION],
     "wav2vec2": _wav2vec2("", ""),
     "transformer": [
         ("encoder.embed_tokens", "embed_tokens", "embed"),
@@ -231,6 +245,25 @@ _RULES.update({
     "insertion_transformer": [*_BACKBONE, ("slot_proj", "slot_proj", "dense")],
 })
 
+
+# GPT-2 (JAX models/hf_gpt2.py) and the stacked pipeline LM (JAX
+# models/pipeline_lm.py: ``scan_layers/layer/`` holds each leaf of the
+# causal layer stacked on a leading [L] axis)
+_RULES["hf_gpt2"] = [
+    ("wte", "wte", "embed"), ("wpe", "wpe", "embed"), ("ln_f", "ln_f", "norm"),
+    *[(f"h.{{i}}.{n}", f"h_{{i}}/{n}", "norm") for n in ("ln_1", "ln_2")],
+    *[(f"h.{{i}}.{n}", f"h_{{i}}/{n}", "hf_conv1d")
+      for n in ("c_attn", "attn_c_proj", "mlp_c_fc", "mlp_c_proj")],
+]
+_RULES["transformer_lm_pipe"] = [
+    ("embed_tokens", "embed_tokens", "embed"), ("layer_norm", "layer_norm", "norm"),
+    *[(f"scan_layers.layer.self_attn.{n}", f"scan_layers/layer/self_attn/{n}", "stacked_dense")
+      for n in ("q_proj", "k_proj", "v_proj", "out_proj")],
+    *[(f"scan_layers.layer.{n}", f"scan_layers/layer/{n}", "stacked_dense")
+      for n in ("fc1", "fc2")],
+    *[(f"scan_layers.layer.{n}", f"scan_layers/layer/{n}", "norm")
+      for n in ("self_attn_layer_norm", "final_layer_norm")],
+]
 
 # BART: the ``transformer`` table under ``backbone/`` and the sentence
 # classification head; the multilingual transformer: an encoder a source
@@ -518,8 +551,8 @@ def checkpoint_axes(model: torch.nn.Module) -> Dict[torch.nn.Parameter, Tuple[in
     out = {}
     for name, p in model.named_parameters():
         _, kind = torch_to_flax_path(kind_of, name)
-        if name.endswith(".weight") and kind == "conv2d":
-            out[p] = (2, 3, 1, 0)
+        if name.endswith(".weight") and kind in ("conv2d", "stacked_dense"):
+            out[p] = (2, 3, 1, 0) if kind == "conv2d" else (0, 2, 1)
             continue
         rev = name.endswith(".weight") and kind.startswith(("dense", "conv"))
         out[p] = tuple(range(p.dim()))[::-1] if rev else tuple(range(p.dim()))
@@ -570,7 +603,8 @@ def model_kind(model: torch.nn.Module) -> str:
             "FConvModel": "fconv", "FConvLM": "fconv_lm", "FConvSelfAttModel": "fconv_self_att",
             "LightConvModel": "lightconv", "LightConvLM": "lightconv_lm", "LSTMModel": "lstm",
             "LSTMLM": "lstm_lm", "RNNClassifier": "rnn_classifier", "DummyModel": "dummy_model",
-            "BerardModel": "s2t_berard"}[type(model).__name__]
+            "BerardModel": "s2t_berard", "GPT2LM": "hf_gpt2",
+            "PipelinedTransformerLM": "transformer_lm_pipe"}[type(model).__name__]
 
 
 def s2t_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

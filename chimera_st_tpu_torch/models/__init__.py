@@ -16,7 +16,9 @@ its two, and the wav2vec family: ``wav2vec_ctc`` and ``wav2vec_seq2seq``
 and the convolutional and recurrent zoo: ``fconv`` / ``fconv_lm`` /
 ``fconv_self_att``, ``lightconv`` / ``lightconv_lm``, ``lstm`` /
 ``lstm_lm`` / ``simple_lstm``, ``rnn_classifier``, ``dummy_model`` and
-``s2t_berard`` with their 33 presets (counterpart of the registrations in
+``s2t_berard`` with their 33 presets, GPT-2 (``hf_gpt2`` and its
+``_medium`` / ``_large`` / ``_xl`` presets) and the stacked pipeline LM
+``transformer_lm_pipe`` (counterpart of the registrations in
 chimera_st_tpu/models/).
 
 A registered model constructor takes ``(cfg_dict, device)``; an architecture is a
@@ -33,6 +35,7 @@ from . import bart as _bart
 from . import berard as _berard
 from . import fconv as _fconv
 from . import fconv_self_att as _fconv_sa
+from . import hf_gpt2 as _gpt2
 from . import lightconv_mt as _lightconv
 from . import lm_extra as _lm_extra
 from . import lstm as _lstm
@@ -42,6 +45,7 @@ from . import nat_cmlm as _cmlm
 from . import nat_insertion as _ins
 from . import nat_levenshtein as _lev
 from . import nat_vanilla as _nat
+from . import pipeline_lm as _pipe_lm
 from . import roberta_hub as _roberta_hub
 from . import s2t_transformer as _s2t
 from . import transformer_mt as _mt
@@ -63,9 +67,6 @@ def _known(config_cls, cfg_dict: Dict) -> Dict:
 
 @register_model("s2t_transformer_w2v2_interlingua")
 def build_interlingua_model(cfg_dict: Dict, device="cuda") -> ChimeraInterlinguaModel:
-    if not cfg_dict.get("share_decoder_input_output_embed", True):
-        raise NotImplementedError("the port's decoder ties its output projection to "
-                                  "embed_tokens (share_decoder_input_output_embed=True)")
     return ChimeraInterlinguaModel(InterlinguaConfig(**_known(InterlinguaConfig, cfg_dict)),
                                    device=device)
 
@@ -142,13 +143,15 @@ for _name, _build in {**_mt.MODEL_BUILDERS, **NAT_MODEL_BUILDERS, "bart": _bart.
                       "multilingual_transformer": _multi.build_multilingual,
                       **_asr.MODEL_BUILDERS, **_w2v2_pt.MODEL_BUILDERS,
                       **_w2v1.MODEL_BUILDERS, **_mlm.MODEL_BUILDERS,
-                      **_roberta_hub.MODEL_BUILDERS, **ZOO_MODEL_BUILDERS}.items():
+                      **_roberta_hub.MODEL_BUILDERS, **ZOO_MODEL_BUILDERS,
+                      "hf_gpt2": _gpt2.build_hf_gpt2, **_pipe_lm.MODEL_BUILDERS}.items():
     register_model(_name)(_build)
 for _arch, (_model, _preset) in {**_mt.ARCHITECTURES, **NAT_ARCHITECTURES,
                                  **_bart.ARCHITECTURES, **_multi.ARCHITECTURES,
                                  **_asr.ARCHITECTURES, **_w2v2_pt.ARCHITECTURES,
                                  **_w2v1.ARCHITECTURES, **_mlm.ARCHITECTURES,
-                                 **_roberta_hub.ARCHITECTURES, **ZOO_ARCHITECTURES}.items():
+                                 **_roberta_hub.ARCHITECTURES, **ZOO_ARCHITECTURES,
+                                 **_gpt2.ARCHITECTURES, **_pipe_lm.ARCHITECTURES}.items():
     register_model_architecture(_model, _arch)(_preset)
 
 __all__ = ["ARCHITECTURES", "MODELS", "ChimeraInterlinguaModel", "InterlinguaConfig",

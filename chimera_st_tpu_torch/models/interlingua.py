@@ -39,11 +39,11 @@ from .wav2vec2 import DEFAULT_CONV_SPEC, Wav2Vec2Encoder
 
 @dataclass(frozen=True)
 class InterlinguaConfig:
-    """The fields of the JAX package's InterlinguaConfig that the port reads
-    (not ``share_decoder_input_output_embed``, which
-    ``build_interlingua_model`` checks); the defaults are the
-    ``s2t_transformer_w2v2_interlingua_base`` preset's and, for dropout,
-    ``feature_grad_mult`` and ``w2v2_remat``, the JAX package's."""
+    """The fields of the JAX package's InterlinguaConfig that the port
+    reads; the defaults are the ``s2t_transformer_w2v2_interlingua_base``
+    preset's and, for dropout, ``feature_grad_mult`` and ``w2v2_remat``, the
+    JAX package's. ``share_decoder_input_output_embed=False`` gives the
+    decoder an ``output_projection`` of its own."""
 
     # vocab
     tgt_vocab_size: int = 8
@@ -61,6 +61,7 @@ class InterlinguaConfig:
     decoder_layers: int = 6
     decoder_heads: int = 8
     decoder_normalize_before: bool = True
+    share_decoder_input_output_embed: bool = True
     max_target_positions: int = 1024
     # interlingua
     interlingua_length: int = 16
@@ -148,7 +149,8 @@ class ChimeraInterlinguaModel(nn.Module):
             c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
             c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
             c.no_scale_embedding, c.max_target_positions, c.dropout, c.attention_dropout,
-            c.activation_dropout, device=device,
+            c.activation_dropout, share_input_output_embed=c.share_decoder_input_output_embed,
+            device=device,
         )
         self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
 

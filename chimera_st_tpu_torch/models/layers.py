@@ -137,7 +137,8 @@ class MultiheadAttention(nn.Module):
     """Multi-head attention: full sequence (self or ``kv=`` cross), with
     attention dropout in training; grouped beam cross-attention over
     un-repeated encoder K/V and the cached lazy-reorder beam step (both
-    inference only)."""
+    inference only). Under tensor parallelism (``parallel/partition.py``)
+    a rank holds ``num_heads`` of the heads: its projections' slices."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device="cuda"):
         super().__init__()
@@ -171,7 +172,7 @@ class MultiheadAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, key_padding_mask=key_padding_mask,
                                         causal=causal, dropout_rate=rate, generator=generator)
-        return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
+        return self.out_proj(out.reshape(*query.shape[:2], self.num_heads * self.head_dim))
 
     def grouped_cross(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_padding_mask: Optional[torch.Tensor], groups: int,
@@ -188,7 +189,7 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         probs = dropout(torch.softmax(logits, dim=-1).to(query.dtype), dropout_rate, generator)
         out = torch.einsum("bhks,bshd->bkhd", probs.float(), v.float()).to(query.dtype)
-        return self.out_proj(out.reshape(N, 1, self.embed_dim))
+        return self.out_proj(out.reshape(N, 1, self.num_heads * self.head_dim))
 
     def cached_step(self, query: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                     ancestry: torch.Tensor, cache_index: int, groups: int,
@@ -208,7 +209,7 @@ class MultiheadAttention(nn.Module):
         else:
             out = decode_attention(q, k_new, v_new, k_cache, v_cache, ancestry, cache_index,
                                    groups)
-        return self.out_proj(out.reshape(N, 1, self.embed_dim))
+        return self.out_proj(out.reshape(N, 1, self.num_heads * self.head_dim))
 
     def attention_weights(self, query: torch.Tensor, kv: torch.Tensor,
                           key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -74,15 +74,13 @@ class _S2TEncoder(nn.Module):
 class S2TTransformerModel(nn.Module):
     def __init__(self, cfg: S2TTransformerConfig, device="cuda"):
         super().__init__()
-        if not cfg.share_decoder_input_output_embed:
-            raise NotImplementedError("the port's decoder ties its output projection to "
-                                      "embed_tokens (share_decoder_input_output_embed=True)")
         self.cfg = c = cfg
         self.encoder = _S2TEncoder(cfg, device)
         self.decoder = TransformerDecoder(
             c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
             c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
-            c.no_scale_embedding, c.max_target_positions, device=device,
+            c.no_scale_embedding, c.max_target_positions,
+            share_input_output_embed=c.share_decoder_input_output_embed, device=device,
         )
         self.embed_scale = 1.0 if c.no_scale_embedding else math.sqrt(c.encoder_embed_dim)
 

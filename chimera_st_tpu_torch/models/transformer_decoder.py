@@ -60,9 +60,10 @@ class TransformerDecoder(nn.Module):
                  activation_dropout: float = 0.0, learned_pos: bool = False,
                  layernorm_embedding: bool = False, share_input_output_embed: bool = True,
                  cross_attention: bool = True, embed_tokens: Optional[nn.Module] = None,
-                 output_layer: bool = True, causal: bool = True, device="cuda"):
+                 output_layer: bool = True, causal: bool = True, pipeline=None, device="cuda"):
         super().__init__()
         self.causal = causal
+        self.pipeline = pipeline  # parallel/pipeline.py pipeline_config, or None
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.padding_idx = padding_idx
         self.dropout = dropout
@@ -132,9 +133,31 @@ class TransformerDecoder(nn.Module):
         pad_mask = prev_output_tokens == self.padding_idx
         x = self._embed(prev_output_tokens, pad_mask)
         x = dropout(x, self.dropout if self.training else 0.0, generator)
-        for layer in self.layers:
-            x = layer(x, encoder_out, encoder_padding_mask, pad_mask, generator)
+        piped = self._pipelined(x, pad_mask, encoder_out, encoder_padding_mask)
+        if piped is not None:
+            x = piped
+        else:  # no pipeline, or a batch that does not divide into its chunks
+            for layer in self.layers:
+                x = layer(x, encoder_out, encoder_padding_mask, pad_mask, generator)
         return self._features(x) if features_only else self._output(x)
+
+    def _pipelined(self, x, pad_mask, encoder_out, encoder_padding_mask):
+        """The layer stack through the GPipe schedule (JAX
+        ``transformer_decoder.py:222-260``): the encoder states and their
+        mask ride along as each micro-batch's side inputs."""
+        if self.pipeline is None:
+            return None
+        from ..parallel.pipeline import pipelined_modules
+
+        if encoder_out is None:
+            return pipelined_modules(self.layers, lambda layer, h, m: layer(h, None, None, m),
+                                     x, (pad_mask,), self.pipeline)
+        if encoder_padding_mask is None:
+            encoder_padding_mask = torch.zeros(encoder_out.shape[:2], dtype=torch.bool,
+                                               device=encoder_out.device)
+        return pipelined_modules(
+            self.layers, lambda layer, h, m, enc, enc_mask: layer(h, enc, enc_mask, m),
+            x, (pad_mask, encoder_out, encoder_padding_mask), self.pipeline)
 
     def precompute_encoder_kv(self, encoder_out: torch.Tensor):
         """Per layer (k, v) [B, S, H, D] of the cross-attention, projected

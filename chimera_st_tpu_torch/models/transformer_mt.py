@@ -25,8 +25,10 @@ input embedding from characters (``CharacterTokenEmbedder``, its spelling
 table ``word_to_char`` injected by the task, never saved) with an untied
 output projection.
 
-A field the port cannot honour raises instead of being dropped:
-``pipeline_stages`` above 1 (ROADMAP A12).
+With ``pipeline_stages`` above 1 (``--pipeline-stages``, given the rank
+grid as ``pipeline_mesh``) the encoder's and the decoder's layer stacks
+run the GPipe schedule of ``parallel/pipeline.py`` in the teacher-forced
+forward, as the JAX models do; the decode steps run the layers in turn.
 ``share_all_embeddings`` is declared and not honoured, in the JAX package
 as here: the source and target embeddings stay two tables (ROADMAP C).
 """
@@ -106,20 +108,15 @@ class TransformerLMConfig:
     pipeline_remat: bool = False
 
 
-def _refuse(cfg) -> None:
-    """Raises for a field whose mode the port lacks."""
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError("pipeline_stages above 1 is not ported yet (ROADMAP A12)")
-
-
 class TextEncoder(nn.Module):
     """The fairseq ``encoder`` submodule, and its forward: the MT
     transformer's encoder, and one language group of the multilingual
     model's (JAX ``multilingual_transformer.py:63``)."""
 
-    def __init__(self, c: TransformerMTConfig, device):
+    def __init__(self, c: TransformerMTConfig, device, pipeline=None):
         super().__init__()
         self.cfg = c
+        self.pipeline = pipeline
         self.embed_tokens = Embed(c.src_vocab_size, c.encoder_embed_dim,
                                   padding_idx=c.padding_idx, device=device)
         if c.learned_pos:  # the JAX model sizes it by max_target_positions
@@ -152,8 +149,17 @@ class TextEncoder(nn.Module):
         if c.layernorm_embedding:
             x = self.layernorm_embedding(x)
         x = dropout(x, c.dropout if self.training else 0.0, generator)
-        for layer in self.layers:
-            x = layer(x, pad_mask, generator)
+        piped = None
+        if self.pipeline is not None:
+            from ..parallel.pipeline import pipelined_modules
+
+            piped = pipelined_modules(self.layers, lambda layer, h, m: layer(h, m), x,
+                                      (pad_mask,), self.pipeline)
+        if piped is not None:
+            x = piped
+        else:  # no pipeline, or a batch that does not divide into its chunks
+            for layer in self.layers:
+                x = layer(x, pad_mask, generator)
         if c.encoder_normalize_before:
             x = self.layer_norm(x)
         return x, pad_mask
@@ -164,11 +170,13 @@ class TransformerModel(nn.Module):
     every dropout of the JAX model acts, its masks drawn from the
     ``generator`` each forward takes."""
 
-    def __init__(self, cfg: TransformerMTConfig, device="cuda"):
+    def __init__(self, cfg: TransformerMTConfig, device="cuda", pipeline_mesh=None):
         super().__init__()
-        _refuse(cfg)
+        from ..parallel.pipeline import pipeline_config
+
         self.cfg = c = cfg
-        self.encoder = TextEncoder(cfg, device)
+        pipeline = pipeline_config(c, pipeline_mesh)
+        self.encoder = TextEncoder(cfg, device, pipeline)
         self.decoder = TransformerDecoder(
             c.tgt_vocab_size, c.decoder_embed_dim, c.decoder_ffn_dim, c.decoder_layers,
             c.decoder_heads, c.activation, c.decoder_normalize_before, c.padding_idx,
@@ -176,7 +184,7 @@ class TransformerModel(nn.Module):
             c.activation_dropout, learned_pos=c.learned_pos,
             layernorm_embedding=c.layernorm_embedding,
             share_input_output_embed=c.share_decoder_input_output_embed, causal=c.decoder_causal,
-            device=device,
+            pipeline=pipeline, device=device,
         )
 
     def encode(self, src_tokens: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -212,9 +220,11 @@ class TransformerLM(nn.Module):
     cross-attention. ``forward`` is causal (no kernel); ``step_log_probs``
     is the cached beam step of shallow fusion (K3 once a layer)."""
 
-    def __init__(self, cfg: TransformerLMConfig, device="cuda", word_to_char=None):
+    def __init__(self, cfg: TransformerLMConfig, device="cuda", word_to_char=None,
+                 pipeline_mesh=None):
         super().__init__()
-        _refuse(cfg)
+        from ..parallel.pipeline import pipeline_config
+
         self.cfg = c = cfg
         embed_tokens = None
         if c.character_embeddings:
@@ -232,7 +242,7 @@ class TransformerLM(nn.Module):
             c.normalize_before, c.padding_idx, False, c.max_target_positions, c.dropout,
             c.attention_dropout, c.activation_dropout, cross_attention=False,
             embed_tokens=embed_tokens, output_layer=not c.adaptive_softmax_cutoffs,
-            device=device,
+            pipeline=pipeline_config(c, pipeline_mesh), device=device,
         )
         if c.adaptive_softmax_cutoffs:
             from .adaptive_softmax import AdaptiveSoftmax
@@ -288,15 +298,25 @@ def preset(**defaults):
 
 
 def build_transformer(cfg_dict: Dict, device="cuda") -> TransformerModel:
-    return TransformerModel(_config(TransformerMTConfig, cfg_dict), device=device)
+    d = dict(cfg_dict)
+    mesh = d.pop("pipeline_mesh", None)  # the run's rank grid, never saved
+    cfg = _config(TransformerMTConfig, d)
+    if cfg.pipeline_stages > 1 and (cfg.encoder_layers % cfg.pipeline_stages
+                                    or cfg.decoder_layers % cfg.pipeline_stages):
+        raise ValueError("encoder_layers and decoder_layers must divide into pipeline_stages "
+                         "(uniform balance)")
+    return TransformerModel(cfg, device=device, pipeline_mesh=mesh)
 
 
 def build_transformer_lm(cfg_dict: Dict, device="cuda") -> TransformerLM:
     d = dict(cfg_dict)
     d.setdefault("vocab_size", d.pop("tgt_vocab_size", 8))
+    mesh = d.pop("pipeline_mesh", None)
     word_to_char = d.pop("word_to_char", None)  # injected by the task, never saved
-    return TransformerLM(_config(TransformerLMConfig, d), device=device,
-                         word_to_char=word_to_char)
+    cfg = _config(TransformerLMConfig, d)
+    if cfg.pipeline_stages > 1 and cfg.layers % cfg.pipeline_stages:
+        raise ValueError("layers must divide into pipeline_stages (uniform balance)")
+    return TransformerLM(cfg, device=device, word_to_char=word_to_char, pipeline_mesh=mesh)
 
 
 # ---- presets (JAX transformer_mt.py:392-566; reference fairseq

@@ -420,7 +420,7 @@ class Optimizer:
         leaves copied to the host once."""
         from ..convert import optimizer_state_to_optax
 
-        fields, count = self._fields(model)
+        fields, count = _gathered(model, *self._fields(model))
         return optimizer_state_to_optax(self.layout, fields, count, schedule_count,
                                         **self._optax_options(model))
 
@@ -433,7 +433,7 @@ class Optimizer:
         from ..convert import optimizer_state_from_optax, optimizer_state_to_optax
 
         options = self._optax_options(model)
-        fields, _ = self._fields(model)
+        fields, _ = _gathered(model, *self._fields(model))
         template = optimizer_state_to_optax(self.layout, fields, 0, 0, **options)
         masked = any(f is None for f in fields.values())
         return optimizer_state_from_optax(tree, template, self.layout, masked=masked, **options)
@@ -442,7 +442,10 @@ class Optimizer:
         """Restores the state from an optax tree of this optimizer's layout
         (ValueError otherwise, leaving the state as it was); returns the
         schedule's count."""
+        from ..parallel.partition import shard_state_dict
+
         got, count, schedule_count = self.read_optax(tree, model)
+        got = {f: shard_state_dict(model, by_name) for f, by_name in got.items()}
         named = dict(model.named_parameters())
         trained = {id(p) for p in self._trained()}
         o = self.optimizer
@@ -461,6 +464,24 @@ class Optimizer:
                                   "exp_avg": got["mu"][name].to(p.device),
                                   "exp_avg_sq": got["nu"][name].to(p.device)}
         return schedule_count
+
+
+def _gathered(model: torch.nn.Module, fields: Dict[str, Any], count: int):
+    """The fields of a tensor-parallel model's shards gathered over its
+    ``model`` ranks (collective), as the whole model's."""
+    split = getattr(model, "tp_split", {})
+    if not split:
+        return fields, count
+    from ..parallel.partition import gather_state_dict
+
+    out = dict(fields)
+    for name in split:
+        if fields.get(name) is None:
+            continue
+        f = fields[name]
+        out[name] = {k: gather_state_dict(model, {name: torch.from_numpy(v).to(
+            next(model.parameters()).device)})[name].cpu().numpy() for k, v in f.items()}
+    return out, count
 
 
 def build_optimizer(cfg: Dict, params: Iterable[torch.nn.Parameter],

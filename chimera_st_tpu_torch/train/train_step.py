@@ -27,6 +27,17 @@ A joint task's micro-batch carries its ``task_name``, which reaches the
 criterion with the batch (its dispatch); one update may mix sub-tasks,
 whose sample sizes add and whose logged keys are the union of theirs.
 
+Over several ranks (``mesh``, parallel/mesh.py) every rank is given the
+same global micro-batches and takes its data rank's part
+(``parallel.partition.shard_batch``); the summed gradients are all-reduced
+over the ``data`` ranks in buckets while the last backward runs
+(``parallel.reducer.GradientReducer``), and the sample sizes and logged
+sums in one all-reduce on the device, so the update is normalised by the
+global sample size and logs the global batch's values, as the JAX
+package's one SPMD program does, with no host read before ``collect``.
+The global norm counts a tensor-parallel shard's share once from each
+``model`` rank.
+
 The learning rate of an update is the schedule at the number of updates
 applied before it (optax evaluates it at its count before incrementing),
 in fp32 as optax's schedule gives it.
@@ -37,7 +48,7 @@ a JAX gradient tree has one, so Adam decays its moments as optax does.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,10 +93,17 @@ def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 def microbatch_grad(model, criterion: Callable, batch: Dict[str, Any],
                     generator: Optional[torch.Generator] = None,
-                    num_updates: Optional[int] = None) -> Tuple[float, Dict[str, Any]]:
+                    num_updates: Optional[int] = None,
+                    weight: float = 1.0) -> Tuple[float, Dict[str, Any]]:
     """The criterion's loss on one prepared micro-batch, back-propagated
-    into the parameters' ``.grad`` -> (sample size, logging)."""
+    into the parameters' ``.grad`` -> (sample size, logging); ``weight``
+    scales all three (a batch that every data rank keeps whole)."""
     loss, sample_size, logging = criterion(model, batch, generator, num_updates)
+    if weight != 1.0:
+        loss = loss * weight
+        sample_size = sample_size * weight
+        logging = {k: v * weight if isinstance(v, (int, float, torch.Tensor))
+                   and not isinstance(v, bool) else v for k, v in logging.items()}
     loss.backward()
     return sample_size, {k: v.detach() if torch.is_tensor(v) else v for k, v in logging.items()}
 
@@ -109,16 +127,27 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def apply_gradients(params: Sequence[torch.nn.Parameter], optimizer: Optimizer,
-                    lr: torch.Tensor, sample_size: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    lr: torch.Tensor, sample_size: Union[float, torch.Tensor],
+                    sharded: Optional[torch.Tensor] = None,
+                    model_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalise the summed gradients by the total sample size, take their
     global norm and one optimizer update at ``lr``, which the optimizer
     skips on the device where the norm is not finite -> (the global norm,
-    whether it is finite, each gradient's norm), on the device."""
+    whether it is finite, each gradient's norm), on the device. ``sharded``
+    marks the tensor-parallel shards, whose squared norms are summed over
+    ``model_group``."""
     grads = [p.grad for p in params]
-    denom = max(float(sample_size), 1.0)
+    denom = (sample_size.clamp(min=1.0) if torch.is_tensor(sample_size)
+             else max(float(sample_size), 1.0))
     for g in grads:
         g.div_(denom)
     norms = tensor_norms(grads)
+    if sharded is not None and model_group is not None:
+        import torch.distributed as dist
+
+        sq = torch.where(sharded, norms.square(), torch.zeros_like(norms))
+        dist.all_reduce(sq, group=model_group)
+        norms = torch.where(sharded, sq.sqrt(), norms)
     g_norm = torch.linalg.vector_norm(norms)
     finite = torch.isfinite(g_norm)
     optimizer.step(lr, g_norm, skip=~finite)
@@ -136,7 +165,7 @@ class TrainStep:
 
     def __init__(self, model, criterion: Callable, optimizer: Optimizer,
                  lr_schedule: Callable[[int], float], compute_dtype=torch.bfloat16,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None, pad: Optional[int] = None):
         self.model, self.criterion, self.optimizer = model, criterion, optimizer
         self.lr_schedule = lr_schedule
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -145,6 +174,19 @@ class TrainStep:
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.num_updates = 0
+        # several ranks: the batch split, the gradients' all-reduce
+        self.mesh, self.pad = mesh, pad
+        self.data_group = None if mesh is None else mesh.group("data")
+        split = getattr(model, "tp_split", {})
+        self.model_group = mesh.group("model") if split and mesh is not None else None
+        ids = {id(p) for n, p in model.named_parameters() if n in split}
+        self.sharded = torch.tensor([id(p) in ids for p in self.params], device=self.device) \
+            if split else None
+        self.reducer = None
+        if self.data_group is not None:
+            from ..parallel.reducer import GradientReducer
+
+            self.reducer = GradientReducer(self.params, self.data_group)
 
     @property
     def num_updates(self) -> int:
@@ -174,33 +216,70 @@ class TrainStep:
         if seed is None:
             seed = self.seed + self.num_updates
         self.model.train()
-        self.optimizer.optimizer.zero_grad(set_to_none=True)
-        for p in self.optimizer.frozen:
+        for p in self.model.parameters():  # trained and frozen
             p.grad = None
+        micro_batches = list(micro_batches)
+        if self.reducer is not None:
+            self.reducer.attach()
         sample_size, totals = 0.0, {}
         for i, batch in enumerate(micro_batches):
             self.generator.manual_seed(microbatch_seed(seed, i))
+            weight = 1.0
+            if self.mesh is not None:
+                from ..parallel.partition import shard_batch
+
+                batch, weight = shard_batch(batch, self.mesh, self.pad)
+            if self.reducer is not None and i == len(micro_batches) - 1:
+                self.reducer.arm()
             batch = prepare_batch(batch, self.device)
             with self.autocast():
                 ss, logging = microbatch_grad(self.model, self.criterion, batch,
-                                              self.generator, self.count)
+                                              self.generator, self.count, weight)
             sample_size += float(ss)
             for k, v in logging.items():
                 totals[k] = totals[k] + v if k in totals else v
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.reducer is not None:
+            self.reducer.finish()
+            sample_size, totals = self._all_reduce_sums(sample_size, totals)
         lr = torch.as_tensor(self.lr_schedule(self.count), dtype=torch.float32,
                              device=self.device)
-        g_norm, finite, norms = apply_gradients(self.params, self.optimizer, lr, sample_size)
+        g_norm, finite, norms = apply_gradients(self.params, self.optimizer, lr, sample_size,
+                                                self.sharded, self.model_group)
         self.count = self.count + finite
         self._num_updates += 1
         on_device = [k for k, v in totals.items() if torch.is_tensor(v)]
-        values = torch.stack([g_norm, finite.float(), lr,
-                              *(totals[k].detach().float() for k in on_device)])
+        values = torch.stack([g_norm.double(), finite.double(), lr.double(),
+                              *(totals[k].detach().double() for k in on_device)])
         return {"values": values, "keys": on_device, "norms": norms,
                 "sample_size_total": sample_size,
                 "host": {k: float(v) for k, v in totals.items() if not torch.is_tensor(v)}}
+
+    def _all_reduce_sums(self, sample_size: float, totals: Dict[str, Any]):
+        """The sample size and the logged sums, summed over the data ranks
+        in one all-reduce on the device -> (the sample size, the sums), as
+        fp64 tensors on the device (a logged tensor keeps its dtype)."""
+        import torch.distributed as dist
+
+        keys = sorted(k for k, v in totals.items()
+                      if isinstance(v, (int, float, torch.Tensor)) and not isinstance(v, bool))
+        host = [k for k in keys if not torch.is_tensor(totals[k])]
+        on_host = torch.tensor([float(sample_size)] + [float(totals[k]) for k in host],
+                               dtype=torch.float64)
+        if self.device.type == "cuda":
+            on_host = on_host.pin_memory()
+        sums = torch.cat([on_host.to(self.device, non_blocking=True)]
+                         + [totals[k].detach().double().reshape(1) for k in keys
+                            if k not in host])
+        dist.all_reduce(sums, group=self.data_group)
+        out = dict(totals)
+        for j, k in enumerate(host):
+            out[k] = sums[1 + j]
+        for j, k in enumerate([k for k in keys if k not in host]):
+            out[k] = sums[1 + len(host) + j].to(totals[k].dtype)
+        return sums[0], out
 
     def collect(self, pending: Dict[str, Any]) -> Dict[str, float]:
         """The metrics of a dispatched update, read from the device;
@@ -212,7 +291,7 @@ class TrainStep:
             self._num_updates -= 1
         metrics = dict(pending["host"])
         metrics.update(zip(pending["keys"], values[3:]))
-        metrics.update(gnorm=values[0], sample_size_total=pending["sample_size_total"],
+        metrics.update(gnorm=values[0], sample_size_total=float(pending["sample_size_total"]),
                        nonfinite_grad=0.0 if finite else 1.0, lr=values[2])
         if not finite:
             names = [n for n, p in self.model.named_parameters() if p.requires_grad]

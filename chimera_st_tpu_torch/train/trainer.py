@@ -30,14 +30,18 @@ of chimera_st_tpu/train/trainer.py).
   parameters and optimizer state as the JAX checkpoint's trees, through
   the converter table of its type (``convert.model_kind``: the interlingua
   model, ``transformer``, ``transformer_lm`` or ``transformer_lm_char``) and
-  the optimizer's optax layout (``convert.OPTAX_CHAINS``).
+  the optimizer's optax layout (``convert.OPTAX_CHAINS``). Under tensor
+  parallelism the shards are gathered over the ``model`` ranks on save and
+  split again on load (collectives: every rank calls them; the lead rank
+  writes).
+- ``mesh`` (several ranks): ``TrainStep``'s batch split and all-reduce.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,10 +55,12 @@ logger = logging.getLogger(__name__)
 
 class Trainer:
     def __init__(self, model, criterion: Callable, optimizer, lr_schedule: Callable[[int], float],
-                 compute_dtype=torch.bfloat16, async_depth: int = 0):
+                 compute_dtype=torch.bfloat16, async_depth: int = 0, mesh=None,
+                 pad: Optional[int] = None):
         self.model, self.criterion, self.optimizer = model, criterion, optimizer
         self.lr_schedule = lr_schedule
-        self.step = TrainStep(model, criterion, optimizer, lr_schedule, compute_dtype)
+        self.step = TrainStep(model, criterion, optimizer, lr_schedule, compute_dtype,
+                              mesh=mesh, pad=pad)
         self.cumulative_training_time = 0.0
         self.async_depth = int(async_depth)
         self._deferred: List[Dict[str, Any]] = []
@@ -155,16 +161,21 @@ class Trainer:
         """Parameters and (unless not wanted) optimizer state as the JAX
         checkpoint's trees, copied to the host once."""
         from ..convert import model_kind, params_to_flax
+        from ..parallel.partition import gather_state_dict
 
-        params = params_to_flax(self.model.state_dict(), model_kind(self.model))
+        params = params_to_flax(gather_state_dict(self.model, self.model.state_dict()),
+                                model_kind(self.model))
         opt = self.optimizer.state_to_optax(self.model, self.num_updates) if save_optimizer \
             else None
         return TrainState(self.num_updates, params, opt)
 
     def load_params(self, tree: Dict[str, Any]) -> None:
         from ..convert import model_kind, params_from_flax
+        from ..parallel.partition import shard_state_dict
 
-        self.model.load_state_dict(params_from_flax(tree, model_kind(self.model)), strict=True)
+        self.model.load_state_dict(
+            shard_state_dict(self.model, params_from_flax(tree, model_kind(self.model))),
+            strict=True)
 
     def load_opt_state(self, tree: Dict[str, Any]) -> None:
         self.optimizer.load_optax(tree, self.model)

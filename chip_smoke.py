@@ -19,7 +19,8 @@ RoBERTa served through its hub and pre-trained, BERT's legacy objective,
 XLM's cross-lingual one and the XLM-initialised translation model, the
 xlm preset at head dim 80, and the convolutional and recurrent zoo
 (fconv, lightconv / dynamicconv, the LSTMs, s2t_berard, the benchmark and
-tutorial tasks).
+tutorial tasks), the untied output projection, GPT-2, the stacked pipeline
+LM, quantization and a world of one over NCCL.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -83,8 +84,9 @@ Phases (any failure raises and the script exits non-zero):
              heads of 64, 12 x 256 shared encoder at 4 heads, 6-layer
              decoder; vocabularies of 10,000), as the flagship: fp32 card vs
              CPU token-identical, then 3 bf16 batches of 8 with exact
-             launches a batch (K1 24, K2 6, K3 384) and one more batch under
-             torch.profiler (the device's busy share). In the CLI phases
+             launches a batch (K1 24, K2 6, K3 384); its batch under
+             torch.profiler was cut for the time limit (its busy share: the
+             earlier runs in PERF.md). In the CLI phases
              (w2v2_st_cli) the same weights as a native .ckpt in the JAX
              trainer's layout go through cli.generate in bf16 on the 24
              wavs (K1 24 and K2 6 a batch, K3 6 a decoder step).
@@ -273,7 +275,7 @@ Phases (any failure raises and the script exits non-zero):
              warm-up cut to 4, bf16, BLEU validation as the checkpoint
              metric (scored by sacrebleu, or where it is not installed by
              a stand-in module of the same formula): run A to update 10,
-             run B resumed to 20 under --profile; then cli.validate of the
+             run B resumed to 12 under --profile; then cli.validate of the
              checkpoint without --arch, cli.generate from it, and one
              accumulated step at full width in fp32 on the card and on the
              CPU (mt_parity's gates). Exact launches: K1 6 a training
@@ -301,15 +303,15 @@ Phases (any failure raises and the script exits non-zero):
              valid splits, 48 seeded MT pairs over the same dictionaries at
              sample ratio 0.5 and weight 0.5) --main-task st, the flagship at
              full width with train_cli's recipe flags, bf16, micro-batches of
-             8, 2 an update: run A to 6 updates, run B resumed to 10 under
-             --profile, each validating the ST sub-task and saving at its
-             end; cli.generate --task triplet of the checkpoint; one fp32
+             8, 2 an update: run A to 6 updates, run B resumed to 8 (its
+             --profile cut for the time limit), each validating the ST
+             sub-task and saving at its end; cli.generate --task triplet of the checkpoint; one fp32
              update of an ST and an MT micro-batch card vs CPU (train_parity's
              gates). Exact launches: K2 6 on each ST micro-batch and 0 on an
              MT one, K1 0 in training, 36 (and K2 6) a validation batch; the
              decode K1 24 / K2 6 a batch, K3 6 a step. Prints
              {"joint_train": {...}} (updates/s, audio s/s and target tokens/s
-             after run A's first update, peak memory, busy share of run B).
+             after run A's first update, peak memory).
 10a. optimizers and the adaptive LM - optim_sweep: cli.train --arch
              transformer (1 + 1 layers) on family_train's data for each of the eight
              optimizers and, under adam, each of the five other schedules
@@ -497,13 +499,38 @@ Phases (any failure raises and the script exits non-zero):
              exact: none but K1 in dummy_mt's encoder and K4 in berard's.
              zoo_shapes (after xlm_shapes): K1 at every shape the zoo
              launched, bf16 and fp32.
-16. report - one JSON line {"kernels": [...]} ("launches" sums the driven
+16. untied, gpt2, pipe_lm, quant; dist1 - untied: the CLI fixture's
+             flagship with an output projection of its own as a fairseq .pt
+             (share_decoder_input_output_embed False in its args):
+             cli.generate fp32 card vs CPU on 4 wavs (identical), then bf16
+             with the counts exact (K2, K1, K3); an untied
+             s2t_transformer_s through compute_fbank (K4 held on its batch,
+             fp32 card vs CPU beam 5 identical, bf16 counts exact: K4, K1,
+             K3). gpt2: hf_gpt2 at full width and depth, 2 bf16 updates
+             through cli.train --task language_modeling on the family's LM
+             stream at 1,024 tokens a sample; hf_gpt2_xl at full width and
+             depth, one bf16 TrainStep update of 2 x 1,024 tokens and its
+             peak memory; an HF-named xl state dict at 2 layers, fp32 card
+             vs CPU. pipe_lm: a transformer_lm checkpoint stacked into
+             transformer_lm_pipe (logits on the card equal to the plain
+             LM's), 2 bf16 updates through cli.train, unstacked and scored
+             by eval_lm. quant: scalar fake quantization of the flagship's
+             state dict bit-equal card vs CPU; PQ on the card, two matrices
+             against the CPU from the same initial centroids. dist1 (inside
+             train_cli): a world of one over NCCL, cli.train with
+             --zero-sharding os at run A's settings, (loss, gnorm) equal to
+             run A's, and a sharded cli.generate equal to one process: the
+             wiring and NCCL on the card, not several ranks' numbers. No
+             kernel in gpt2, pipe_lm or quant (causal attention is the
+             plain path, as in JAX). a12_shapes (last of the shape
+             groups): K1-K3 at every shape untied and dist1 launched.
+17. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
              optim_sweep's, nat_serve's, nat_train's, bart_serve's,
              bart_train's, the wav2vec phases', the masked-LM
-             phases' and the xlm and zoo phases'; K3's record holds its times at the search modes'
+             phases', the xlm and zoo phases' and this slice's; K3's record holds its times at the search modes'
              ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -511,7 +538,7 @@ Phases (any failure raises and the script exits non-zero):
 With --kernels-of DIR the script only builds the package of the tree under
 DIR and runs phase 3's K3 and K4 cases on it (what --parent starts).
 
-With --profile, each serve phase ends with one more served batch under
+With --profile, each serve phase (w2v2_st's too) ends with one more served batch under
 torch.profiler (after the launch counts are read): the device's busy share
 and the device time by kernel; cli_serve runs its command once more with
 the CLI's --profile; train and mt_cli profile one more update. The busy
@@ -1336,7 +1363,8 @@ def fairseq_state_dict(torch, model):
     w = sd.pop(key + "weight")
     sd[key + "weight_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
     sd[key + "weight_v"] = 0.5 * w
-    sd["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"]
+    # tied: the alias of the embedding; untied: the model's own projection
+    sd.setdefault("decoder.output_projection.weight", sd["decoder.embed_tokens.weight"])
     dim = model.cfg.w2v2_embed_dim
     sd["encoder.wav2vec_model.mask_emb"] = torch.rand(dim)
     sd["encoder.wav2vec_model.final_proj.weight"] = torch.zeros(256, dim)
@@ -1388,12 +1416,28 @@ def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int
 
     model = init_params_(ChimeraInterlinguaModel(cfg, device="cpu"),
                          torch.Generator().manual_seed(seed)).eval()
+    ckpt = root / "chimera_seeded.pt"
+    torch.save({"args": fixture_args(cfg, conv_feature_layers),
+                "model": fairseq_state_dict(torch, model)}, str(ckpt))
+    log(f"fixture: {CLI_WAVS} wavs, {sum(r[2] for r in rows) / 16000:.1f} s of audio, "
+        f"dictionaries of 10000, {ckpt.name} {ckpt.stat().st_size / 1e6:.0f} MB "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    return dict(root=root, ckpt=ckpt, model=model, ids=[r[0] for r in rows],
+                conv_feature_layers=conv_feature_layers)
+
+
+def fixture_args(cfg, conv_feature_layers: str):
+    """The ``args`` Namespace of a fairseq fine-tune checkpoint of the
+    interlingua model ``cfg``, the trunk's dimensions nested under
+    ``w2v_args`` as a released checkpoint has them."""
+    from argparse import Namespace
+
     w2v_args = Namespace(
         encoder_embed_dim=cfg.w2v2_embed_dim, encoder_ffn_embed_dim=cfg.w2v2_ffn_dim,
         encoder_layers=cfg.w2v2_layers, encoder_attention_heads=cfg.w2v2_heads,
         conv_pos=cfg.w2v2_conv_pos, conv_pos_groups=cfg.w2v2_conv_pos_groups,
         conv_feature_layers=conv_feature_layers, extractor_mode="default", conv_bias=False)
-    ckpt_args = Namespace(
+    return Namespace(
         arch="s2t_transformer_w2v2_interlingua_base", encoder_embed_dim=cfg.encoder_embed_dim,
         encoder_ffn_embed_dim=cfg.encoder_ffn_dim, encoder_layers=cfg.encoder_layers,
         encoder_attention_heads=cfg.encoder_heads, decoder_embed_dim=cfg.decoder_embed_dim,
@@ -1402,14 +1446,8 @@ def make_cli_fixture(torch, root: Path, cfg, conv_feature_layers: str, seed: int
         interlingua_layers=cfg.interlingua_layers,
         conv_kernel_sizes=",".join(map(str, cfg.conv_kernel_sizes)),
         conv_channels=cfg.conv_channels, activation_fn=cfg.activation,
-        share_decoder_input_output_embed=True, max_target_positions=cfg.max_target_positions,
-        w2v_args=w2v_args)
-    ckpt = root / "chimera_seeded.pt"
-    torch.save({"args": ckpt_args, "model": fairseq_state_dict(torch, model)}, str(ckpt))
-    log(f"fixture: {CLI_WAVS} wavs, {sum(r[2] for r in rows) / 16000:.1f} s of audio, "
-        f"dictionaries of 10000, {ckpt.name} {ckpt.stat().st_size / 1e6:.0f} MB "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
-    return dict(root=root, ckpt=ckpt, model=model, ids=[r[0] for r in rows])
+        share_decoder_input_output_embed=cfg.share_decoder_input_output_embed,
+        max_target_positions=cfg.max_target_positions, w2v_args=w2v_args)
 
 
 @contextlib.contextmanager
@@ -1901,12 +1939,13 @@ def train_cli_argv(fx, w2v2: Path, save_dir: Path, max_update: int):
             "--valid-subset", "tst_wave", "--async-dispatch", "0"]
 
 
-def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
+def phase_train_cli(torch, fx, work: Path, kernels, train_rec, dist1=None):
     """The train CLI in-process at the recipe's model and settings: run A
     from a fresh start (seeded init, the trunk from a seeded fairseq-layout
     wav2vec2 .pt) to 2 updates, run B resumed from A's checkpoint_last to
     3 (cut from 4 for the script's time limit), then the generate CLI on
-    B's checkpoint_best.
+    B's checkpoint_best; then ``dist1(w2v2 .pt, run A's (loss, gnorm) list)``,
+    where given, whose launches it returns third.
 
     Launch counts (zeroed before each run, read after): a training
     micro-batch runs K2 6 times and K1 never (attention dropout 0.1 takes
@@ -1943,8 +1982,11 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
         for fn in kernels:
             fn.launches = 0
         t0 = time.perf_counter()
-        out = train.main(train_cli_argv(fx, w2v2, save_dir, max_update))
+        with recorded_updates() as updates:
+            out = train.main(train_cli_argv(fx, w2v2, save_dir, max_update))
         torch.cuda.synchronize()
+        if label == "A":
+            losses_a = updates
         counts[label] = {fn.__name__: fn.launches for fn in kernels}
         runs[label] = out
         t = out["times"]
@@ -2049,10 +2091,11 @@ def phase_train_cli(torch, fx, work: Path, kernels, train_rec):
         f" (the train phase, from Python: {train_rec['updates_per_s']:.3f}); a checkpoint "
         f"{size / 1e9:.2f} GB written in {rec['save_s']}; resume load "
         f"{rec['resume_load_s']:.2f} s; peak memory {peak / 1e9:.2f} GB")
-    shutil.rmtree(base)
     print(json.dumps({"train_cli": rec}), flush=True)
+    dist1_counts = dist1(w2v2, losses_a) if dist1 is not None else {}
+    shutil.rmtree(base)
     train_counts = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
-    return train_counts, counts["decode"]
+    return train_counts, counts["decode"], dist1_counts
 
 
 # ---- the MT stage: the translation task at the recipe's operating point
@@ -3710,7 +3753,8 @@ def family_step_parity(torch, label, task, model_cfg, crit_cfg, micro, opt_cfg=N
 
 
 FAMILY_TRAIN_PAIRS = 1600  # about 30 updates an epoch at --max-tokens 4096
-FAMILY_TRAIN_UPDATES = (10, 20)  # run A to 10, run B resumed to 20
+FAMILY_TRAIN_UPDATES = (10, 12)  # run A to 10, run B resumed to 12 (cut from 20 for the
+# script's time limit)
 FAMILY_TRAIN_MODEL = {"arch": "transformer"}  # 512 / 2048 / 8 heads, 6 + 6 layers
 LM_TRAIN_MODEL = {"arch": "transformer_lm_gpt"}  # 12 x 768, 12 heads, GELU
 
@@ -3765,7 +3809,7 @@ def phase_family_train(torch, fx, kernels):
     heads, 6 + 6 layers, attention dropout 0: K1 forward in each encoder
     layer of every micro-batch, with the plain backward) on the seeded
     family text, bf16: run A to update 10 (a save and BLEU validation there,
-    and at the stop), run B resumed from A's checkpoint_last to update 20
+    and at the stop), run B resumed from A's checkpoint_last to update 12
     under ``--profile``; then ``cli.validate`` on B's checkpoint without
     ``--arch`` (the stored arch is kept), ``cli.generate`` from it, and the
     fp32 card-vs-CPU parity of one accumulated step. Launches exact: K1 6 a
@@ -4166,7 +4210,7 @@ def phase_joint_train(torch, fx, work: Path, kernels):
     on the flagship at full width with train_cli's recipe flags and cuts,
     bf16, micro-batches of 8, 2 an update: run A from a fresh start to
     update 6 (two epochs of 3 ST and 3 MT micro-batches), run B resumed from
-    A's checkpoint_last to 10 under --profile, each validating the ST
+    A's checkpoint_last to 8, each validating the ST
     sub-task and saving at its end; then cli.generate --task triplet of B's
     checkpoint_best, and the fp32 card-vs-CPU parity of one update mixing an
     ST and an MT micro-batch. Launches exact (zeroed before each run, read
@@ -4199,13 +4243,11 @@ def phase_joint_train(torch, fx, work: Path, kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs, counts = {}, {}
-    trace_dir = base / "trace"
     for label, max_update in zip("AB", JOINT_UPDATES):
         for fn in kernels:
             fn.launches = 0
-        extra = ["--profile", str(trace_dir)] if label == "B" else []
         t0 = time.perf_counter()
-        out = train.main(joint_argv(fx, jfx, w2v2, save_dir, max_update, extra))
+        out = train.main(joint_argv(fx, jfx, w2v2, save_dir, max_update))
         torch.cuda.synchronize()
         counts[label] = {fn.__name__: fn.launches for fn in kernels}
         t = out["times"]
@@ -4238,7 +4280,6 @@ def phase_joint_train(torch, fx, work: Path, kernels):
     size = (save_dir / "checkpoint_last.ckpt").stat().st_size
     del payload
     peak = torch.cuda.max_memory_allocated()
-    busy = trace_busy(trace_dir / "trace.json")
     # the rates after run A's first update, from each update's seconds
     # (validations and saves excluded)
     timed, secs = a["ran"][1:], a["times"]["update_s"][1:]
@@ -4252,11 +4293,10 @@ def phase_joint_train(torch, fx, work: Path, kernels):
            "resume_load_s": b["times"]["load_s"],
            "valid_s": a["times"]["valid_s"] + b["times"]["valid_s"],
            "valid_st_loss": a["times"]["valid"] + b["times"]["valid"],
-           "peak_memory_gb": peak / 1e9, "profile_run_b": busy, "launches": counts}
+           "peak_memory_gb": peak / 1e9, "launches": counts}
     log(f"  run A after its first update: {rate:.3f} updates/s, {audio_s:.1f} audio s/s, "
         f"{tokens_s:.0f} target tokens/s (ST and MT); peak {peak / 1e9:.2f} GB; checkpoint "
-        f"{size / 1e9:.2f} GB; run B under --profile: device busy "
-        f"{100 * busy['busy_share']:.1f} % of {busy['wall_ms'] / 1e3:.1f} s")
+        f"{size / 1e9:.2f} GB")
 
     # the written checkpoint decodes as an ST model
     for fn in kernels:
@@ -7284,6 +7324,522 @@ def phase_zoo_tasks(torch, work: Path, kernels):
     return counts
 
 
+# ---- this slice: the untied output projection (C4), GPT-2, the stacked
+# pipeline LM, quantization and a world of one over NCCL
+
+UNTIED_S2T_WAVS = 4
+GPT2_BLOCK = 1024  # the presets' n_positions
+GPT2_UPDATES = 2
+GPT2_XL_BATCH = 2  # cut only if the update does not fit; the widths never are
+
+
+def zeroed(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+def launches(kernels):
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+@contextlib.contextmanager
+def recorded_updates():
+    """While open, notes the (loss, gnorm) of every update the trainer
+    records (the train CLI's logged values)."""
+    from chimera_st_tpu_torch.train.trainer import Trainer
+
+    seen, record = [], Trainer._record_update
+
+    def noted(self, m, num_updates):
+        seen.append((float(m["loss"]), float(m["gnorm"])))
+        return record(self, m, num_updates)
+
+    Trainer._record_update = noted
+    try:
+        yield seen
+    finally:
+        Trainer._record_update = record
+
+
+def phase_untied(torch, fx, work: Path, kernels, records):
+    """C4: a fairseq ``.pt`` of the flagship (the CLI fixture's weights)
+    with an ``output_projection`` of its own and
+    ``share_decoder_input_output_embed=False`` in its args: ``cli.generate``
+    fp32 on the card vs ``--device cpu`` on the fixture's 4 ``pairs`` wavs
+    (hypotheses identical), then bf16 on the card with the counts zeroed (K1
+    24 and K2 6 a batch, K3 6 a decode step). Then an untied
+    ``s2t_transformer_s`` (``compute_fbank``, seeded) on UNTIED_S2T_WAVS
+    seeded wavs: K4 held against its plain version on the batch, fp32 card
+    vs CPU beam 5 (tokens identical), bf16 on the card with the counts
+    exact (K4 1, K1 12, K3 6 a decode step). Returns the launches; prints
+    {"untied": {...}}."""
+    import dataclasses
+
+    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+    from chimera_st_tpu_torch.models.interlingua import ChimeraInterlinguaModel
+    from chimera_st_tpu_torch.models.s2t_transformer import build_s2t_transformer
+    from chimera_st_tpu_torch.ops import logmel as lm
+    from chimera_st_tpu_torch.ops.fbank import num_frames
+
+    t_phase = time.perf_counter()
+    base = fx["model"]
+    cfg = dataclasses.replace(base.cfg, share_decoder_input_output_embed=False)
+    untied = ChimeraInterlinguaModel(cfg, device="cpu")
+    V, D = cfg.tgt_vocab_size, cfg.decoder_embed_dim
+    proj = torch.randn(V, D, generator=torch.Generator().manual_seed(61)) * D ** -0.5
+    untied.load_state_dict({**base.state_dict(), "decoder.output_projection.weight": proj})
+    path = work / "untied.pt"
+    torch.save({"args": fixture_args(cfg, fx["conv_feature_layers"]),
+                "model": fairseq_state_dict(torch, untied)}, str(path))
+    del untied
+    rec = {"pt_mb": path.stat().st_size / 1e6}
+    common = ["--batch-size", "4", "--dtype", "float32", *PARITY_DECODE]
+    gpu_text, _, gpu_s = cli_generate(fx, work / "untied_cuda", "pairs", common, path=path)
+    cpu_text, _, cpu_s = cli_generate(fx, work / "untied_cpu", "pairs",
+                                      common + ["--device", "cpu"], path=path)
+    same_hypotheses("untied flagship .pt: cli.generate fp32 card vs CPU",
+                    parse_protocol(gpu_text)[0], parse_protocol(cpu_text)[0], 4)
+    zeroed(kernels)
+    with counted_decoder_steps() as steps:
+        text, stats, wall = cli_generate(fx, work / "untied_bf16", "pairs",
+                                         ["--batch-size", "4", "--dtype", "bfloat16"], path=path)
+        torch.cuda.synchronize()
+    counts = {"untied_flagship": launches(kernels)}
+    implied = {"encoder_attention": 24, "conv_tail": 6, "decode_attention": 6 * steps[0],
+               "logmel": 0}
+    hyps, full, _ = parse_protocol(text)
+    if counts["untied_flagship"] != implied or len(full) != 4 or steps[0] == 0:
+        raise AssertionError(f"untied flagship: launches {counts['untied_flagship']} "
+                             f"(want {implied}), {len(full)} samples")
+    rec["flagship"] = dict(fp32_card_s=gpu_s, fp32_cpu_s=cpu_s, bf16_wall_s=wall,
+                           bf16_decode_s=stats["decode_s"], decode_steps=steps[0],
+                           launches=counts["untied_flagship"])
+    log(f"  untied flagship: fp32 card {gpu_s:.1f} s vs CPU {cpu_s:.1f} s, identical; bf16 "
+        f"{stats['decode_s']:.2f} s decode, launches {counts['untied_flagship']}")
+    path.unlink()
+
+    build = seeded_builder(torch, lambda d: build_s2t_transformer(
+        "s2t_transformer_s", {"tgt_vocab_size": 8000, "compute_fbank": True,
+                              "share_decoder_input_output_embed": False}, device=d), seed=62)
+    wav, mask = make_audio(np.random.default_rng(63), UNTIED_S2T_WAVS, 2.0, 6.0)
+    wav_t, mask_t = torch.from_numpy(wav), torch.from_numpy(mask)
+    B, T = wav.shape
+    label = f"untied_s2t_B{B}_T{T}"
+    _, _, err, exact_err = k4_check(torch, lm, wav_t.cuda().contiguous(), label, num_frames(T))
+    next(r for r in records if r["name"] == "logmel").setdefault("shapes", {})[label] = dict(
+        max_abs_err=err, max_abs_err_fp64_plain=exact_err)
+    settings = GeneratorSettings(beam_size=5, max_decode_len=16)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = build(device, torch.float32)
+        assert hasattr(model.decoder, "output_projection")
+        outs[device] = [x.cpu() for x in SequenceGenerator(model, settings).generate_audio(
+            wav_t.to(device), mask_t.to(device))]
+        del model
+    if not torch.equal(outs["cuda"][0], outs["cpu"][0]):
+        raise AssertionError("untied s2t_transformer_s: fp32 card and CPU tokens differ")
+    check("untied s2t_transformer_s fp32 beam 5: tokens identical; scores card vs CPU",
+          max_err(outs["cuda"][1], outs["cpu"][1]), 1e-3)
+    model = build("cuda", torch.bfloat16)
+    zeroed(kernels)
+    with counted_decoder_steps() as steps:
+        tokens, scores, _ = SequenceGenerator(model, settings).generate_audio(
+            wav_t.cuda(), mask_t.cuda())
+        torch.cuda.synchronize()
+    counts["untied_s2t"] = launches(kernels)
+    implied = {"encoder_attention": 12, "conv_tail": 0, "decode_attention": 6 * steps[0],
+               "logmel": 1}
+    if counts["untied_s2t"] != implied or not torch.isfinite(scores).all():
+        raise AssertionError(f"untied s2t: launches {counts['untied_s2t']} (want {implied})")
+    rec["s2t"] = dict(wavs=B, samples=T, decode_steps=steps[0], launches=counts["untied_s2t"],
+                      k4_max_abs_err=err)
+    del model
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"untied: {rec['phase_s']:.1f} s; launches {counts}")
+    print(json.dumps({"untied": rec}), flush=True)
+    return counts
+
+
+def gpt2_state_dict(torch, cfg, seed: int):
+    """A GPT-2 state dict under HF's names (``GPT2LMHeadModel``'s, Conv1D
+    weights [in, out]) with seeded values at ``init_params_``'s scales,
+    made without ``transformers``."""
+    from chimera_st_tpu_torch.models.hf_gpt2 import GPT2LM
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+
+    model = init_params_(GPT2LM(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+    ours = model.state_dict()
+    hf = {"transformer.wte.weight": ours["wte.weight"], "transformer.wpe.weight": ours["wpe.weight"],
+          "transformer.ln_f.weight": ours["ln_f.weight"], "transformer.ln_f.bias": ours["ln_f.bias"],
+          "lm_head.weight": ours["wte.weight"]}
+    names = {"ln_1": "ln_1", "ln_2": "ln_2", "c_attn": "attn.c_attn",
+             "attn_c_proj": "attn.c_proj", "mlp_c_fc": "mlp.c_fc", "mlp_c_proj": "mlp.c_proj"}
+    for i in range(cfg.n_layer):
+        for ours_name, hf_name in names.items():
+            for leaf in ("weight", "bias"):
+                hf[f"transformer.h.{i}.{hf_name}.{leaf}"] = ours[f"h.{i}.{ours_name}.{leaf}"]
+    return hf
+
+
+def phase_gpt2(torch, fx, kernels):
+    """GPT-2: ``hf_gpt2`` (12 x 768, 12 heads) at full width and depth,
+    GPT2_UPDATES bf16 updates through ``cli.train --task language_modeling``
+    on the family's LM stream, GPT2_BLOCK tokens a sample, 8 a micro-batch;
+    ``hf_gpt2_xl`` (48 x 1,600, 25 heads, 1.56 B) at full width and depth,
+    one bf16 ``TrainStep`` update of GPT2_XL_BATCH x GPT2_BLOCK tokens, its
+    peak memory; an HF-named state dict made from a seed at the xl widths
+    and 2 layers, imported and run fp32 on the card vs the CPU. GPT-2's
+    causal attention is the plain path: no launches, which the phase
+    asserts. Returns the launches; prints {"gpt2": {...}}."""
+    import itertools
+
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.models.hf_gpt2 import (GPT2Config, build_hf_gpt2,
+                                                     import_hf_gpt2_state_dict)
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from chimera_st_tpu_torch.tasks import setup_task
+    from chimera_st_tpu_torch.train import TrainStep
+
+    t_phase = time.perf_counter()
+    rec = {}
+    argv = [str(fx["lm"]), "--task", "language_modeling", "--arch", "hf_gpt2",
+            "--criterion", "lm_cross_entropy", "--tokens-per-sample", str(GPT2_BLOCK),
+            "--max-tokens", str(8 * GPT2_BLOCK), "--optimizer", "adam", "--adam-betas",
+            "(0.9, 0.98)", "--lr", "5e-4", "--lr-scheduler", "inverse_sqrt", "--warmup-updates",
+            "4", "--dtype", "bfloat16", "--max-update", str(GPT2_UPDATES), "--train-subset",
+            "test", "--disable-validation", "--no-save", "--save-dir",
+            str(fx["root"] / "gpt2")]
+    zeroed(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_updates() as updates:
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    counts = {"gpt2_train": launches(kernels)}
+    n = out["trainer"].num_updates
+    rec["hf_gpt2"] = dict(updates=n, update_s=out["times"]["update_s"], losses=updates,
+                          params_m=sum(p.numel() for p in out["trainer"].model.parameters()) / 1e6,
+                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del out
+    torch.cuda.empty_cache()
+    log(f"  hf_gpt2 cli.train: {n} updates of 8 x {GPT2_BLOCK} tokens, "
+        f"{rec['hf_gpt2']['params_m']:.1f} M parameters, update s "
+        f"{[round(s, 3) for s in rec['hf_gpt2']['update_s']]}, (loss, gnorm) {updates}")
+    if n != GPT2_UPDATES or any(counts["gpt2_train"].values()) \
+            or not all(np.isfinite(v).all() for v in updates):
+        raise AssertionError(f"gpt2 train: {n} updates, launches {counts['gpt2_train']}")
+
+    task = setup_task({"_name": "language_modeling", "data": str(fx["lm"]),
+                       "tokens_per_sample": GPT2_BLOCK})
+    task.load_dataset("test")
+    batch_size = GPT2_XL_BATCH
+    while True:
+        batch = next(iter(task.make_batch_iterator(task.dataset("test"),
+                                                   max_sentences=batch_size)
+                          .next_epoch_itr(shuffle=False)))
+        model = init_params_(task.build_model({"arch": "hf_gpt2_xl"}, device="cuda",
+                                              train=True),
+                             torch.Generator(device="cuda").manual_seed(64))
+        step = TrainStep(model, task.build_criterion({"_name": "lm_cross_entropy"}),
+                         build_optimizer(TRAIN_ADAM, list(model.parameters())),
+                         build_lr_schedule({"_name": "fixed", "lr": 1e-5}),
+                         compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zeroed(kernels)
+        try:
+            t0 = time.perf_counter()
+            m = step([batch])
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            del model, step
+            torch.cuda.empty_cache()
+            if batch_size == 1:
+                raise
+            log(f"  hf_gpt2_xl: B {batch_size} does not fit; the batch is cut, not the width")
+            batch_size //= 2
+    counts["gpt2_xl_step"] = launches(kernels)
+    rec["hf_gpt2_xl"] = dict(
+        batch=list(batch["net_tokens"].shape), update_s=time.perf_counter() - t0,
+        loss=m["loss"], gnorm=m["gnorm"],
+        params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  hf_gpt2_xl: one bf16 update of {rec['hf_gpt2_xl']['batch']} tokens in "
+        f"{rec['hf_gpt2_xl']['update_s']:.2f} s (the first, with the allocator's warm-up), "
+        f"{rec['hf_gpt2_xl']['params_m']:.1f} M parameters, peak "
+        f"{rec['hf_gpt2_xl']['peak_memory_gb']:.2f} GB, loss {m['loss']:.2f}")
+    if any(counts["gpt2_xl_step"].values()) or not np.isfinite(m["loss"]):
+        raise AssertionError(f"gpt2_xl: launches {counts['gpt2_xl_step']}, {m}")
+    del model, step
+    torch.cuda.empty_cache()
+
+    cfg = GPT2Config(n_embd=1600, n_head=25, n_layer=2, dropout=0.0)
+    sd = import_hf_gpt2_state_dict(gpt2_state_dict(torch, cfg, 65))
+    tokens = torch.from_numpy(np.asarray(list(itertools.islice(
+        (int(t) for t in batch["net_tokens"].reshape(-1)), 512)), np.int64)[None])
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = build_hf_gpt2({"n_embd": 1600, "n_head": 25, "n_layer": 2, "dropout": 0.0},
+                              device=device)
+        model.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            logits[device] = model.eval()(tokens.to(device)).cpu()
+        del model
+    err = max_err(logits["cuda"], logits["cpu"])
+    check("gpt2 fp32 xl widths, 2 layers, 1 x 512 tokens: logits card vs CPU", err, 1e-4)
+    rec["xl_2_layers_fp32_max_abs_err"] = err
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"gpt2: {rec['phase_s']:.1f} s")
+    print(json.dumps({"gpt2": rec}), flush=True)
+    return counts
+
+
+def phase_pipe_lm(torch, fx, kernels):
+    """The stacked pipeline LM: a seeded ``transformer_lm`` at
+    ``transformer_lm_pipe``'s widths (6 x 512, 8 heads) saved as a native
+    ``.ckpt``, stacked into ``transformer_lm_pipe`` (``stack_lm_params``),
+    its fp32 logits on the card equal to the plain LM's (1e-5) on 4 blocks
+    of the family's LM stream; 2 bf16 updates through ``cli.train --arch
+    transformer_lm_pipe --finetune-from-model`` (one card: the layers run in
+    turn); the result unstacked into a ``transformer_lm`` ``.ckpt`` and
+    both scored by ``eval_lm`` in fp32 (equal within 1e-5 bits/token). No
+    launches (causal). Returns the launches; prints {"pipe_lm": {...}}."""
+    import shutil
+
+    from chimera_st_tpu_torch.checkpoint.store import save_model
+    from chimera_st_tpu_torch.cli import eval_lm, train
+    from chimera_st_tpu_torch.cli.generate import load_language_model
+    from chimera_st_tpu_torch.models.interlingua import init_params_
+    from chimera_st_tpu_torch.models.pipeline_lm import (build_transformer_lm_pipe,
+                                                         stack_lm_params, transformer_lm_pipe_base,
+                                                         unstack_lm_params)
+    from chimera_st_tpu_torch.models.transformer_mt import build_transformer_lm
+    from chimera_st_tpu_torch.tasks import setup_task
+
+    t_phase = time.perf_counter()
+    root = fx["root"] / "pipe_lm"
+    root.mkdir()
+    task = setup_task({"_name": "language_modeling", "data": str(fx["lm"]),
+                       "tokens_per_sample": LM_BLOCK})
+    task.load_dataset("valid")
+    widths = transformer_lm_pipe_base({"vocab_size": FAMILY_VOCAB})
+    plain_cfg = dict(widths, arch="transformer_lm", attention_dropout=0.0,
+                     activation_dropout=0.0)
+    plain = init_params_(build_transformer_lm(plain_cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(66)).eval()
+    plain_ckpt = root / "plain.ckpt"
+    save_model(str(plain_ckpt), plain, plain_cfg)
+    stacked = stack_lm_params(load_language_model(str(plain_ckpt), task, torch.float32,
+                                                  "cuda").state_dict(), widths["layers"])
+    pipe_cfg = dict(widths, arch="transformer_lm_pipe")
+    pipe = build_transformer_lm_pipe(pipe_cfg, device="cuda").eval()
+    pipe.load_state_dict(stacked, strict=True)
+    batch = next(iter(task.make_batch_iterator(task.dataset("valid"), max_sentences=4)
+                      .next_epoch_itr(shuffle=False)))
+    tokens = torch.from_numpy(np.asarray(batch["net_tokens"])).long().cuda()
+    zeroed(kernels)
+    with torch.no_grad():
+        err = max_err(pipe(tokens), plain(tokens))
+    check(f"pipe_lm: stacked vs plain transformer_lm fp32 logits on the card, "
+          f"{tuple(tokens.shape)} tokens", err, 1e-5)
+    pipe_ckpt = root / "pipe.ckpt"
+    save_model(str(pipe_ckpt), pipe, pipe_cfg)
+    del plain, pipe
+    save_dir = root / "train"
+    argv = [str(fx["lm"]), "--task", "language_modeling", "--arch", "transformer_lm_pipe",
+            "--criterion", "lm_cross_entropy", "--tokens-per-sample", str(LM_BLOCK),
+            "--max-tokens", str(8 * LM_BLOCK), "--optimizer", "adam", "--lr", "5e-4",
+            "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4", "--dtype", "bfloat16",
+            "--max-update", "2", "--train-subset", "test", "--disable-validation",
+            "--no-epoch-checkpoints", "--finetune-from-model", str(pipe_ckpt),
+            "--save-dir", str(save_dir)]
+    with recorded_updates() as updates:
+        out = train.main(argv)
+    n = out["trainer"].num_updates
+    rec = {"logits_max_abs_err": err, "updates": n, "update_s": out["times"]["update_s"],
+           "losses": updates}
+    del out
+    trained = load_language_model(str(save_dir / "checkpoint_last.ckpt"), task, torch.float32,
+                                  "cpu")
+    unstacked = root / "unstacked.ckpt"
+    back = build_transformer_lm(plain_cfg, device="cpu")
+    back.load_state_dict(unstack_lm_params(trained.state_dict()), strict=True)
+    save_model(str(unstacked), back, plain_cfg)
+    scores = {}
+    for name, path in (("pipe", save_dir / "checkpoint_last.ckpt"), ("unstacked", unstacked)):
+        scores[name] = eval_lm.main([str(fx["lm"]), "--path", str(path), "--tokens-per-sample",
+                                     str(LM_BLOCK), "--gen-subset", "valid", "--batch-size", "8",
+                                     "--dtype", "float32"])["loss_bits"]
+    check("pipe_lm: eval_lm of the trained stacked checkpoint vs its unstacked transformer_lm, "
+          "bits/token", abs(scores["pipe"] - scores["unstacked"]), 1e-5)
+    counts = {"pipe_lm": launches(kernels)}
+    rec.update(eval_lm_bits=scores, launches=counts["pipe_lm"])
+    if n != 2 or any(counts["pipe_lm"].values()) or not np.isfinite(scores["pipe"]):
+        raise AssertionError(f"pipe_lm: {n} updates, launches {counts['pipe_lm']}, {scores}")
+    shutil.rmtree(root)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"pipe_lm: {rec['phase_s']:.1f} s; updates (loss, gnorm) {updates}, eval_lm {scores}")
+    print(json.dumps({"pipe_lm": rec}), flush=True)
+    return counts
+
+
+def phase_quant(torch, fx, kernels):
+    """Quantization of the flagship ``_base`` state dict (the CLI
+    fixture's, 12 trunk heads, 10,000-word vocabularies): scalar 8-bit fake
+    quantization on the card bit-equal to the CPU's for every tensor; PQ
+    (blocks of 8, 256 centroids, 15 Lloyd iterations, tensors of 4,096
+    elements or more) of the whole state dict on the card, and of one of
+    its matrices (a 512 x 512 projection) on the CPU from the same initial
+    centroids: assignments 99 % equal (the card's ``index_add_`` sums with
+    atomics, so its centroids move in the last bits from run to run and
+    near-ties go either way: 99.85-100 % in the runs, and a flipped block
+    moves its two centroids), the dequantized weights of the blocks assigned
+    alike within 1e-2 (the matrix's weights have a std of 0.044; the runs
+    differ by up to 2.0e-3) and the reconstruction MSE within 0.1 %.
+    Returns the launches (none); prints {"quant": {...}}."""
+    from chimera_st_tpu_torch.ops import quantization as q
+
+    t_phase = time.perf_counter()
+    sd = {k: v.detach().float() for k, v in fx["model"].state_dict().items()}
+    card = {k: v.cuda() for k, v in sd.items()}
+    zeroed(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = q.quantize_params_scalar(card)
+    torch.cuda.synchronize()
+    scalar_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = q.quantize_params_scalar(sd)
+    cpu_s = time.perf_counter() - t0
+    differ = [k for k in sd if not torch.equal(got[k].cpu(), want[k])]
+    quantized = sum(1 for k in sd if q._quantized(sd[k], 256))
+    log(f"  quant scalar: {quantized} of {len(sd)} tensors quantized; card {scalar_s:.3f} s, "
+        f"CPU {cpu_s:.3f} s; tensors not bit-equal: {differ[:5]}")
+    if differ:
+        raise AssertionError(f"quant: scalar card vs CPU differ in {len(differ)} tensors")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense, books = q.quantize_params_pq(card)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    pq_params = sum(sd[k].numel() for k in books)
+    names = ["encoder.transformer_layers.0.self_attn.q_proj.weight"]
+    rec = {"scalar_card_s": scalar_s, "scalar_cpu_s": cpu_s, "scalar_tensors": quantized,
+           "pq_card_s": pq_s, "pq_tensors": len(books), "pq_params_m": pq_params / 1e6,
+           "pq_cpu_check": {}}
+    for name in names:
+        ref = q.pq_quantize(sd[name])
+        agree = books[name].assignments.cpu() == ref.assignments
+        same = float(agree.float().mean())
+        # a block at a near-tie between two centroids may take the other
+        # one on the other device: the weights are compared on the blocks
+        # both assign alike, and the reconstruction error as a whole
+        got_blocks = dense[name].cpu().reshape(-1, 8)
+        want_blocks = q.pq_dequantize(ref).reshape(-1, 8)
+        err = max_err(got_blocks[agree], want_blocks[agree])
+        w = sd[name].reshape(-1, 8)
+        mse = [float(((b - w) ** 2).mean()) for b in (got_blocks, want_blocks)]
+        rel = abs(mse[0] - mse[1]) / mse[1]
+        rec["pq_cpu_check"][name] = dict(assignments_equal=same, max_abs_err_agreeing=err,
+                                         mse_card=mse[0], mse_cpu=mse[1])
+        log(f"  quant PQ {name} {tuple(sd[name].shape)}: card vs CPU assignments equal "
+            f"{100 * same:.3f} %; reconstruction MSE card {mse[0]:.4e}, CPU {mse[1]:.4e}")
+        if same < 0.99:
+            raise AssertionError(f"quant: PQ assignments of {name} agree {same:.4f}")
+        check(f"quant PQ {name}: dequantized card vs CPU on the blocks assigned alike "
+              f"(the weights' std {float(sd[name].std()):.3f})", err, 1e-2)
+        check(f"quant PQ {name}: reconstruction MSE card vs CPU, relative", rel, 1e-3)
+    counts = {"quant": launches(kernels)}
+    if any(counts["quant"].values()):
+        raise AssertionError(f"quant launched {counts['quant']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"quant: {rec['phase_s']:.1f} s; PQ of {len(books)} tensors ({pq_params / 1e6:.1f} M "
+        f"parameters) on the card in {pq_s:.1f} s")
+    print(json.dumps({"quant": rec}), flush=True)
+    del card, got, dense, books
+    torch.cuda.empty_cache()
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist1(torch, fx, work: Path, w2v2: Path, losses_a, kernels):
+    """A world of one over NCCL (``--distributed-init-method
+    tcp://127.0.0.1:PORT --distributed-rank 0 --distributed-num-procs 1``):
+    the flagship's ``cli.train`` at train_cli's run A (2 updates) with
+    ``--zero-sharding os``, validation and saves off, its losses and
+    gradient norms within 1e-4 of run A's, relative (the backward's atomic
+    adds vary the norm's 5th-6th digit from run to run, in one process too:
+    2.6e-6, 5.3e-6 and 1.5e-5 seen); then ``cli.generate`` bf16 on the 4
+    ``pairs`` wavs with the same flags (each batch gathered over the world's
+    one rank), hypotheses identical to one process. This shows the wiring and NCCL's launch on the
+    card, not the numbers of several ranks. The gradient buckets of the
+    data-parallel sum, and how many of them started their all-reduce during
+    the second update's backward, are recorded (not gated). Returns the
+    launches; prints {"dist1": {...}}."""
+    import torch.distributed as dist
+
+    from chimera_st_tpu_torch.cli import train
+
+    t_phase = time.perf_counter()
+    flags = ["--distributed-init-method", f"tcp://127.0.0.1:{free_port()}",
+             "--distributed-rank", "0", "--distributed-num-procs", "1"]
+    zeroed(kernels)
+    try:
+        with recorded_updates() as updates:
+            out = train.main(train_cli_argv(fx, w2v2, work / "dist1_ckpt", 2) + [
+                "--disable-validation", "--no-save", "--zero-sharding", "os", *flags])
+        torch.cuda.synchronize()
+        counts = {"dist1_train": launches(kernels)}
+        backend = dist.get_backend()
+        zero = type(out["trainer"].optimizer).__name__
+        reducer = out["trainer"].step.reducer
+        buckets = {"buckets": len(reducer.buckets), "started_early": reducer.started_early}
+        del out, reducer
+        torch.cuda.empty_cache()
+        # the backward's atomic adds (embedding, cuDNN) vary the gradient
+        # norm in its 6th digit from run to run, in one process too, and
+        # Adam carries that into the second update's loss
+        for j, what in enumerate(("loss", "gnorm")):
+            check(f"dist1: {what} of {len(updates)} updates vs one process, relative",
+                  max(abs(got[j] - want[j]) / abs(want[j])
+                      for got, want in zip(updates, losses_a)), 1e-4)
+        if len(updates) != len(losses_a):
+            raise AssertionError(f"dist1: {len(updates)} updates, one process {len(losses_a)}")
+        decode = ["--batch-size", "4", "--dtype", "bfloat16", "--max-decode-len", "16"]
+        one_text, _, _ = cli_generate(fx, work / "dist1_one", "pairs", decode)
+        zeroed(kernels)
+        with counted_decoder_steps() as steps:
+            text, stats, wall = cli_generate(fx, work / "dist1_gen", "pairs", decode + flags)
+            torch.cuda.synchronize()
+        counts["dist1_decode"] = launches(kernels)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    same_hypotheses("dist1: cli.generate over a world of one vs one process",
+                    parse_protocol(text)[0], parse_protocol(one_text)[0], 4)
+    implied = {"encoder_attention": 24, "conv_tail": 6, "decode_attention": 6 * steps[0],
+               "logmel": 0}
+    if counts["dist1_train"]["conv_tail"] != 6 * 3 * 2 or counts["dist1_decode"] != implied:
+        raise AssertionError(f"dist1: launches {counts} (decode wants {implied})")
+    rec = {"backend": backend, "optimizer": zero, "updates": updates, "launches": counts,
+           "gradient_buckets": buckets, "decode_s": stats["decode_s"],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"dist1: {rec['phase_s']:.1f} s; backend {backend}, {zero}; (loss, gnorm) {updates} "
+        f"equal to one process; {buckets['started_early']} of {buckets['buckets']} gradient "
+        f"buckets started during the last backward; decode launches {counts['dist1_decode']}")
+    print(json.dumps({"dist1": rec}), flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -7398,7 +7954,7 @@ def main() -> int:
 
     mark("parity and serve done")
     # 5a. the plain w2v2 + Transformer model (no memory bank), served as the
-    # flagship is, one batch more under torch.profiler
+    # flagship is
     build_w2v2 = w2v2_st_builder(torch)
     ops = (encoder_attention, conv_tail, decode_attention)
     # the shapes this slice's phases launch (w2v2_st, w2v2_st_cli, tts_update,
@@ -7408,7 +7964,7 @@ def main() -> int:
         phase_parity(torch, "w2v2_st", build_w2v2, paths["flagship"]["parity"])
         model = build_w2v2("cuda", torch.bfloat16)
         counts["w2v2_st"] = phase_serve(torch, "w2v2_st", model, paths["flagship"]["serve"],
-                                        kernels, W2V2_ST_ON_PATH, 6, profile=True)
+                                        kernels, W2V2_ST_ON_PATH, 6, args.profile)
         del model
     mark("w2v2_st done")
 
@@ -7453,8 +8009,18 @@ def main() -> int:
         counts["train"], counts["train_attention_dropout_0"], train_rec = phase_train(
             torch, training, kernels, args.profile)
         mark("train done")
-        counts["train_cli"], counts["train_cli_decode"] = phase_train_cli(
-            torch, fx, work, kernels, train_rec)
+        # this slice: a world of one over NCCL at train_cli's run A, its K1-K3
+        # shapes (with untied's) held against the plain versions below
+        a12_seen = {"encoder_attention": [], "conv_tail": [], "decode_attention": []}
+
+        def dist1(w2v2, losses_a):
+            with recorded_shapes(*ops, a12_seen):
+                return phase_dist1(torch, fx, work, w2v2, losses_a, kernels)
+
+        counts["train_cli"], counts["train_cli_decode"], dist1_counts = phase_train_cli(
+            torch, fx, work, kernels, train_rec, dist1)
+        counts.update(dist1_counts)
+        mark("dist1 done")
         with recorded_shapes(*ops, slice_seen):
             counts["tts_update"] = phase_tts_update(torch, fx, kernels)
         mark("training phases done")
@@ -7546,6 +8112,17 @@ def main() -> int:
             mark("zoo_steps done")
             counts.update(phase_zoo_tasks(torch, work / "zoo_tasks", kernels))
         mark("zoo_tasks done")
+        # 16. this slice: the untied output projection (C4), GPT-2, the
+        # stacked pipeline LM, quantization
+        with recorded_shapes(*ops, a12_seen):
+            counts.update(phase_untied(torch, fx, work, kernels, records))
+        mark("untied done")
+        counts.update(phase_gpt2(torch, family_fx, kernels))
+        mark("gpt2 done")
+        counts.update(phase_pipe_lm(torch, family_fx, kernels))
+        mark("pipe_lm done")
+        counts.update(phase_quant(torch, fx, kernels))
+        mark("quant done")
     # the padded batches of the fixture's wavs: the trunk at 12 heads of 64,
     # the shared encoder behind the subsampler, the text branch below one
     # 64-key tile; and the conv tail
@@ -7587,8 +8164,15 @@ def main() -> int:
     phase_mlm_shapes(torch, ops, mlm_seen, records)
     phase_xlm_shapes(torch, ops, xlm_seen, records)
     phase_zoo_shapes(torch, ops, zoo_seen, records)
+    # this slice's: the untied flagship (H 12 / 8, its decoder at beam 10)
+    # and the untied s2t_transformer_s (H 4, beam 5), the world of one's
+    # training micro-batches (K2) and decode
+    phase_shapes(torch, ops, a12_seen, records, "a12", lambda sh: (
+        {(12, 64), (8, 64), (4, 64)} <= {(H, D) for _, _, H, D in sh["encoder_attention"]}
+        and {(8, 10), (4, 5)} <= {(H, C) for _, H, _, _, C in sh["decode_attention"]}
+        and bool(sh["conv_tail"])))
     mark("shapes done")
-    # 16. report
+    # 17. report
     for r in records:
         if r["name"] == "decode_attention":
             r["search_ancestries"] = search_k3

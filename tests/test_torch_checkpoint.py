@@ -14,6 +14,7 @@ from argparse import Namespace
 from pathlib import Path
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -174,14 +175,57 @@ def test_missing_tensor_raises_on_load(imported):
         model.load_state_dict(torch_import.import_interlingua_state_dict(short), strict=True)
 
 
+UNTIED = dataclasses.replace(TINY, share_decoder_input_output_embed=False)
+
+
 def test_output_projection_of_its_own_raises(imported):
+    """Once a refusal, now the untied flagship: a ``.pt`` whose
+    ``decoder.output_projection`` is a tensor of its own loads into a model
+    built with ``share_decoder_input_output_embed=False`` and gives the JAX
+    package's log-probabilities (1e-5) and beam tokens; the same weights
+    through the JAX ``.ckpt`` tree load too."""
+    from chimera_st_tpu.generation.generator import GeneratorSettings as JaxSettings
+    from chimera_st_tpu.generation.generator import SequenceGenerator as JaxGenerator
+    from chimera_st_tpu_torch.generation.generator import GeneratorSettings, SequenceGenerator
+
     _, sd, _, _ = imported
     untied = dict(sd)
-    untied["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"] + 0.5
-    with pytest.raises(NotImplementedError, match="output_projection"):
-        torch_import.import_interlingua_state_dict(untied)
-    # the JAX package holds such a tensor; the port says that it cannot
-    assert "output_projection" in jax_import.import_interlingua_state_dict(untied)["decoder"]
+    rng = np.random.default_rng(3)
+    untied["decoder.output_projection.weight"] = torch.from_numpy(
+        4.0 * rng.normal(size=tuple(sd["decoder.embed_tokens.weight"].shape)).astype(np.float32))
+    port_sd = torch_import.import_interlingua_state_dict(untied)
+    assert torch.equal(port_sd["decoder.output_projection.weight"],
+                       untied["decoder.output_projection.weight"])
+    model = ChimeraInterlinguaModel(port_config(UNTIED), device="cpu")
+    model.load_state_dict(port_sd, strict=True)
+    model.eval()
+    params = {"params": jax_import.import_interlingua_state_dict(untied)}
+    assert "output_projection" in params["params"]["decoder"]
+    # the JAX .ckpt tree of the same model carries across to the same weights
+    from_ckpt = params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    assert sorted(from_ckpt) == sorted(port_sd)
+    assert torch.equal(from_ckpt["decoder.output_projection.weight"],
+                       port_sd["decoder.output_projection.weight"])
+
+    wav = rng.normal(size=(2, 4000)).astype(np.float32)
+    mask = np.zeros((2, 4000), bool)
+    mask[1, 2600:] = True
+    prev = np.array([[2, 4, 5, 6], [2, 7, 8, 1]], np.int64)
+    ref_logits, _ = JaxModel(UNTIED).apply(
+        params, jnp.asarray(wav), jnp.asarray(mask), jnp.asarray(prev, jnp.int32),
+        method=JaxModel.forward_audio_with_internal)
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(wav), torch.from_numpy(mask), torch.from_numpy(prev))
+    np.testing.assert_allclose(torch.log_softmax(logits, -1).numpy(),
+                               np.asarray(jax.nn.log_softmax(ref_logits, -1)), **TOL)
+    common = dict(beam_size=2, max_decode_len=8, min_len=2)
+    ref = JaxGenerator(JaxModel(UNTIED), JaxSettings(**common)).generate_audio(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(wav), jnp.asarray(mask))
+    tokens, scores, lens = SequenceGenerator(model, GeneratorSettings(**common)).generate_audio(
+        torch.from_numpy(wav), torch.from_numpy(mask))
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(scores.numpy(), np.asarray(ref[1]), atol=1e-4, rtol=1e-4)
 
 
 def test_audio_exclusive_layers_are_consumed():
@@ -218,6 +262,7 @@ CONFIG_CASES = {
     "dropout_rates": Namespace(dropout=0.3, attention_dropout=0.2, activation_dropout=0.05),
     "plain_w2v2_arch": Namespace(arch="s2t_transformer_w2v2_s", encoder_embed_dim=256,
                                  encoder_attention_heads=4, decoder_attention_heads=4),
+    "untied_output_projection": Namespace(share_decoder_input_output_embed=False),
 }
 
 
@@ -254,9 +299,16 @@ def test_conv_feature_layers_expression_of_the_released_checkpoint():
 
 
 def test_untied_output_embedding_in_args_raises():
-    with pytest.raises(NotImplementedError, match="share_decoder_input_output_embed"):
-        torch_import.infer_interlingua_config(
-            Namespace(share_decoder_input_output_embed=False), tgt_vocab=10, src_vocab=10)
+    """Once a refusal: ``share_decoder_input_output_embed=False`` in a
+    checkpoint's args now reaches the config, as in JAX, and the model it
+    builds has an output projection of its own."""
+    ns = Namespace(share_decoder_input_output_embed=False, encoder_embed_dim=32)
+    got = torch_import.infer_interlingua_config(ns, tgt_vocab=10, src_vocab=10)
+    ref = jax_import.infer_interlingua_config(ns, tgt_vocab=10, src_vocab=10)
+    assert got.share_decoder_input_output_embed is False
+    assert ref.share_decoder_input_output_embed is False
+    tied = torch_import.infer_interlingua_config(Namespace(), tgt_vocab=10, src_vocab=10)
+    assert tied.share_decoder_input_output_embed is True
 
 
 def test_load_torch_checkpoint_reads_a_namespace(tmp_path, imported):

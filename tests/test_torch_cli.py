@@ -364,18 +364,32 @@ UNPORTED_FLAGS = {
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_FLAGS))
-def test_unported_option_raises(fixture, name):
+def test_unported_option_raises(fixture, name, monkeypatch):
+    """Once refusals naming A12: ``--distributed-world-size 2`` now starts
+    two ranks of the decode (the start is recorded here;
+    ``tests/test_torch_parallel.py`` decodes over real ranks), and the
+    training grid's flags reach no decode, as in the JAX generate CLI."""
+    from chimera_st_tpu_torch.parallel import mesh as mesh_mod
+
     flags = UNPORTED_FLAGS[name]
-    argv = [str(fixture), *COMMON, "--device", "cpu"]
-    if "--path" not in flags:
-        argv += ["--path", str(fixture / "ref.pt")]
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        generate.main(argv + flags)
+    argv = [str(fixture), *COMMON, "--device", "cpu", "--path", str(fixture / "ref.pt")]
+    if name == "distributed_world_size":
+        started = []
+        monkeypatch.setattr(mesh_mod, "spawn", lambda fn, n, *a, **k: started.append((n, k)))
+        assert generate.main(argv + flags) is None
+        assert started == [(2, {"device": "cpu"})]
+        return
+    p = options.base_parser("generate")
+    options.add_generation_args(p)
+    args, _ = options.parse_with_model_overrides(p, argv + flags)
+    options.require_ported(args)
+    assert options.setup_data_mesh(args, "cpu") is None
 
 
 def test_every_unported_entry_is_exercised():
-    """Each row of ``options.UNPORTED`` but the interactive CLI's
-    ``--constraints`` and the init-method address has a case above."""
+    """Each row of ``options.UNPORTED`` (the generator's table, empty since
+    the A12 rows went) but the interactive CLI's ``--constraints`` has a
+    case above."""
     flags = {f for case in UNPORTED_FLAGS.values() for f in case}
     for attr, _, flag, _ in options.UNPORTED:
         if attr in ("constraints", "distributed_init_method"):

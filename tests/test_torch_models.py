@@ -194,8 +194,12 @@ def test_converter_rejects_missing_and_extra_keys(tiny):
     with pytest.raises(KeyError, match="decoder/layers_0/fc1/kernel"):
         params_from_flax(missing)
     extra = numpy_tree(params)
-    extra["params"]["decoder"]["output_projection"] = {"kernel": np.zeros((16, 20), np.float32)}
+    extra["params"]["decoder"]["mystery_projection"] = {"kernel": np.zeros((16, 20), np.float32)}
     with pytest.raises(ValueError, match="unconsumed flax parameters"):
         params_from_flax(extra)
+    # an untied decoder's output projection is a module of the table
+    untied = numpy_tree(params)
+    untied["params"]["decoder"]["output_projection"] = {"kernel": np.ones((16, 20), np.float32)}
+    assert params_from_flax(untied)["decoder.output_projection.weight"].shape == (20, 16)
     # every state-dict entry of the port's model is produced, nothing else
     assert set(params_from_flax(params)) == set(model.state_dict())

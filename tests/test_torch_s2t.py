@@ -166,10 +166,34 @@ def test_presets_match_jax_registry(arch):
 
 
 def test_untied_output_projection_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="share_decoder_input_output_embed"):
-        build_s2t_transformer("s2t_transformer_s", {"share_decoder_input_output_embed": False,
-                                                    "encoder_layers": 1, "decoder_layers": 1},
-                              device="cpu")
+    """Once a refusal, now the untied fbank model: ``s2t_transformer_s``
+    with ``share_decoder_input_output_embed=False`` builds with an output
+    projection of its own, and at TINY widths its weights from a JAX tree
+    give the JAX model's log-probabilities (1e-5) and beam tokens."""
+    model = build_s2t_transformer("s2t_transformer_s", {
+        "share_decoder_input_output_embed": False, "encoder_layers": 1, "decoder_layers": 1},
+        device="cpu")
+    assert tuple(model.decoder.output_projection.weight.shape) == (
+        model.cfg.tgt_vocab_size, model.cfg.decoder_embed_dim)
+    cfg = dataclasses.replace(TINY, share_decoder_input_output_embed=False)
+    jm, params = flax_init(cfg, seed=2)
+    assert "output_projection" in params["params"]["decoder"]
+    port = port_model(cfg, params)
+    x, mask = inputs(False, seed=5)
+    logits_j = jm.apply(params, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(PREV))
+    with torch.no_grad():
+        logits = port(torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(PREV).long())
+    np.testing.assert_allclose(torch.log_softmax(logits, -1).numpy(),
+                               np.asarray(jax.nn.log_softmax(logits_j, -1)),
+                               atol=1e-5, rtol=1e-5)
+    common = dict(beam_size=2, max_decode_len=8, min_len=2)
+    ref = JaxGenerator(jm, JaxSettings(**common)).generate_audio(
+        params, jnp.asarray(x), jnp.asarray(mask))
+    tokens, scores, lens = SequenceGenerator(port, GeneratorSettings(**common)).generate_audio(
+        torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(scores.numpy(), np.asarray(ref[1]), **TOL)
 
 
 @pytest.fixture(scope="module")
@@ -207,9 +231,13 @@ def test_converter_rejects_missing_and_extra_keys(tiny_params):
     with pytest.raises(KeyError, match="transformer_layers_1/fc2/bias"):
         s2t_params_from_flax(missing)
     extra = numpy_tree(tiny_params)
-    extra["params"]["decoder"]["output_projection"] = {"kernel": np.zeros((16, 20), np.float32)}
+    extra["params"]["decoder"]["mystery_projection"] = {"kernel": np.zeros((16, 20), np.float32)}
     with pytest.raises(ValueError, match="unconsumed flax parameters"):
         s2t_params_from_flax(extra)
+    # an untied decoder's output projection is a module of the table
+    untied = numpy_tree(tiny_params)
+    untied["params"]["decoder"]["output_projection"] = {"kernel": np.ones((16, 20), np.float32)}
+    assert s2t_params_from_flax(untied)["decoder.output_projection.weight"].shape == (20, 16)
     # every state-dict entry of the port's model is produced, nothing else
     model = S2TTransformerModel(port_config(TINY), device="cpu")
     assert set(s2t_params_from_flax(tiny_params)) == set(model.state_dict())

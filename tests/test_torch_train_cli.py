@@ -226,14 +226,63 @@ UNPORTED_TRAIN_FLAGS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED_TRAIN_FLAGS))
-def test_unported_train_option_raises(name, tmp_path):
-    """Each row of ``options.TRAIN_UNPORTED`` raises naming its item."""
-    from chimera_st_tpu_torch.cli import options
+# the A12 flags that once raised, now run (the grid they make in a world of 2)
+A12_GRIDS = {"model_parallel_size": {"data": 1, "model": 2},
+             "pipeline_stages": {"data": 1, "pipe": 2},
+             "zero_sharding": {"data": 2, "model": 1}}
 
-    assert {attr for attr, *_ in options.TRAIN_UNPORTED} == set(UNPORTED_TRAIN_FLAGS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A1\d"):
-        train.main([str(tmp_path), "--device", "cpu", *UNPORTED_TRAIN_FLAGS[name]])
+
+@pytest.fixture(scope="module")
+def grids(tmp_path_factory):
+    """The train CLI's grid for each A12 flag, made by a gloo world of 2 on
+    this host (``tests/torch_parallel_worker.py``)."""
+    from tests import torch_parallel_worker as worker
+
+    work = tmp_path_factory.mktemp("grids")
+    names = sorted(A12_GRIDS)
+    torch.multiprocessing.start_processes(
+        worker.grid_rank, args=(str(work), [UNPORTED_TRAIN_FLAGS[n] for n in names]),
+        nprocs=2, join=True, start_method="spawn")
+    return dict(zip(names, pickle.loads((work / "grids.pkl").read_bytes())))
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED_TRAIN_FLAGS))
+def test_unported_train_option_raises(name, tmp_path, request, monkeypatch):
+    """The rows of ``options.TRAIN_UNPORTED`` (fbank training, A10c) raise
+    naming their item. The A12 flags, once refused, now run:
+    ``--distributed-world-size 2`` starts two ranks (recorded here; the
+    ranks train in ``tests/test_torch_parallel.py``), an init method joins
+    this process as rank 0 of 1, and the grid flags make their grids over
+    a world of 2."""
+    from chimera_st_tpu_torch.cli import options
+    from chimera_st_tpu_torch.parallel import mesh as mesh_mod
+
+    assert {attr for attr, *_ in options.TRAIN_UNPORTED} == {"arch", "task"}
+    flags = UNPORTED_TRAIN_FLAGS[name]
+    if name in ("arch", "task"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A1\d"):
+            train.main([str(tmp_path), "--device", "cpu", *flags])
+    elif name == "distributed_world_size":
+        started = []
+        monkeypatch.setattr(mesh_mod, "spawn", lambda fn, n, *a, **k: started.append((n, k)))
+        assert train.main([str(tmp_path), "--device", "cpu", *flags]) is None
+        assert started == [(2, {"device": "cpu"})]
+    elif name == "distributed_init_method":
+        p = options.base_parser("train")
+        options.add_train_args(p)
+        with pytest.raises(SystemExit, match="--distributed-rank"):
+            options.setup_mesh(options.parse_with_model_overrides(
+                p, [str(tmp_path), "--cpu", *flags])[0], "cpu")
+        args, _ = options.parse_with_model_overrides(p, [
+            str(tmp_path), "--cpu", "--distributed-init-method",
+            f"file://{tmp_path}/rendezvous", "--distributed-rank", "0",
+            "--distributed-num-procs", "1"])
+        try:
+            assert options.setup_mesh(args, "cpu").shape == {"data": 1, "model": 1}
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        assert request.getfixturevalue("grids")[name] == A12_GRIDS[name]
 
 
 def test_profile_writes_a_trace(runs, tmp_path):

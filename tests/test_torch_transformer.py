@@ -186,13 +186,28 @@ def test_round_trip_bit_for_bit_and_unknown_leaf_raises():
     ("pipeline_stages", 2, "A12"),
 ])
 def test_unported_field_raises(field, value, item):
-    builder = transformer_mt.build_transformer
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        builder({field: value, "encoder_embed_dim": 32, "decoder_embed_dim": 32,
-                 "embed_dim": 32}, device="cpu")
-    if field == "pipeline_stages":
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            transformer_mt.build_transformer_lm({field: value, "embed_dim": 32}, device="cpu")
+    """Once a refusal naming A12: ``pipeline_stages`` 2 now puts the
+    encoder's and decoder's stacks (the LM's) on the GPipe schedule of a
+    grid with 2 pipe ranks, with the JAX builders' checks: a grid whose
+    ``pipe`` axis is the stage count, no dropout, layers that divide (the
+    schedule itself runs in ``tests/test_torch_parallel.py``)."""
+    grid = SimpleNamespace(shape={"data": 1, "pipe": value})
+    cfg = {field: value, "encoder_embed_dim": 32, "decoder_embed_dim": 32, "embed_dim": 32,
+           "encoder_layers": 2, "decoder_layers": 2, "layers": 2, "dropout": 0.0,
+           "attention_dropout": 0.0, "activation_dropout": 0.0, "pipeline_chunks": 4}
+    model = transformer_mt.build_transformer({**cfg, "pipeline_mesh": grid}, device="cpu")
+    assert model.encoder.pipeline == model.decoder.pipeline == {
+        "mesh": grid, "stages": 2, "chunks": 4, "remat": False}
+    lm = transformer_mt.build_transformer_lm({**cfg, "pipeline_mesh": grid}, device="cpu")
+    assert lm.decoder.pipeline["stages"] == 2
+    with pytest.raises(ValueError, match="`pipe` axis"):
+        transformer_mt.build_transformer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="without dropout"):
+        transformer_mt.build_transformer({**cfg, "dropout": 0.1, "pipeline_mesh": grid},
+                                         device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        transformer_mt.build_transformer_lm({**cfg, "layers": 3, "pipeline_mesh": grid},
+                                            device="cpu")
 
 
 def test_share_all_embeddings_is_not_honoured_in_either_package():
