@@ -252,3 +252,31 @@ class CheckpointManager:
             )
             for p in ckpts[: -self.keep_interval_updates]:
                 p.unlink(missing_ok=True)
+
+
+def prune_layer_params(state: Dict[str, Any], layers_to_keep, prefix: str = "layers."
+                       ) -> Dict[str, Any]:
+    """Load a deep checkpoint into a shallower model: of the names
+    ``{prefix}{i}.…`` of a state dict (``prefix`` e.g. ``"decoder.layers."``)
+    keep the listed layer indices (a list, or a comma-joined string) and
+    renumber them consecutively; other names pass through. The counterpart
+    of the JAX package's pruning of a ``layers_{i}`` subtree (``convert``
+    names both alike)."""
+    if isinstance(layers_to_keep, str):
+        layers_to_keep = [int(x) for x in layers_to_keep.split(",") if x != ""]
+    keep = sorted(int(i) for i in layers_to_keep)
+    stack = re.compile(re.escape(prefix) + r"(\d+)\.(.+)")
+    layers: Dict[int, Dict[str, Any]] = {}
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        m = stack.fullmatch(k)
+        if m:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = v
+        else:
+            out[k] = v
+    for new_i, old_i in enumerate(keep):
+        if old_i not in layers:
+            raise KeyError(f"layer {prefix}{old_i} not present (prune list {keep})")
+        for rest, v in layers[old_i].items():
+            out[f"{prefix}{new_i}.{rest}"] = v
+    return out

@@ -151,8 +151,8 @@ def add_train_args(p: argparse.ArgumentParser):
                         "always come from the current arguments")
     p.add_argument("--data-buffer-size", type=int, default=4)
     p.add_argument("--no-host-wire", action="store_true",
-                   help="accepted: the port always sends float32 audio and the "
-                        "padding mask (what this flag asks of the JAX trainer)")
+                   help="send the train split's audio as float32 with its padding mask "
+                        "(default: PCM16 as int16 and no mask, both rebuilt on the device)")
     p.add_argument("--ddp-backend", default=None, help="accepted for recipe compat")
     p.add_argument("--task-configs", nargs="+", default=None)
     p.add_argument("--main-task", default=None)

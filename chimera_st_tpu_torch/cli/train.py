@@ -88,8 +88,11 @@ saved under ``lr_scheduler``, skipped on restore by
 ``make_joint_iterator`` behind ``StreamingEpochBatchIterator`` (a resume
 restarts the stored epoch, as in JAX). ``--device cuda`` (the default) runs on
 the card through the kernels; ``--device cpu`` / ``--cpu`` runs their plain
-versions. The compute dtype is ``--dtype`` (bf16 autocast over fp32
-parameters, or fp32). ``main`` returns the trainer, the checkpoint manager
+versions. The train split ships PCM16 audio as int16 and no padding mask
+(``manifests.set_wire_format``, rebuilt on the device by
+``prepare_batch``) unless ``--no-host-wire``; decoded waveforms are cached
+across epochs (``CHIMERA_WAV_CACHE_MB``, ``data/audio.py``). The compute
+dtype is ``--dtype`` (bf16 autocast over fp32 parameters, or fp32). ``main`` returns the trainer, the checkpoint manager
 and the run's host-clock times. Options that are not ported raise
 ``NotImplementedError`` naming the ROADMAP item (``options.TRAIN_UNPORTED``).
 
@@ -149,6 +152,7 @@ def main(argv=None) -> Optional[dict]:
     import torch
 
     from ..checkpoint.store import CheckpointManager, load_params_only, load_state, read_state
+    from ..data.audio import wav_cache_stats
     from ..data.iterators import GroupedIterator
     from ..logging import metrics as metrics_mod
     from ..logging.progress_bar import progress_bar
@@ -303,6 +307,13 @@ def main(argv=None) -> Optional[dict]:
             buffer_size=args.data_buffer_size,
             num_workers=args.num_workers,
         )
+        if not args.no_host_wire:
+            # the train split's wire format: PCM16 stays int16 up to the card
+            # and the padding mask is left out; prepare_batch rebuilds both.
+            # Validation and decoding never set it
+            from ..data.manifests import set_wire_format
+
+            set_wire_format(task.dataset(args.train_subset))
 
     # ----------------------------------------------------------- restore
     epoch = 1
@@ -398,6 +409,10 @@ def main(argv=None) -> Optional[dict]:
     # device work, and its updates (the end-of-epoch validation and save
     # excluded; those of --save-interval-updates fall inside)
     times["epoch_s"], times["epoch_updates"] = [], []
+    # each epoch's data_s (its batches' reads and collation, summed over the
+    # collating threads; None for a joint task's stream) and the waveform
+    # cache's counts at its end
+    times["data_s"], times["wav_cache"] = [], []
     mark = time.perf_counter()
     patience_left = args.patience
     # a non-finite skip keeps num_updates: the interval block must not
@@ -457,6 +472,8 @@ def main(argv=None) -> Optional[dict]:
                 torch.cuda.synchronize()
             times["epoch_s"].append(time.perf_counter() - t_epoch)
             times["epoch_updates"].append(trainer.num_updates - updates_before)
+            times["data_s"].append(getattr(train_itr, "data_s", {}).get(epoch))
+            times["wav_cache"].append(wav_cache_stats())
             train_itr.next_epoch()
 
             val = None

@@ -40,6 +40,14 @@ def ce_loss_from_logits(logits: torch.Tensor, target: torch.Tensor, epsilon: flo
     return label_smoothed_nll_loss(lprobs, target, epsilon, ignore_index)
 
 
+def accuracy_counts(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(argmax predictions equal to the target, non-pad targets), counted
+    over the positions whose target is not ``ignore_index``."""
+    keep = target != ignore_index
+    return ((logits.argmax(-1) == target) & keep).sum(), keep.sum()
+
+
 @register_criterion("label_smoothed_cross_entropy")
 def make_label_smoothed_ce(cfg: Dict):
     """Speech translation from ``audio`` or translation from ``src_tokens``."""

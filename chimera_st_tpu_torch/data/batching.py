@@ -1,14 +1,19 @@
 """Token-budget batch packing + length bucketing (own copy of
-chimera_st_tpu/data/batching.py, without its C++ fast path).
+chimera_st_tpu/data/batching.py).
 
 `batch_by_size` reproduces the reference's packing semantics
 (reference: fairseq/data/data_utils.py:276 + data_utils_fast.pyx:27-123):
 walk indices (usually sorted by length), close a batch when adding the next
 item would push ``max(len) * (n+1)`` over ``max_tokens`` or hit
 ``max_sentences``; closed batches are trimmed to a multiple of
-``required_batch_size_multiple`` when larger than it.
+``required_batch_size_multiple`` when larger than it. It packs with the
+C++ routine ``csrc/libbleu.cpp`` ``chimera_batch_by_size_fast`` (g++ on
+first use, ``host_library.py``; a failed build raises) unless an item is
+over ``max_tokens``, as the JAX package's native path does;
+``batch_by_size_plain`` is the Python loop it is held against, which raises
+on such an item.
 
-On top of that `optimal_buckets`/`pad_to_bucket` bound the number of distinct
+On top of that `optimal_buckets` (or `quantile_buckets`)/`pad_to_bucket` bound the number of distinct
 batch shapes: each batch pads its time dimension up to a bucket edge instead
 of the ragged batch max. The port keeps the JAX package's padded lengths
 because they change results: the extractor's group norm spans the whole
@@ -21,6 +26,14 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from .. import host_library
+
+
+def _sizes(indices, num_tokens_fn) -> np.ndarray:
+    if isinstance(num_tokens_fn, np.ndarray):
+        return num_tokens_fn[indices]
+    return np.asarray([num_tokens_fn(int(i)) for i in indices], dtype=np.int64)
+
 
 def batch_by_size(
     indices: np.ndarray,
@@ -29,17 +42,39 @@ def batch_by_size(
     max_sentences: Optional[int] = None,
     required_batch_size_multiple: int = 1,
 ) -> List[np.ndarray]:
-    if isinstance(num_tokens_fn, np.ndarray):
-        sizes = num_tokens_fn[indices]
-    else:
-        sizes = np.asarray([num_tokens_fn(int(i)) for i in indices], dtype=np.int64)
+    """The batches of ``indices`` in walk order (see the module's
+    docstring), packed by the C++ routine."""
+    sizes = np.ascontiguousarray(_sizes(indices, num_tokens_fn), np.int64)
     indices = np.asarray(indices, dtype=np.int64)
+    if max_tokens is not None and sizes.max(initial=0) > max_tokens:
+        return _pack_plain(indices, sizes, max_tokens, max_sentences,
+                           required_batch_size_multiple)
+    ends = np.zeros(len(sizes) + 1, np.int64)
+    n = host_library.libbleu().chimera_batch_by_size_fast(
+        sizes.ctypes.data, len(sizes), max_tokens if max_tokens is not None else 2 ** 62,
+        max_sentences if max_sentences is not None else 2 ** 62,
+        required_batch_size_multiple, ends.ctypes.data)
+    return list(np.split(indices, ends[:n - 1]))
 
+
+def batch_by_size_plain(
+    indices: np.ndarray,
+    num_tokens_fn: Union[Callable[[int], int], np.ndarray],
+    max_tokens: Optional[int] = None,
+    max_sentences: Optional[int] = None,
+    required_batch_size_multiple: int = 1,
+) -> List[np.ndarray]:
+    """``batch_by_size`` as a Python loop; raises ``ValueError`` on an item
+    over ``max_tokens``."""
+    return _pack_plain(np.asarray(indices, dtype=np.int64), _sizes(indices, num_tokens_fn),
+                       max_tokens, max_sentences, required_batch_size_multiple)
+
+
+def _pack_plain(indices, sizes, max_tokens, max_sentences, bsz_mult) -> List[np.ndarray]:
     max_tokens = max_tokens if max_tokens is not None else np.iinfo(np.int64).max
     max_sentences = (
         max_sentences if max_sentences is not None else np.iinfo(np.int64).max
     )
-    bsz_mult = required_batch_size_multiple
 
     batches: List[np.ndarray] = []
     batch: List[int] = []
@@ -67,14 +102,23 @@ def batch_by_size(
     return batches
 
 
+def quantile_buckets(lengths: Sequence[int], n_buckets: int = 10) -> np.ndarray:
+    """Bucket edges at length quantiles; last edge = max length."""
+    lengths = np.asarray(lengths)
+    qs = np.quantile(lengths, np.linspace(1.0 / n_buckets, 1.0, n_buckets))
+    edges = np.unique(np.ceil(qs).astype(np.int64))
+    edges[-1] = max(edges[-1], lengths.max())
+    return edges
+
+
 def optimal_buckets(lengths: Sequence[int], n_buckets: int = 10) -> np.ndarray:
     """Bucket edges minimizing TOTAL padded length when every item pads up to
     its smallest covering edge (exact DP over unique lengths, O(k·n²) via
     vectorized min; the last edge is always max(lengths)).
 
-    Quantile edges equalize item COUNT per bucket, the wrong objective for
-    padding waste on skewed duration distributions; this minimizes expected
-    pad directly.
+    `quantile_buckets` equalizes item COUNT per bucket, the wrong objective
+    for padding waste on skewed duration distributions; this minimizes
+    expected pad directly.
     """
     lengths = np.asarray(lengths, dtype=np.int64)
     uniq = np.unique(lengths)

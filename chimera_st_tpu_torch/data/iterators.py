@@ -6,7 +6,8 @@ shuffle seeded by ``numpy.random.default_rng([seed, epoch])``, shard slicing
 with fill, and a checkpointable ``state_dict`` with ``iterations_in_epoch``
 for mid-epoch resume (O(1): the consumed batches are dropped before
 collation); a background thread, or with ``num_workers`` > 1 a pool of
-threads, collates the next batches while the device works.
+threads, collates the next batches while the device works; ``data_s``
+maps each epoch to the seconds its collations took, summed over the threads.
 ``GroupedIterator`` groups ``update_freq`` micro-batches into an update.
 ``StreamingEpochBatchIterator`` iterates a source that yields ready batches
 each epoch (the joint tasks' interleaved batches), with an epoch-granular
@@ -19,6 +20,7 @@ import inspect
 import itertools
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, Optional, Union
 
@@ -285,6 +287,18 @@ class EpochBatchIterator:
         self._cur: Optional[CountingIterator] = None
         self._next_epoch_itr: Optional[CountingIterator] = None
         self.shuffle = True
+        self.data_s: dict = {}
+        self._data_lock = threading.Lock()
+
+    def _timed(self, work: Callable, epoch: int) -> Callable:
+        def run(batch):
+            t0 = time.perf_counter()
+            out = work(batch)
+            with self._data_lock:
+                self.data_s[epoch] = self.data_s.get(epoch, 0.0) + time.perf_counter() - t0
+            return out
+
+        return run
 
     @property
     def frozen_batches(self) -> List[np.ndarray]:
@@ -342,6 +356,7 @@ class EpochBatchIterator:
             work = self.collate
             if self._collate_takes_epoch:
                 work = functools.partial(self.collate, epoch=self.epoch)
+            work = self._timed(work, self.epoch)
             if self.num_workers > 1 and self.buffer_size > 0:
                 source: Any = ParallelPrefetcher(
                     batches, work, num_workers=self.num_workers,

@@ -1,5 +1,5 @@
 """Speech-to-text datasets over TSV manifests (own copy of
-chimera_st_tpu/data/manifests.py, the part inference reads):
+chimera_st_tpu/data/manifests.py):
 
 - `S2TDataConfig` / `TripletDataConfig`: the per-datadir ``config_wave.yaml``
   schema (audio_root, vocab_filename, bpe_tokenizer, src_bpe_tokenizer,
@@ -11,7 +11,9 @@ chimera_st_tpu/data/manifests.py, the part inference reads):
 - collaters pad to the bucket lengths the task hands them, as the JAX
   package's do,
 - comma-joined splits, concatenated, with temperature resampling
-  (``sampling_alpha``) of training splits each epoch.
+  (``sampling_alpha``) of training splits each epoch,
+- the training wire format (``set_wire_format``): int16 PCM and no padding
+  mask in a batch, rebuilt on the card.
 
 ``config_wave.yaml`` is read with ``yaml`` where that is installed and as JSON
 (which is YAML) where it is not. Features (``use_audio_input`` false) go
@@ -212,6 +214,12 @@ class SpeechToTextDataset:
             if tf_list and not data_cfg.use_audio_input else None)
         self.pad = tgt_dict.pad() if tgt_dict else 1
         self.eos = tgt_dict.eos() if tgt_dict else 2
+        # the training wire format (set_wire_format, the train split only):
+        # wire_int16 keeps PCM16 waveforms int16 from the decode cache to the
+        # card, device_mask leaves the [B, T] padding mask out of the batch;
+        # train_step.prepare_batch rebuilds both on the card
+        self.wire_int16 = False
+        self.device_mask = False
         if data_cfg.prepend_tgt_lang_tag and tgt_dict is not None and tgt_langs:
             for lang in sorted(set(tgt_langs)):
                 tag = self.LANG_TAG_TEMPLATE.format(lang)
@@ -248,9 +256,13 @@ class SpeechToTextDataset:
             self.audio_paths[index],
             use_audio_input=self.cfg.use_audio_input,
             audio_root=self.cfg.audio_root,
-        ).astype(np.float32)
-        if self.feature_transforms is not None:
-            audio = self.feature_transforms(audio)
+            int16=(self.wire_int16 and self.cfg.use_audio_input
+                   and self.feature_transforms is None),
+        )
+        if audio.dtype != np.int16:  # features, or a wav that is not mono PCM16
+            audio = audio.astype(np.float32)
+            if self.feature_transforms is not None:
+                audio = self.feature_transforms(audio)
         return S2TExample(index, audio, self._get_tgt_tokens(index))
 
     # --------------------------------------------------------------- collate
@@ -272,9 +284,13 @@ class SpeechToTextDataset:
             return {}
         # sort by descending n-frames (reference collater order)
         samples = self._collate_order(samples)
-        audio = collate_tokens(
-            [s.audio for s in samples], 0.0, target_len=audio_target_len, dtype=np.float32,
-        )
+        if all(s.audio.dtype == np.int16 for s in samples):
+            audio = collate_tokens([s.audio for s in samples], 0, target_len=audio_target_len,
+                                   dtype=np.int16)
+        else:
+            audio = collate_tokens(
+                [s.audio.astype(np.float32) / 32768.0 if s.audio.dtype == np.int16 else s.audio
+                 for s in samples], 0.0, target_len=audio_target_len, dtype=np.float32)
         lengths = np.asarray([len(s.audio) for s in samples], np.int32)
         batch = {
             "id": np.asarray([s.index for s in samples], np.int64),
@@ -282,8 +298,9 @@ class SpeechToTextDataset:
             "audio_lengths": lengths,
             "nsentences": len(samples),
         }
-        pos = np.arange(audio.shape[1])[None, :]
-        batch["audio_padding_mask"] = pos >= lengths[:, None]
+        if not self.device_mask:
+            pos = np.arange(audio.shape[1])[None, :]
+            batch["audio_padding_mask"] = pos >= lengths[:, None]
         if samples[0].target is not None:
             tgt = collate_tokens(
                 [s.target for s in samples], self.pad, target_len=text_target_len,
@@ -361,6 +378,35 @@ class TripletDataset(SpeechToTextDataset):
                 [len(s.source_text) for s in samples], np.int32
             )
         return batch
+
+
+def set_wire_format(dataset, int16: bool = True, device_mask: bool = True):
+    """Sets the training wire format (``wire_int16``, ``device_mask``) on
+    every ``SpeechToTextDataset`` under ``dataset``, through the concat,
+    resampling and joint wrappers (their ``datasets`` list or dict, their
+    ``dataset``). ``cli.train`` sets it on the train split unless
+    ``--no-host-wire``; ``train_step.prepare_batch`` undoes both on the
+    card."""
+    seen = set()
+
+    def walk(ds):
+        if ds is None or id(ds) in seen:
+            return
+        seen.add(id(ds))
+        if isinstance(ds, SpeechToTextDataset):
+            ds.wire_int16 = bool(int16)
+            ds.device_mask = bool(device_mask)
+        subs = getattr(ds, "datasets", None)
+        if isinstance(subs, dict):
+            subs = list(subs.values())
+        if isinstance(subs, (list, tuple)):
+            for sub in subs:
+                walk(sub)
+        inner = getattr(ds, "dataset", None)
+        if inner is not None and not callable(inner):
+            walk(inner)
+
+    walk(dataset)
 
 
 def resample_sizes(sizes, alpha: float) -> np.ndarray:

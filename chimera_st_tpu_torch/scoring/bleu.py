@@ -15,11 +15,11 @@ import ctypes
 import math
 from collections import Counter
 from dataclasses import dataclass
-from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
+from .. import host_library
 from ..config.registry import register_scorer
 
 
@@ -102,25 +102,8 @@ def bleu_from_stats(stat: BleuStat, order: int = 4) -> float:
     return 100.0 * bp * math.exp(psum / order)
 
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "libbleu.cpp"
-_lib: Optional[ctypes.CDLL] = None
-
-
 class _BleuStatC(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int64) for name in BleuStat.__dataclass_fields__]
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from .. import host_library
-
-        lib = ctypes.CDLL(str(host_library.build(_SOURCE, "libchimera_bleu")))
-        lib.chimera_bleu_add.restype = None
-        lib.chimera_bleu_add.argtypes = [ctypes.POINTER(_BleuStatC), ctypes.c_void_p,
-                                         ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
-        _lib = lib
-    return _lib
 
 
 def ngram_stats_native(ref: List[int], pred: List[int]) -> BleuStat:
@@ -128,8 +111,8 @@ def ngram_stats_native(ref: List[int], pred: List[int]) -> BleuStat:
     r = np.ascontiguousarray(ref, np.int32)
     p = np.ascontiguousarray(pred, np.int32)
     stat = _BleuStatC()
-    _library().chimera_bleu_add(ctypes.byref(stat), r.ctypes.data, len(r), p.ctypes.data,
-                                len(p))
+    host_library.libbleu().chimera_bleu_add(ctypes.addressof(stat), r.ctypes.data, len(r),
+                                            p.ctypes.data, len(p))
     return BleuStat(**{f: getattr(stat, f) for f, _ in _BleuStatC._fields_})
 
 

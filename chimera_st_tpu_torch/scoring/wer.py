@@ -1,8 +1,10 @@
 """Word error rate (own copy of chimera_st_tpu/scoring/wer.py; fairseq
 ``scoring/wer.py``): ``letter_words`` (the words of a letter-label
 sequence, as the JAX CLIs' CTC decoding and WER validation read them),
-``levenshtein`` (a Python dynamic programme: the same
-integers as the JAX package's C++ or Python one), ``EvaluationTokenizer``
+``levenshtein`` (the C++ routine ``csrc/libbleu.cpp``
+``chimera_levenshtein``, as the JAX package's ``libnat.levenshtein``, built
+with g++ on first use; a failed build raises; ``levenshtein_plain`` is the
+Python dynamic programme it is held against), ``EvaluationTokenizer``
 (sacrebleu tokenization, imported only for a tokenizer other than
 ``none``, then optional punctuation removal, character tokenization and
 lowercasing) and the ``wer`` scorer."""
@@ -11,6 +13,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
+from .. import host_library
 from ..config.registry import register_scorer
 
 
@@ -24,8 +29,18 @@ def letter_words(dictionary, token_ids) -> list:
 
 
 def levenshtein(a, b) -> int:
-    """Edit distance of two sequences (unit insertions, deletions and
-    substitutions)."""
+    """Edit distance of two sequences of hashable items (unit insertions,
+    deletions and substitutions), by the C++ routine over the items' ids in
+    a table of the pair's distinct items."""
+    ids: dict = {}
+    aa, bb = (np.asarray([ids.setdefault(x, len(ids)) for x in seq], np.int32)
+              for seq in (a, b))
+    return int(host_library.libbleu().chimera_levenshtein(aa.ctypes.data, len(aa),
+                                                          bb.ctypes.data, len(bb)))
+
+
+def levenshtein_plain(a, b) -> int:
+    """``levenshtein`` as a Python dynamic programme."""
     if len(a) < len(b):
         a, b = b, a
     prev = list(range(len(b) + 1))

@@ -20,7 +20,9 @@ XLM's cross-lingual one and the XLM-initialised translation model, the
 xlm preset at head dim 80, and the convolutional and recurrent zoo
 (fconv, lightconv / dynamicconv, the LSTMs, s2t_berard, the benchmark and
 tutorial tasks), the untied output projection, GPT-2, the stacked pipeline
-LM, quantization and a world of one over NCCL.
+LM, quantization and a world of one over NCCL, and the host layer of the ST
+fine-tune (the training wire format, the waveform cache, the C++ batch
+packer and edit distance).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -523,14 +525,26 @@ Phases (any failure raises and the script exits non-zero):
              wiring and NCCL on the card, not several ranks' numbers. No
              kernel in gpt2, pipe_lm or quant (causal attention is the
              plain path, as in JAX). a12_shapes (last of the shape
-             groups): K1-K3 at every shape untied and dist1 launched.
+             groups): K1-K3 at every shape untied, dist1 and host_layer
+             launched.
+    host_layer (inside train_cli, after dist1) - the training wire
+             format and the waveform cache: cli.train at run A's settings
+             (validation and saves off) with the default wire (PCM16 as
+             int16, no padding mask) and with --no-host-wire, a fresh
+             cache each: (loss, gnorm) of both (the first loss bit-equal to
+             run A's), each epoch's data_s and cache hits (epoch 2 from the
+             cache), K2 6 a micro-batch; a micro-batch's audio and mask
+             bytes and copy ms each way; the C++ batch packer and edit
+             distance against their Python loops on 250,000 sizes and
+             10,000 word pairs (the same results; the seconds of each).
 17. report - one JSON line {"kernels": [...]} ("launches" sums the driven
              paths: both serve runs, w2v2_st, every search mode, cli_serve,
              text, fbank_features, both train runs, train_cli's training and
              decode, tts_update, mt_cli's and the family's, joint_train's,
              optim_sweep's, nat_serve's, nat_train's, bart_serve's,
              bart_train's, the wav2vec phases', the masked-LM
-             phases', the xlm and zoo phases' and this slice's; K3's record holds its times at the search modes'
+             phases', the xlm and zoo phases' and those of phase 16 and
+             host_layer; K3's record holds its times at the search modes'
              ancestries, "search_ancestries";
              "launches_per_path" splits them), then the contract line
              {"ok": true, "device": {...}} as the last line of stdout.
@@ -7840,6 +7854,155 @@ def phase_dist1(torch, fx, work: Path, w2v2: Path, losses_a, kernels):
     return counts
 
 
+# ---- this slice: the host layer on the ST fine-tune's path (the training
+# wire format, the waveform cache, the C++ batch packer and edit distance)
+
+HOST_SIZES = 250_000  # MuST-C + WMT scale: the packer's hot loop
+HOST_WORD_PAIRS = 10_000
+
+
+def wire_copy(torch, task, wire: bool, reps: int = 20) -> dict:
+    """The largest training micro-batch of the fixture (batches of 8, as
+    train_cli collates them) in the wire format or as float32 with its
+    mask: the bytes of its audio and mask, and the median ms of
+    ``prepare_batch`` on them (pinning, the copy to the card, and on the
+    wire the int16 -> float32 and the mask rebuilt there),
+    card-synchronised."""
+    from chimera_st_tpu_torch.data.manifests import set_wire_format
+    from chimera_st_tpu_torch.train.train_step import prepare_batch
+
+    ds = task.dataset("train_wave")
+    set_wire_format(ds, int16=wire, device_mask=wire)
+    batches = list(task.make_batch_iterator(ds, max_tokens=2_000_000, max_sentences=CLI_BATCH)
+                   .next_epoch_itr(shuffle=False))
+    set_wire_format(ds, int16=False, device_mask=False)
+    batch = max(batches, key=lambda b: b["audio"].size)
+    keys = ("audio", "audio_lengths") + (() if wire else ("audio_padding_mask",))
+    part = {k: batch[k] for k in keys}
+    n_bytes = sum(batch[k].nbytes for k in ("audio", "audio_padding_mask") if k in batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prepare_batch(part, "cuda")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"audio_dtype": str(batch["audio"].dtype), "shape": list(batch["audio"].shape),
+            "bytes": int(n_bytes), "mask_sent": "audio_padding_mask" in batch,
+            "ms": statistics.median(times), "out": out}
+
+
+def phase_host_layer(torch, fx, work: Path, w2v2: Path, losses_a, kernels):
+    """The flagship's ST fine-tune through ``cli.train`` at train_cli's run
+    A (2 bf16 updates of 3 micro-batches, one epoch each; validation and
+    saves off), once with the default wire format (PCM16 as int16, no
+    padding mask, both rebuilt on the card) and once with
+    ``--no-host-wire``, each with a fresh 512 MiB waveform cache: the
+    (loss, gnorm) of each update (the first loss of the two runs and of
+    train_cli's run A bit-equal; the rest within 1e-4 relative of the wire
+    run, which itself differs from run A, a repeat, by the backward's
+    atomic adds), each epoch's data_s and the cache's hits and misses
+    (epoch 2 read from the cache), K2 6 launches a micro-batch and no K1 or
+    K3. Then one micro-batch's audio and mask: bytes and the copy's ms each
+    way, the rebuilt float batch equal to the float one. On the host: the
+    C++ batch packer against the Python loop on HOST_SIZES seeded sizes
+    under the ST recipe's ``--max-tokens 2000000`` (identical batches), and
+    the C++ edit distance against the Python one on HOST_WORD_PAIRS seeded
+    word pairs (equal distances); the seconds of each. Returns the
+    launches; prints {"host_layer": {...}}."""
+    from chimera_st_tpu_torch.cli import train
+    from chimera_st_tpu_torch.data import audio
+    from chimera_st_tpu_torch.data.batching import batch_by_size, batch_by_size_plain
+    from chimera_st_tpu_torch.scoring.wer import levenshtein, levenshtein_plain
+
+    t_phase = time.perf_counter()
+    runs, counts = {}, {}
+    for label, extra in (("wire", []), ("float", ["--no-host-wire"])):
+        audio.configure_wav_cache(512)
+        zeroed(kernels)
+        with recorded_updates() as updates:
+            out = train.main(train_cli_argv(fx, w2v2, work / f"host_layer_{label}", 2)
+                             + ["--disable-validation", "--no-save", *extra])
+        torch.cuda.synchronize()
+        counts[f"host_layer_{label}"] = launches(kernels)
+        t = out["times"]
+        runs[label] = {"updates": updates, "data_s": t["data_s"], "wav_cache": t["wav_cache"],
+                       "epoch_s": t["epoch_s"], "update_s": t["update_s"]}
+        del out
+        torch.cuda.empty_cache()
+    wire, flt = runs["wire"]["updates"], runs["float"]["updates"]
+    if not (len(wire) == len(flt) == len(losses_a) == 2):
+        raise AssertionError(f"host_layer: updates {wire} / {flt}, run A {losses_a}")
+    first_equal = wire[0][0] == flt[0][0] == losses_a[0][0]
+    gaps = {what: [abs(w[j] - f[j]) / abs(f[j]) for w, f in zip(wire, flt)]
+            for j, what in enumerate(("loss", "gnorm"))}
+    repeat = {what: [abs(w[j] - a[j]) / abs(a[j]) for w, a in zip(wire, losses_a)]
+              for j, what in enumerate(("loss", "gnorm"))}
+    log(f"host_layer: (loss, gnorm) wire {wire}, --no-host-wire {flt}, train_cli run A "
+        f"{losses_a}; first loss bit-equal in all three: {first_equal}; relative gaps wire vs "
+        f"float {gaps}, wire vs run A (a repeat) {repeat}")
+    if not first_equal:
+        raise AssertionError("host_layer: the first update's loss differs with the wire format")
+    for what, gap in gaps.items():
+        check(f"host_layer: {what} of 2 updates, wire vs float, relative", max(gap), 1e-4)
+    for label, r in runs.items():
+        caches = r["wav_cache"]
+        log(f"  {label}: data_s {[round(x, 4) for x in r['data_s']]} (epochs 1, 2); waveform "
+            f"cache after each epoch {caches}; update_s {[round(x, 3) for x in r['update_s']]}")
+        if [(c["hits"], c["misses"]) for c in caches] != [(0, CLI_WAVS), (CLI_WAVS, CLI_WAVS)]:
+            raise AssertionError(f"host_layer {label}: epoch 2 not read from the cache: {caches}")
+        if counts[f"host_layer_{label}"] != {"encoder_attention": 0, "conv_tail": 6 * 3 * 2,
+                                             "decode_attention": 0, "logmel": 0}:
+            raise AssertionError(f"host_layer {label}: launches {counts[f'host_layer_{label}']}")
+
+    task = train_task(fx)
+    copies = {label: wire_copy(torch, task, label == "wire") for label in ("wire", "float")}
+    rebuilt, ref = copies["wire"].pop("out"), copies["float"].pop("out")
+    if not (torch.equal(rebuilt["audio"], ref["audio"])
+            and torch.equal(rebuilt["audio_padding_mask"], ref["audio_padding_mask"])):
+        raise AssertionError("host_layer: the wire batch rebuilt on the card is not the float one")
+    log(f"  one micro-batch to the card: wire {copies['wire']}, float {copies['float']}; the "
+        f"rebuilt audio and mask equal the float batch's")
+
+    rng = np.random.default_rng(41)
+    seconds = np.clip(rng.lognormal(np.log(5.0), 0.6, HOST_SIZES), 0.3, 30.0)
+    sizes = (seconds * 16000).astype(np.int64)
+    order = np.argsort(sizes, kind="stable")
+    t0 = time.perf_counter()
+    native = batch_by_size(order, sizes, max_tokens=2_000_000)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = batch_by_size_plain(order, sizes, max_tokens=2_000_000)
+    plain_s = time.perf_counter() - t0
+    if len(native) != len(plain) or not all(np.array_equal(a, b) for a, b in zip(native, plain)):
+        raise AssertionError("host_layer: the C++ packer's batches differ from the Python loop's")
+    words = [f"w{i}" for i in range(1000)]
+    pairs = [(list(rng.choice(words, int(rng.integers(5, 30)))),
+              list(rng.choice(words, int(rng.integers(5, 30))))) for _ in range(HOST_WORD_PAIRS)]
+    t0 = time.perf_counter()
+    dn = [levenshtein(a, b) for a, b in pairs]
+    lev_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = [levenshtein_plain(a, b) for a, b in pairs]
+    lev_plain_s = time.perf_counter() - t0
+    if dn != dp:
+        raise AssertionError("host_layer: the C++ edit distances differ from the Python ones")
+    log(f"  batch_by_size on {HOST_SIZES:,} sizes at --max-tokens 2000000: {len(native):,} "
+        f"batches, identical; C++ {native_s:.4f} s, Python {plain_s:.4f} s; levenshtein on "
+        f"{HOST_WORD_PAIRS:,} word pairs: equal; C++ {lev_native_s:.4f} s, Python "
+        f"{lev_plain_s:.4f} s")
+    rec = {"runs": runs, "first_loss_bit_equal": first_equal, "relative_gap": gaps,
+           "relative_gap_to_run_a": repeat, "copies": copies, "launches": counts,
+           "batch_by_size": {"sizes": HOST_SIZES, "batches": len(native), "cpp_s": native_s,
+                             "python_s": plain_s},
+           "levenshtein": {"pairs": HOST_WORD_PAIRS, "cpp_s": lev_native_s,
+                           "python_s": lev_plain_s},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"host_layer: {rec['phase_s']:.1f} s")
+    print(json.dumps({"host_layer": rec}), flush=True)
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -8015,12 +8178,16 @@ def main() -> int:
 
         def dist1(w2v2, losses_a):
             with recorded_shapes(*ops, a12_seen):
-                return phase_dist1(torch, fx, work, w2v2, losses_a, kernels)
+                after = phase_dist1(torch, fx, work, w2v2, losses_a, kernels)
+                mark("dist1 done")
+                after.update(phase_host_layer(torch, fx, work, w2v2, losses_a, kernels))
+            mark("host_layer done")
+            return after
 
         counts["train_cli"], counts["train_cli_decode"], dist1_counts = phase_train_cli(
             torch, fx, work, kernels, train_rec, dist1)
         counts.update(dist1_counts)
-        mark("dist1 done")
+        mark("train_cli done")
         with recorded_shapes(*ops, slice_seen):
             counts["tts_update"] = phase_tts_update(torch, fx, kernels)
         mark("training phases done")

@@ -2,49 +2,24 @@
 ``tests/test_recipe_chain.py``: the scripts of ``recipes/`` run unchanged,
 with console-script shims that point ``chimera-preprocess``,
 ``chimera-train``, ``chimera-generate``, ``chimera-auto-generate`` and
-``chimera-average-checkpoints`` at the port's modules:
-
-1. binarize seeded parallel text against the triplet fixture's dictionary
-   (``chimera-preprocess --srcdict --tgtdict``, so that the MT checkpoint's
-   embeddings fit the ST stage);
-2. ``recipes/train-en2any-MT.sh``: the translation task, the audio trunk
-   masked out of Adam;
-3. ``recipes/train-en2any-ST.sh`` warm-started from the MT stage's
-   ``checkpoint_best.ckpt`` (copied to ``checkpoint_last.ckpt``, restored
-   with ``--reset-optimizer``), its background auto-evaluator decoding each
-   new checkpoint;
-4. ``recipes/generate-mustc-final.sh``: the ST epoch checkpoints averaged,
-   then the final decode and its BLEU line.
+``chimera-average-checkpoints`` at the port's modules. Stages 1-3
+(binarize, ``recipes/train-en2any-MT.sh``, ``recipes/train-en2any-ST.sh``
+warm-started from the MT best) are ``tests/torch_recipe_runs.py``'s run,
+shared with ``tests/test_torch_recipe.py``; this file checks them, then
+runs stage 4, ``recipes/generate-mustc-final.sh``: the ST epoch checkpoints
+averaged, then the final decode and its BLEU line.
 
 Tiny flags appended after each recipe's own win (argparse: last wins).
 """
 
-import os
 import pickle
-import subprocess
-import sys
-from argparse import Namespace
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from chimera_st_tpu_torch.optim import freeze
-from tests.synthetic_data import TINY_ARCH_FLAGS, make_parallel_text, make_triplet_dir
-from tests.torch_reference import TorchW2V2
-
-REPO = Path(__file__).resolve().parents[1]
-RECIPES = REPO / "recipes"
-SHIMS = {
-    "chimera-preprocess": "chimera_st_tpu_torch.cli.preprocess",
-    "chimera-train": "chimera_st_tpu_torch.cli.train",
-    "chimera-generate": "chimera_st_tpu_torch.cli.generate",
-    "chimera-auto-generate": "chimera_st_tpu_torch.tools.auto_generate",
-    "chimera-average-checkpoints": "chimera_st_tpu_torch.tools.average_checkpoints",
-}
-TINY_EXTRA = [*TINY_ARCH_FLAGS, "--dtype", "float32", "--log-interval", "1",
-              "--num-length-buckets", "2", "--cpu"]
+from tests.torch_recipe_runs import RECIPES, env, recipe_stages, run
 
 
 def _load(path):
@@ -61,50 +36,21 @@ def _flat(t, path=()):
 
 
 @pytest.fixture(scope="module")
-def shim_bin(tmp_path_factory):
-    bin_dir = tmp_path_factory.mktemp("bin")
-    for name, mod in SHIMS.items():
-        sh = bin_dir / name
-        sh.write_text(f'#!/usr/bin/env bash\nexec {sys.executable} -m {mod} "$@"\n')
-        sh.chmod(0o755)
-    return str(bin_dir)
+def stages(tmp_path_factory):
+    return recipe_stages(tmp_path_factory)
 
 
-def _env(shim_bin, **extra):
-    env = dict(os.environ)
-    env["PATH"] = shim_bin + os.pathsep + env["PATH"]
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    env.update({k: str(v) for k, v in extra.items()})
-    return env
-
-
-def _run(cmd, env, timeout=600):
-    proc = subprocess.run(cmd, env=env, cwd=str(REPO), capture_output=True, text=True,
-                          timeout=timeout)
-    trace = proc.stderr + "\n" + proc.stdout
-    assert proc.returncode == 0, f"{cmd} failed rc={proc.returncode}\n{trace[-6000:]}"
-    return trace
-
-
-def test_recipe_chain_runs_against_the_port(tmp_path, shim_bin):
+def test_recipe_chain_runs_against_the_port(tmp_path, stages):
     pytest.importorskip("sacrebleu", reason="the final eval scores with --scoring sacrebleu")
-    triplet = make_triplet_dir(str(tmp_path / "mustc"))
-    raw = make_parallel_text(str(tmp_path / "wmt_raw"))
+    triplet, shim_bin = stages["triplet"], stages["shim_bin"]
 
     # 1. binarize against the joint dictionary
-    bin_dir = tmp_path / "bin"
-    _run(["chimera-preprocess", "-s", "en", "-t", "de", "--trainpref", f"{raw}/train",
-          "--validpref", f"{raw}/valid", "--destdir", str(bin_dir),
-          "--srcdict", f"{triplet}/dict.txt", "--tgtdict", f"{triplet}/dict.txt"],
-         _env(shim_bin))
+    bin_dir = Path(stages["bin_dir"])
     assert (bin_dir / "train.en-de.en.bin").is_file()
 
     # 2. the MT stage: 32 pairs in batches of 8, 4 updates an epoch, 2 epochs
-    mt_dir = tmp_path / "mt"
-    trace = _run(["bash", str(RECIPES / "train-en2any-MT.sh"), *TINY_EXTRA, "--batch-size", "8",
-                  "--warmup-updates", "2"],
-                 _env(shim_bin, DATA_BIN=bin_dir, SAVE_DIR=mt_dir, TGT="de",
-                      INTERLINGUA_LENGTH=4, MAX_UPDATE=8, UPDATE_FREQ=1))
+    mt_dir = Path(stages["mt_dir"])
+    trace = stages["traces"]["mt"]
     assert "freezing fix_audio_trunk (" in trace
     mt_best = mt_dir / "checkpoint_best.ckpt"
     mt = _load(mt_best)
@@ -120,20 +66,8 @@ def test_recipe_chain_runs_against_the_port(tmp_path, shim_bin):
     assert np.asarray(mu["decoder"]["layer_norm"]["scale"]).any()
 
     # 3. the ST stage warm-started from the port's MT best
-    torch.manual_seed(0)
-    w2v2 = TorchW2V2(((8, 10, 5), (12, 3, 2)), 16, 32, 1, 2, 8, 4)
-    w2v2_pt = tmp_path / "wav2vec_tiny.pt"
-    torch.save({"args": Namespace(encoder_embed_dim=16), "model": w2v2.state_dict()},
-               str(w2v2_pt))
-    st_dir = tmp_path / "st"
-    trace = _run(["bash", "-x", str(RECIPES / "train-en2any-ST.sh"), *TINY_EXTRA,
-                  "--batch-size", "4", "--warmup-updates", "2"],
-                 _env(shim_bin, DATA_DIR=triplet, SAVE_DIR=st_dir, MT_CKPT=mt_best,
-                      W2V2=w2v2_pt, MAX_UPDATE=4, UPDATE_FREQ=1, INTERLINGUA_LENGTH=4,
-                      GEN_SUBSET="valid",
-                      AUTOGEN_EXTRA="--poll-interval 1 --batch-size 4 --beam 2 "
-                                    "--max-decode-len 8 --dtype float32 "
-                                    "--num-length-buckets 2 --cpu"))
+    st_dir = Path(stages["st_dir"])
+    trace = stages["traces"]["st"]
     assert f"cp {mt_best}" in trace.replace("'", "")
     assert "--reset-optimizer" in trace
     assert f"restored {st_dir / 'checkpoint_last.ckpt'} (epoch 3, 0 updates)" in trace
@@ -150,10 +84,10 @@ def test_recipe_chain_runs_against_the_port(tmp_path, shim_bin):
 
     # 4. the final evaluation: average the epoch files, decode, score
     out = tmp_path / "final_eval"
-    trace = _run(["bash", str(RECIPES / "generate-mustc-final.sh"), "--batch-size", "4",
-                  "--dtype", "float32", "--max-decode-len", "8", "--num-length-buckets", "2",
-                  "--cpu"],
-                 _env(shim_bin, DATA_DIR=triplet, SAVE_DIR=st_dir, OUT=out, GEN_SUBSET="test"))
+    trace = run(["bash", str(RECIPES / "generate-mustc-final.sh"), "--batch-size", "4",
+                 "--dtype", "float32", "--max-decode-len", "8", "--num-length-buckets", "2",
+                 "--cpu"],
+                env(shim_bin, DATA_DIR=triplet, SAVE_DIR=st_dir, OUT=out, GEN_SUBSET="test"))
     assert f"averaged 2 checkpoints -> {out / 'averaged.ckpt'}" in trace
     assert "Generate test with beam=10" in trace
     avg = dict(_flat(_load(out / "averaged.ckpt")["params"]))
